@@ -1,0 +1,216 @@
+"""Domino CIM crossbar matmul (w8a8 + per-subarray ADC) on Hopper.
+
+Replaces ``src/repro/kernels/cim_matmul.py::_cim_kernel`` and
+``::_cim_kernel_var`` (both reached through ``cim_matmul_pallas`` /
+``cim_chain_codes_pallas``).  One step is one CIM subarray: an exact
+int8 x int8 -> int32 dot over at most ``n_c`` rows, the SAR-ADC
+round/saturate, and the digital accumulation of ADC codes (what
+Domino's Rofm adds "on the move").
+
+:func:`cim_codes` takes either layout the engines produce:
+
+* 3-D — ``x`` (T, R, kc) int8 patches and ``w`` (T, kc, N) int8 stacked
+  tile weights (``kc <= n_c``), step ``t`` = chain tile ``t``: the fused
+  trace path's batch-of-tiles MAC;
+* 2-D — ``x`` (R, K) and ``w`` (K, N) int8, K cut into ``n_c``-row steps
+  (the last one ragged): an FC grid tile.  The kernel reads the steps
+  through strides and pads the ragged step itself, so no copy is made.
+
+``adc`` is an optional (T, 2) float32 table of per-step ``[inverse step,
+offset]`` (device variation, the ``_cim_kernel_var`` flavor); without it
+every step converts with the spec's scalar inverse step and no add.
+
+The CUDA source is ``csrc/cim_matmul.cu`` (its header notes what bounds
+the kernel on the H100 and what the simple design does about it).  It
+is compiled with ``nvcc`` for ``sm_90a`` at first use into
+``build/kernels/`` at the repository root and loaded with ``ctypes``.
+On a CPU tensor the wrapper computes :func:`cim_codes_plain`, the plain
+PyTorch version of the same arithmetic; on a CUDA tensor it launches
+the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.cim import CIMSpec, adc_convert, f32_scalar
+
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "cim_matmul.cu"
+#: build output at the repository root (listed in .gitignore)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+#: largest code sum the float32 output holds exactly
+_EXACT_F32 = 1 << 24
+#: kernel launches by variant (nominal / device-variation flavor); the
+#: wrapper adds one where it launches, and nowhere else
+LAUNCHES = {"cim_codes": 0, "cim_codes_var": 0}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME")
+    cands = ([str(Path(home) / "bin" / "nvcc")] if home else []) + [
+        shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and Path(c).is_file():
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build() -> Tuple[Path, str]:
+    """Compile the kernel library if this source has not been built yet.
+
+    Returns (library path, compiler log).  The file name carries a hash
+    of the source, so an edited source never loads a stale build."""
+    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
+    lib = BUILD_DIR / f"libcim_matmul_{tag}.so"
+    log = lib.with_suffix(".log")
+    if lib.is_file():
+        return lib, log.read_text() if log.is_file() else ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{proc.stderr}")
+    log.write_text(proc.stderr)
+    os.replace(tmp, lib)
+    return lib, proc.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    lib = ctypes.CDLL(str(build()[0]))
+    fn = lib.cim_codes_launch
+    ptr, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                          ctypes.c_float)
+    fn.argtypes = [ptr, i64, i64, ptr, i64, i64, ptr, f32, f32, f32, f32,
+                   ptr, i32, i32, i32, i32, i64, i32, ptr]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _geometry(x: torch.Tensor, w: torch.Tensor, n_c: int):
+    """(T, R, kc, N, k_total, x strides, w strides) of either layout."""
+    if x.dim() == 3:
+        t, r, kc = x.shape
+        if w.shape[:2] != (t, kc) or w.dim() != 3:
+            raise ValueError(f"x {tuple(x.shape)} vs w {tuple(w.shape)}")
+        if kc > n_c:
+            raise ValueError(f"step depth {kc} exceeds n_c={n_c}")
+        return (t, r, kc, w.shape[2], t * kc, (x.stride(0), x.stride(1)),
+                (w.stride(0), w.stride(1)))
+    if x.dim() == 2 and w.dim() == 2:
+        r, k = x.shape
+        if w.shape[0] != k:
+            raise ValueError(f"x {tuple(x.shape)} vs w {tuple(w.shape)}")
+        t = max(1, -(-k // n_c))
+        return (t, r, n_c, w.shape[1], k, (n_c, x.stride(0)),
+                (n_c * w.stride(0), w.stride(0)))
+    raise ValueError(f"x must be (T, R, kc) or (R, K): {tuple(x.shape)}")
+
+
+def _check(x, w, spec: CIMSpec, adc):
+    if x.dtype != torch.int8 or w.dtype != torch.int8:
+        raise TypeError(f"x and w must be int8: {x.dtype}, {w.dtype}")
+    if w.device != x.device:
+        raise ValueError(f"x on {x.device}, w on {w.device}")
+    geo = _geometry(x, w, spec.n_c)
+    t = geo[0]
+    if adc is not None and (adc.dtype != torch.float32
+                            or tuple(adc.shape) != (t, 2)
+                            or adc.device != x.device):
+        raise ValueError(
+            f"adc must be a ({t}, 2) float32 table on {x.device}: "
+            f"{adc.dtype} {tuple(adc.shape)} on {adc.device}")
+    if t * (spec.q_max + 1) > _EXACT_F32:
+        raise ValueError(
+            f"{t} steps of {spec.adc_bits}-bit codes can exceed 2^24: the "
+            "float32 code sum would not be exact")
+    return geo
+
+
+def _steps(x: torch.Tensor, w: torch.Tensor, n_c: int):
+    """The 2-D layout as (T, R, n_c) / (T, n_c, N) zero-padded steps."""
+    if x.dim() == 3:
+        return x, w
+    k = x.shape[1]
+    t = max(1, -(-k // n_c))
+    pad = t * n_c - k
+    xp = torch.nn.functional.pad(x, (0, pad))
+    wp = torch.nn.functional.pad(w, (0, 0, 0, pad))
+    return (xp.reshape(x.shape[0], t, n_c).transpose(0, 1),
+            wp.reshape(t, n_c, w.shape[1]))
+
+
+def cim_codes_plain(x: torch.Tensor, w: torch.Tensor, spec: CIMSpec,
+                    adc: Optional[torch.Tensor] = None,
+                    emit_codes: bool = True) -> torch.Tensor:
+    """The plain PyTorch version of :func:`cim_codes`: the same layouts,
+    the same result.  Dots are formed in float64 (exact for |d| < 2^53;
+    an int8 ``torch.matmul`` would wrap), converted by the shared
+    :func:`~repro_torch.core.cim.adc_convert`, and the integer codes
+    summed exactly before the float32 output."""
+    _check(x, w, spec, adc)
+    xs, wsteps = _steps(x, w, spec.n_c)
+    d = torch.matmul(xs.to(torch.float64), wsteps.to(torch.float64))
+    if adc is None:
+        codes = adc_convert(d, spec.adc_inv_step, -spec.q_max - 1,
+                            spec.q_max)
+    else:
+        codes = adc_convert(d, adc[:, 0].reshape(-1, 1, 1),
+                            -spec.q_max - 1, spec.q_max,
+                            adc[:, 1].reshape(-1, 1, 1))
+    out = codes.sum(dim=0).to(torch.float32)
+    return out if emit_codes else out * f32_scalar(spec.adc_step, x.device)
+
+
+def cim_codes(x: torch.Tensor, w: torch.Tensor, spec: CIMSpec,
+              adc: Optional[torch.Tensor] = None,
+              emit_codes: bool = True) -> torch.Tensor:
+    """(R, N) float32 ADC code sums (``emit_codes``) or their dequantized
+    value ``codes * adc_step``, through the CIM pipeline.
+
+    CPU tensors take :func:`cim_codes_plain`.  CUDA tensors launch the
+    kernel (``cim_codes.launches`` counts launches by variant); nothing
+    falls back to the plain version on the card."""
+    t, r, kc, n, k_total, (sxt, sxr), (swt, swk) = _check(x, w, spec, adc)
+    if x.device.type == "cpu":
+        return cim_codes_plain(x, w, spec, adc, emit_codes)
+    if x.device.type != "cuda":
+        raise ValueError(f"cim_codes runs on cpu or cuda, not {x.device}")
+    if x.stride(-1) != 1 or w.stride(-1) != 1:
+        raise ValueError("x needs unit stride along depth, w along columns")
+    if adc is not None and not adc.is_contiguous():
+        raise ValueError("adc must be contiguous")
+    if r > 65535 * 64:
+        raise ValueError(f"{r} rows exceed the kernel's grid")
+    out = torch.empty((r, n), dtype=torch.float32, device=x.device)
+    if r == 0 or n == 0:
+        return out
+    launch = _launcher()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = launch(x.data_ptr(), sxt, sxr, w.data_ptr(), swt, swk,
+                     None if adc is None else adc.data_ptr(),
+                     float(np.float32(spec.adc_inv_step)),
+                     float(-spec.q_max - 1), float(spec.q_max),
+                     float(np.float32(spec.adc_step)), out.data_ptr(),
+                     t, r, n, kc, k_total, int(emit_codes), stream)
+    if err != 0:
+        raise RuntimeError(f"cim_codes launch failed: CUDA error {err}")
+    LAUNCHES["cim_codes_var" if adc is not None else "cim_codes"] += 1
+    return out
+
+
+cim_codes.launches = LAUNCHES
