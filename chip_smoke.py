@@ -21,17 +21,41 @@ Phases (any failure exits non-zero before the result line):
    value: at the main path's own calls (recorded from one batch), and
    on random int8 inputs at those shapes for n_c in {32, 96, 256}, both
    ADC flavors, both output modes, and ragged rows, columns and depth;
-4. kernel times (CUDA events) beside the plain version's and the bound.
+4. kernel times (CUDA events) beside the plain version's and the bound;
+5. LM serving: gemma3-1b at full width (26 layers, vocab 262144) with
+   random weights from ``torch.Generator(device="cuda").manual_seed(0)``,
+   batch 4, a 2048-token prompt (four windows of 512, so the local
+   layers slide) and 32 greedy tokens through ``build_serve_program``
+   and ``greedy_generate`` — once with bfloat16 weights and KV cache,
+   once with int8 CIM weights and an int8 KV cache.  Each counted run
+   resets the attention kernel's launch count just before and reads it
+   just after: one launch per layer, 26.  Prefill ms, decode ms/token
+   and tokens/s (median of LM_REPS runs); the same prefill with the
+   kernel's plain version swapped in must agree within TOL_FULL_LOGITS
+   and give the same first token;
+6. the same two flavors cut only in depth (6 layers: 5 local + 1
+   global; batch 1, prompt 640, 4 tokens), in float32 on the card
+   (TF32 off) and on the CPU (the kernel's plain version): logits within
+   TOL_SMALL, tokens equal;
+7. the attention kernel against its plain version on the card: at the
+   26 calls of one main-path prefill, and on random inputs (head dim
+   64 / 128 / 256, ragged S, window 1 / 7 / 512 / S, soft cap off and
+   50.0) in float32 and bfloat16, within TOL_ATTN;
+8. its times (CUDA events): one local and one global launch and the
+   whole prefill's 26 launches, beside the plain version,
+   ``scaled_dot_product_attention`` with the band mask, and the bound.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -45,9 +69,37 @@ WALL_REPS = 7
 #: HBM3 bandwidth, at the full 700 W power limit
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+#: dense bf16 tensor-core rate (same source)
+PEAK_BF16_OPS = 989e12
 KERNEL_SOURCE = "src/repro_torch/csrc/cim_matmul.cu"
 REPLACES = {"cim_codes": "src/repro/kernels/cim_matmul.py:36",
             "cim_codes_var": "src/repro/kernels/cim_matmul.py:65"}
+ATTN_SOURCE = "src/repro_torch/csrc/local_attention.cu"
+ATTN_REPLACES = "src/repro/kernels/local_attention.py:26"
+
+LM_ARCH = "gemma3-1b"
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
+LM_REPS = 3
+#: (name, kv_dtype, cim_weights): bfloat16 weights and cache, and the
+#: Domino flavor of examples/serve_lm.py (int8 CIM weights, int8 cache)
+LM_FLAVORS = (("bf16", "bfloat16", False), ("cim_int8", "int8", True))
+#: the reduced-depth check: full width, 5 local + 1 global layers
+SMALL_LAYERS, SMALL_PROMPT, SMALL_GEN = 6, 640, 4
+#: prefill logits of the kernel run vs the plain-attention run, both in
+#: bfloat16 (logits' spread about +-4 here): the two round p and each
+#: layer's output at other points, and 26 layers of random weights
+#: carry the difference on.  The max |diff| bound was stated before the
+#: first run (0.1; that run measured 0.082 max, 0.0126 mean); the mean
+#: bound catches a systematic error that the max would let through
+TOL_FULL_LOGITS = 0.1
+TOL_FULL_LOGITS_MEAN = 0.03
+#: card float32 vs CPU float32, rtol = atol: the sums run in other
+#: orders (1e-3); with the int8 cache a value on a rounding edge may
+#: flip a code on one side (5e-3 for the decode logits)
+TOL_SMALL = {"bfloat16": 1e-3, "int8": 5e-3}
+#: kernel vs plain version, rtol = atol: float32 as the reference holds
+#: its kernel to its oracle; bfloat16 one ulp (2^-8) and then some
+TOL_ATTN = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 
 
 def log(*a) -> None:
@@ -56,6 +108,17 @@ def log(*a) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+#: failed checks of the LM phases, reported together at the end so one
+#: run shows every phase
+FAILURES = []
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        log(f"CHECK FAILED: {msg}")
+        FAILURES.append(msg)
 
 
 def same(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -179,18 +242,16 @@ def main_path(km):
     return sims["cuda"], frames, launches, wall
 
 
-def device_share(sim, frames):
-    """Device busy share of one nominal serving run of all frames, and
-    the kernels that take the device time (``torch.profiler``)."""
+def profile_device(run, what: str) -> None:
+    """Device busy share of ``run()`` and the kernels that take the
+    device time (``torch.profiler``)."""
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.runtime.serve_loop import serve_stream
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve_stream(sim, frames, batch_window=BATCH_WINDOW)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
@@ -205,13 +266,22 @@ def device_share(sim, frames):
             rows.append((dev_us, ev.count, ev.key))
     busy = sum(r[0] for r in rows)
     if not rows:
-        log("[profile] the profiler saw no device time: not measured")
+        log(f"[profile] {what}: the profiler saw no device time: not "
+            "measured")
         return
-    log(f"[profile] one serving run of {len(frames)} frames: wall "
-        f"{wall_us:.1f} us under the profiler, device busy {busy:.1f} us "
-        f"({100 * busy / wall_us:.2f}%)")
+    log(f"[profile] {what}: wall {wall_us:.1f} us under the profiler, "
+        f"device busy {busy:.1f} us ({100 * busy / wall_us:.2f}%)")
     for dev_us, count, key in sorted(rows, reverse=True)[:8]:
         log(f"[profile]   {dev_us:10.1f} us  x{count:<4d} {key[:90]}")
+
+
+def device_share(sim, frames):
+    """Device busy share of one nominal serving run of all frames."""
+    from repro_torch.runtime.serve_loop import serve_stream
+
+    profile_device(
+        lambda: serve_stream(sim, frames, batch_window=BATCH_WINDOW),
+        f"one serving run of {len(frames)} frames")
 
 
 def record_calls(km, sim, frames):
@@ -355,6 +425,350 @@ def time_kernels(km, calls, reps: int = 50):
     return rows
 
 
+def lm_program(cfg, batch, prompt, gen, kv_dtype, cim, device, dtype):
+    """(serve program, serving params, prompt batch): random weights and
+    prompt from a generator on ``device`` seeded with SEED, so the two
+    flavors serve the same weights (the int8 one quantizes them)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.serve_loop import build_serve_program
+
+    prog = build_serve_program(cfg, batch=batch, s_max=prompt + gen + 1,
+                               kv_dtype=kv_dtype, cim_weights=cim,
+                               device=device)
+    gen_ = torch.Generator(device=prog.device).manual_seed(SEED)
+    params = prog.serving_params(T.init_params(cfg, prog.plan, gen_, dtype))
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen_,
+                           device=prog.device)
+    return prog, params, {"tokens": tokens}
+
+
+def generate_logged(prog, params, batch, steps):
+    """Greedy generation as ``greedy_generate`` runs it, keeping each
+    step's logits: -> (tokens (B, steps), [logits (B, V)] * steps)."""
+    logits, caches = prog.prefill_fn(params, batch)
+    seen = [logits]
+    token = torch.argmax(logits, dim=-1).to(torch.int32)
+    out = [token]
+    for i in range(steps - 1):
+        logits, caches = prog.decode_fn(params, token, caches,
+                                        batch["tokens"].shape[1] + i)
+        seen.append(logits)
+        token = torch.argmax(logits, dim=-1).to(torch.int32)
+        out.append(token)
+    return torch.stack(out, dim=1), seen
+
+
+def to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def lm_serving(la):
+    """Phase 5: gemma3-1b at full width on the card, both flavors; the
+    kernel's launch count per prefill; times; the plain-attention run.
+    Returns (per-flavor results, the attention calls of one prefill)."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.serve_loop import greedy_generate
+
+    cfg = get_config(LM_ARCH)
+    results, calls = {}, []
+    for name, kv_dtype, cim in LM_FLAVORS:
+        t0 = time.perf_counter()
+        prog, params, batch = lm_program(cfg, LM_BATCH, LM_PROMPT, LM_GEN,
+                                         kv_dtype, cim, "cuda",
+                                         torch.bfloat16)
+        # warm the card (cuBLAS handles, allocator, the kernel library)
+        greedy_generate(prog, params, {"tokens": batch["tokens"][:, :128]}, 2)
+        torch.cuda.synchronize()
+        log(f"[lm] {cfg.name} {name}: {cfg.num_layers} layers, d_model "
+            f"{cfg.d_model}, vocab {cfg.vocab_size}; set up in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        la.LAUNCHES["local_attention"] = 0
+        torch.cuda.synchronize()
+        tokens = greedy_generate(prog, params, batch, LM_GEN)
+        torch.cuda.synchronize()
+        launches = la.LAUNCHES["local_attention"]
+        check(launches == cfg.num_layers,
+              f"{name}: {launches} attention launches in one prefill, want "
+              f"{cfg.num_layers}")
+        check(tuple(tokens.shape) == (LM_BATCH, LM_GEN)
+              and int(tokens.min()) >= 0
+              and int(tokens.max()) < cfg.vocab_size,
+              f"{name}: generated {tuple(tokens.shape)} out of range")
+
+        pre, dec = [], []
+        for _ in range(LM_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = prog.prefill_fn(params, batch)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            token = torch.argmax(logits, dim=-1).to(torch.int32)
+            for i in range(LM_GEN - 1):
+                step_logits, caches = prog.decode_fn(params, token, caches,
+                                                     LM_PROMPT + i)
+                token = torch.argmax(step_logits, dim=-1).to(torch.int32)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            pre.append(t1 - t0)
+            dec.append((t2 - t1) / (LM_GEN - 1))
+            del caches
+        check(tuple(logits.shape) == (LM_BATCH, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"{name}: prefill logits {tuple(logits.shape)} not finite")
+        check(torch.equal(torch.argmax(logits, -1).int(), tokens[:, 0]),
+              f"{name}: prefill is not deterministic")
+
+        # the same prefill with the kernel's plain version swapped in
+        real = la.grouped_local_attention
+        la.grouped_local_attention = la.grouped_local_attention_plain
+        try:
+            ref_logits, _ = prog.prefill_fn(params, batch)
+        finally:
+            la.grouped_local_attention = real
+        torch.cuda.synchronize()
+        diff = (logits - ref_logits).abs()
+        # first tokens: equal in every row that the two bfloat16 runs can
+        # order, i.e. where the plain run's top-2 margin exceeds their
+        # largest logit difference; a row inside that band is a tie at
+        # this precision and must pick one of the plain run's top two
+        top2 = torch.topk(ref_logits, 2, dim=-1)
+        margin = top2.values[:, 0] - top2.values[:, 1]
+        first = torch.argmax(logits, -1)
+        tie = margin <= diff.max()
+        first_ok = (first == top2.indices[:, 0]) | (
+            tie & (first == top2.indices[:, 1]))
+        log(f"[lm] {name}: kernel vs plain-attention prefill logits: max "
+            f"|diff| {diff.max().item():.6f} (tolerance {TOL_FULL_LOGITS}), "
+            f"mean {diff.mean().item():.6f} (tolerance "
+            f"{TOL_FULL_LOGITS_MEAN}); first tokens {first.tolist()} vs "
+            f"{top2.indices[:, 0].tolist()}, top-2 margins "
+            f"{[round(m, 6) for m in margin.tolist()]}, ties "
+            f"{tie.tolist()}")
+        check(diff.max().item() <= TOL_FULL_LOGITS
+              and diff.mean().item() <= TOL_FULL_LOGITS_MEAN,
+              f"{name}: prefill logits differ from the plain-attention run")
+        check(bool(first_ok.all()),
+              f"{name}: first tokens differ from the plain-attention run")
+
+        if name == "bf16":
+            def recorder(q, k, v, *, window, softcap=None):
+                calls.append((q, k, v, window, softcap))
+                return real(q, k, v, window=window, softcap=softcap)
+
+            la.grouped_local_attention = recorder
+            try:
+                prog.prefill_fn(params, batch)
+            finally:
+                la.grouped_local_attention = real
+            profile_device(lambda: prog.prefill_fn(params, batch),
+                           f"one {name} prefill")
+
+            def decode_steps():
+                logits, caches = prog.prefill_fn(params, batch)
+                torch.cuda.synchronize()
+                token = torch.argmax(logits, dim=-1).to(torch.int32)
+                return caches, token
+
+            caches, token = decode_steps()
+            profile_device(
+                lambda: [prog.decode_fn(params, token, caches, LM_PROMPT + i)
+                         for i in range(4)], f"four {name} decode steps")
+            del caches
+        results[name] = dict(
+            launches=launches, prefill_ms=[v * 1e3 for v in pre],
+            decode_ms=[v * 1e3 for v in dec],
+            tok_s=LM_BATCH / float(np.median(dec)),
+            max_logit_diff=diff.max().item(),
+            first_tokens_equal=bool((first == top2.indices[:, 0]).all()))
+        log(f"[lm] {name}: launches {launches}; prefill ms "
+            f"{[round(v, 3) for v in results[name]['prefill_ms']]} (median "
+            f"{np.median(results[name]['prefill_ms']):.3f}); decode "
+            f"ms/token {[round(v, 4) for v in results[name]['decode_ms']]} "
+            f"(median {np.median(results[name]['decode_ms']):.4f}, "
+            f"{results[name]['tok_s']:.1f} tokens/s at batch {LM_BATCH}); "
+            f"sample {tokens[0, :8].tolist()}")
+        del prog, params, batch, logits, ref_logits
+        torch.cuda.empty_cache()
+    return results, calls
+
+
+def lm_reduced_vs_cpu():
+    """Phase 6: both flavors cut to 6 layers at full width, float32 on
+    the card and on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.serve_loop import build_serve_program
+
+    # full float32 products on the card, as on the CPU (the default, set
+    # here explicitly)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=SMALL_LAYERS)
+    for name, kv_dtype, cim in LM_FLAVORS:
+        t0 = time.perf_counter()
+        prog, params, batch = lm_program(cfg, 1, SMALL_PROMPT, SMALL_GEN,
+                                         kv_dtype, cim, "cuda", torch.float32)
+        tok_card, seen_card = generate_logged(prog, params, batch, SMALL_GEN)
+        torch.cuda.synchronize()
+        cpu_prog = build_serve_program(cfg, batch=1, s_max=prog.s_max,
+                                       kv_dtype=kv_dtype, cim_weights=cim,
+                                       device="cpu")
+        tok_cpu, seen_cpu = generate_logged(
+            cpu_prog, to_device(params, "cpu"),
+            {"tokens": batch["tokens"].cpu()}, SMALL_GEN)
+        errs = []
+        for i, (a, b) in enumerate(zip(seen_card, seen_cpu)):
+            tol = TOL_SMALL["bfloat16" if i == 0 else kv_dtype]
+            a = a.cpu()
+            errs.append((a - b).abs().max().item())
+            check(torch.allclose(a, b, rtol=tol, atol=tol),
+                  f"{name} reduced: step {i} logits differ from the CPU run "
+                  f"by {errs[-1]} (tolerance {tol})")
+        check(torch.equal(tok_card.cpu(), tok_cpu),
+              f"{name} reduced: tokens {tok_card.tolist()} on the card, "
+              f"{tok_cpu.tolist()} on the CPU")
+        log(f"[lm-small] {name}: {SMALL_LAYERS} layers, prompt "
+            f"{SMALL_PROMPT}, {SMALL_GEN} tokens, float32 (TF32 off): "
+            f"tokens equal {tok_cpu[0].tolist()}; max |logit diff| per "
+            f"step {[f'{e:.2e}' for e in errs]} (prefill tolerance "
+            f"{TOL_SMALL['bfloat16']}, decode {TOL_SMALL[kv_dtype]}); "
+            f"{time.perf_counter() - t0:.1f} s")
+        del prog, params
+        torch.cuda.empty_cache()
+
+
+def attn_close(a, b, dtype) -> bool:
+    tol = TOL_ATTN[dtype]
+    return torch.allclose(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+def check_attention(la, calls):
+    """Phase 7: attention kernel vs plain version on the card."""
+    worst_main, n_checks = 0.0, 0
+    for q, k, v, window, cap in calls:
+        a = la.grouped_local_attention(q, k, v, window=window, softcap=cap)
+        b = la.grouped_local_attention_plain(q, k, v, window=window,
+                                             softcap=cap)
+        torch.cuda.synchronize()
+        err = (a.float() - b.float()).abs().max().item()
+        worst_main = max(worst_main, err)
+        n_checks += 1
+        check(attn_close(a, b, q.dtype),
+              f"attention kernel != plain at main-path call "
+              f"{tuple(q.shape)} window {window}")
+    rng = np.random.default_rng(SEED + 2)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for d in (64, 128, 256):
+        for s in (37, 777):
+            base = [torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).cuda() for shape in
+                ((2, s, 4, d), (2, s, 1, d), (2, s, 1, d))]
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = (t.to(dtype) for t in base)
+                for window in (1, 7, 512, s):
+                    for cap in (None, 50.0):
+                        a = la.grouped_local_attention(q, k, v, window=window,
+                                                       softcap=cap)
+                        b = la.grouped_local_attention_plain(
+                            q, k, v, window=window, softcap=cap)
+                        torch.cuda.synchronize()
+                        err = (a.float() - b.float()).abs().max().item()
+                        worst[dtype] = max(worst[dtype], err)
+                        n_checks += 1
+                        check(attn_close(a, b, dtype),
+                              f"attention kernel != plain: d {d} S {s} "
+                              f"window {window} softcap {cap} {dtype}: "
+                              f"max |diff| {err}")
+    log(f"[attention] {n_checks} comparisons within tolerance "
+        f"{ {str(k): v for k, v in TOL_ATTN.items()} }; max |diff| at the "
+        f"main-path calls (bfloat16) {worst_main}; random inputs "
+        f"{ {str(k): v for k, v in worst.items()} }")
+    return worst_main
+
+
+def attn_work(q, k, v, window):
+    """(bf16 operations, bytes) one call must do: 4 * D per unmasked
+    (query, key) pair; q, k, v read once, the output written once."""
+    b, s, h, d = q.shape
+    w = min(window, s)
+    pairs = w * (w + 1) // 2 + (s - w) * w
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    return 4 * d * pairs * b * h, nbytes
+
+
+def time_attention(la, calls, reps: int = 10):
+    """Phase 8: the attention kernel's times on the main path's calls."""
+    import torch.nn.functional as F
+
+    def timed(fn, arglist, n):
+        for args in arglist:  # warm-up
+            fn(*args)
+        torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        for _ in range(n):
+            for args in arglist:
+                fn(*args)
+        ev1.record()
+        torch.cuda.synchronize()
+        return ev0.elapsed_time(ev1) / n
+
+    def kernel(q, k, v, window, cap):
+        la.grouped_local_attention(q, k, v, window=window, softcap=cap)
+
+    def plain(q, k, v, window, cap):
+        la.grouped_local_attention_plain(q, k, v, window=window,
+                                         softcap=cap)
+
+    # the library yardstick: scaled_dot_product_attention with the band
+    # as an explicit mask, on (B, H, S, D) copies made outside the timing
+    # (it has no soft cap, which gemma3 does not use)
+    masks, lib_args = {}, []
+    for q, k, v, window, cap in calls:
+        s, h = q.shape[1], q.shape[2]
+        if window not in masks:
+            pos = torch.arange(s, device=q.device)
+            masks[window] = (pos[None, :] <= pos[:, None]) & (
+                pos[None, :] > pos[:, None] - window)
+        lib_args.append((
+            q.transpose(1, 2).contiguous(),
+            k.expand(-1, -1, h, -1).transpose(1, 2).contiguous(),
+            v.expand(-1, -1, h, -1).transpose(1, 2).contiguous(),
+            masks[window], cap))
+
+    def library(q, k, v, mask, cap):
+        F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    has_lib = all(cap is None for *_, cap in calls)
+    rows = {}
+    local = next(i for i, c in enumerate(calls) if c[3] < c[0].shape[1])
+    glob = next(i for i, c in enumerate(calls) if c[3] >= c[0].shape[1])
+    for label, idx, n in (("one local launch", [local], 20),
+                          ("one global launch", [glob], 20),
+                          ("one prefill (26 launches)",
+                           list(range(len(calls))), reps)):
+        args = [calls[i] for i in idx]
+        ops = sum(attn_work(*c[:4])[0] for c in args)
+        nbytes = sum(attn_work(*c[:4])[1] for c in args)
+        t_ops, t_bytes = ops / PEAK_BF16_OPS, nbytes / PEAK_BYTES
+        row = dict(ms=timed(kernel, args, n), plain_ms=timed(plain, args, n),
+                   library_ms=(timed(library, [lib_args[i] for i in idx], n)
+                               if has_lib else None),
+                   bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   calls=len(args))
+        rows[label] = row
+        q = args[0][0]
+        log(f"[time] attention {label}, q {tuple(q.shape)} {q.dtype}, "
+            f"window {args[0][3] if len(args) == 1 else 'per layer'}: {row}")
+    return rows["one prefill (26 launches)"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -362,6 +776,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     try:
         import repro_torch.kernels.cim_matmul as km
+        import repro_torch.kernels.local_attention as la
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}",
               file=sys.stderr)
@@ -373,12 +788,16 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
+    # one nvcc per source, all started together
     t0 = time.perf_counter()
-    lib, build_log = km.build()
-    log(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s")
-    for line in build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(m.build) for m in (km, la)]
+        for fut in builds:
+            lib, build_log = fut.result()
+            log(f"[build] {lib.name} after {time.perf_counter() - t0:.1f} s")
+            for line in build_log.splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"[build] {line.strip()}")
 
     sim, frames, launches, wall = main_path(km)
     # nominal again, after the variation run: separates the flavor from
@@ -403,6 +822,25 @@ def main() -> int:
             "max_abs_err": worst[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None})
+    t_lm = time.perf_counter()
+    lm, attn_calls = lm_serving(la)
+    lm_reduced_vs_cpu()
+    worst_attn = check_attention(la, attn_calls)
+    attn = time_attention(la, attn_calls)
+    kernels.append({
+        "name": "local_attention", "route": "cuda", "source": ATTN_SOURCE,
+        "replaces": ATTN_REPLACES, "launches": lm["bf16"]["launches"],
+        "max_abs_err": worst_attn, "ms": attn["ms"],
+        "plain_ms": attn["plain_ms"], "bound_ms": attn["bound_ms"],
+        "bound_by": attn["bound_by"], "library_ms": attn["library_ms"]})
+    log(f"[lm] {LM_ARCH} serving phases took "
+        f"{time.perf_counter() - t_lm:.1f} s; median prefill ms / decode "
+        f"ms per token / tokens per s: "
+        + "; ".join(f"{k} {np.median(v['prefill_ms']):.3f} / "
+                    f"{np.median(v['decode_ms']):.4f} / {v['tok_s']:.1f}"
+                    for k, v in lm.items()) + f" on {card}")
+    if FAILURES:
+        fail(f"{len(FAILURES)} LM checks failed: {FAILURES}")
     log(f"[e2e] wall per frame (ms, median of {WALL_REPS} runs): nominal "
         f"{wall['nominal'] * 1e3:.4f}, variation "
         f"{wall['variation'] * 1e3:.4f}, nominal again "

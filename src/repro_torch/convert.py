@@ -1,13 +1,16 @@
-"""Carrying weights and calibration across from the JAX reference.
+"""Carrying weights, caches and calibration across from the JAX
+reference.
 
 The reference keeps CNN params as numpy / jax arrays (name -> HWIO conv
 kernel or (C_in, C_out) FC matrix, or a ``{"q", "s"}`` quantized leaf);
-the port keeps the same layout as tensors on a device.  Nothing here
-imports the reference: it reads plain arrays and duck-typed engines.
+the port keeps the same layout as tensors on a device.  LM params and
+caches are segment-stacked in the reference and a per-layer list in the
+port (``models/transformer.py``).  Nothing here imports the reference:
+it reads plain arrays and duck-typed engines.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -28,6 +31,55 @@ def params_from_reference(params: Dict[str, Any], device=None
     return {name: ({"q": one(leaf["q"]), "s": one(leaf["s"])}
                    if isinstance(leaf, dict) else one(leaf))
             for name, leaf in params.items()}
+
+
+def _tensors(tree, dev: torch.device, index=None):
+    """Nested dicts / lists of arrays as tensors on ``dev``, each array
+    taken at ``[index]`` when given (one layer of a stacked segment)."""
+    if isinstance(tree, dict):
+        return {k: _tensors(v, dev, index) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tensors(v, dev, index) for v in tree]
+    a = np.array(tree if index is None else tree[index])
+    if a.dtype.name == "bfloat16":  # ml_dtypes: torch reads the bits
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)
+
+
+def _unstack(segment_trees, cfg, dev: torch.device) -> List[Any]:
+    """The reference's per-segment lists (leaves stacked over the
+    segment's repeat count when it exceeds 1) as one entry per layer,
+    in layer order."""
+    from repro_torch.models.transformer import build_segments
+
+    layers = []
+    for seg, trees in zip(build_segments(cfg), segment_trees):
+        for r in range(seg.count):
+            for tree in trees:
+                layers.append(_tensors(tree, dev,
+                                       r if seg.count > 1 else None))
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"{len(layers)} layers for {cfg.num_layers}")
+    return layers
+
+
+def lm_params_from_reference(params_np: Dict[str, Any], cfg, device=None
+                             ) -> Dict[str, Any]:
+    """The reference's LM params for ``cfg`` at tp = 1 (numpy leaves,
+    ``{"q", "s"}`` leaves included) in the port's layout on ``device``
+    (``None`` = the card): ``"segments"`` becomes ``"layers"``, one dict
+    per layer, same dtypes."""
+    dev = resolve_device(device)
+    out = {k: _tensors(v, dev) for k, v in params_np.items()
+           if k != "segments"}
+    out["layers"] = _unstack(params_np["segments"], cfg, dev)
+    return out
+
+
+def lm_caches_from_reference(caches_np, cfg, device=None) -> List[Any]:
+    """The reference's LM caches (per segment, per cycle position,
+    stacked over the repeat count) as the port's per-layer list."""
+    return _unstack(caches_np, cfg, resolve_device(device))
 
 
 def copy_calibration(ref_engine, engine):

@@ -23,7 +23,8 @@ every step converts with the spec's scalar inverse step and no add.
 The CUDA source is ``csrc/cim_matmul.cu`` (its header notes what bounds
 the kernel on the H100 and what the simple design does about it).  It
 is compiled with ``nvcc`` for ``sm_90a`` at first use into
-``build/kernels/`` at the repository root and loaded with ``ctypes``.
+``build/kernels/`` at the repository root (``kernels/_build.py``) and
+loaded with ``ctypes``.
 On a CPU tensor the wrapper computes :func:`cim_codes_plain`, the plain
 PyTorch version of the same arithmetic; on a CUDA tensor it launches
 the kernel or raises.
@@ -32,10 +33,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -43,13 +40,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.cim import CIMSpec, adc_convert, f32_scalar
+from repro_torch.kernels import _build
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "cim_matmul.cu"
-#: build output at the repository root (listed in .gitignore)
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+SOURCE = _build.CSRC / "cim_matmul.cu"
+#: the reference converts with separately rounded multiply and add
+NVCC_FLAGS = ("-fmad=false",)
 #: largest code sum the float32 output holds exactly
 _EXACT_F32 = 1 << 24
 #: kernel launches by variant (nominal / device-variation flavor); the
@@ -57,35 +52,11 @@ _EXACT_F32 = 1 << 24
 LAUNCHES = {"cim_codes": 0, "cim_codes_var": 0}
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME")
-    cands = ([str(Path(home) / "bin" / "nvcc")] if home else []) + [
-        shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
-    for c in cands:
-        if c and Path(c).is_file():
-            return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
-
-
 def build() -> Tuple[Path, str]:
     """Compile the kernel library if this source has not been built yet.
 
-    Returns (library path, compiler log).  The file name carries a hash
-    of the source, so an edited source never loads a stale build."""
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libcim_matmul_{tag}.so"
-    log = lib.with_suffix(".log")
-    if lib.is_file():
-        return lib, log.read_text() if log.is_file() else ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{proc.stderr}")
-    log.write_text(proc.stderr)
-    os.replace(tmp, lib)
-    return lib, proc.stderr
+    Returns (library path, compiler log)."""
+    return _build.build(SOURCE, NVCC_FLAGS)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,0 +1,179 @@
+"""Sliding-window (local) causal flash attention on Hopper.
+
+Replaces ``src/repro/kernels/local_attention.py::_attn_kernel`` (reached
+through ``local_attention``): token i attends to keys (i - window, i],
+scores ``q . k * D^-0.5`` with an optional ``tanh(s / cap) * cap``, an
+online softmax in float32 with ``p`` rounded to v's type before
+``p . v``, and the output in q's type.  A global (full causal) layer
+is the case ``window = S``.
+
+Two entry points launch the same kernel:
+
+* :func:`local_attention` — q, k, v (BH, S, D), the reference wrapper's
+  layout (the GQA repeat done by the caller);
+* :func:`grouped_local_attention` — q (B, S, H, D) with k, v
+  (B, S, KV, D) and H a multiple of KV, the model's layout: head h
+  reads kv head ``h // (H // KV)`` through strides, so no repeated or
+  transposed copy is made.  Output (B, S, H, D).
+
+The CUDA source is ``csrc/local_attention.cu`` (its header notes what
+bounds the kernel on the H100 and what the simple design does about
+it), built with ``nvcc`` for ``sm_90a`` at first use
+(``kernels/_build.py``) and loaded with ``ctypes``.  On a CPU tensor
+the wrappers compute :func:`grouped_local_attention_plain`, a dense
+masked softmax in plain PyTorch; on a CUDA tensor they launch the
+kernel or raise.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+SOURCE = _build.CSRC / "local_attention.cu"
+#: head dims the kernel is instantiated for: the reduced configs' 16 and
+#: the served models' 64 (qwen2), 128 (gemma2, minitron), 256 (gemma3)
+HEAD_DIMS = (16, 64, 128, 256)
+DTYPES = (torch.float32, torch.bfloat16)
+MASKED = -1e30
+#: kernel launches; the wrapper adds one where it launches, and nowhere
+#: else
+LAUNCHES = {"local_attention": 0}
+
+
+def build() -> Tuple[Path, str]:
+    """Compile the kernel library if this source has not been built yet.
+
+    Returns (library path, compiler log)."""
+    return _build.build(SOURCE)
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    lib = ctypes.CDLL(str(build()[0]))
+    fn = lib.local_attention_launch
+    ptr, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                          ctypes.c_float)
+    fn.argtypes = ([ptr, i64, i64, i64] * 4
+                   + [i32, i32, i32, i32, i32, i32, f32, f32, i32, ptr])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
+           softcap: Optional[float]) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(
+            f"q (B, S, H, D), k and v (B, S, KV, D): {tuple(q.shape)}, "
+            f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, s, h, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[1] != s \
+            or k.shape[3] != d:
+        raise ValueError(f"q {tuple(q.shape)} vs k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if k.shape[2] < 1 or h % k.shape[2]:
+        raise ValueError(f"{h} query heads on {k.shape[2]} kv heads")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must all be float32 or bfloat16: "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
+    if int(window) != window or window < 1:
+        raise ValueError(f"window must be a positive integer: {window}")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"softcap must be positive or None: {softcap}")
+
+
+def grouped_local_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, *, window: int,
+                                  softcap: Optional[float] = None
+                                  ) -> torch.Tensor:
+    """The plain PyTorch version of :func:`grouped_local_attention`: a
+    dense (S, S) float32 score matrix per head, the window mask at
+    ``-1e30``, a softmax, the probabilities rounded to v's type, and
+    ``p . v`` in v's type."""
+    _check(q, k, v, window, softcap)
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    qg = q.float().reshape(b, s, kvh, h // kvh, d).permute(0, 2, 3, 1, 4)
+    kg = k.float().permute(0, 2, 1, 3).unsqueeze(2)     # (B, KV, 1, S, D)
+    scores = torch.matmul(qg, kg.transpose(-1, -2)) * d ** -0.5
+    if softcap is not None:
+        scores = torch.tanh(scores / softcap) * softcap
+    pos = torch.arange(s, device=q.device)
+    keep = (pos[None, :] <= pos[:, None]) & (
+        pos[None, :] > pos[:, None] - window)
+    scores = torch.where(keep, scores, torch.full_like(scores, MASKED))
+    p = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.matmul(p, v.permute(0, 2, 1, 3).unsqueeze(2))  # (B,KV,G,S,D)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
+
+
+def grouped_local_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, window: int,
+                            softcap: Optional[float] = None) -> torch.Tensor:
+    """(B, S, H, D) attention output of q (B, S, H, D) over k, v
+    (B, S, KV, D), causal within ``window``.
+
+    CPU tensors take :func:`grouped_local_attention_plain`.  CUDA
+    tensors launch the kernel (``LAUNCHES`` counts launches); nothing
+    falls back to the plain version on the card."""
+    _check(q, k, v, window, softcap)
+    if q.device.type == "cpu":
+        return grouped_local_attention_plain(q, k, v, window=window,
+                                             softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"local attention runs on cpu or cuda, not "
+                         f"{q.device}")
+    b, s, h, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in the kernel's {HEAD_DIMS}")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError("q, k and v need unit stride along the head dim")
+    if b * h > 65535:
+        raise ValueError(f"{b} x {h} heads exceed the kernel's grid")
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    launch = _launcher()
+    operands = []  # pointer and (batch, seq, head) strides of each
+    for t in (q, k, v, out):
+        operands += [t.data_ptr(), t.stride(0), t.stride(1), t.stride(2)]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = launch(*operands, b, s, h, h // k.shape[2], d,
+                     min(int(window), s), d ** -0.5,
+                     0.0 if softcap is None else float(softcap),
+                     int(q.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"local_attention launch failed: CUDA error {err}")
+    LAUNCHES["local_attention"] += 1
+    return out
+
+
+def local_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, window: int, softcap: Optional[float] = None
+                          ) -> torch.Tensor:
+    """The plain version of :func:`local_attention` (BH, S, D)."""
+    return grouped_local_attention_plain(
+        q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2), window=window,
+        softcap=softcap).squeeze(2)
+
+
+def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int, softcap: Optional[float] = None
+                    ) -> torch.Tensor:
+    """q, k, v (BH, S, D), batch and heads flattened (the reference
+    wrapper's layout) -> (BH, S, D); causal, attends to (i - window, i].
+    The same kernel as :func:`grouped_local_attention`, with one head
+    per row of BH."""
+    if q.dim() != 3:
+        raise ValueError(f"q, k, v must be (BH, S, D): {tuple(q.shape)}")
+    return grouped_local_attention(
+        q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2), window=window,
+        softcap=softcap).squeeze(2)

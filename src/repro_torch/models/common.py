@@ -1,0 +1,181 @@
+"""LM model foundations on torch — the tp = 1 subset of
+``repro/models/common.py``: the sharding plan, norms, activations, RoPE,
+soft caps, the embedding lookup, initializers, the quantized-weight
+leaf path and flash attention.
+
+The reference writes these as per-device functions inside one
+``shard_map``; on one card every collective is local math, so only
+that case is ported.  Sharding over several cards (the Domino ring
+matmuls, the group trick, the sequence-sharded cache) is ROADMAP Queue
+1 item 15.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.engine import is_quantized_leaf
+from repro_torch.kernels import local_attention as attention_kernel
+
+# ---------------------------------------------------------------------------
+# Sharding plan
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShardingPlan:
+    """The parallel layout of one (arch, device) pair: tp = 1 only, so
+    every device holds all heads, the whole vocabulary and every weight
+    whole."""
+
+    tp: int = 1
+
+    def __post_init__(self):
+        if self.tp != 1:
+            raise NotImplementedError(
+                "tp > 1 (ring dataflow, group trick, sequence-sharded "
+                "cache) is not ported: ROADMAP Queue 1 item 15")
+
+    @staticmethod
+    def for_model(cfg: ModelConfig, tp: int = 1) -> "ShardingPlan":
+        return ShardingPlan(tp=tp)
+
+
+# ---------------------------------------------------------------------------
+# Weight residency
+# ---------------------------------------------------------------------------
+
+
+def resolve_w(w, like: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Weights may arrive as ``{"q": int8, "s": scale}`` (CIM-resident
+    serving mode): dequantize on use, in float32 and then to ``like``'s
+    dtype (bfloat16 without ``like``, as the reference does)."""
+    if is_quantized_leaf(w):
+        dtype = like.dtype if like is not None else torch.bfloat16
+        return (w["q"].to(torch.float32) * w["s"]).to(dtype)
+    return w
+
+
+def local_linear(x: torch.Tensor, w, bias=None) -> torch.Tensor:
+    """``x @ w`` (+ bias) in x's dtype.  The reference accumulates in
+    float32 and rounds once; in bfloat16 the product here is rounded once
+    before a float32 bias add."""
+    y = torch.matmul(x, resolve_w(w, x))
+    if bias is None:
+        return y
+    return (y.float() + bias).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms / activations / RoPE
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    """RMS norm with a zero-centred scale: ``x / rms(x) * (1 + scale)``,
+    in float32."""
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return ((x32 * torch.rsqrt(var + eps)) * (1.0 + scale.float())
+            ).to(x.dtype)
+
+
+def _relu2(v: torch.Tensor) -> torch.Tensor:
+    return torch.square(F.relu(v))
+
+
+def _gelu_tanh(v: torch.Tensor) -> torch.Tensor:
+    return F.gelu(v, approximate="tanh")
+
+
+ACT = {
+    "silu": F.silu,
+    "gelu": _gelu_tanh,
+    "relu2": _relu2,
+    "relu": F.relu,
+}
+
+
+def gated_act(name: str) -> bool:
+    return name in ("silu", "gelu")
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """x: (B, S, H, D) with D even; positions: (S,) or (B, S).  Rotates
+    the two halves of D (split-halves convention) by float32 angles."""
+    d = x.shape[-1]
+    if d % 2:
+        raise ValueError(f"rope needs an even head dim: {d}")
+    # a Python scalar times a float32 tensor multiplies in float32, as
+    # the reference's weakly typed scalar does, with no host-to-device
+    # copy (which would wait for the card)
+    freqs = torch.exp(-math.log(theta) * torch.arange(
+        0, d, 2, dtype=torch.float32, device=x.device) / d)
+    ang = positions.to(torch.float32)[..., None] * freqs  # (..., S, D/2)
+    if ang.dim() == 2:  # (S, D/2) -> broadcast over batch
+        ang = ang[None]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return torch.tanh(x / cap) * cap
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (the sliding-window kernel)
+# ---------------------------------------------------------------------------
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: Optional[int] = None,
+                    logit_softcap: Optional[float] = None) -> torch.Tensor:
+    """Causal self-attention of q (B, S, H, D) over k, v (B, S, KV, D),
+    H a multiple of KV, through the sliding-window kernel
+    (``kernels/local_attention.py``).  A local layer passes its window;
+    a global layer (``window=None``) runs it with ``window = S``, which
+    is full causal attention."""
+    return attention_kernel.grouped_local_attention(
+        q, k, v, window=k.shape[1] if window is None else window,
+        softcap=logit_softcap)
+
+
+# ---------------------------------------------------------------------------
+# Embedding
+# ---------------------------------------------------------------------------
+
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
+                 plan: ShardingPlan) -> torch.Tensor:
+    """table: (V, D); ids: (B, S) -> (B, S, D)."""
+    return table[ids]
+
+
+# ---------------------------------------------------------------------------
+# Initializers (explicit generator, device and dtype)
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, fan_in: int, shape, dtype
+               ) -> torch.Tensor:
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (w / math.sqrt(fan_in)).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (w * 0.02).to(dtype)

@@ -1,23 +1,194 @@
-"""Domino streaming front-end on torch — the CNN half of
-``repro/runtime/serve_loop.py``.
+"""Serving on torch — ``repro/runtime/serve_loop.py`` on one card.
 
-:func:`serve_stream` is a request-queue loop that feeds image frames
-into the pipelined streaming simulator (``core/network.py``) at an
-offered rate and reports closed-loop latency/throughput; the quantized
-weights route (:func:`quantize_cnn_params_for_serving` ->
-:func:`build_stream_sim`) keeps int8 weights resident in the CIM engine,
-whose MACs run the Hopper kernel on the card.
+LM half: :func:`build_serve_program` gives prefill and one-token decode
+functions for a dense GQA model (``models/transformer.py``; prefill
+attention runs the sliding-window Hopper kernel), and
+:func:`greedy_generate` drives them.  With ``cim_weights`` the matmul
+weights are int8 ``{"q", "s"}`` leaves (Domino: 8-bit weights resident
+in the arrays), dequantized on use; ``kv_dtype="int8"`` keeps the KV
+cache in int8.  The reference's mesh, ``shard_map`` and cache
+PartitionSpecs have no counterpart on one card (tp > 1 is ROADMAP
+Queue 1 item 15).
+
+CNN half: :func:`serve_stream` is a request-queue loop that feeds image
+frames into the pipelined streaming simulator (``core/network.py``) at
+an offered rate and reports closed-loop latency/throughput; the
+quantized weights route (:func:`quantize_cnn_params_for_serving` ->
+:func:`build_stream_sim`) keeps int8 weights resident in the CIM
+engine, whose MACs run the Hopper kernel on the card.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import is_quantized_leaf, quantize_weight
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.models.common import ShardingPlan
 from repro_torch.runtime.fault import StragglerMonitor
+
+#: leaf names that are true matmul weights (safe to int8-quantize with
+#: per-output-column scales), as in the reference
+QUANTIZABLE = frozenset({
+    "wq", "wk", "wv", "wo", "w_in", "w_out", "w_gate",
+    "w_uq", "w_uk", "w_uv", "w_dq", "w_dkv", "head",
+    "shared_in", "shared_out", "shared_gate", "frontend_proj",
+    "w_in_x", "w_in_z", "x_proj", "dt_proj", "proj",
+})
+
+
+def _leaves(tree, path=()):
+    """(path, tensor) of every tensor leaf; ``{"q", "s"}`` dicts are
+    leaves."""
+    if isinstance(tree, dict) and not is_quantized_leaf(tree):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (str(i),))
+    else:
+        yield path, tree
+
+
+def _stack_counts(cfg: ModelConfig) -> Dict[int, int]:
+    """Layer index -> repeat count of the reference segment holding it
+    (the reference stacks a segment's leaves over that count)."""
+    out, l = {}, 0
+    for seg in T.build_segments(cfg):
+        for _ in range(seg.count * len(seg.cycle)):
+            out[l] = seg.count
+            l += 1
+    return out
+
+
+def quantize_decisions(params, cfg: ModelConfig, min_size: int = 1 << 14
+                       ) -> Dict[str, bool]:
+    """Which leaves get int8 CIM residency, by "/"-joined path.
+
+    The reference decides on scan-stacked leaves, so a layer's size
+    counts ``count`` times, ``count`` being the repeat count of its
+    reference segment; the rule here does the same, so both packages
+    quantize the same leaves."""
+    counts = _stack_counts(cfg)
+    out = {}
+    for path, leaf in _leaves(params):
+        stack = counts[int(path[1])] if path[0] == "layers" else 1
+        out["/".join(path)] = bool(
+            path[-1] in QUANTIZABLE and leaf.dim() >= 2
+            and leaf.shape[-1] >= 16 and leaf.shape[-2] >= 16
+            and leaf.numel() * stack >= min_size)
+    return out
+
+
+def quantize_params_for_serving(params, cfg: ModelConfig,
+                                min_size: int = 1 << 14,
+                                decisions: Optional[Dict[str, bool]] = None):
+    """Quantize the selected matmul weights to int8 + a float32 scale
+    per output column (``core/cim.py::quantize_symmetric`` over the
+    contraction axis); the layers dequantize on use
+    (``models/common.py::resolve_w``)."""
+    from repro_torch.core.cim import quantize_symmetric
+
+    if decisions is None:
+        decisions = quantize_decisions(params, cfg, min_size)
+
+    def one(tree, path):
+        if isinstance(tree, dict) and not is_quantized_leaf(tree):
+            return {k: one(v, path + (str(k),)) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [one(v, path + (str(i),)) for i, v in enumerate(tree)]
+        if decisions.get("/".join(path), False):
+            q, s = quantize_symmetric(tree.float(), 8, axis=-2)
+            return {"q": q, "s": s}
+        return tree
+
+    return one(params, ())
+
+
+@dataclass
+class ServeProgram:
+    """Prefill and decode of one model on one device.
+
+    ``prefill_fn(params, {"tokens": (batch, S)})`` -> (last-token logits
+    (batch, V) float32, caches grown to ``s_max``);
+    ``decode_fn(params, token (batch,), caches, pos)`` -> (logits,
+    caches), the caches updated in place."""
+
+    cfg: ModelConfig
+    plan: ShardingPlan
+    batch: int
+    s_max: int
+    kv_dtype: str
+    cim_weights: bool
+    quant_min_size: int
+    device: torch.device
+    prefill_fn: Callable
+    decode_fn: Callable
+
+    def serving_params(self, params):
+        """``params`` as this program serves them: int8 ``{"q", "s"}``
+        matmul weights when ``cim_weights``, else unchanged."""
+        if not self.cim_weights:
+            return params
+        return quantize_params_for_serving(params, self.cfg,
+                                           self.quant_min_size)
+
+
+def build_serve_program(cfg: ModelConfig, batch: int, s_max: int,
+                        kv_dtype: str = "bfloat16",
+                        cim_weights: bool = False,
+                        quant_min_size: int = 1 << 14,
+                        device=None) -> ServeProgram:
+    """Serving functions for ``cfg`` on ``device`` (``None`` = the card):
+    prompts of ``batch`` rows, caches for ``s_max`` positions."""
+    T.check_supported(cfg)
+    if kv_dtype not in ("bfloat16", "int8"):
+        raise ValueError(f"kv_dtype must be bfloat16 or int8: {kv_dtype}")
+    dev = resolve_device(device)
+    plan = ShardingPlan.for_model(cfg, tp=1)
+
+    @torch.no_grad()
+    def prefill_fn(params, batch_in):
+        tokens = batch_in["tokens"]
+        if tokens.dim() != 2 or tokens.shape[0] != batch \
+                or not 0 < tokens.shape[1] < s_max:
+            raise ValueError(f"tokens {tuple(tokens.shape)}: want ({batch}, "
+                             f"S) with 0 < S < s_max={s_max}")
+        return T.prefill(params, tokens.to(dev), cfg, plan,
+                         kv_dtype=kv_dtype, s_max=s_max)
+
+    @torch.no_grad()
+    def decode_fn(params, token, caches, pos: int):
+        if not 0 <= pos < s_max:
+            raise ValueError(f"position {pos} outside the cache "
+                             f"(s_max={s_max})")
+        return T.decode_step(params, token.to(dev), caches, int(pos), cfg,
+                             plan, kv_dtype=kv_dtype)
+
+    return ServeProgram(cfg=cfg, plan=plan, batch=batch, s_max=s_max,
+                        kv_dtype=kv_dtype, cim_weights=cim_weights,
+                        quant_min_size=quant_min_size, device=dev,
+                        prefill_fn=prefill_fn, decode_fn=decode_fn)
+
+
+def greedy_generate(serve: ServeProgram, params, batch_in, steps: int
+                    ) -> torch.Tensor:
+    """Batched greedy generation: prefill, then ``steps - 1`` decode
+    steps, each feeding back the argmax token.  -> (B, steps) int32."""
+    logits, caches = serve.prefill_fn(params, batch_in)
+    pos = batch_in["tokens"].shape[1]
+    token = torch.argmax(logits, dim=-1).to(torch.int32)
+    out = [token]
+    for i in range(steps - 1):
+        logits, caches = serve.decode_fn(params, token, caches, pos + i)
+        token = torch.argmax(logits, dim=-1).to(torch.int32)
+        out.append(token)
+    return torch.stack(out, dim=1)
 
 
 def quantize_cnn_params_for_serving(params: Dict[str, Any]

@@ -2,8 +2,12 @@
 NVIDIA card, and import no ``jax`` so that they run on the card's
 machine (``pytest -m cuda tests/test_torch_*.py``).
 
-Tolerance: equal by value — the kernel and its plain version compute the
-same exact integer dots and the same float32 conversion ops.
+Tolerances.  CIM kernel: equal by value — the kernel and its plain
+version compute the same exact integer dots and the same float32
+conversion ops.  Local attention: float32 within rtol = atol = 2e-5 (the
+reference's own kernel-vs-oracle tolerance; the two sum in other
+orders), bfloat16 within rtol = atol = 1e-2 (both round p and the
+output to bfloat16 at other points; one bfloat16 ulp is 2^-8 relative).
 """
 import numpy as np
 import pytest
@@ -11,6 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.cim import CIMSpec  # noqa: E402
+from repro_torch.kernels import local_attention as LA  # noqa: E402
 from repro_torch.kernels.cim_matmul import (  # noqa: E402
     LAUNCHES,
     cim_codes,
@@ -72,3 +77,46 @@ def test_fc_layout_reads_strided_slices():
     b = cim_codes_plain(xs.contiguous(), ws.contiguous(), spec)
     torch.cuda.synchronize()
     assert torch.equal(a + 0.0, b + 0.0)
+
+
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+
+
+def _normal(rng, shape, dtype):
+    return torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).cuda().to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_cuda_local_attention_matches_plain(d, dtype):
+    """Ragged S, windows from 1 to S, softcap off and on, both layouts
+    (GQA group 4 and the (BH, S, D) layout); one launch per call."""
+    _needs_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(d)
+    tol = ATTN_TOL[dtype]
+    calls = 0
+    for s in (37, 515):
+        q = _normal(rng, (2, s, 4, d), dtype)
+        k, v = (_normal(rng, (2, s, 1, d), dtype) for _ in range(2))
+        for window in (1, 7, 512, s):
+            for cap in (None, 50.0):
+                before = LA.LAUNCHES["local_attention"]
+                a = LA.grouped_local_attention(q, k, v, window=window,
+                                               softcap=cap)
+                b = LA.grouped_local_attention_plain(q, k, v, window=window,
+                                                     softcap=cap)
+                torch.cuda.synchronize()
+                assert LA.LAUNCHES["local_attention"] == before + 1
+                torch.testing.assert_close(a.float(), b.float(), rtol=tol,
+                                           atol=tol)
+                calls += 1
+        qb = q.permute(0, 2, 1, 3).reshape(8, s, d)
+        kb = k.expand(2, s, 4, d).permute(0, 2, 1, 3).reshape(8, s, d)
+        vb = v.expand(2, s, 4, d).permute(0, 2, 1, 3).reshape(8, s, d)
+        a = LA.local_attention(qb, kb, vb, window=7)
+        b = LA.local_attention_plain(qb, kb, vb, window=7)
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+    assert calls == 16
