@@ -27,8 +27,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.attention import MASKED
 from repro_torch.models.common import (
     ACT,
     ShardingPlan,
@@ -261,15 +261,6 @@ def lm_logits_local(params, h: torch.Tensor, cfg: ModelConfig,
     return softcap(logits, cfg.final_softcap)
 
 
-def _mask_pad_vocab(logits: torch.Tensor, cfg: ModelConfig,
-                    plan: ShardingPlan) -> torch.Tensor:
-    """Columns past the vocabulary (padding to a multiple of tp) ->
-    -1e30; with tp = 1 there are none, kept for the reference's shape."""
-    col = torch.arange(logits.shape[-1], device=logits.device)
-    return torch.where(col < cfg.vocab_size, logits,
-                       torch.full_like(logits, MASKED))
-
-
 # ---------------------------------------------------------------------------
 # Serving: prefill + decode
 # ---------------------------------------------------------------------------
@@ -311,8 +302,7 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
     if s_max is not None and s_max != tokens.shape[1]:
         caches = prepare_decode_caches(caches, cfg, plan, tokens.shape[1],
                                        s_max)
-    logits = lm_logits_local(params, h[:, -1:], cfg, plan)
-    return _mask_pad_vocab(logits, cfg, plan)[:, 0], caches
+    return lm_logits_local(params, h[:, -1:], cfg, plan)[:, 0], caches
 
 
 def decode_step(params, token: torch.Tensor, caches, pos: int,
@@ -326,19 +316,20 @@ def decode_step(params, token: torch.Tensor, caches, pos: int,
         x, c = decode_layer(p, x, c, pos, spec, cfg, plan, kv_dtype=kv_dtype)
         new_caches.append(c)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = lm_logits_local(params, x, cfg, plan)
-    return _mask_pad_vocab(logits, cfg, plan)[:, 0], new_caches
+    return lm_logits_local(params, x, cfg, plan)[:, 0], new_caches
 
 
 def init_cache(cfg: ModelConfig, plan: ShardingPlan, batch: int, s_max: int,
                kv_dtype: str = "bfloat16", device=None
                ) -> List[Dict[str, torch.Tensor]]:
-    """Zero decode caches, one dict per layer."""
+    """Zero decode caches, one dict per layer, on ``device`` (``None`` =
+    the card)."""
     check_supported(cfg)
+    dev = resolve_device(device)
     out = []
     for spec in layer_specs(cfg):
         shapes = attn_mod.gqa_cache_shape(cfg, plan, batch, s_max,
                                           spec.pattern_idx, kv_dtype)
-        out.append({k: torch.zeros(sh, dtype=dt, device=device)
+        out.append({k: torch.zeros(sh, dtype=dt, device=dev)
                     for k, (sh, dt) in shapes.items()})
     return out

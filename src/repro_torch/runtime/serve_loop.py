@@ -176,16 +176,22 @@ def build_serve_program(cfg: ModelConfig, batch: int, s_max: int,
                         prefill_fn=prefill_fn, decode_fn=decode_fn)
 
 
-def greedy_generate(serve: ServeProgram, params, batch_in, steps: int
-                    ) -> torch.Tensor:
+def greedy_generate(serve: ServeProgram, params, batch_in, steps: int,
+                    on_logits: Optional[Callable] = None) -> torch.Tensor:
     """Batched greedy generation: prefill, then ``steps - 1`` decode
-    steps, each feeding back the argmax token.  -> (B, steps) int32."""
+    steps, each feeding back the argmax token.  -> (B, steps) int32.
+    ``on_logits(i, logits)``, when given, sees step ``i``'s logits (B, V)
+    before their argmax (step 0 is the prefill)."""
     logits, caches = serve.prefill_fn(params, batch_in)
     pos = batch_in["tokens"].shape[1]
+    if on_logits is not None:
+        on_logits(0, logits)
     token = torch.argmax(logits, dim=-1).to(torch.int32)
     out = [token]
     for i in range(steps - 1):
         logits, caches = serve.decode_fn(params, token, caches, pos + i)
+        if on_logits is not None:
+            on_logits(i + 1, logits)
         token = torch.argmax(logits, dim=-1).to(torch.int32)
         out.append(token)
     return torch.stack(out, dim=1)

@@ -180,6 +180,7 @@ def test_prefill_and_greedy_decode_match_reference(arch, kv_dtype,
     r_decode = jax.jit(functools.partial(
         RT.decode_step, cfg=rcfg, plan=rplan, kv_dtype=kv_dtype))
     r_logits, r_caches = r_prefill(params, jnp.asarray(tokens))
+    ref_logits = [np.asarray(r_logits)]
 
     prog = build_serve_program(pcfg, batch=B, s_max=S_MAX, kv_dtype=kv_dtype,
                                cim_weights=cim_weights,
@@ -204,11 +205,20 @@ def test_prefill_and_greedy_decode_match_reference(arch, kv_dtype,
         r_token = jnp.argmax(r_logits, axis=-1).astype(jnp.int32)
         assert torch.equal(torch.argmax(p_logits, -1).int(), _t(r_token)), pos
         ref_tokens.append(np.asarray(r_token))
+        ref_logits.append(np.asarray(r_logits))
     _compare_caches(p_caches, jax.tree.map(np.asarray, r_caches), pcfg,
                     kv_dtype, "caches after the ring wrapped")
 
-    got = greedy_generate(prog, pparams, {"tokens": _t(tokens)}, STEPS)
+    # the entry point itself, its per-step logits seen through on_logits
+    seen = []
+    got = greedy_generate(prog, pparams, {"tokens": _t(tokens)}, STEPS,
+                          on_logits=lambda i, logits: seen.append(
+                              (i, logits.clone())))
     assert torch.equal(got, _t(np.stack(ref_tokens, axis=1)))
+    assert [i for i, _ in seen] == list(range(STEPS))
+    for i, logits in seen:
+        _close(logits, ref_logits[i], TOL if i == 0 else dec_tol,
+               f"greedy_generate logits at step {i}")
 
 
 def test_bfloat16_params_convert_bit_for_bit():
@@ -281,6 +291,14 @@ def test_serving_defaults_to_the_card():
         pytest.skip("checks the no-card behaviour")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_serve_program(get_config("gemma3-1b").reduced(), 1, 8)
+
+
+def test_init_cache_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the no-card behaviour")
+    cfg = get_config("gemma3-1b").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init_cache(cfg, ShardingPlan(), 1, 8)
 
 
 def test_serve_cli_runs_on_cpu(capsys):
