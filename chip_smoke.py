@@ -28,25 +28,34 @@ Phases (any failure exits non-zero before the result line):
    layers slide) and 32 greedy tokens through ``build_serve_program``
    and ``greedy_generate`` — once with bfloat16 weights and KV cache,
    once with int8 CIM weights and an int8 KV cache.  Each counted run
-   resets the attention kernel's launch count just before and reads it
-   just after: one launch per layer, 26.  Prefill ms, decode ms/token
+   resets both attention kernels' launch counts just before and reads
+   them just after: one launch of the bfloat16 (tensor-core) kernel per
+   layer, 26, and none of the float32 one.  Prefill ms, decode ms/token
    and tokens/s (median of LM_REPS timed ``greedy_generate`` runs); the
    same prefill with the kernel's plain version swapped in must give
    logits within TOL_FULL_LOGITS;
 6. the same full-width prefill of both flavors in float32 on the card
    (TF32 off), with the kernel and with its plain version swapped in:
-   26 launches, and every first token equal;
+   26 launches of the float32 (CUDA-core) kernel and none of the
+   bfloat16 one, and every first token equal;
 7. the same two flavors cut only in depth (6 layers: 5 local + 1
    global; batch 1, prompt 640, 4 tokens), in float32 on the card
    (TF32 off) and on the CPU (the kernel's plain version): logits within
    TOL_SMALL, tokens equal;
-8. the attention kernel against its plain version on the card: at the
-   26 calls of one main-path prefill, and on random inputs (head dim
-   64 / 128 / 256, ragged S, window 1 / 7 / 512 / S, soft cap off and
-   50.0) in float32 and bfloat16, within TOL_ATTN;
-9. its times (CUDA events): one local and one global launch and the
-   whole prefill's 26 launches, beside the plain version,
-   ``scaled_dot_product_attention`` with the band mask, and the bound.
+8. both attention kernels against their plain version on the card, within
+   TOL_ATTN: at the 26 calls of one main-path prefill (bfloat16, and the
+   same calls in float32), and where the tiling has edges: head dim 16,
+   64, 128 and 256; S 37, 777 and 2049 (not multiples of the 64-key tile
+   or the 128-row block); windows 1, 63, 65, 100, 513 and S; GQA groups
+   1, 2, 4 and 8; soft cap off and 50.0; each call launches its dtype's
+   kernel once and the other never;
+9. their times at the main path's calls: one local and one global launch
+   and the whole prefill's 26 launches, as device time under
+   ``torch.profiler`` (the wrapper's host time is not the kernel's),
+   beside the plain version, ``scaled_dot_product_attention`` with the
+   band mask, the same with ``is_causal=True`` on the global launches
+   (exactly their function), and the bound; the rate on unmasked and on
+   computed work (``tile_schedule``) and the share of the bound.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -72,13 +81,18 @@ WALL_REPS = 7
 #: HBM3 bandwidth, at the full 700 W power limit
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
-#: dense bf16 tensor-core rate (same source)
+#: dense bf16 tensor-core rate, and float32 outside the tensor cores
+#: (same source)
 PEAK_BF16_OPS = 989e12
+PEAK_F32_OPS = 67e12
 KERNEL_SOURCE = "src/repro_torch/csrc/cim_matmul.cu"
 REPLACES = {"cim_codes": "src/repro/kernels/cim_matmul.py:36",
             "cim_codes_var": "src/repro/kernels/cim_matmul.py:65"}
 ATTN_SOURCE = "src/repro_torch/csrc/local_attention.cu"
 ATTN_REPLACES = "src/repro/kernels/local_attention.py:26"
+#: the attention kernel of each dtype (``LAUNCHES`` keys)
+ATTN_KERNEL = {torch.bfloat16: "local_attention",
+               torch.float32: "local_attention_f32"}
 
 LM_ARCH = "gemma3-1b"
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
@@ -476,14 +490,18 @@ def lm_serving(la):
             f"{cfg.d_model}, vocab {cfg.vocab_size}; set up in "
             f"{time.perf_counter() - t0:.1f} s")
 
-        la.LAUNCHES["local_attention"] = 0
+        for key in la.LAUNCHES:
+            la.LAUNCHES[key] = 0
         torch.cuda.synchronize()
         tokens = greedy_generate(prog, params, batch, LM_GEN)
         torch.cuda.synchronize()
-        launches = la.LAUNCHES["local_attention"]
-        check(launches == cfg.num_layers,
-              f"{name}: {launches} attention launches in one prefill, want "
-              f"{cfg.num_layers}")
+        counts = dict(la.LAUNCHES)
+        launches = counts["local_attention"]
+        check(counts == {"local_attention": cfg.num_layers,
+                         "local_attention_f32": 0},
+              f"{name}: attention launches in one prefill {counts}, want "
+              f"{cfg.num_layers} of the bfloat16 kernel and none of the "
+              f"float32 one")
         check(tuple(tokens.shape) == (LM_BATCH, LM_GEN)
               and int(tokens.min()) >= 0
               and int(tokens.max()) < cfg.vocab_size,
@@ -580,7 +598,8 @@ def lm_serving(la):
 def lm_full_f32_first_tokens(la):
     """Phase 6: the full-width prefill of both flavors in float32 on the
     card, with the kernel and with its plain version swapped in: every
-    first token must be equal."""
+    first token must be equal.  Returns the float32 kernel's launches in
+    the first flavor's prefill."""
     from repro_torch.configs import get_config
 
     # full float32 products (the default, set here explicitly)
@@ -592,10 +611,15 @@ def lm_full_f32_first_tokens(la):
         prog, params, batch = lm_program(cfg, LM_BATCH, LM_PROMPT, LM_GEN,
                                          kv_dtype, cim, "cuda",
                                          torch.float32)
-        la.LAUNCHES["local_attention"] = 0
+        for key in la.LAUNCHES:
+            la.LAUNCHES[key] = 0
+        torch.cuda.synchronize()
         logits, _ = prog.prefill_fn(params, batch)
         torch.cuda.synchronize()
-        launches = la.LAUNCHES["local_attention"]
+        counts = dict(la.LAUNCHES)
+        launches = counts["local_attention_f32"]
+        if name == LM_FLAVORS[0][0]:
+            f32_launches = launches
         real = la.grouped_local_attention
         la.grouped_local_attention = la.grouped_local_attention_plain
         try:
@@ -612,15 +636,18 @@ def lm_full_f32_first_tokens(la):
             f"{(logits - ref_logits).abs().max().item():.3e}; first tokens "
             f"{first.tolist()} vs {ref_first.tolist()}; plain run's top-2 "
             f"margins {[f'{m:.3e}' for m in margin.tolist()]}; "
-            f"{launches} launches; {time.perf_counter() - t0:.1f} s")
-        check(launches == cfg.num_layers,
-              f"{name} float32: {launches} attention launches in one "
-              f"prefill, want {cfg.num_layers}")
+            f"launches {counts}; {time.perf_counter() - t0:.1f} s")
+        check(counts == {"local_attention": 0,
+                         "local_attention_f32": cfg.num_layers},
+              f"{name} float32: attention launches in one prefill {counts}, "
+              f"want {cfg.num_layers} of the float32 kernel and none of "
+              f"the bfloat16 one")
         check(torch.equal(first, ref_first),
               f"{name} float32: first tokens {first.tolist()} with the "
               f"kernel, {ref_first.tolist()} with plain attention")
         del prog, params, batch, logits, ref_logits
         torch.cuda.empty_cache()
+    return f32_launches
 
 
 def lm_reduced_vs_cpu():
@@ -678,52 +705,60 @@ def attn_close(a, b, dtype) -> bool:
     return torch.allclose(a.float(), b.float(), rtol=tol, atol=tol)
 
 
+def attn_case(la, q, k, v, window, cap, what, worst) -> None:
+    """One attention call against its plain version: within TOL_ATTN,
+    and one launch of q's dtype's kernel and none of the other."""
+    name = ATTN_KERNEL[q.dtype]
+    before = dict(la.LAUNCHES)
+    a = la.grouped_local_attention(q, k, v, window=window, softcap=cap)
+    launched = {key: la.LAUNCHES[key] - before[key] for key in before}
+    b = la.grouped_local_attention_plain(q, k, v, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    err = (a.float() - b.float()).abs().max().item()
+    worst[name] = max(worst[name], err)
+    check(launched == {key: int(key == name) for key in before},
+          f"{what}: launches {launched}, want one of {name}")
+    check(attn_close(a, b, q.dtype),
+          f"{name} != plain at {what}: max |diff| {err}")
+
+
 def check_attention(la, calls):
-    """Phase 8: attention kernel vs plain version on the card."""
-    worst_main, n_checks = 0.0, 0
+    """Phase 8: both attention kernels against their plain version on the
+    card.  Returns each kernel's largest |diff|."""
+    names = list(ATTN_KERNEL.values())
+    worst_main = dict.fromkeys(names, 0.0)
+    n_checks = 0
     for q, k, v, window, cap in calls:
-        a = la.grouped_local_attention(q, k, v, window=window, softcap=cap)
-        b = la.grouped_local_attention_plain(q, k, v, window=window,
-                                             softcap=cap)
-        torch.cuda.synchronize()
-        err = (a.float() - b.float()).abs().max().item()
-        worst_main = max(worst_main, err)
-        n_checks += 1
-        check(attn_close(a, b, q.dtype),
-              f"attention kernel != plain at main-path call "
-              f"{tuple(q.shape)} window {window}")
+        for dtype in (torch.bfloat16, torch.float32):
+            attn_case(la, q.to(dtype), k.to(dtype), v.to(dtype), window, cap,
+                      f"main-path call {tuple(q.shape)} window {window} "
+                      f"{dtype}", worst_main)
+            n_checks += 1
     rng = np.random.default_rng(SEED + 2)
-    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for d in (64, 128, 256):
-        for s in (37, 777):
-            base = [torch.from_numpy(rng.standard_normal(shape).astype(
-                np.float32)).cuda() for shape in
-                ((2, s, 4, d), (2, s, 1, d), (2, s, 1, d))]
-            for dtype in (torch.float32, torch.bfloat16):
-                q, k, v = (t.to(dtype) for t in base)
-                for window in (1, 7, 512, s):
-                    for cap in (None, 50.0):
-                        a = la.grouped_local_attention(q, k, v, window=window,
-                                                       softcap=cap)
-                        b = la.grouped_local_attention_plain(
-                            q, k, v, window=window, softcap=cap)
-                        torch.cuda.synchronize()
-                        err = (a.float() - b.float()).abs().max().item()
-                        worst[dtype] = max(worst[dtype], err)
-                        n_checks += 1
-                        check(attn_close(a, b, dtype),
-                              f"attention kernel != plain: d {d} S {s} "
-                              f"window {window} softcap {cap} {dtype}: "
-                              f"max |diff| {err}")
-    log(f"[attention] {n_checks} comparisons within tolerance "
-        f"{ {str(k): v for k, v in TOL_ATTN.items()} }; max |diff| at the "
-        f"main-path calls (bfloat16) {worst_main}; random inputs "
-        f"{ {str(k): v for k, v in worst.items()} }")
-    return worst_main
+    worst = dict.fromkeys(names, 0.0)
+    for d in (16, 64, 128, 256):
+        for s in (37, 777, 2049):
+            for group in (1, 2, 4, 8):
+                base = [torch.from_numpy(rng.standard_normal(shape).astype(
+                    np.float32)).cuda() for shape in
+                    ((1, s, 2 * group, d), (1, s, 2, d), (1, s, 2, d))]
+                for dtype in (torch.float32, torch.bfloat16):
+                    q, k, v = (t.to(dtype) for t in base)
+                    for window in (1, 63, 65, 100, 513, s):
+                        for cap in (None, 50.0):
+                            attn_case(la, q, k, v, window, cap,
+                                      f"d {d} S {s} group {group} window "
+                                      f"{window} softcap {cap} {dtype}",
+                                      worst)
+                            n_checks += 1
+    log(f"[attention] {n_checks} comparisons (tolerance "
+        f"{ {str(k): v for k, v in TOL_ATTN.items()} }); max |diff| at the "
+        f"main-path calls {worst_main}; at the edge cases {worst}")
+    return {name: max(worst_main[name], worst[name]) for name in names}
 
 
 def attn_work(q, k, v, window):
-    """(bf16 operations, bytes) one call must do: 4 * D per unmasked
+    """(operations, bytes) one call must do: 4 * D per unmasked
     (query, key) pair; q, k, v read once, the output written once."""
     b, s, h, d = q.shape
     w = min(window, s)
@@ -732,23 +767,54 @@ def attn_work(q, k, v, window):
     return 4 * d * pairs * b * h, nbytes
 
 
-def time_attention(la, calls, reps: int = 10):
-    """Phase 9: the attention kernel's times on the main path's calls."""
-    import torch.nn.functional as F
+def device_ms(fn, arglist, n):
+    """Device time (ms) of one pass of ``fn`` over ``arglist``: the sum of
+    the device kernels' own times under ``torch.profiler``, so the host's
+    launch time and the idle gaps between launches do not count."""
+    from torch.profiler import ProfilerActivity, profile
 
-    def timed(fn, arglist, n):
-        for args in arglist:  # warm-up
-            fn(*args)
-        torch.cuda.synchronize()
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
-        ev0.record()
+    for args in arglist:  # warm-up
+        fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             for args in arglist:
                 fn(*args)
-        ev1.record()
         torch.cuda.synchronize()
-        return ev0.elapsed_time(ev1) / n
+    total = 0.0
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            total += getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0.0))
+    if total <= 0:
+        fail("the profiler saw no device time")
+    return total / n / 1e3
+
+
+def event_ms(fn, arglist, n):
+    """Host-inclusive time (ms) of one pass: CUDA events around n
+    back-to-back passes."""
+    for args in arglist:  # warm-up
+        fn(*args)
+    torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    for _ in range(n):
+        for args in arglist:
+            fn(*args)
+    ev1.record()
+    torch.cuda.synchronize()
+    return ev0.elapsed_time(ev1) / n
+
+
+def time_attention(la, calls, card, reps: int = 10):
+    """Phase 9: each attention kernel's times on the main path's calls
+    (the bfloat16 prefill's, and the same in float32).  Returns the
+    prefill row of each kernel."""
+    import torch.nn.functional as F
+
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     def kernel(q, k, v, window, cap):
         la.grouped_local_attention(q, k, v, window=window, softcap=cap)
@@ -757,48 +823,78 @@ def time_attention(la, calls, reps: int = 10):
         la.grouped_local_attention_plain(q, k, v, window=window,
                                          softcap=cap)
 
-    # the library yardstick: scaled_dot_product_attention with the band
-    # as an explicit mask, on (B, H, S, D) copies made outside the timing
-    # (it has no soft cap, which gemma3 does not use)
-    masks, lib_args = {}, []
-    for q, k, v, window, cap in calls:
-        s, h = q.shape[1], q.shape[2]
-        if window not in masks:
-            pos = torch.arange(s, device=q.device)
-            masks[window] = (pos[None, :] <= pos[:, None]) & (
-                pos[None, :] > pos[:, None] - window)
-        lib_args.append((
-            q.transpose(1, 2).contiguous(),
-            k.expand(-1, -1, h, -1).transpose(1, 2).contiguous(),
-            v.expand(-1, -1, h, -1).transpose(1, 2).contiguous(),
-            masks[window], cap))
-
     def library(q, k, v, mask, cap):
         F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
-    has_lib = all(cap is None for *_, cap in calls)
-    rows = {}
+    def library_causal(q, k, v, mask, cap):
+        # a global layer's function exactly; SDPA may take its flash path
+        if mask is None:
+            F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        else:
+            F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
     local = next(i for i, c in enumerate(calls) if c[3] < c[0].shape[1])
     glob = next(i for i, c in enumerate(calls) if c[3] >= c[0].shape[1])
-    for label, idx, n in (("one local launch", [local], 20),
-                          ("one global launch", [glob], 20),
-                          ("one prefill (26 launches)",
-                           list(range(len(calls))), reps)):
-        args = [calls[i] for i in idx]
-        ops = sum(attn_work(*c[:4])[0] for c in args)
-        nbytes = sum(attn_work(*c[:4])[1] for c in args)
-        t_ops, t_bytes = ops / PEAK_BF16_OPS, nbytes / PEAK_BYTES
-        row = dict(ms=timed(kernel, args, n), plain_ms=timed(plain, args, n),
-                   library_ms=(timed(library, [lib_args[i] for i in idx], n)
-                               if has_lib else None),
-                   bound_ms=max(t_ops, t_bytes) * 1e3,
-                   bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   calls=len(args))
-        rows[label] = row
-        q = args[0][0]
-        log(f"[time] attention {label}, q {tuple(q.shape)} {q.dtype}, "
-            f"window {args[0][3] if len(args) == 1 else 'per layer'}: {row}")
-    return rows["one prefill (26 launches)"]
+    # SDPA has no soft cap, which gemma3 does not use
+    has_lib = all(cap is None for *_, cap in calls)
+    out = {}
+    for dtype, peak in ((torch.bfloat16, PEAK_BF16_OPS),
+                        (torch.float32, PEAK_F32_OPS)):
+        name = ATTN_KERNEL[dtype]
+        args = [(q.to(dtype), k.to(dtype), v.to(dtype), window, cap)
+                for q, k, v, window, cap in calls]
+        # the yardsticks' (B, H, S, D) copies and band masks, made outside
+        # the timing
+        masks, lib_args, causal_args = {}, [], []
+        for q, k, v, window, cap in args:
+            s, h = q.shape[1], q.shape[2]
+            if window not in masks:
+                pos = torch.arange(s, device=q.device)
+                masks[window] = (pos[None, :] <= pos[:, None]) & (
+                    pos[None, :] > pos[:, None] - window)
+            qkv = (q.transpose(1, 2).contiguous(),
+                   k.expand(-1, -1, h, -1).transpose(1, 2).contiguous(),
+                   v.expand(-1, -1, h, -1).transpose(1, 2).contiguous())
+            lib_args.append(qkv + (masks[window], cap))
+            causal_args.append(qkv + (None if window >= s else masks[window],
+                                      cap))
+        for label, idx, n in (("one local launch", [local], 20),
+                              ("one global launch", [glob], 20),
+                              ("one prefill (26 launches)",
+                               list(range(len(args))), reps)):
+            sel = [args[i] for i in idx]
+            ops = sum(attn_work(*c[:4])[0] for c in sel)
+            nbytes = sum(attn_work(*c[:4])[1] for c in sel)
+            computed = sum(
+                c[0].shape[0] * c[0].shape[2]
+                * la.tile_schedule(c[0].shape[1], c[3]).operations(
+                    c[0].shape[3]) for c in sel)
+            t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
+            row = dict(ms=device_ms(kernel, sel, n),
+                       host_inclusive_ms=event_ms(kernel, sel, n),
+                       plain_ms=device_ms(plain, sel, n),
+                       library_ms=(device_ms(library,
+                                             [lib_args[i] for i in idx], n)
+                                   if has_lib else None),
+                       bound_ms=max(t_ops, t_bytes) * 1e3,
+                       bound_by="operations" if t_ops >= t_bytes else "bytes",
+                       calls=len(sel))
+            if has_lib and label != "one local launch":
+                # is_causal on the global launches, the band mask elsewhere
+                row["library_causal_ms"] = device_ms(
+                    library_causal, [causal_args[i] for i in idx], n)
+            row["tflops_unmasked"] = ops / row["ms"] / 1e9
+            if dtype == torch.bfloat16:
+                row["tflops_computed"] = computed / row["ms"] / 1e9
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            q = sel[0][0]
+            log(f"[time] {name} {label}, q {tuple(q.shape)} {q.dtype}, "
+                f"window {sel[0][3] if len(sel) == 1 else 'per layer'}: "
+                f"{row} on {card}")
+            out[name] = row
+        del args, lib_args, causal_args
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -856,16 +952,28 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": None})
     t_lm = time.perf_counter()
     lm, attn_calls = lm_serving(la)
-    lm_full_f32_first_tokens(la)
+    f32_launches = lm_full_f32_first_tokens(la)
     lm_reduced_vs_cpu()
     worst_attn = check_attention(la, attn_calls)
-    attn = time_attention(la, attn_calls)
-    kernels.append({
-        "name": "local_attention", "route": "cuda", "source": ATTN_SOURCE,
-        "replaces": ATTN_REPLACES, "launches": lm["bf16"]["launches"],
-        "max_abs_err": worst_attn, "ms": attn["ms"],
-        "plain_ms": attn["plain_ms"], "bound_ms": attn["bound_ms"],
-        "bound_by": attn["bound_by"], "library_ms": attn["library_ms"]})
+    attn = time_attention(la, attn_calls, card)
+    launches_attn = {"local_attention": lm["bf16"]["launches"],
+                     "local_attention_f32": f32_launches}
+    for name, row in attn.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": ATTN_SOURCE,
+            "replaces": ATTN_REPLACES, "launches": launches_attn[name],
+            "max_abs_err": worst_attn[name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    bf16 = attn["local_attention"]
+    log(f"[attention] bfloat16 kernel per prefill: {bf16['ms']:.4f} ms, "
+        f"{bf16['tflops_unmasked']:.1f} TFLOP/s on unmasked work "
+        f"({bf16['tflops_computed']:.1f} on computed work), "
+        f"{100 * bf16['share_of_bound']:.1f}% of the {bf16['bound_ms']:.4f} "
+        f"ms bound; SDPA with the band mask {bf16['library_ms']:.4f} ms, "
+        f"with is_causal on the global launches "
+        f"{bf16['library_causal_ms']:.4f} ms; plain {bf16['plain_ms']:.4f} ms "
+        f"on {card}")
     log(f"[lm] {LM_ARCH} serving phases took "
         f"{time.perf_counter() - t_lm:.1f} s; median prefill ms / decode "
         f"ms per token / tokens per s: "

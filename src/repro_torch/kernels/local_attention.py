@@ -7,7 +7,17 @@ online softmax in float32 with ``p`` rounded to v's type before
 ``p . v``, and the output in q's type.  A global (full causal) layer
 is the case ``window = S``.
 
-Two entry points launch the same kernel:
+Two kernels, chosen by dtype (a dispatch, not a fallback: a failed
+build or launch of either raises):
+
+* bfloat16 — tensor cores (``wgmma`` bf16 with f32 accumulators for
+  both products), K/V streamed by TMA through a shared-memory ring, key
+  tiles and chunks that hold no unmasked pair skipped, the heaviest
+  query tiles launched first; ``LAUNCHES["local_attention"]``;
+* float32 — the first version's CUDA-core kernel, which holds the
+  plain version to 2e-5; ``LAUNCHES["local_attention_f32"]``.
+
+Two entry points launch them:
 
 * :func:`local_attention` — q, k, v (BH, S, D), the reference wrapper's
   layout (the GQA repeat done by the caller);
@@ -17,19 +27,20 @@ Two entry points launch the same kernel:
   transposed copy is made.  Output (B, S, H, D).
 
 The CUDA source is ``csrc/local_attention.cu`` (its header notes what
-bounds the kernel on the H100 and what the simple design does about
-it), built with ``nvcc`` for ``sm_90a`` at first use
+bounds the kernels on the H100 and what each design does about it),
+built with ``nvcc`` for ``sm_90a`` at first use
 (``kernels/_build.py``) and loaded with ``ctypes``.  On a CPU tensor
 the wrappers compute :func:`grouped_local_attention_plain`, a dense
 masked softmax in plain PyTorch; on a CUDA tensor they launch the
-kernel or raise.
+kernel or raise.  :func:`tile_schedule` counts what the bfloat16
+kernel visits, skips and computes at a given (S, window).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -41,9 +52,66 @@ SOURCE = _build.CSRC / "local_attention.cu"
 HEAD_DIMS = (16, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 MASKED = -1e30
-#: kernel launches; the wrapper adds one where it launches, and nowhere
-#: else
-LAUNCHES = {"local_attention": 0}
+#: kernel launches by kernel (bfloat16 tensor cores, float32 CUDA
+#: cores); the wrapper adds one where it launches, and nowhere else
+LAUNCHES = {"local_attention": 0, "local_attention_f32": 0}
+#: the bfloat16 kernel's tiling (``tc::`` in the CUDA source): query rows
+#: per block, keys per tile, rows per warpgroup, keys per chunk of P V
+TC_BLOCK_Q, TC_BLOCK_K, TC_ROWS, TC_CHUNK = 128, 64, 64, 16
+
+
+class TileSchedule(NamedTuple):
+    """What the bfloat16 kernel does for one (batch, head) at (S,
+    window).  ``visited``: (query tile, key tile) pairs the blocks walk.
+    Per warpgroup (64 query rows) and visited key tile: ``skipped`` (no
+    16-key chunk can hold an unmasked pair: neither product runs),
+    ``full`` (no masked pair: the mask is not applied) and ``partial``.
+    ``s_pairs``: (row, key) pairs of Q K^T, 64 x 64 per warpgroup tile
+    not skipped; ``pv_pairs``: pairs of P V, 64 x 16 per live chunk;
+    ``unmasked_pairs``: the pairs the function needs."""
+    visited: int
+    full: int
+    partial: int
+    skipped: int
+    s_pairs: int
+    pv_pairs: int
+    unmasked_pairs: int
+
+    def operations(self, d: int) -> int:
+        """Multiply-add operations (2 each) the two products run at head
+        dim ``d``."""
+        return 2 * d * (self.s_pairs + self.pv_pairs)
+
+
+def tile_schedule(s: int, window: int) -> TileSchedule:
+    """The bfloat16 kernel's tile classification, made as the CUDA source
+    makes it, counted for one (batch, head)."""
+    window = min(int(window), s)
+    visited = full = partial = skipped = s_pairs = pv_pairs = 0
+    for q_lo in range(0, s, TC_BLOCK_Q):
+        q_hi = min(q_lo + TC_BLOCK_Q, s) - 1
+        for t in range(max(0, q_lo - window + 1) // TC_BLOCK_K,
+                       q_hi // TC_BLOCK_K + 1):
+            visited += 1
+            k_lo = t * TC_BLOCK_K
+            for r_lo in range(q_lo, min(q_lo + TC_BLOCK_Q, s), TC_ROWS):
+                r_hi = min(r_lo + TC_ROWS - 1, s - 1)
+                live = sum(1 for c in range(k_lo, k_lo + TC_BLOCK_K,
+                                            TC_CHUNK)
+                           if c <= r_hi and c + TC_CHUNK - 1 > r_lo - window)
+                if not live:
+                    skipped += 1
+                    continue
+                if (k_lo + TC_BLOCK_K - 1 <= r_lo
+                        and k_lo > r_lo + TC_ROWS - 1 - window):
+                    full += 1
+                else:
+                    partial += 1
+                s_pairs += TC_ROWS * TC_BLOCK_K
+                pv_pairs += TC_ROWS * TC_CHUNK * live
+    unmasked = window * (window + 1) // 2 + (s - window) * window
+    return TileSchedule(visited, full, partial, skipped, s_pairs, pv_pairs,
+                        unmasked)
 
 
 def build() -> Tuple[Path, str]:
@@ -121,8 +189,9 @@ def grouped_local_attention(q: torch.Tensor, k: torch.Tensor,
     (B, S, KV, D), causal within ``window``.
 
     CPU tensors take :func:`grouped_local_attention_plain`.  CUDA
-    tensors launch the kernel (``LAUNCHES`` counts launches); nothing
-    falls back to the plain version on the card."""
+    tensors launch the bfloat16 or the float32 kernel, by dtype
+    (``LAUNCHES`` counts each); nothing falls back to the plain version
+    on the card."""
     _check(q, k, v, window, softcap)
     if q.device.type == "cpu":
         return grouped_local_attention_plain(q, k, v, window=window,
@@ -135,11 +204,20 @@ def grouped_local_attention(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"head dim {d} not in the kernel's {HEAD_DIMS}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("q, k and v need unit stride along the head dim")
-    if b * h > 65535:
-        raise ValueError(f"{b} x {h} heads exceed the kernel's grid")
+    bf16 = q.dtype == torch.bfloat16
+    if (-(-s // TC_BLOCK_Q) if bf16 else b * h) > 65535:
+        raise ValueError(f"(B, S, H) = ({b}, {s}, {h}) exceeds the kernel's "
+                         f"grid")
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    if bf16:
+        # the tensor-core kernel's TMA copies need rows that start on
+        # 16 bytes: a view whose rows do not is copied once
+        q, k, v = (t if t.data_ptr() % 16 == 0
+                   and all(st % 8 == 0 for st in t.stride()[:3])
+                   else t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
     launch = _launcher()
     operands = []  # pointer and (batch, seq, head) strides of each
     for t in (q, k, v, out):
@@ -149,10 +227,11 @@ def grouped_local_attention(q: torch.Tensor, k: torch.Tensor,
         err = launch(*operands, b, s, h, h // k.shape[2], d,
                      min(int(window), s), d ** -0.5,
                      0.0 if softcap is None else float(softcap),
-                     int(q.dtype == torch.bfloat16), stream)
+                     int(bf16), stream)
+    name = "local_attention" if bf16 else "local_attention_f32"
     if err != 0:
-        raise RuntimeError(f"local_attention launch failed: CUDA error {err}")
-    LAUNCHES["local_attention"] += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
     return out
 
 

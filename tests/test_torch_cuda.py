@@ -89,34 +89,46 @@ def _normal(rng, shape, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
 def test_cuda_local_attention_matches_plain(d, dtype):
-    """Ragged S, windows from 1 to S, softcap off and on, both layouts
-    (GQA group 4 and the (BH, S, D) layout); one launch per call."""
+    """The bfloat16 (tensor-core) and float32 (CUDA-core) kernels against
+    the plain version where the tiling has edges: S not a multiple of the
+    64-key tiles or the 128-row blocks (37, 777, 2049), windows that are
+    not multiples of a tile (1, 63, 65, 100, 513, S), GQA groups 1, 2, 4
+    and 8 over 2 kv heads, soft cap off and 50.0, and the (BH, S, D)
+    layout.  Each call launches its dtype's kernel once and the other
+    kernel never."""
     _needs_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(d)
     tol = ATTN_TOL[dtype]
+    name, other = (("local_attention", "local_attention_f32")
+                   if dtype == torch.bfloat16 else
+                   ("local_attention_f32", "local_attention"))
     calls = 0
-    for s in (37, 515):
+    for s in (37, 777, 2049):
+        for group in (1, 2, 4, 8):
+            q = _normal(rng, (1, s, 2 * group, d), dtype)
+            k, v = (_normal(rng, (1, s, 2, d), dtype) for _ in range(2))
+            for window in (1, 63, 65, 100, 513, s):
+                for cap in (None, 50.0):
+                    before = dict(LA.LAUNCHES)
+                    a = LA.grouped_local_attention(q, k, v, window=window,
+                                                   softcap=cap)
+                    b = LA.grouped_local_attention_plain(
+                        q, k, v, window=window, softcap=cap)
+                    torch.cuda.synchronize()
+                    assert LA.LAUNCHES[name] == before[name] + 1
+                    assert LA.LAUNCHES[other] == before[other]
+                    torch.testing.assert_close(a.float(), b.float(),
+                                               rtol=tol, atol=tol)
+                    calls += 1
         q = _normal(rng, (2, s, 4, d), dtype)
         k, v = (_normal(rng, (2, s, 1, d), dtype) for _ in range(2))
-        for window in (1, 7, 512, s):
-            for cap in (None, 50.0):
-                before = LA.LAUNCHES["local_attention"]
-                a = LA.grouped_local_attention(q, k, v, window=window,
-                                               softcap=cap)
-                b = LA.grouped_local_attention_plain(q, k, v, window=window,
-                                                     softcap=cap)
-                torch.cuda.synchronize()
-                assert LA.LAUNCHES["local_attention"] == before + 1
-                torch.testing.assert_close(a.float(), b.float(), rtol=tol,
-                                           atol=tol)
-                calls += 1
         qb = q.permute(0, 2, 1, 3).reshape(8, s, d)
         kb = k.expand(2, s, 4, d).permute(0, 2, 1, 3).reshape(8, s, d)
         vb = v.expand(2, s, 4, d).permute(0, 2, 1, 3).reshape(8, s, d)
         a = LA.local_attention(qb, kb, vb, window=7)
         b = LA.local_attention_plain(qb, kb, vb, window=7)
         torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
-    assert calls == 16
+    assert calls == 3 * 4 * 6 * 2
