@@ -5,23 +5,33 @@
 
 Phases (any failure exits non-zero before the result line):
 
-1. the card's name and power limit (``nvidia-smi``), and the build of
+1. the card's name and power limit (``nvidia-smi``), the build of
    every kernel from the sources in ``src/repro_torch/csrc`` (nvcc,
-   ``sm_90a``);
+   ``sm_90a``), and the CIM library's SASS (``cuobjdump``): int8
+   tensor-core products (IGMMA) and no IDP4A;
 2. the main path: vgg11-cifar10 at full width, random float weights
    from a numpy seed, quantized for serving and served through the
    streaming simulator (``serve_stream``, 8 frames, ``batch_window=4``)
    on the card — once with nominal ADCs, once with a device-variation
-   model attached.  Each run resets the kernel launch counts just
-   before and reads them just after; every kernel must have launched.
-   The same runs on the CPU (plain kernel versions, calibration copied
-   from the card's engine) must give equal logits, counters, traffic
-   and timeline, and ``measured_ii == analytic_ii``;
-3. each kernel against its plain PyTorch version on the card, equal by
-   value: at the main path's own calls (recorded from one batch), and
-   on random int8 inputs at those shapes for n_c in {32, 96, 256}, both
-   ADC flavors, both output modes, and ragged rows, columns and depth;
-4. kernel times (CUDA events) beside the plain version's and the bound;
+   model attached.  Each flavor first records the kernel calls of one
+   batch; each counted run resets the kernel launch counts and the
+   wrapper's weight-copy count just before and reads them just after:
+   the flavor's variant launches once per recorded call per batch, the
+   other never, and no weight is copied.  The same runs on the CPU
+   (plain kernel versions, calibration copied from the card's engine)
+   must give equal logits, counters, traffic and timeline, and
+   ``measured_ii == analytic_ii``;
+3. each CIM variant against its plain PyTorch version on the card,
+   equal by value, both output modes: at the main path's own calls, on
+   random int8 inputs at those shapes for n_c in {32, 96, 256} with
+   ragged rows, columns and depth, and over an edge grid at n_c = 256
+   (R 1, 4, 16, 37, 4096; N 10, 64, 77, 512, 1000; kc 9, 29, 256; T 1,
+   3, 7, 18, 40, and FC-layout slices with a ragged last step), each
+   shape with its weight K-major and N-major;
+4. the CIM kernel's device time under ``torch.profiler`` for each
+   main-path call and per batch, both variants, beside its
+   host-inclusive CUDA-event time, the plain version's device time, the
+   bound and the share of it;
 5. LM serving: gemma3-1b at full width (26 layers, vocab 262144) with
    random weights from ``torch.Generator(device="cuda").manual_seed(0)``,
    batch 4, a 2048-token prompt (four windows of 512, so the local
@@ -77,6 +87,12 @@ SEED = 0
 FRAMES = 8
 BATCH_WINDOW = 4
 WALL_REPS = 7
+#: phase 3's edge grid for the CIM kernel (``edge_cases``)
+EDGE_NC = 256
+EDGE_R = (1, 4, 16, 37, 4096)
+EDGE_N = (10, 64, 77, 512, 1000)
+EDGE_T = (1, 3, 7, 18, 40)
+EDGE_T_FC = (1, 3, 7)
 #: H100 SXM peaks (NVIDIA data sheet, dense): int8 tensor-core rate and
 #: HBM3 bandwidth, at the full 700 W power limit
 PEAK_INT8_OPS = 1979e12
@@ -185,6 +201,26 @@ def serving_walls(sim, frames):
     return walls
 
 
+def check_cim_sass(lib) -> None:
+    """The CIM library's dots run on the int8 tensor cores: its SASS
+    holds IGMMA (or IMMA) and no IDP4A."""
+    import os
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.isfile(tool):
+        log("[build] cuobjdump not found: SASS not checked")
+        return
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {op: sass.count(op) for op in ("IGMMA", "IMMA", "IDP4A")}
+    log(f"[build] {lib.name} SASS: {counts}")
+    if counts["IGMMA"] + counts["IMMA"] == 0 or counts["IDP4A"]:
+        fail(f"the CIM kernel's SASS {counts}: want int8 tensor-core "
+             "products and no IDP4A")
+
+
 def main_path(km):
     """Phase 2: serve vgg11-cifar10 on the card, nominal then with
     device variation; hold each against the CPU run."""
@@ -217,17 +253,29 @@ def main_path(km):
     serve_stream(sims["cuda"], frames[:BATCH_WINDOW], batch_window=BATCH_WINDOW)
     torch.cuda.synchronize()
 
-    launches, wall = {}, {}
+    launches, wall, calls = {}, {}, {}
     for flavor, var in (("nominal", None), ("variation", VARIATION_PRESETS["all"])):
         if var is not None:
             for sim in sims.values():
                 sim.set_variation(var)
-        for k in km.cim_codes.launches:
-            km.cim_codes.launches[k] = 0
+        name = "cim_codes" if var is None else "cim_codes_var"
+        calls[name] = record_calls(km, sims["cuda"], frames)
+        want = {k: 0 for k in km.LAUNCHES}
+        want[name] = FRAMES // BATCH_WINDOW * len(calls[name])
+        for k in km.LAUNCHES:
+            km.LAUNCHES[k] = 0
+        km.WEIGHT_COPIES = 0
         torch.cuda.synchronize()
         rep = serve_stream(sims["cuda"], frames, batch_window=BATCH_WINDOW)
         torch.cuda.synchronize()
-        launches[flavor] = dict(km.cim_codes.launches)
+        launches[flavor] = dict(km.LAUNCHES)
+        if launches[flavor] != want:
+            fail(f"{flavor}: launches {launches[flavor]} in one serving run, "
+                 f"want {want} ({len(calls[name])} calls per "
+                 f"{BATCH_WINDOW}-frame batch)")
+        if km.WEIGHT_COPIES != 0:
+            fail(f"{flavor}: the serving run made {km.WEIGHT_COPIES} K-major "
+                 "weight copies, want 0")
         walls = serving_walls(sims["cuda"], frames)
         wall[flavor] = float(np.median(walls))
         rep_cpu = serve_stream(sims["cpu"], frames, batch_window=BATCH_WINDOW)
@@ -258,7 +306,7 @@ def main_path(km):
         fail("the nominal serving run never launched cim_codes")
     if launches["variation"]["cim_codes_var"] == 0:
         fail("the variation serving run never launched cim_codes_var")
-    return sims["cuda"], frames, launches, wall
+    return sims["cuda"], frames, launches, wall, calls
 
 
 def profile_device(run, what: str) -> None:
@@ -304,24 +352,20 @@ def device_share(sim, frames):
 
 
 def record_calls(km, sim, frames):
-    """The kernel calls of one main-path batch, nominal and variation
-    (recorded outside the counted runs)."""
-    from repro_torch.core.variation import VARIATION_PRESETS
+    """The kernel calls of one main-path batch with the sim's current
+    flavor (recorded outside the counted runs)."""
     from repro_torch.runtime.serve_loop import serve_stream
 
-    calls = {"cim_codes": [], "cim_codes_var": []}
+    calls = []
     real = km.cim_codes
 
     def recorder(x, w, spec, adc=None, emit_codes=True):
-        calls["cim_codes_var" if adc is not None else "cim_codes"].append(
-            (x, w, spec, adc))
+        calls.append((x, w, spec, adc))
         return real(x, w, spec, adc=adc, emit_codes=emit_codes)
 
     km.cim_codes = recorder
     try:
-        for var in (None, VARIATION_PRESETS["all"]):
-            sim.set_variation(var)
-            serve_stream(sim, frames[:BATCH_WINDOW], batch_window=BATCH_WINDOW)
+        serve_stream(sim, frames[:BATCH_WINDOW], batch_window=BATCH_WINDOW)
     finally:
         km.cim_codes = real
     torch.cuda.synchronize()
@@ -347,29 +391,73 @@ def work(x, w, adc):
     return ops, nbytes
 
 
+def edge_cases(n_c, dev, seed):
+    """Phase 3's edge grid at one n_c: (label, x, weights, T), where
+    ``weights`` are equal by value in the layouts the kernel meets.
+
+    3-D: R in EDGE_R, N in EDGE_N, kc in {9, 29, n_c}, T in EDGE_T (no
+    cluster or split size divides every T), the weight K-major (the
+    engine's layout: a view of a (T, N, kc) tensor) and N-major (copied
+    K-major by the wrapper).  2-D (FC tiles): K = (T - 1) n_c + kc (a
+    ragged last step), T in EDGE_T_FC; x a column slice of a wider
+    tensor at a 16-byte aligned offset and at an odd one, the weight a
+    slice of a K-major (N, K) store and of an N-major (K, N) one."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def i8(*shape):
+        return torch.randint(-128, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    for r in EDGE_R:
+        for n in EDGE_N:
+            for kc in (9, 29, n_c):
+                for t in EDGE_T:
+                    x = i8(t, r, kc)
+                    w_nk = i8(t, n, kc)
+                    yield ((t, r, kc, n), x,
+                           (w_nk.transpose(1, 2),
+                            w_nk.transpose(1, 2).contiguous()), t)
+                for t in EDGE_T_FC:
+                    k = (t - 1) * n_c + kc
+                    xs = i8(r, k + 35)
+                    store = i8(n + 5, k + 21)  # K-major (N, K) store
+                    w_k = store[3:3 + n, 5:5 + k].T
+                    for off in (16, 3):
+                        yield ((t, r, kc, n, f"fc x+{off}"),
+                               xs[:, off:off + k],
+                               (w_k, w_k.contiguous()), t)
+
+
 def check_kernels(km, calls):
-    """Phase 3: kernel == plain version by value on the card."""
+    """Phase 3: kernel == plain version by value on the card: at the
+    main path's calls, on random inputs at those shapes and ragged ones
+    for n_c in {32, 96, 256}, and over the edge grid (``edge_cases``),
+    both variants and both output modes."""
     from repro_torch.core.cim import CIMSpec
 
     worst = {"cim_codes": 0.0, "cim_codes_var": 0.0}
     n_checks = 0
 
-    def check(name, x, w, spec, adc, emit):
+    def check(name, x, ws, spec, adc, emit, what=""):
+        """Each weight layout in ``ws`` through the kernel against the
+        plain version of the first."""
         nonlocal n_checks
-        a = km.cim_codes(x, w, spec, adc=adc, emit_codes=emit)
-        b = km.cim_codes_plain(x, w, spec, adc=adc, emit_codes=emit)
-        torch.cuda.synchronize()
-        err = (a - b).abs().max().item() if a.numel() else 0.0
-        worst[name] = max(worst[name], err)
-        n_checks += 1
-        if not same(a, b):
-            fail(f"{name} != plain at {geometry(x, w, spec.n_c)} n_c="
-                 f"{spec.n_c} emit_codes={emit}: max |diff| {err}")
+        b = km.cim_codes_plain(x, ws[0], spec, adc=adc, emit_codes=emit)
+        for w in ws:
+            a = km.cim_codes(x, w, spec, adc=adc, emit_codes=emit)
+            torch.cuda.synchronize()
+            err = (a - b).abs().max().item() if a.numel() else 0.0
+            worst[name] = max(worst[name], err)
+            n_checks += 1
+            if not same(a, b):
+                fail(f"{name} != plain at {geometry(x, w, spec.n_c)} "
+                     f"{what} n_c={spec.n_c} emit_codes={emit} w strides "
+                     f"{w.stride()}: max |diff| {err}")
 
     for name, lst in calls.items():
         for x, w, spec, adc in lst:
             for emit in (True, False):
-                check(name, x, w, spec, adc, emit)
+                check(name, x, (w,), spec, adc, emit, "main path")
     rng = np.random.default_rng(SEED + 1)
     dev = torch.device("cuda")
 
@@ -399,48 +487,76 @@ def check_kernels(km, calls):
         for x, w in cases:
             t = geometry(x, w, n_c)[0]
             for emit in (True, False):
-                check("cim_codes", x, w, spec, None, emit)
-                check("cim_codes_var", x, w, spec, table(t, spec), emit)
-    log(f"[kernels] {n_checks} comparisons equal by value; max |diff| "
-        f"{worst}")
+                check("cim_codes", x, (w,), spec, None, emit)
+                check("cim_codes_var", x, (w,), spec, table(t, spec), emit)
+    n_main = n_checks
+    t0 = time.perf_counter()
+    spec = CIMSpec(n_c=EDGE_NC)
+    copies = km.WEIGHT_COPIES
+    n_cases = 0
+    for what, x, ws, t in edge_cases(EDGE_NC, dev, SEED + 3):
+        n_cases += 1
+        for emit in (True, False):
+            check("cim_codes", x, ws, spec, None, emit, what)
+            check("cim_codes_var", x, ws, spec, table(t, spec), emit, what)
+    # one copy for each N-major weight: 2 variants x 2 output modes
+    if km.WEIGHT_COPIES - copies != 4 * n_cases:
+        fail(f"{km.WEIGHT_COPIES - copies} weight copies over the edge "
+             f"grid, want {4 * n_cases}")
+    log(f"[kernels] {n_checks} comparisons equal by value ({n_main} at the "
+        f"main path's calls and n_c in {{32, 96, 256}}; "
+        f"{n_checks - n_main} over the edge grid of {n_cases} shapes at "
+        f"n_c={EDGE_NC}: R {EDGE_R}, N {EDGE_N}, kc {{9, 29, {EDGE_NC}}}, "
+        f"T {EDGE_T} (FC layout T {EDGE_T_FC}), K- and N-major weights, "
+        f"{time.perf_counter() - t0:.1f} s); max |diff| {worst}")
     return worst
 
 
-def time_kernels(km, calls, reps: int = 50):
-    """Phase 4: per-batch kernel time vs plain version vs bound."""
-    def timed(fn, lst):
-        for args in lst:  # warm-up
-            fn(*args)
-        torch.cuda.synchronize()
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
-        ev0.record()
-        for _ in range(reps):
-            for x, w, spec, adc in lst:
-                fn(x, w, spec, adc=adc)
-        ev1.record()
-        torch.cuda.synchronize()
-        return ev0.elapsed_time(ev1) / reps
+def time_kernels(km, calls, card, reps: int = 50):
+    """Phase 4: each main-path call's device time under
+    ``torch.profiler`` (and the CUDA-event time of back-to-back calls,
+    which includes the wrapper's host time), per call and per batch,
+    beside the plain version's device time, the bound and the share of
+    it."""
+    def kernel(x, w, spec, adc):
+        km.cim_codes(x, w, spec, adc=adc)
 
-    rows = {}
-    for name, lst in calls.items():
-        for x, w, spec, adc in lst:
-            args = [(x, w, spec, adc)]
-            ops, nbytes = work(x, w, adc)
-            log(f"[time] {name} (T, R, kc, N)={geometry(x, w, spec.n_c)}: "
-                f"kernel {timed(km.cim_codes, args):.5f} ms, plain "
-                f"{timed(km.cim_codes_plain, args):.5f} ms, bound "
-                f"{max(ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES) * 1e3:.6f} ms")
+    def plain(x, w, spec, adc):
+        km.cim_codes_plain(x, w, spec, adc=adc)
+
+    def bound(lst):
         ops = sum(work(x, w, adc)[0] for x, w, _, adc in lst)
         nbytes = sum(work(x, w, adc)[1] for x, w, _, adc in lst)
         t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
+        return (max(t_ops, t_bytes) * 1e3,
+                "operations" if t_ops >= t_bytes else "bytes")
+
+    rows = {}
+    for name, lst in calls.items():
+        for i, (x, w, spec, adc) in enumerate(lst):
+            args = [(x, w, spec, adc)]
+            ms = device_ms(kernel, args, reps)
+            b_ms, _ = bound(args)
+            t, r, _, n = geometry(x, w, spec.n_c)
+            plan = km.launch_plan(t, r, n)
+            blocks = -(-n // km.COLS) * -(-r // plan.rows) * plan.slices
+            log(f"[time] {name} call {i + 1} (T, R, kc, N)="
+                f"{geometry(x, w, spec.n_c)}, {blocks} blocks "
+                f"({plan.rows} rows x 64 columns, {plan.slices} slices): "
+                f"device {ms * 1e3:.3f} us, host-inclusive "
+                f"{event_ms(kernel, args, reps) * 1e3:.3f} us, plain "
+                f"{device_ms(plain, args, 10) * 1e3:.3f} us, bound "
+                f"{b_ms * 1e3:.4f} us ({100 * b_ms / ms:.2f}% of it) on "
+                f"{card}")
+        b_ms, by = bound(lst)
         rows[name] = dict(
-            ms=timed(km.cim_codes, lst), plain_ms=timed(km.cim_codes_plain, lst),
-            bound_ms=max(t_ops, t_bytes) * 1e3,
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            ms=device_ms(kernel, lst, reps),
+            host_inclusive_ms=event_ms(kernel, lst, reps),
+            plain_ms=device_ms(plain, lst, 10), bound_ms=b_ms, bound_by=by,
             calls=len(lst))
-        log(f"[time] {name}: {len(lst)} calls per {BATCH_WINDOW}-frame batch: "
-            f"{rows[name]}")
+        rows[name]["share_of_bound"] = b_ms / rows[name]["ms"]
+        log(f"[time] {name}: {len(lst)} calls per {BATCH_WINDOW}-frame "
+            f"batch: {rows[name]} on {card}")
     return rows
 
 
@@ -926,8 +1042,9 @@ def main() -> int:
             for line in build_log.splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"[build] {line.strip()}")
+    check_cim_sass(km.build()[0])
 
-    sim, frames, launches, wall = main_path(km)
+    sim, frames, launches, wall, calls = main_path(km)
     # nominal again, after the variation run: separates the flavor from
     # the order of the runs in the wall-time comparison
     sim.set_variation(None)
@@ -937,9 +1054,8 @@ def main() -> int:
         f"{wall['nominal_again'] * 1e3:.4f}, all "
         f"{[round(v * 1e3, 4) for v in walls]}")
     device_share(sim, frames)
-    calls = record_calls(km, sim, frames)
     worst = check_kernels(km, calls)
-    rows = time_kernels(km, calls)
+    rows = time_kernels(km, calls, card)
     kernels = []
     for name, row in rows.items():
         kernels.append({

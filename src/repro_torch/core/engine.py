@@ -121,7 +121,8 @@ class ConvHandle(_ADCState):
     tile_w: Optional[List[torch.Tensor]] = None
     #: quantized engine: per-tile contraction depth pack * C_slice, and
     #: every tile's int8 weights on a zero-padded common depth
-    #: (T, max kc, M) — the batch-of-tiles kernel operand
+    #: (T, max kc, M) — the batch-of-tiles kernel operand, a view of a
+    #: K-major (T, M, depth padded to 16) tensor
     kc: Optional[Tuple[int, ...]] = None
     w8_stack: Optional[torch.Tensor] = None
 
@@ -132,7 +133,9 @@ class FCHandle(_ADCState):
 
     name: str = ""
     w: Optional[torch.Tensor] = None     # exact engine: (C_in, C_out) f64
-    w8: Optional[torch.Tensor] = None    # quantized engine: int8
+    #: quantized engine: int8 (C_in, C_out), a view of a K-major
+    #: (C_out, C_in) tensor
+    w8: Optional[torch.Tensor] = None
 
 
 @dataclass(frozen=True)
@@ -361,15 +364,17 @@ class CIMEngine(PEEngine):
                     f"weight rows > n_c={self.spec.n_c} — not one subarray")
         # batch-of-tiles view: each tile's (pack * Cs, M) slab on a
         # zero-padded common depth — padded rows add nothing to the
-        # exact integer dot
+        # exact integer dot.  Stored K-major, (T, M, depth padded to 16),
+        # the layout the kernel reads; w8_stack is its (T, max kc, M) view
         m = q.shape[-1]
         kc = tuple(tt.pack * (tt.c_hi - tt.c_lo) for tt in tiles)
-        w8_stack = torch.zeros((len(tiles), max(kc), m), dtype=torch.int8,
-                               device=self.device)
+        w8_k = torch.zeros((len(tiles), m, -(-max(kc) // 16) * 16),
+                           dtype=torch.int8, device=self.device)
         for i, tt in enumerate(tiles):
-            w8_stack[i, :kc[i]] = q[tt.tap_row, tt.tap_col:tt.tap_col + tt.pack,
-                                    tt.c_lo:tt.c_hi].reshape(kc[i], m)
-        return ConvHandle(name=name, c_out=m, kc=kc, w8_stack=w8_stack,
+            w8_k[i, :, :kc[i]] = q[tt.tap_row, tt.tap_col:tt.tap_col + tt.pack,
+                                   tt.c_lo:tt.c_hi].reshape(kc[i], m).T
+        return ConvHandle(name=name, c_out=m, kc=kc,
+                          w8_stack=w8_k[:, :, :max(kc)].transpose(1, 2),
                           **self._common(name, s, len(tiles)))
 
     def fc_handle(self, name, w, prequant=None):
@@ -377,7 +382,10 @@ class CIMEngine(PEEngine):
         # one physical per-subarray ADC every n_c weight rows; grid tiles
         # index into this shared pool by k0 // n_c (see fc_mac)
         n_alloc = 2 * math.ceil(q.shape[0] / self._layer_spec(name)[0].n_c) + 1
-        return FCHandle(name=name, w8=q, **self._common(name, s, n_alloc))
+        # stored K-major, (N, K); w8 is its (K, N) view, so each grid
+        # tile's slice reaches the kernel with no copy
+        return FCHandle(name=name, w8=q.T.contiguous().T,
+                        **self._common(name, s, n_alloc))
 
     # -- the numerics --------------------------------------------------------
 

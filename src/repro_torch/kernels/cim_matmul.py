@@ -20,11 +20,20 @@ Domino's Rofm adds "on the move").
 offset]`` (device variation, the ``_cim_kernel_var`` flavor); without it
 every step converts with the spec's scalar inverse step and no add.
 
+The kernel reads both operands K-major: ``x`` with unit stride along
+depth, ``w`` with unit stride along depth too (``w.stride(-2) == 1``),
+which is how the engine stores its weights.  A ``w`` with unit stride
+along N instead is copied K-major once per call and counted in
+``WEIGHT_COPIES``.
+
 The CUDA source is ``csrc/cim_matmul.cu`` (its header notes what bounds
-the kernel on the H100 and what the simple design does about it).  It
-is compiled with ``nvcc`` for ``sm_90a`` at first use into
-``build/kernels/`` at the repository root (``kernels/_build.py``) and
-loaded with ``ctypes``.
+the kernel on the H100 and what the design does about it: int8
+``wgmma``, a grid split over subarrays reduced within a thread-block
+cluster, ``cp.async`` copies in rounds).  It is compiled with ``nvcc`` for
+``sm_90a`` at first use into ``build/kernels/`` at the repository root
+(``kernels/_build.py``) and loaded with ``ctypes``.  :func:`launch_plan`
+picks each call's tiles and split (``tests/test_torch_cim_split.py``
+mirrors the blocks the kernel makes of it).
 On a CPU tensor the wrapper computes :func:`cim_codes_plain`, the plain
 PyTorch version of the same arithmetic; on a CUDA tensor it launches
 the kernel or raises.
@@ -33,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -50,6 +60,44 @@ _EXACT_F32 = 1 << 24
 #: kernel launches by variant (nominal / device-variation flavor); the
 #: wrapper adds one where it launches, and nowhere else
 LAUNCHES = {"cim_codes": 0, "cim_codes_var": 0}
+#: K-major copies of a weight operand the wrapper had to make (a ``w``
+#: with unit stride along N); the engine's weights need none
+WEIGHT_COPIES = 0
+
+#: weight columns per block (wgmma's M)
+COLS = 64
+#: x rows per block the kernel is built for (wgmma's N)
+ROW_TILES = (8, 16, 32)
+#: blocks of one output tile in a cluster along the step axis (the
+#: portable cluster size)
+MAX_SLICES = 8
+#: the split launch_plan takes at most: six slices beat eight on every
+#: main-path call in development runs on the card
+PLAN_SLICES = 6
+#: blocks that fill the H100's 132 SMs once
+WAVE = 132
+_GRID_Y = 65535
+
+
+@dataclass(frozen=True)
+class Plan:
+    """One launch's tiling: ``rows`` x rows per block, and ``slices``
+    blocks per output tile, each walking a slice of the steps."""
+
+    rows: int
+    slices: int
+
+
+def launch_plan(t: int, r: int, n: int) -> Plan:
+    """The tiling the wrapper launches for T steps, R rows, N columns.
+
+    Row tiles of 32 (the fastest on the main path's convs), or the
+    smallest that holds R.  Steps split across up to six blocks, fewer
+    once the tiles alone fill about four waves."""
+    rows = next((b for b in ROW_TILES if b >= r), ROW_TILES[-1])
+    tiles = -(-n // COLS) * -(-r // rows)
+    slices = max(1, min(t, PLAN_SLICES, -(-4 * WAVE // max(tiles, 1))))
+    return Plan(rows, slices)
 
 
 def build() -> Tuple[Path, str]:
@@ -65,29 +113,27 @@ def _launcher():
     fn = lib.cim_codes_launch
     ptr, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                           ctypes.c_float)
-    fn.argtypes = [ptr, i64, i64, ptr, i64, i64, ptr, f32, f32, f32, f32,
-                   ptr, i32, i32, i32, i32, i64, i32, ptr]
+    fn.argtypes = [ptr, i64, i64, i32, ptr, i64, i64, i32, ptr, f32, f32,
+                   f32, f32, ptr, i32, i32, i32, i32, i64, i32, i32, i32,
+                   ptr]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _geometry(x: torch.Tensor, w: torch.Tensor, n_c: int):
-    """(T, R, kc, N, k_total, x strides, w strides) of either layout."""
+    """(T, R, kc, N, k_total) of either layout."""
     if x.dim() == 3:
         t, r, kc = x.shape
         if w.shape[:2] != (t, kc) or w.dim() != 3:
             raise ValueError(f"x {tuple(x.shape)} vs w {tuple(w.shape)}")
         if kc > n_c:
             raise ValueError(f"step depth {kc} exceeds n_c={n_c}")
-        return (t, r, kc, w.shape[2], t * kc, (x.stride(0), x.stride(1)),
-                (w.stride(0), w.stride(1)))
+        return t, r, kc, w.shape[2], t * kc
     if x.dim() == 2 and w.dim() == 2:
         r, k = x.shape
         if w.shape[0] != k:
             raise ValueError(f"x {tuple(x.shape)} vs w {tuple(w.shape)}")
-        t = max(1, -(-k // n_c))
-        return (t, r, n_c, w.shape[1], k, (n_c, x.stride(0)),
-                (n_c * w.stride(0), w.stride(0)))
+        return max(1, -(-k // n_c)), r, n_c, w.shape[1], k
     raise ValueError(f"x must be (T, R, kc) or (R, K): {tuple(x.shape)}")
 
 
@@ -146,6 +192,12 @@ def cim_codes_plain(x: torch.Tensor, w: torch.Tensor, spec: CIMSpec,
     return out if emit_codes else out * f32_scalar(spec.adc_step, x.device)
 
 
+def _aligned(t: torch.Tensor, *strides: int) -> int:
+    """1 if the operand's base and row strides are 16-byte aligned (the
+    kernel's cp.async path), else 0 (its byte-staging path)."""
+    return int(t.data_ptr() % 16 == 0 and all(s % 16 == 0 for s in strides))
+
+
 def cim_codes(x: torch.Tensor, w: torch.Tensor, spec: CIMSpec,
               adc: Optional[torch.Tensor] = None,
               emit_codes: bool = True) -> torch.Tensor:
@@ -153,31 +205,48 @@ def cim_codes(x: torch.Tensor, w: torch.Tensor, spec: CIMSpec,
     value ``codes * adc_step``, through the CIM pipeline.
 
     CPU tensors take :func:`cim_codes_plain`.  CUDA tensors launch the
-    kernel (``cim_codes.launches`` counts launches by variant); nothing
+    kernel (``cim_codes.launches`` counts launches by variant) with
+    :func:`launch_plan`'s tiling; no tiling changes the result.  Nothing
     falls back to the plain version on the card."""
-    t, r, kc, n, k_total, (sxt, sxr), (swt, swk) = _check(x, w, spec, adc)
+    global WEIGHT_COPIES
+    t, r, kc, n, k_total = _check(x, w, spec, adc)
     if x.device.type == "cpu":
         return cim_codes_plain(x, w, spec, adc, emit_codes)
     if x.device.type != "cuda":
         raise ValueError(f"cim_codes runs on cpu or cuda, not {x.device}")
-    if x.stride(-1) != 1 or w.stride(-1) != 1:
-        raise ValueError("x needs unit stride along depth, w along columns")
+    if spec.q_max + 1 > 1 << 22:
+        raise ValueError(f"{spec.adc_bits}-bit codes: the kernel adds codes "
+                         "below 2^22 only")
+    if x.stride(-1) != 1 and x.shape[-1] > 1:
+        raise ValueError("x needs unit stride along depth")
+    if w.stride(-2) != 1 and w.shape[-2] > 1:
+        w = w.transpose(-1, -2).contiguous().transpose(-1, -2)
+        WEIGHT_COPIES += 1
     if adc is not None and not adc.is_contiguous():
         raise ValueError("adc must be contiguous")
-    if r > 65535 * 64:
+    plan = launch_plan(t, r, n)
+    if -(-r // plan.rows) > _GRID_Y:
         raise ValueError(f"{r} rows exceed the kernel's grid")
     out = torch.empty((r, n), dtype=torch.float32, device=x.device)
     if r == 0 or n == 0:
         return out
+    if x.dim() == 3:
+        sxt, sxr = x.stride(0), x.stride(1)
+        swt, swn = w.stride(0), w.stride(2)
+    else:  # step t starts n_c columns of x / rows of w further on
+        sxt, sxr = kc, x.stride(0)
+        swt, swn = kc, w.stride(1)
     launch = _launcher()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = launch(x.data_ptr(), sxt, sxr, w.data_ptr(), swt, swk,
+        err = launch(x.data_ptr(), sxt, sxr, _aligned(x, sxt, sxr),
+                     w.data_ptr(), swt, swn, _aligned(w, swt, swn),
                      None if adc is None else adc.data_ptr(),
                      float(np.float32(spec.adc_inv_step)),
                      float(-spec.q_max - 1), float(spec.q_max),
                      float(np.float32(spec.adc_step)), out.data_ptr(),
-                     t, r, n, kc, k_total, int(emit_codes), stream)
+                     t, r, n, kc, k_total, int(emit_codes), plan.rows,
+                     plan.slices, stream)
     if err != 0:
         raise RuntimeError(f"cim_codes launch failed: CUDA error {err}")
     LAUNCHES["cim_codes_var" if adc is not None else "cim_codes"] += 1

@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.cim import CIMSpec  # noqa: E402
 from repro_torch.kernels import local_attention as LA  # noqa: E402
+from repro_torch.kernels import cim_matmul as KM  # noqa: E402
 from repro_torch.kernels.cim_matmul import (  # noqa: E402
     LAUNCHES,
     cim_codes,
@@ -77,6 +78,75 @@ def test_fc_layout_reads_strided_slices():
     b = cim_codes_plain(xs.contiguous(), ws.contiguous(), spec)
     torch.cuda.synchronize()
     assert torch.equal(a + 0.0, b + 0.0)
+
+
+def _same(a, b):
+    return torch.equal(a + 0.0, b + 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kc", [9, 29, 256])
+def test_cuda_kernel_edge_grid(kc):
+    """Rows 1, 4, 16, 37 and 4096 (not multiples of the row tiles),
+    columns 10, 64, 77, 512 and 1000, steps 1, 3, 7, 18 and 40 (no split
+    size divides them all), depth 9, 29 and n_c = 256 (the first two on
+    the byte-staging path); the weight K-major (no copy) and N-major
+    (one counted copy a call).  Then FC-layout slices: x a column slice
+    at an aligned and an odd offset, the weight a slice of a K-major
+    store, the last step ragged.  Both variants, both output modes."""
+    _needs_card()
+    rng = np.random.default_rng(kc)
+    spec = CIMSpec(n_c=256)
+    for r in (1, 4, 16, 37, 4096):
+        for n in (10, 64, 77, 512, 1000):
+            cases = []
+            for t in (1, 3, 7, 18, 40):
+                w_nk = _ints(rng, (t, n, kc))
+                cases.append((_ints(rng, (t, r, kc)), w_nk.transpose(1, 2),
+                              t))
+            for t in (1, 3, 7):
+                k = (t - 1) * 256 + kc
+                xs, store = _ints(rng, (r, k + 35)), _ints(rng, (n + 5, k + 21))
+                for off in (16, 3):
+                    cases.append((xs[:, off:off + k],
+                                  store[3:3 + n, 5:5 + k].T, t))
+            for x, w_k, t in cases:
+                w_n = w_k.contiguous()
+                for adc in (None, _table(rng, t, spec)):
+                    for emit in (True, False):
+                        want = cim_codes_plain(x, w_k, spec, adc=adc,
+                                               emit_codes=emit)
+                        copies = KM.WEIGHT_COPIES
+                        a = cim_codes(x, w_k, spec, adc=adc, emit_codes=emit)
+                        assert KM.WEIGHT_COPIES == copies
+                        b = cim_codes(x, w_n, spec, adc=adc, emit_codes=emit)
+                        assert KM.WEIGHT_COPIES == copies + 1
+                        torch.cuda.synchronize()
+                        assert _same(a, want) and _same(b, want), (
+                            x.shape, w_k.shape, adc is not None, emit)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_any_split_same_codes(monkeypatch):
+    """Every row tile and every split into 1 to 8 slices (more slices
+    than steps included) gives the plain version's codes: the code sum
+    is exact, so no split changes a bit."""
+    _needs_card()
+    rng = np.random.default_rng(7)
+    spec = CIMSpec(n_c=256)
+    for t, r, kc, n in [(18, 16, 256, 512), (7, 37, 29, 77), (3, 100, 9, 130),
+                        (40, 64, 256, 64)]:
+        x, w = _ints(rng, (t, r, kc)), _ints(rng, (t, n, kc)).transpose(1, 2)
+        for adc in (None, _table(rng, t, spec)):
+            want = cim_codes_plain(x, w, spec, adc=adc)
+            for rows in KM.ROW_TILES:
+                for slices in range(1, KM.MAX_SLICES + 1):
+                    plan = KM.Plan(rows, slices)
+                    monkeypatch.setattr(KM, "launch_plan",
+                                        lambda t, r, n, plan=plan: plan)
+                    got = cim_codes(x, w, spec, adc=adc)
+                    torch.cuda.synchronize()
+                    assert _same(got, want), (t, r, kc, n, rows, slices)
 
 
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
