@@ -27,11 +27,39 @@ Phases (any failure exits non-zero before the result line):
    ragged rows, columns and depth, and over an edge grid at n_c = 256
    (R 1, 4, 16, 37, 4096; N 10, 64, 77, 512, 1000; kc 9, 29, 256; T 1,
    3, 7, 18, 40, and FC-layout slices with a ragged last step), each
-   shape with its weight K-major and N-major;
+   shape with its weight K-major and N-major; and below 8 bits (6-bit
+   weights and activations with 6- and 4-bit ADCs, the robust DSE's
+   precisions) at the main path's shapes and ragged ones;
 4. the CIM kernel's device time under ``torch.profiler`` for each
    main-path call and per batch, both variants, beside its
    host-inclusive CUDA-event time, the plain version's device time, the
    bound and the share of it;
+R. robustness: ``sweep_presets`` over all four variation presets, 4
+   trials each, on vgg11 at full width with phase 2's params and
+   frames.  Each trial (counts read just before and just after it)
+   launches only the preset's variant (``cim_codes`` for noise and
+   stuck, ``cim_codes_var`` for adc and all), as many times as a
+   phase-2 batch; no weight copy over the sweep; the CIM library built
+   and loaded once; the zero-magnitude run equal to the nominal one;
+   the "all" preset's first trials rerun on the CPU (calibration
+   copied) give equal agreements and logits equal by value.  Seconds
+   per trial, split into ``set_variation`` and the run;
+D. DSE: ``run_dse`` on vgg11 and resnet18-cifar10 (budget 8) validated
+   on the CIM engine on the card, both winners equal to the snake
+   baseline, winners, candidates and scores equal to a CPU search's;
+   ``run_robust_dse`` on vgg11 (budget 8, 2 trials, batch 4): the
+   zero-variation run equal to nominal, a front with a point below 8
+   bits.  Wall seconds of each;
+T. telemetry and chiplets: vgg11 served over 4 floret chiplets with a
+   ``LinkRecorder`` and a ``MetricsRegistry`` attached: the nominal
+   variant's launches as in phase 2, logits equal to the 1-chiplet run
+   by value, measured II == analytic II, each frame's traffic equal to
+   the analytic routed byte-hops and the heatmap equal to both per
+   class with the NoI level, the registry's served-frame counter equal
+   to the frames served, a Chrome trace of the serve (host spans and
+   the stage timeline) valid after a round trip through
+   ``build/chip_smoke/``.  ms/frame over 4 chiplets and 1, in turns,
+   and with a recorder attached;
 5. LM serving: gemma3-1b at full width (26 layers, vocab 262144) with
    random weights from ``torch.Generator(device="cuda").manual_seed(0)``,
    batch 4, a 2048-token prompt (four windows of 512, so the local
@@ -93,6 +121,18 @@ EDGE_R = (1, 4, 16, 37, 4096)
 EDGE_N = (10, 64, 77, 512, 1000)
 EDGE_T = (1, 3, 7, 18, 40)
 EDGE_T_FC = (1, 3, 7)
+#: phase R: Monte-Carlo trials per preset on the card, and how many of
+#: the "all" preset's are rerun on the CPU
+ROBUST_TRIALS = 4
+ROBUST_CPU_TRIALS = 2
+#: phase D: DSE budget per model, and the robust DSE's trials and batch
+DSE_BUDGET = 8
+DSE_TRIALS, DSE_BATCH = 2, 4
+#: phase T: the chiplet fabric
+CHIPLETS, NOI_TOPOLOGY = 4, "floret"
+#: phase 3's precisions below 8 bits, (w_bits, a_bits, adc_bits): the
+#: robust DSE's 6-bit operands with 6- and 4-bit ADCs
+LOW_PRECISION = ((6, 6, 6), (6, 6, 4))
 #: H100 SXM peaks (NVIDIA data sheet, dense): int8 tensor-core rate and
 #: HBM3 bandwidth, at the full 700 W power limit
 PEAK_INT8_OPS = 1979e12
@@ -221,10 +261,28 @@ def check_cim_sass(lib) -> None:
              "products and no IDP4A")
 
 
+def vgg11_inputs():
+    """(config, float params, frames) of vgg11-cifar10 at full width:
+    phase 2's, and the later CNN phases'."""
+    from repro_torch.configs.cnn import CNN_BENCHMARKS
+
+    cnn = CNN_BENCHMARKS["vgg11-cifar10"]()
+    rng = np.random.default_rng(SEED)
+    params = vgg11_params(cnn, rng)
+    frames = rng.random((FRAMES, cnn.input_hw, cnn.input_hw, 3))
+    return cnn, params, frames
+
+
+def reset_counts(km):
+    for k in km.LAUNCHES:
+        km.LAUNCHES[k] = 0
+    km.WEIGHT_COPIES = 0
+    torch.cuda.synchronize()
+
+
 def main_path(km):
     """Phase 2: serve vgg11-cifar10 on the card, nominal then with
     device variation; hold each against the CPU run."""
-    from repro_torch.configs.cnn import CNN_BENCHMARKS
     from repro_torch.convert import copy_calibration, params_from_reference
     from repro_torch.core.engine import CIMEngine
     from repro_torch.core.variation import VARIATION_PRESETS
@@ -234,10 +292,7 @@ def main_path(km):
         serve_stream,
     )
 
-    cnn = CNN_BENCHMARKS["vgg11-cifar10"]()
-    rng = np.random.default_rng(SEED)
-    params = vgg11_params(cnn, rng)
-    frames = rng.random((FRAMES, cnn.input_hw, cnn.input_hw, 3))
+    cnn, params, frames = vgg11_inputs()
     t0 = time.perf_counter()
     sims = {}
     for dev in ("cuda", "cpu"):
@@ -262,10 +317,7 @@ def main_path(km):
         calls[name] = record_calls(km, sims["cuda"], frames)
         want = {k: 0 for k in km.LAUNCHES}
         want[name] = FRAMES // BATCH_WINDOW * len(calls[name])
-        for k in km.LAUNCHES:
-            km.LAUNCHES[k] = 0
-        km.WEIGHT_COPIES = 0
-        torch.cuda.synchronize()
+        reset_counts(km)
         rep = serve_stream(sims["cuda"], frames, batch_window=BATCH_WINDOW)
         torch.cuda.synchronize()
         launches[flavor] = dict(km.LAUNCHES)
@@ -490,6 +542,30 @@ def check_kernels(km, calls):
                 check("cim_codes", x, (w,), spec, None, emit)
                 check("cim_codes_var", x, (w,), spec, table(t, spec), emit)
     n_main = n_checks
+    # below 8 bits: operands on the narrower grid, codes of a narrower
+    # ADC (the kernel reads q_max, the steps and the table at run time)
+    for w_bits, a_bits, adc_bits in LOW_PRECISION:
+        spec = CIMSpec(n_c=256, w_bits=w_bits, a_bits=a_bits,
+                       adc_bits=adc_bits)
+
+        def low(*shape):
+            return torch.from_numpy(rng.integers(
+                -spec.w_max - 1, spec.w_max + 1, shape).astype(np.int8)).to(dev)
+
+        cases = [(low(t, r, kc), low(t, n, kc).transpose(1, 2)) if dim == 3
+                 else (low(r, t * kc), low(n, t * kc).T)
+                 for t, r, kc, n, dim in shapes]
+        cases.append((low(7, 37, 29), low(7, 77, 29).transpose(1, 2)))
+        cases.append((low(13, 3 * 256 + 11), low(130, 3 * 256 + 11).T))
+        for x, w in cases:
+            t = geometry(x, w, 256)[0]
+            for emit in (True, False):
+                what = f"w{w_bits}a{a_bits} adc{adc_bits}"
+                check("cim_codes", x, (w,), spec, None, emit, what)
+                check("cim_codes_var", x, (w,), spec, table(t, spec), emit,
+                      what)
+    n_low = n_checks - n_main
+    n_main = n_checks
     t0 = time.perf_counter()
     spec = CIMSpec(n_c=EDGE_NC)
     copies = km.WEIGHT_COPIES
@@ -504,7 +580,8 @@ def check_kernels(km, calls):
         fail(f"{km.WEIGHT_COPIES - copies} weight copies over the edge "
              f"grid, want {4 * n_cases}")
     log(f"[kernels] {n_checks} comparisons equal by value ({n_main} at the "
-        f"main path's calls and n_c in {{32, 96, 256}}; "
+        f"main path's calls and n_c in {{32, 96, 256}}, {n_low} of them "
+        f"below 8 bits (w, a, adc bits {LOW_PRECISION}); "
         f"{n_checks - n_main} over the edge grid of {n_cases} shapes at "
         f"n_c={EDGE_NC}: R {EDGE_R}, N {EDGE_N}, kc {{9, 29, {EDGE_NC}}}, "
         f"T {EDGE_T} (FC layout T {EDGE_T_FC}), K- and N-major weights, "
@@ -558,6 +635,320 @@ def time_kernels(km, calls, card, reps: int = 50):
         log(f"[time] {name}: {len(lst)} calls per {BATCH_WINDOW}-frame "
             f"batch: {rows[name]} on {card}")
     return rows
+
+
+def trial_probe(km):
+    """A profiler for phase R that records, for each Monte-Carlo trial
+    (``mc_trial`` span), the CIM kernel launches (counts read just
+    before the trial and just after it), its seconds and those of its
+    engine swap (``engine_swap``: the host draws and the upload)."""
+    import contextlib
+
+    from repro_torch.telemetry.spans import Profiler
+
+    class TrialProbe(Profiler):
+        def __init__(self):
+            super().__init__()
+            self.trials = []      # (launches, trial s, swap s)
+            self.swap_s = 0.0
+
+        @contextlib.contextmanager
+        def span(self, name, cat="host", **args):
+            before = dict(km.LAUNCHES)
+            t0 = time.perf_counter()
+            with super().span(name, cat, **args):
+                yield
+            dt = time.perf_counter() - t0
+            if name == "engine_swap":
+                self.swap_s = dt
+            elif name.startswith("mc_trial"):
+                self.trials.append((
+                    {k: km.LAUNCHES[k] - before[k] for k in before}, dt,
+                    self.swap_s))
+
+    return TrialProbe()
+
+
+def robustness_phase(km, calls_per_batch, card):
+    """Phase R: vgg11 at full width, phase 2's params and frames, through
+    ``sweep_presets`` over all four variation presets on the card.  Each
+    trial launches only the preset's variant, as many times as a phase-2
+    batch; no weight copy; one build of the CIM library; the "all"
+    preset's first trials rerun on the CPU (calibration copied) give
+    equal agreements and logits."""
+    from repro_torch.convert import copy_calibration, params_from_reference
+    from repro_torch.core.engine import CIMEngine
+    from repro_torch.core.variation import VARIATION_PRESETS
+    from repro_torch.runtime.robustness import (
+        build_robust_sim,
+        monte_carlo_sweep,
+        sweep_presets,
+    )
+
+    t_phase = time.perf_counter()
+    cnn, params, frames = vgg11_inputs()
+    t0 = time.perf_counter()
+    sim = build_robust_sim(cnn, params_from_reference(params, "cuda"), frames,
+                           device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    probe = trial_probe(km)
+    reset_counts(km)
+    t0 = time.perf_counter()
+    with probe:
+        reports = sweep_presets(cnn, params, frames, trials=ROBUST_TRIALS,
+                                seed0=SEED, sim=sim)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    if km.WEIGHT_COPIES != 0:
+        fail(f"robustness: {km.WEIGHT_COPIES} K-major weight copies over "
+             "the sweep, want 0")
+    if km._launcher.cache_info().misses != 1:
+        fail(f"robustness: the CIM library was loaded "
+             f"{km._launcher.cache_info().misses} times, want once")
+    libs = sorted(km._build.BUILD_DIR.glob("libcim_matmul_*.so"))
+    if len(libs) != 1:
+        fail(f"robustness: CIM libraries built {[p.name for p in libs]}, "
+             "want one")
+    names = list(VARIATION_PRESETS)
+    if len(probe.trials) != len(names) * ROBUST_TRIALS:
+        fail(f"robustness: {len(probe.trials)} trials seen, want "
+             f"{len(names) * ROBUST_TRIALS}")
+    for i, (launched, trial_s, swap_s) in enumerate(probe.trials):
+        preset = names[i // ROBUST_TRIALS]
+        variant = ("cim_codes_var" if VARIATION_PRESETS[preset].has_adc
+                   else "cim_codes")
+        want = {k: 0 for k in km.LAUNCHES}
+        want[variant] = calls_per_batch
+        if launched != want:
+            fail(f"robustness: {preset} trial {i % ROBUST_TRIALS} launched "
+                 f"{launched}, want {want}")
+    if reports[names[0]].zero_var_bitwise is not True:
+        fail("robustness: the zero-magnitude variation run differs from "
+             "the nominal run")
+    for name, rep in reports.items():
+        sel = probe.trials[names.index(name) * ROBUST_TRIALS:
+                           (names.index(name) + 1) * ROBUST_TRIALS]
+        log(f"[robust] {name}: {rep.row()}; per trial "
+            f"{[round(a, 6) for a in rep.per_trial]}; seconds per trial "
+            f"{[round(t, 4) for _, t, _ in sel]} (set_variation "
+            f"{[round(w, 4) for _, _, w in sel]}, run "
+            f"{[round(t - w, 4) for _, t, w in sel]}) on {card}")
+
+    # the "all" preset's first trials on the CPU, calibration copied
+    t0 = time.perf_counter()
+    cpu = build_robust_sim(
+        cnn, params_from_reference(params, "cpu"), frames, device="cpu",
+        engine=copy_calibration(sim.pe_engine, CIMEngine(device="cpu")))
+    var = VARIATION_PRESETS["all"]
+    ref = reports["all"]
+    n = ROBUST_CPU_TRIALS
+    got = monte_carlo_sweep(cnn, params, frames, var, n, seed0=SEED, sim=cpu)
+    if got.per_trial != ref.per_trial[:n]:
+        fail(f"robustness: CPU per-trial agreement {got.per_trial} vs the "
+             f"card's {ref.per_trial[:n]}")
+    for t in range(n):
+        for each in (sim, cpu):
+            each.set_variation(var.reseed(SEED + t))
+        a, b = sim.run(frames).logits.cpu(), cpu.run(frames).logits
+        if not same(a, b):
+            fail(f"robustness: trial {t} logits on the card differ from the "
+                 f"CPU run by {(a - b).abs().max().item()}")
+    for each in (sim, cpu):
+        each.set_variation(None)
+    trial_s = [t for _, t, _ in probe.trials]
+    swap_s = [w for _, _, w in probe.trials]
+    log(f"[robust] {len(trial_s)} trials of {FRAMES} frames: median "
+        f"{np.median(trial_s):.4f} s a trial (set_variation "
+        f"{np.median(swap_s):.4f} s, run "
+        f"{np.median(np.subtract(trial_s, swap_s)):.4f} s); sweep "
+        f"{sweep_s:.2f} s, simulator built in {build_s:.2f} s; the first {n} "
+        f"'all' trials equal the CPU run (agreements and logits, "
+        f"{time.perf_counter() - t0:.1f} s); WEIGHT_COPIES 0, one CIM "
+        f"library; phase {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
+def dse_phase(km, card):
+    """Phase D: the mapping DSE validated on the CIM engine on the card
+    (vgg11 and resnet18), its winners and scores equal to a CPU run's;
+    the robust DSE on vgg11 with accuracy points below 8 bits."""
+    from repro_torch.dse.report import run_dse, run_robust_dse
+
+    models = ["vgg11-cifar10", "resnet18-cifar10"]
+    reset_counts(km)
+    t0 = time.perf_counter()
+    reps = run_dse(models, budget=DSE_BUDGET, engine="cim", device="cuda")
+    torch.cuda.synchronize()
+    dse_s = time.perf_counter() - t0
+    launched = dict(km.LAUNCHES)
+    if launched["cim_codes"] == 0 or km.WEIGHT_COPIES:
+        fail(f"dse: validation launched {launched} with {km.WEIGHT_COPIES} "
+             "weight copies; want cim_codes launches and no copy")
+    cpu = run_dse(models, budget=DSE_BUDGET, engine="cim", validate="none",
+                  device="cpu")
+    for rep, rc in zip(reps, cpu):
+        if rep.validated is not True:
+            fail(f"dse: {rep.model}'s winner {rep.winner.config.describe()} "
+                 "is not equal to the snake baseline on the card")
+        row, row_cpu = dict(rep.row()), dict(rc.row())
+        row.pop("validated_bitwise"), row_cpu.pop("validated_bitwise")
+        if (row != row_cpu or rep.pareto_rows() != rc.pareto_rows()
+                or [c.score.as_dict() for c in rep.result.candidates]
+                != [c.score.as_dict() for c in rc.result.candidates]):
+            fail(f"dse: {rep.model}: winner / scores differ from the CPU run")
+        log(f"[dse] {rep.model}: winner {rep.winner.config.describe()}, "
+            f"validated on the card (CIM engine), {rep.result.evaluations} "
+            f"evaluations; row {rep.row()}")
+    log(f"[dse] run_dse({models}, budget={DSE_BUDGET}, engine='cim') "
+        f"{dse_s:.2f} s on the card, launches {launched}; winners, "
+        f"candidates and scores equal to the CPU run's on {card}")
+
+    reset_counts(km)
+    t0 = time.perf_counter()
+    robust = run_robust_dse(["vgg11-cifar10"], budget=DSE_BUDGET,
+                            trials=DSE_TRIALS, batch=DSE_BATCH, device="cuda")
+    torch.cuda.synchronize()
+    robust_s = time.perf_counter() - t0
+    rep = robust[0]
+    low = [c for c in rep.front
+           if c.config.precision or tuple(c.config.base_bits) != (8, 8, 8)]
+    if rep.zero_var_bitwise is not True:
+        fail("robust dse: the zero-variation run differs from nominal")
+    if not rep.front or not low:
+        fail(f"robust dse: front {[c.config.describe() for c in rep.front]} "
+             "holds no point below 8 bits")
+    if km.WEIGHT_COPIES:
+        fail(f"robust dse: {km.WEIGHT_COPIES} weight copies, want 0")
+    for r in rep.pareto_rows():
+        log(f"[dse] robust front: {r}")
+    log(f"[dse] run_robust_dse(vgg11, budget={DSE_BUDGET}, "
+        f"trials={DSE_TRIALS}, batch={DSE_BATCH}) {robust_s:.2f} s on the "
+        f"card: {rep.result.evaluations} evaluations, {len(rep.front)} on "
+        f"the front ({len(low)} below 8 bits), zero_var_bitwise True, "
+        f"launches {dict(km.LAUNCHES)} on {card}")
+
+
+def telemetry_phase(km, calls_per_batch, wall_flat, card):
+    """Phase T: vgg11 at full width served over 4 floret chiplets with a
+    link recorder and a metrics registry attached: logits equal to the
+    1-chiplet run's, measured II == analytic II, per-class conservation
+    with the NoI level, the served-frame counter, a valid Chrome trace."""
+    from repro_torch.convert import copy_calibration, params_from_reference
+    from repro_torch.core.energy import routed_byte_hops_per_class
+    from repro_torch.core.engine import CIMEngine
+    from repro_torch.core.transport import NOI, TrafficCounters
+    from repro_torch.runtime.serve_loop import (
+        build_stream_sim,
+        quantize_cnn_params_for_serving,
+        serve_stream,
+    )
+    from repro_torch.telemetry import (
+        LinkRecorder,
+        MetricsRegistry,
+        Profiler,
+        check_conservation,
+        chrome_trace,
+        load_chrome_trace,
+        stream_timeline_events,
+        validate_chrome_trace,
+        write_chrome_trace,
+    )
+
+    t_phase = time.perf_counter()
+    cnn, params, frames = vgg11_inputs()
+    qp = quantize_cnn_params_for_serving(params_from_reference(params, "cuda"))
+    flat = build_stream_sim(cnn, qp, device="cuda")
+    rec, reg = None, MetricsRegistry()
+    with Profiler() as prof:
+        fab = build_stream_sim(
+            cnn, qp, chiplets=CHIPLETS, noi=NOI_TOPOLOGY, device="cuda",
+            engine=copy_calibration(flat.pe_engine, CIMEngine(device="cuda")))
+        serve_stream(fab, frames[:BATCH_WINDOW], batch_window=BATCH_WINDOW)
+        rec = LinkRecorder(fab.placement.noc)
+        fab.recorder = rec
+        reset_counts(km)
+        t0 = time.perf_counter()
+        rep = serve_stream(fab, frames, metrics=reg, batch_window=BATCH_WINDOW)
+        torch.cuda.synchronize()
+        recorded_s = time.perf_counter() - t0
+        fab.recorder = None
+    launched = dict(km.LAUNCHES)
+    want = {k: 0 for k in km.LAUNCHES}
+    want["cim_codes"] = FRAMES // BATCH_WINDOW * calls_per_batch
+    if launched != want or km.WEIGHT_COPIES:
+        fail(f"chiplets: launches {launched} ({km.WEIGHT_COPIES} weight "
+             f"copies) in one serving run, want {want} and none")
+    flat_rep = serve_stream(flat, frames, batch_window=BATCH_WINDOW)
+    if not same(rep.logits, flat_rep.logits):
+        fail("chiplets: logits over the fabric differ from the 1-chiplet run")
+    if rep.measured_ii != rep.analytic_ii or \
+            rep.analytic_ii != flat_rep.analytic_ii:
+        fail(f"chiplets: measured II {rep.measured_ii}, analytic "
+             f"{rep.analytic_ii} (flat {flat_rep.analytic_ii})")
+    res = fab.run_stream(frames, arrivals=rep.arrivals, chunk=BATCH_WINDOW)
+    analytic = routed_byte_hops_per_class(cnn, fab.plan, fab.placement)
+    total = TrafficCounters()
+    for ft in res.frame_traffic:
+        if {k: v for k, v in ft.byte_hops.items() if v} != \
+                {k: v for k, v in analytic.items() if v}:
+            fail("chiplets: a frame's traffic differs from the analytic "
+                 "routed byte-hops")
+        for k in ft.byte_hops:
+            total.byte_hops[k] += ft.byte_hops[k]
+    problems = check_conservation(
+        rec.heatmap(), total, {k: v * FRAMES for k, v in analytic.items()},
+        flows=rec.flows.values())
+    if problems or not analytic.get(NOI):
+        fail(f"chiplets: conservation {problems}, NoI byte-hops "
+             f"{analytic.get(NOI)}")
+    served = reg.snapshot()["metrics"]["serve_frames_total"]["series"][0]
+    if served["value"] != FRAMES or rep.completed != FRAMES:
+        fail(f"chiplets: the registry counted {served['value']} frames, "
+             f"served {rep.completed}")
+    names = [cnn.layers[st.li].name for st in fab._stages]
+    events = prof.events + stream_timeline_events(res, names)
+    errors = validate_chrome_trace(chrome_trace(events))
+    path = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    path.mkdir(parents=True, exist_ok=True)
+    path = write_chrome_trace(str(path / "chiplet_serve_trace.json"), events)
+    errors += validate_chrome_trace(load_chrome_trace(path))
+    if errors:
+        fail(f"chiplets: the Chrome trace is invalid: {errors[:5]}")
+    # ms/frame in turns (1 chiplet, 4, 4, 1), then with a fresh recorder
+    # attached to each run: what the telemetry costs when it is on
+    walls = {"flat": [], "fabric": []}
+    for name, each in (("flat", flat), ("fabric", fab), ("fabric", fab),
+                       ("flat", flat)):
+        walls[name] += serving_walls(each, frames)
+    recorded = []
+    for _ in range(WALL_REPS):
+        fab.recorder = LinkRecorder(fab.placement.noc)
+        t0 = time.perf_counter()
+        serve_stream(fab, frames, batch_window=BATCH_WINDOW)
+        torch.cuda.synchronize()
+        recorded.append((time.perf_counter() - t0) / FRAMES)
+    fab.recorder = None
+    hm = rec.heatmap()
+    log(f"[chiplets] vgg11 over {CHIPLETS} {NOI_TOPOLOGY} chiplets "
+        f"({fab.placement.noc.rows}x{fab.placement.noc.cols} fabric): logits "
+        f"== the 1-chiplet run by value, measured II {rep.measured_ii} == "
+        f"analytic II {rep.analytic_ii}, heatmap == counters == analytic x "
+        f"{FRAMES} frames per class {hm.class_totals()}, "
+        f"serve_frames_total {served['value']}, launches {launched}; "
+        f"Chrome trace of {len(events)} events valid ({path})")
+    for name, label in (("fabric", f"{CHIPLETS} {NOI_TOPOLOGY} chiplets"),
+                        ("flat", "1 chiplet")):
+        log(f"[chiplets] wall ms/frame, {label}, no recorder, "
+            f"{len(walls[name])} runs of {FRAMES} frames in turns "
+            f"(batch_window={BATCH_WINDOW}): median "
+            f"{np.median(walls[name]) * 1e3:.4f}, all "
+            f"{[round(v * 1e3, 4) for v in walls[name]]}")
+    log(f"[chiplets] wall ms/frame, {CHIPLETS} chiplets with a recorder "
+        f"attached: median {np.median(recorded) * 1e3:.4f}, all "
+        f"{[round(v * 1e3, 4) for v in recorded]} (the checked serve "
+        f"{recorded_s / FRAMES * 1e3:.4f}); phase 2's 1-chiplet median "
+        f"{wall_flat * 1e3:.4f}; phase {time.perf_counter() - t_phase:.1f} s "
+        f"on {card}")
 
 
 def lm_program(cfg, batch, prompt, gen, kv_dtype, cim, device, dtype):
@@ -1056,6 +1447,9 @@ def main() -> int:
     device_share(sim, frames)
     worst = check_kernels(km, calls)
     rows = time_kernels(km, calls, card)
+    robustness_phase(km, len(calls["cim_codes"]), card)
+    dse_phase(km, card)
+    telemetry_phase(km, len(calls["cim_codes"]), wall["nominal"], card)
     kernels = []
     for name, row in rows.items():
         kernels.append({

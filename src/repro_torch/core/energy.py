@@ -1,4 +1,466 @@
-"""The one constant of ``repro/core/energy.py`` the port's serving path
-reads; the energy model itself is not ported yet."""
+"""Analytic energy / power / throughput model (paper §7, Tab. 3 + Tab. 4).
+
+Component energies are the paper's Tab. 3 values.  Two constants are
+*calibrated* (the paper takes its NoC transmission numbers from Noxim [4]
+without printing them): the per-byte-per-hop link energy and the per-byte
+buffer access energy; both are documented below and cross-checked against
+Tab. 4's "on-chip data moving" / "on-chip memory" columns for VGG-16/19.
+
+Anchors reproduced *exactly* by construction (validated in benchmarks):
+
+* CIM energy      = MACs x 48.1 fJ           (Tab. 4: VGG-16 744.1 uJ,
+                                              VGG-19 944.3 uJ — exact)
+* inferences/s    = 10 MHz / II,  II = first-layer pixels / duplication
+                                             (CIFAR: 6.25e5; ImageNet:
+                                              1.28e4 — exact)
+* CE (TOPS/W)     = 2*MACs / E_total
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from typing import Dict
+
+from repro_torch.configs.cnn import CNNConfig, ConvLayer
+from repro_torch.core.cim import CIMSpec  # noqa: F401  (annotation: analyze(cim_spec=))
+from repro_torch.core.mapping import NetworkPlan, plan_network
+from repro_torch.core.noc import (Placement, inter_block_byte_hops_split,
+                                  place_network)
+from repro_torch.core.transport import (CHAIN, GROUP, NOI, OFM, RESIDUAL, SPLIT,
+                                        conv_block_byte_hops, conv_links)
+
+# --- Tab. 3 component energies (45 nm, 1 V) --------------------------------
+E_MAC = 48.1e-15              # J per 8b MAC in the PE (crossbar+ADC+integ.)
+
+# --- precision-aware CIM split (engaged when a CIMSpec is passed) ----------
+# The paper's 48.1 fJ/MAC is the *fully-utilized 8b/8b/8b* figure.  When a
+# ``CIMSpec`` is supplied, the flat number is replaced by a component model
+# (the Jia-et-al./CIMFlow-style precision accounting):
+#   * analog array:  E_ARRAY_BIT per MAC per bit-serial input cycle
+#                    (bit-line switching + current mirrors + integrators),
+#   * input driving: E_DAC_BIT per MAC per input cycle (the DAC/WL driver),
+#   * conversion:    E_ADC(adc_bits) per *actual* subarray conversion —
+#                    one per (tile, output pixel, output column), so
+#                    underutilized arrays (pack*C < n_c, Fig. 12) pay more
+#                    ADC energy per MAC than the flat model amortizes.
+# The split is calibrated so that a fully-utilized default-spec subarray
+# reproduces 48.1 fJ/MAC exactly:  8*(E_ARRAY_BIT + E_DAC_BIT) +
+# E_ADC_8B/256 == E_MAC.  SAR conversion energy scales with the capacitive
+# DAC array, ~2x per bit (E \propto 2^bits); bit-serial terms scale
+# linearly with a_bits.
+E_ADC_8B = 2.0e-12            # J per 8-bit SAR conversion (45 nm class)
+E_DAC_BIT = 0.6e-15           # J per weight row per bit-serial input cycle
+E_ARRAY_BIT = (E_MAC - E_ADC_8B / 256 - 8 * E_DAC_BIT) / 8
+
+# --- Tab. 3 component energies, continued ----------------------------------
+E_ADDER_8B = 0.03e-12         # J per 8b add in the Rofm adder
+E_POOL_8B = 7.6e-15           # J per 8b pooling comparator op
+E_ACT_8B = 0.9e-15            # J per 8b activation
+E_SCHED_FETCH = 2.2e-12       # J per 16b schedule-table fetch
+E_IO_BUF = 17.6e-12 / 8       # J per byte through a 64b input/output buffer
+E_CTRL_RIFM = 4.1e-12         # J per Rifm control event
+E_CTRL_ROFM = 28.5e-12        # J per Rofm control event
+
+# --- calibrated constants (documented fits, see module docstring) -----------
+E_LINK_BYTE_HOP = 0.15e-12    # J per byte per mesh hop   (fit: Tab. 4 VGG-16
+                              # "on-chip data moving" 46.39 uJ)
+E_BUF_BYTE = 1.9e-12          # J per byte buffer R or W  (Tab. 3 Rifm buffer:
+                              # 281.3 pJ/256 B = 1.1 pJ/B for the SRAM cell
+                              # array + I/O registers amortized; fit to
+                              # Tab. 4 VGG-16 "on-chip memory" 446.4 uJ)
+E_NOI_BYTE_HOP = 1.2e-12      # J per byte per interposer (NoI) hop — the
+                              # chiplet scale-out regime the paper never
+                              # crosses, so this is not a Tab. 4 fit: 8x the
+                              # on-chip mesh link, the CHIPSIM/SIAM-class
+                              # gateway SerDes + interposer wire cost at
+                              # ~0.15 pJ/bit.  Charged only for gateway-to-
+                              # gateway hops on a ChipletFabric; identically
+                              # zero on a flat mesh or 1x1-chiplet fabric,
+                              # so every Tab. 4 anchor reproduces exactly.
 
 STEP_CLOCK_HZ = 10e6          # instruction/step clock (Tab. 3)
+from repro_torch.core.transport import PSUM_BYTES  # noqa: E402  (16b psums, shared
+                                             # with the NoC transport layer)
+AREA_PER_TILE_MM2 = 0.398     # Tab. 3 "Tile total"
+
+
+def adc_conversion_energy(adc_bits: int) -> float:
+    """SAR conversion energy at a given resolution (cap-DAC dominated)."""
+    return E_ADC_8B * 2.0 ** (adc_bits - 8)
+
+
+def adc_conversions(plan: NetworkPlan) -> int:
+    """ADC conversions per inference: one per (subarray tile, output
+    pixel, output column).  Duplicated copies split the pixel stream, so
+    the network-wide total is duplication-invariant."""
+    total = 0
+    for lp in plan.layers:
+        if lp.kind == "conv":
+            total += lp.out_pixels * lp.chain_len * lp.c_out
+        else:
+            total += lp.chain_len * lp.c_out
+    return total
+
+
+@dataclass
+class EnergyReport:
+    model: str
+    macs: int
+    tiles: int
+    ii_cycles: int
+    # energy per inference, joules, broken down as Tab. 4 does
+    e_cim: float = 0.0
+    e_moving: float = 0.0   # intra-mesh link level only (per-level split)
+    e_memory: float = 0.0
+    e_other: float = 0.0
+    e_offchip: float = 0.0  # always 0: Domino's claim (whole-model residency)
+    e_noi: float = 0.0      # interposer (NoI) level: 0 off a ChipletFabric
+    # precision-aware split of e_cim (populated when a CIMSpec is passed;
+    # zero under the flat Tab. 4 default — e_cim then carries the total)
+    e_cim_array: float = 0.0    # analog MAC core, scales with a_bits
+    e_cim_input: float = 0.0    # DAC / bit-serial input driving
+    e_cim_adc: float = 0.0      # SAR conversions, scales with adc_bits
+    n_adc_conversions: int = 0
+    # exact-integer per-class routed byte-hops of the *functional*
+    # execution (see routed_byte_hops_per_class); matches the simulator's
+    # TrafficCounters and the telemetry link heatmaps to the byte.  The
+    # e_moving term keeps its own (all-copies) accounting above.
+    routed_byte_hops: Dict[str, int] = field(default_factory=dict)
+
+    @property
+    def e_total(self) -> float:
+        return (self.e_cim + self.e_moving + self.e_memory + self.e_other
+                + self.e_offchip + self.e_noi)
+
+    @property
+    def inferences_per_s(self) -> float:
+        return STEP_CLOCK_HZ / self.ii_cycles
+
+    @property
+    def power_w(self) -> float:
+        return self.e_total * self.inferences_per_s
+
+    @property
+    def ops_per_inference(self) -> int:
+        return 2 * self.macs
+
+    @property
+    def ce_tops_per_w(self) -> float:
+        return self.ops_per_inference / self.e_total / 1e12
+
+    @property
+    def throughput_tops(self) -> float:
+        return self.ops_per_inference * self.inferences_per_s / 1e12
+
+    @property
+    def area_mm2(self) -> float:
+        return self.tiles * AREA_PER_TILE_MM2
+
+    @property
+    def throughput_tops_mm2(self) -> float:
+        return self.throughput_tops / self.area_mm2
+
+    @property
+    def mops_per_8b_cell(self) -> float:
+        """Throughput normalized to one 8-bit crossbar cell (Fig. 11b)."""
+        cells = self.tiles * 256 * 256
+        return self.throughput_tops * 1e6 / cells
+
+    @property
+    def adc_share(self) -> float:
+        """ADC conversions' share of the total energy (0 under the flat
+        model, which folds the ADC into the per-MAC figure)."""
+        return self.e_cim_adc / self.e_total
+
+    def breakdown(self) -> Dict[str, float]:
+        return {
+            "cim_uJ": self.e_cim * 1e6,
+            "cim_array_uJ": self.e_cim_array * 1e6,
+            "cim_input_uJ": self.e_cim_input * 1e6,
+            "cim_adc_uJ": self.e_cim_adc * 1e6,
+            "moving_uJ": self.e_moving * 1e6,
+            "noi_uJ": self.e_noi * 1e6,
+            "memory_uJ": self.e_memory * 1e6,
+            "other_uJ": self.e_other * 1e6,
+            "offchip_uJ": self.e_offchip * 1e6,
+            "total_uJ": self.e_total * 1e6,
+        }
+
+
+def analyze(cnn: CNNConfig, n_c: int = 256, n_m: int = 256, reuse: int = 1,
+            dup_cap: int = 64,
+            cim_spec: "CIMSpec | None" = None) -> EnergyReport:
+    plan = plan_network(cnn, n_c=n_c, n_m=n_m, reuse=reuse, dup_cap=dup_cap)
+    return analyze_plan(cnn, plan, cim_spec=cim_spec)
+
+
+def analyze_plan(cnn: CNNConfig, plan: NetworkPlan,
+                 placement: "Placement | None" = None,
+                 cim_spec: "CIMSpec | None" = None,
+                 layer_specs: "dict | None" = None) -> EnergyReport:
+    """Energy/throughput report for one planned mapping.
+
+    ``placement`` injects the tile layout to account routed traffic on
+    (the DSE explores non-snake curves); the default remains the snake
+    baseline, so existing callers are unchanged.
+
+    ``cim_spec`` switches the PE term from the flat Tab. 4 anchor
+    (``total_macs * 48.1 fJ``, the paper's fully-utilized 8b figure —
+    kept as the default so the Tab. 4 regression anchors stay exact) to
+    the precision-aware component model: analog array + DAC input terms
+    scaling with ``a_bits``, and per-conversion SAR ADC energy scaling
+    with ``adc_bits`` over the *actual* subarray conversion count.
+
+    ``layer_specs`` (``{layer name: CIMSpec}``, requires ``cim_spec``)
+    scores per-layer bit-scalable precision: each layer's MACs and
+    conversions are charged at its own ``(a_bits, adc_bits)`` — the
+    TOPS/W-at-precision axis of the robustness DSE.
+    """
+    rep = EnergyReport(
+        model=cnn.name,
+        macs=plan.total_macs,
+        tiles=plan.total_tiles,
+        ii_cycles=plan.initiation_interval,
+    )
+    if cim_spec is None:
+        if layer_specs:
+            raise ValueError("layer_specs requires cim_spec")
+        rep.e_cim = plan.total_macs * E_MAC
+    elif not layer_specs:
+        conv = adc_conversions(plan)
+        rep.n_adc_conversions = conv
+        rep.e_cim_array = plan.total_macs * E_ARRAY_BIT * cim_spec.a_bits
+        rep.e_cim_input = plan.total_macs * E_DAC_BIT * cim_spec.a_bits
+        rep.e_cim_adc = conv * adc_conversion_energy(cim_spec.adc_bits)
+        rep.e_cim = rep.e_cim_array + rep.e_cim_input + rep.e_cim_adc
+    else:
+        for lp in plan.layers:
+            sp = layer_specs.get(lp.name, cim_spec)
+            lconv = (lp.out_pixels * lp.chain_len * lp.c_out
+                     if lp.kind == "conv" else lp.chain_len * lp.c_out)
+            rep.n_adc_conversions += lconv
+            rep.e_cim_array += lp.macs * E_ARRAY_BIT * sp.a_bits
+            rep.e_cim_input += lp.macs * E_DAC_BIT * sp.a_bits
+            rep.e_cim_adc += lconv * adc_conversion_energy(sp.adc_bits)
+        rep.e_cim = rep.e_cim_array + rep.e_cim_input + rep.e_cim_adc
+    if placement is None:
+        placement = place_network(plan)
+    noc = placement.noc
+
+    for li, lp in enumerate(plan.layers):
+        if lp.kind == "conv":
+            # traffic counts share the routed-link accounting of the
+            # instruction-driven simulator via core/transport.py: for any
+            # single placed chain the two are equal by construction
+            # (tests/test_transport.py cross-validates every benchmark
+            # geometry).  Here output pixels divide over all duplicated
+            # copies/m-splits, whose placed bases give each copy its own
+            # routed group-hop lengths — the functional simulator drives
+            # copy 0 only, so network-wide GROUP totals are the energy
+            # model's (all-copies) figure, not the simulator's.
+            pix = lp.out_pixels
+            k = lp.k
+            group_size = lp.chain_len // k
+            # IFM stream: every padded pixel visits every tile of the chain
+            ifm_visit_bytes = lp.in_pixels * lp.c_in * lp.chain_len
+            # chain psums + group-sums, routed per placed (copy, m-split)
+            # chain over the shared mesh; output pixels divide over copies
+            fires = pix / lp.duplication
+            chain_bh = group_bh = 0.0
+            for d in range(lp.duplication):
+                for j in range(lp.m_splits):
+                    base = placement.chain_base(
+                        li, d, j, tiles_per_copy=lp.tiles_per_copy,
+                        chain_len=lp.chain_len)
+                    m_slice = min(plan.n_m, lp.c_out - j * plan.n_m)
+                    bh = conv_block_byte_hops(noc, base, k, group_size,
+                                              fires, m_slice * PSUM_BYTES)
+                    chain_bh += bh[CHAIN]
+                    group_bh += bh[GROUP]
+            rep.e_moving += (ifm_visit_bytes + chain_bh + group_bh) \
+                * E_LINK_BYTE_HOP
+
+            # memory: Rifm buffer w+r per pixel visit; Rofm buffer push+pop
+            # per waiting group-sum
+            rifm_bytes = 2 * ifm_visit_bytes
+            rofm_bytes = 2 * pix * (k - 1) * lp.c_out * PSUM_BYTES
+            rep.e_memory += (rifm_bytes + rofm_bytes) * E_BUF_BYTE
+
+            # other: adders (one per chain link per output — channel-split
+            # chains fold their slices in-chain), activation, schedule fetch
+            adds = pix * (lp.chain_len - 1) * lp.c_out
+            rep.e_other += adds * E_ADDER_8B * PSUM_BYTES
+            rep.e_other += pix * lp.c_out * E_ACT_8B
+            # active tile-cycles: each copy streams in_pixels/dup pixels
+            active_cycles = (lp.in_pixels / lp.duplication) * lp.total_tiles
+            rep.e_other += active_cycles * E_SCHED_FETCH
+        else:
+            rep.e_moving += (lp.c_in + lp.chain_len * lp.c_out * PSUM_BYTES) \
+                * E_LINK_BYTE_HOP
+            rep.e_memory += 2 * lp.c_in * E_BUF_BYTE
+            rep.e_other += lp.c_in * lp.m_splits * E_SCHED_FETCH / plan.n_c
+            rep.e_other += (lp.chain_len - 1) * lp.c_out * E_ADDER_8B * PSUM_BYTES
+
+    # inter-block OFM movement, split by level: mesh hops at the on-chip
+    # link cost (snake placement, usually 1 hop), gateway-to-gateway NoI
+    # hops at the interposer cost — zero off a ChipletFabric, so the flat
+    # Tab. 4 anchors are untouched
+    mesh_bh, noi_bh = inter_block_byte_hops_split(plan, placement=placement)
+    rep.e_moving += mesh_bh * E_LINK_BYTE_HOP
+    rep.e_noi = noi_bh * E_NOI_BYTE_HOP
+    rep.routed_byte_hops = routed_byte_hops_per_class(cnn, plan, placement)
+    return rep
+
+
+def _sim_stages(cnn: CNNConfig):
+    """Replicate the functional simulator's stage walk
+    (``NetworkSimulator._build_stages``): projection ``*_sc`` layers are
+    folded into the residual stage they serve.  Yields
+    ``(li, sc_li_or_None, prev_main_li_or_None)`` per stage."""
+    layers = cnn.layers
+    prev_li = None
+    li = 0
+    while li < len(layers):
+        layer = layers[li]
+        step = 1
+        sc_li = None
+        if isinstance(layer, ConvLayer) and layer.residual_from is not None \
+                and li + 1 < len(layers) \
+                and isinstance(layers[li + 1], ConvLayer) \
+                and layers[li + 1].name.endswith("_sc"):
+            sc_li = li + 1
+            step = 2
+        yield li, sc_li, prev_li
+        prev_li = li
+        li += step
+
+
+def routed_byte_hops_per_class(cnn: CNNConfig, plan: NetworkPlan,
+                               placement: "Placement | None" = None
+                               ) -> Dict[str, int]:
+    """Exact-integer per-class byte-hops of the *functional* execution.
+
+    The energy model's ``e_moving`` spreads output pixels over all
+    weight-duplicated copies at their own placed bases (fractional fires
+    per copy) — the right average-power view, but not what the
+    instruction-driven simulator routes: it drives copy 0 with the full
+    pixel stream and the full ``c_out`` psum payload.  This walk mirrors
+    the simulator's accounting exactly — same links
+    (:func:`conv_links` / the FC grid of ``simulate_fc``), same bases
+    (``block_start``), same payloads, same stage-folding for projection
+    shortcuts — so its totals equal ``TrafficCounters.byte_hops`` (and
+    therefore the telemetry per-link heatmap sums) as integers, on any
+    placement.  This is the analytic corner of the three-way
+    conservation check in ``repro_torch.telemetry.heatmap``.
+
+    On a :class:`~repro_torch.core.noc.ChipletFabric` the accounting is
+    per-*level* like the transport's: a flow's intra-mesh hops stay
+    under its own class and its interposer hops accrue under ``"noi"``
+    — also as exact integers, so the three-way equality holds for the
+    intra-mesh classes AND the NoI level separately.  Chain/group/split
+    traffic never crosses chiplets (blocks shard at stage boundaries),
+    so only the OFM/residual streams carry an NoI share.
+    """
+    if placement is None:
+        placement = place_network(plan)
+    noc = placement.noc
+    out: Dict[str, int] = {CHAIN: 0, GROUP: 0, SPLIT: 0, OFM: 0,
+                           RESIDUAL: 0, NOI: 0}
+
+    def stream(kind: str, src: int, dst: int, nbytes: int) -> None:
+        """One routed bulk stream, split by level (mirrors
+        ``NoCTransport._account``)."""
+        h_mesh, h_noi = noc.hop_levels(src, dst)
+        out[kind] += h_mesh * nbytes
+        out[NOI] += h_noi * nbytes
+
+    def conv_chain(li: int) -> None:
+        lp = plan.layers[li]
+        base = placement.block_start[li]
+        payload = lp.c_out * PSUM_BYTES
+        for s, d, kind in conv_links(lp.k, lp.chain_len // lp.k):
+            out[kind] += lp.out_pixels * noc.hops(base + s, base + d) \
+                * payload
+        # the IFM pixel stream stays analytic-only (energy model), as in
+        # the simulator's counters
+
+    def fc_grid(li: int) -> None:
+        lp = plan.layers[li]
+        base = placement.block_start[li]
+        m_t = lp.chain_len
+        m_a = math.ceil(lp.c_out / plan.n_m)
+        for j in range(m_a):
+            width = min(plan.n_m, lp.c_out - j * plan.n_m)
+            for i in range(m_t - 1):
+                out[SPLIT] += noc.hops(base + i * m_a + j,
+                                       base + (i + 1) * m_a + j) \
+                    * width * PSUM_BYTES
+
+    stages = list(_sim_stages(cnn))
+    saved: Dict[str, tuple] = {}
+    for li, sc_li, prev_li in stages:
+        layer = cnn.layers[li]
+        if not isinstance(layer, ConvLayer):
+            fc_grid(li)
+            continue
+        if layer.name.endswith("_a"):
+            # residual save: the stage input (the producing layer's
+            # post-pool activations) is what later streams to the join
+            saved[layer.name] = (layer.h * layer.w * layer.c, prev_li)
+        conv_chain(li)
+        if layer.residual_from is not None:
+            nbytes_saved, src_li = saved.pop(layer.residual_from)
+            lp = plan.layers[li]
+            if sc_li is not None:
+                conv_chain(sc_li)
+                lp_sc = plan.layers[sc_li]
+                if src_li is not None:
+                    stream(RESIDUAL, placement.block_end[src_li],
+                           placement.block_start[sc_li], nbytes_saved)
+                stream(RESIDUAL, placement.block_end[sc_li],
+                       placement.block_end[li],
+                       lp_sc.out_pixels * lp_sc.c_out)
+            elif src_li is not None:
+                stream(RESIDUAL, placement.block_end[src_li],
+                       placement.block_end[li], nbytes_saved)
+    # inter-stage OFM streams (the simulator records raw route lengths,
+    # no max(1, h) floor — co-located endpoints route zero hops)
+    for (li, _sc, _p), (nli, _sc2, _p2) in zip(stages, stages[1:]):
+        lp = plan.layers[li]
+        stream(OFM, placement.block_end[li], placement.block_start[nli],
+               lp.out_pixels * lp.c_out)
+    return {k: v for k, v in out.items() if v}
+
+
+# --- Fig. 11 comparison data (normalized CE / normalized throughput of the
+# baselines, straight from Tab. 4's "Normalized CE" row) --------------------
+BASELINE_NORM_CE = {
+    "jia-isscc21 [23]": 9.53,
+    "yue-isscc20 [48]": 2.82,
+    "yoon-isscc21 [46]": 9.24,
+    "maeri [27]": 0.36,
+    "atomlayer [35]": 2.73,
+    "cascade [12]": 12.98,
+    "timely [28]": 22.46,
+}
+
+BASELINE_MOPS_PER_CELL = {
+    "timely [28]": 16.19 / 3.10,
+    "cascade [12]": 16.19 / 270.0,
+    "yue-isscc21 [47]": 16.19 / 7.36,
+    "jia-isscc21 [23]": 16.19 / 1.57,
+}
+
+#: Tab. 4 rows for Domino itself (for regression-checking our model)
+PAPER_DOMINO_ROWS = {
+    "vgg16-imagenet": dict(cim_uJ=744.1, moving_uJ=46.39, memory_uJ=446.4,
+                           other_uJ=8.41, ce=24.84, inf_s=1.28e4),
+    "vgg19-imagenet": dict(cim_uJ=944.3, moving_uJ=52.81, memory_uJ=508.1,
+                           other_uJ=9.59, ce=25.92, inf_s=1.28e4),
+    "resnet18-cifar10": dict(cim_uJ=26.44, moving_uJ=3.89, memory_uJ=24.21,
+                             other_uJ=0.46, ce=19.99, inf_s=6.25e5),
+    "resnet50-imagenet": dict(cim_uJ=168.3, moving_uJ=16.97, memory_uJ=115.41,
+                              other_uJ=1.68, ce=23.14, inf_s=1.02e5),
+    "vgg11-cifar10": dict(cim_uJ=36.74, moving_uJ=2.63, memory_uJ=25.41,
+                          other_uJ=0.48, ce=23.41, inf_s=6.25e5),
+}

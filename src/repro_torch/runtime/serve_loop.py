@@ -267,30 +267,54 @@ class StreamServeReport:
 
 
 def build_stream_sim(cnn, params: Dict[str, Any], engine=None,
-                     chiplets: int = 1, device=None, **kw):
+                     chiplets: int = 1, noi: str = "mesh", device=None,
+                     **kw):
     """Serving-side constructor for the streaming simulator on
     ``device`` (``None`` = the card).
 
     Params carrying ``{"q", "s"}`` leaves (from
     :func:`quantize_cnn_params_for_serving`) run the CIM engine by
     default — the int8 weights stay resident — while float params run
-    the exact engine; ``engine=`` overrides.  Serving over a chiplet
-    fabric (``chiplets > 1``) is not ported yet."""
+    the exact engine; ``engine=`` overrides.
+
+    ``chiplets > 1`` serves the model sharded over a two-level
+    :class:`~repro_torch.core.noc.ChipletFabric` (``noi`` names the
+    interposer topology): the plan is cut at stage boundaries by
+    :func:`~repro_torch.core.noc.shard_network`, and streamed OFM
+    hand-offs between chiplets cross the NoI as ordinary routed
+    traffic.  An explicit ``placement=`` wins over these knobs."""
     from repro_torch.core.network import NetworkSimulator
 
-    if chiplets != 1:
-        raise NotImplementedError(
-            "chiplets > 1 (the two-level chiplet fabric) is not ported")
     if engine is None:
         quantized = any(is_quantized_leaf(v) for v in params.values())
         engine = "cim" if quantized else "exact"
+    if chiplets > 1 and "placement" not in kw:
+        from repro_torch.core.mapping import plan_network
+        from repro_torch.core.noc import shard_network
+
+        # NetworkSimulator's own planning defaults, so the sharded
+        # placement's block spans match the simulator's plan exactly
+        plan = plan_network(cnn, n_c=kw.get("n_c", 256),
+                            n_m=kw.get("n_m", 256),
+                            reuse=kw.get("reuse", 1),
+                            dup_cap=kw.get("dup_cap", 64),
+                            dup_overrides=kw.get("dup_overrides") or {})
+        kw["placement"] = shard_network(plan, chiplets, noi=noi)
     return NetworkSimulator(cnn, params, backend="trace", streaming=True,
                             engine=engine, device=device, **kw)
+
+
+#: serve-latency histogram bounds (step-clock cycles, geometric ladder
+#: covering CIFAR pipelines through ImageNet fill latencies)
+LATENCY_BUCKETS_CYCLES = (
+    1e3, 2e3, 5e3, 1e4, 2e4, 5e4, 1e5, 2e5, 5e5, 1e6, 2e6, 5e6, 1e7)
 
 
 def serve_stream(sim, frames, offered_inf_s: Optional[float] = None,
                  clock_hz: Optional[float] = None, hist_bins: int = 16,
                  straggler: Optional[StragglerMonitor] = None,
+                 metrics=None,
+                 metric_labels: Optional[Dict[str, str]] = None,
                  batch_window: Optional[int] = None) -> StreamServeReport:
     """Request-queue front-end over the streaming simulator.
 
@@ -300,8 +324,13 @@ def serve_stream(sim, frames, offered_inf_s: Optional[float] = None,
     latency runs from its arrival cycle to its pipeline exit in the
     simulated stage timeline and feeds a :class:`StragglerMonitor`.
     ``batch_window`` bounds the numerics micro-batch (``run_stream``'s
-    chunk); it cannot change a reported value.  The Prometheus-style
-    metrics export of the reference is not ported yet.
+    chunk); it cannot change a reported value.
+
+    ``metrics`` (a ``repro_torch.telemetry.MetricsRegistry``) registers
+    the reference's Prometheus-style series — completed and flagged
+    frame counters, the latency histogram, the queue-depth distribution,
+    realized micro-batch sizes and goodput gauges — under the label set
+    ``metric_labels`` (e.g. ``{"tenant": "a"}``).
     """
     from repro_torch.core.energy import STEP_CLOCK_HZ
     from repro_torch.telemetry.spans import span
@@ -315,12 +344,16 @@ def serve_stream(sim, frames, offered_inf_s: Optional[float] = None,
         spacing = clock_hz / offered_inf_s
     if t_n == 0:
         empty = np.empty(0, np.int64)
-        return StreamServeReport(
+        report = StreamServeReport(
             arrivals=empty, latency_cycles=empty,
             measured_ii=0, analytic_ii=sim.plan.initiation_interval,
             fill_latency=0, offered_inf_s=clock_hz / spacing,
             throughput_inf_s=0.0, clock_hz=clock_hz,
             latency_hist=np.histogram(empty, bins=hist_bins))
+        if metrics is not None:
+            _export_serve_metrics(metrics, dict(metric_labels or {}),
+                                  report, None)
+        return report
     arrivals = np.floor(np.arange(t_n) * spacing).astype(np.int64)
     with span(f"serve_stream:{sim.cnn.name}", frames=t_n,
               batch_window=batch_window or 0):
@@ -335,7 +368,7 @@ def serve_stream(sim, frames, offered_inf_s: Optional[float] = None,
     escalate = False
     for i, cycles in enumerate(lat):
         escalate = mon.observe(i, float(cycles) / clock_hz) or escalate
-    return StreamServeReport(
+    report = StreamServeReport(
         arrivals=arrivals, latency_cycles=lat,
         measured_ii=res.measured_ii, analytic_ii=res.analytic_ii,
         fill_latency=res.fill_latency,
@@ -344,3 +377,62 @@ def serve_stream(sim, frames, offered_inf_s: Optional[float] = None,
         flagged_frames=tuple(mon.flagged_steps),
         straggler_escalate=escalate, batch_sizes=res.batch_sizes,
         logits=res.logits)
+    if metrics is not None:
+        _export_serve_metrics(metrics, dict(metric_labels or {}),
+                              report, res)
+    return report
+
+
+def _export_serve_metrics(metrics, labels: Dict[str, str],
+                          report: StreamServeReport, res) -> None:
+    """Register/update the serving series on a telemetry registry (the
+    reference's export, host code).  ``res`` is the stream result (for
+    exit times) or None for an empty run, which still registers every
+    series at zero."""
+    lnames = tuple(sorted(labels))
+
+    def series(fam):
+        return fam.labels(**labels)
+
+    series(metrics.counter(
+        "serve_frames_total", "requests completed", lnames)).inc(
+            report.completed)
+    series(metrics.counter(
+        "serve_flagged_total", "straggler-flagged requests",
+        lnames)).inc(len(report.flagged_frames))
+    hist = series(metrics.histogram(
+        "serve_latency_cycles", "closed-loop request latency (cycles)",
+        lnames, buckets=LATENCY_BUCKETS_CYCLES))
+    for cycles in report.latency_cycles:
+        hist.observe(float(cycles))
+    # queue depth sampled at each arrival: arrived minus already exited
+    exits = np.sort(res.finish[:, -1]) if res is not None \
+        else np.empty(0, np.int64)
+    depth_hist = series(metrics.histogram(
+        "serve_queue_depth", "frames in flight at each arrival", lnames,
+        buckets=(1, 2, 4, 8, 16, 32, 64, 128)))
+    peak = 0
+    for i, a in enumerate(report.arrivals):
+        depth = (i + 1) - int(np.searchsorted(exits, a, side="right"))
+        peak = max(peak, depth)
+        depth_hist.observe(depth)
+    series(metrics.gauge(
+        "serve_queue_depth_peak", "max frames in flight", lnames)).set(peak)
+    series(metrics.gauge(
+        "serve_goodput_inf_s", "measured completion rate", lnames)).set(
+            report.throughput_inf_s)
+    series(metrics.gauge(
+        "serve_offered_inf_s", "offered request rate", lnames)).set(
+            report.offered_inf_s)
+    batch_hist = series(metrics.histogram(
+        "serve_batch_size", "realized numerics micro-batch sizes", lnames,
+        buckets=(1, 2, 4, 8, 16, 32, 64)))
+    for size in (res.batch_sizes if res is not None else ()):
+        batch_hist.observe(float(size))
+    series(metrics.gauge(
+        "serve_measured_ii_cycles", "steady-state exit spacing",
+        lnames)).set(float(report.measured_ii)
+                     if report.measured_ii is not None else 0.0)
+    series(metrics.gauge(
+        "serve_straggler_escalate", "monitor escalation tripped",
+        lnames)).set(1.0 if report.straggler_escalate else 0.0)

@@ -126,6 +126,62 @@ def test_cuda_kernel_edge_grid(kc):
                             x.shape, w_k.shape, adc is not None, emit)
 
 
+#: the robust DSE's precisions below 8 bits: 6-bit weights and
+#: activations with 6- and 4-bit ADCs
+LOW_PRECISION = [CIMSpec(n_c=256, w_bits=6, a_bits=6, adc_bits=b)
+                 for b in (6, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", LOW_PRECISION,
+                         ids=lambda s: f"adc{s.adc_bits}")
+def test_cuda_kernel_low_precision(spec):
+    """The kernel reads ``q_max`` and the steps at run time: 6-bit
+    operands (codes of the narrower grid) with 6- and 4-bit ADCs equal
+    the plain version by value, both variants, both layouts, both output
+    modes, at vgg11's call shapes and ragged ones."""
+    _needs_card()
+    rng = np.random.default_rng(spec.adc_bits)
+    lo, hi = -spec.w_max - 1, spec.w_max + 1
+
+    def ints(shape):
+        return torch.from_numpy(
+            rng.integers(lo, hi, shape).astype(np.int8)).cuda()
+
+    cases = [(ints((3, 4096, 9)), ints((3, 64, 9)).transpose(1, 2)),
+             (ints((18, 16, 256)), ints((18, 512, 256)).transpose(1, 2)),
+             (ints((7, 37, 29)), ints((7, 77, 29)).transpose(1, 2)),
+             (ints((4, 16 * 256)), ints((10, 16 * 256)).T),
+             (ints((13, 3 * 256 + 11)), ints((130, 3 * 256 + 11)).T)]
+    for x, w in cases:
+        steps = x.shape[0] if x.dim() == 3 else -(-x.shape[1] // 256)
+        for adc in (None, _table(rng, steps, spec)):
+            for emit in (True, False):
+                a = cim_codes(x, w, spec, adc=adc, emit_codes=emit)
+                b = cim_codes_plain(x, w, spec, adc=adc, emit_codes=emit)
+                torch.cuda.synchronize()
+                assert _same(a, b), (tuple(x.shape), adc is not None, emit)
+
+
+@pytest.mark.cuda
+def test_cuda_code_width_guard():
+    """The kernel sums codes below 2^22 only: a 23-bit ADC
+    (``q_max + 1 == 2^22``) runs and equals the plain version, a 24-bit
+    one raises before launching."""
+    _needs_card()
+    rng = np.random.default_rng(23)
+    x, w = _ints(rng, (2, 8, 256)), _ints(rng, (2, 256, 64))
+    ok = CIMSpec(n_c=256, adc_bits=23)
+    before = dict(LAUNCHES)
+    a = cim_codes(x, w, ok)
+    torch.cuda.synchronize()
+    assert _same(a, cim_codes_plain(x, w, ok))
+    assert LAUNCHES["cim_codes"] == before["cim_codes"] + 1
+    with pytest.raises(ValueError, match="2\\^22"):
+        cim_codes(x, w, CIMSpec(n_c=256, adc_bits=24))
+    assert LAUNCHES["cim_codes"] == before["cim_codes"] + 1
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_any_split_same_codes(monkeypatch):
     """Every row tile and every split into 1 to 8 slices (more slices

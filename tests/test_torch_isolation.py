@@ -32,9 +32,19 @@ def _forbidden(name: str) -> bool:
             or name.startswith("repro."))
 
 
+#: modules of the robustness, DSE, telemetry and chiplet slice that the
+#: walk must reach (the two CLIs are imported, not run)
+SLICE_MODULES = ("repro_torch.dse", "repro_torch.dse.__main__",
+                 "repro_torch.dse.report", "repro_torch.runtime.robustness",
+                 "repro_torch.telemetry.heatmap",
+                 "repro_torch.telemetry.__main__")
+
+
 def test_every_port_module_imports_without_jax_or_reference():
     mods = _port_modules()
     assert "repro_torch.core.network" in mods and len(mods) > 15
+    missing = [m for m in SLICE_MODULES if m not in mods]
+    assert not missing, missing
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

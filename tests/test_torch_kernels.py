@@ -116,6 +116,25 @@ def test_wrapper_dispatches_cpu_to_plain_and_checks_inputs():
         cim_codes(x, w, CIMSpec(n_c=32, adc_bits=24))
 
 
+@pytest.mark.parametrize("layout", ["3d", "2d"])
+def test_code_sum_guard_boundary(layout):
+    """``T * (q_max + 1) <= 2^24`` holds the float32 code sum exact:
+    16-bit codes over 512 steps reach 2^24 and run; 513 steps raise."""
+    spec = CIMSpec(n_c=32, adc_bits=16)
+    for t, ok in ((512, True), (513, False)):
+        if layout == "3d":
+            x = torch.ones((t, 2, 1), dtype=torch.int8)
+            w = torch.ones((t, 1, 3), dtype=torch.int8)
+        else:
+            x = torch.ones((2, t * 32), dtype=torch.int8)
+            w = torch.ones((t * 32, 3), dtype=torch.int8)
+        if ok:
+            assert cim_codes(x, w, spec).shape == (2, 3)
+        else:
+            with pytest.raises(ValueError, match="2\\^24"):
+                cim_codes(x, w, spec)
+
+
 def test_plain_dots_do_not_wrap():
     """int8 x int8 at the extremes: an int8 ``torch.matmul`` would wrap;
     the plain version's float64 dots are exact (lossless spec: codes ARE

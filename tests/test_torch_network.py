@@ -225,8 +225,6 @@ def test_unported_paths_raise():
         NetworkSimulator(pcnn, p, backend="interp", device="cpu")
     with pytest.raises(NotImplementedError):
         NetworkSimulator(pcnn, p, trace_jit=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        PS.build_stream_sim(pcnn, p, chiplets=2, device="cpu")
     sim = PS.build_stream_sim(pcnn, p, device="cpu")
     with pytest.raises(NotImplementedError):
         sim.run_stream(x, batched=False)
