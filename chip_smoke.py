@@ -13,14 +13,33 @@ Phases (any failure exits non-zero before the result line):
    from a numpy seed, quantized for serving and served through the
    streaming simulator (``serve_stream``, 8 frames, ``batch_window=4``)
    on the card — once with nominal ADCs, once with a device-variation
-   model attached.  Each flavor first records the kernel calls of one
-   batch; each counted run resets the kernel launch counts and the
+   model attached.  The card's engine handles (int8 weights,
+   multipliers, ADC tables) must equal the CPU simulator's.  Each flavor
+   first records the kernel calls of one batch (one per fire chunk of
+   each conv layer, one per FC layer on the layer's whole operands:
+   10); each counted run resets the kernel launch counts and the
    wrapper's weight-copy count just before and reads them just after:
    the flavor's variant launches once per recorded call per batch, the
    other never, and no weight is copied.  The same runs on the CPU
    (plain kernel versions, calibration copied from the card's engine)
    must give equal logits, counters, traffic and timeline, and
    ``measured_ii == analytic_ii``;
+M. the main path's other four CNNs at full width, one after another:
+   resnet18-cifar10, vgg16-imagenet, vgg19-imagenet and
+   resnet50-imagenet (``dup_cap=128``), random float weights and frames
+   from the numpy seed, quantized for serving and served on the card
+   (8 frames, ``batch_window=4``) with nominal ADCs, and vgg16 once more
+   with ``VARIATION_PRESETS["all"]``.  The same gates as phase 2 (the
+   handles; the calls of one batch, one per FC layer; the counted
+   run's launches; no weight copy), finite logits of the right shape,
+   measured II == analytic II == the reference bench's (16, 784, 784,
+   98), one batch equal to the CPU run (logits by value, counters,
+   traffic, timeline), every recorded call equal to the plain version
+   by value.  Build seconds, placed tiles, calls per batch, wall
+   ms/frame, device busy share, the host seconds of the numerics and
+   the accounting passes, the kernel's device time per batch and per
+   FC call beside its bound (and vgg16's first FC layer as the grid's
+   per-tile calls), the phase's seconds;
 3. each CIM variant against its plain PyTorch version on the card,
    equal by value, both output modes: at the main path's own calls, on
    random int8 inputs at those shapes for n_c in {32, 96, 256} with
@@ -95,7 +114,9 @@ T. telemetry and chiplets: vgg11 served over 4 floret chiplets with a
    (exactly their function), and the bound; the rate on unmasked and on
    computed work (``tile_schedule``) and the share of the bound.
 
-The line before the last is the ``kernels`` JSON; the last line is
+The line before the last is the ``kernels`` JSON (a CIM variant's
+``launches`` summed over the counted runs of phases 2 and M, its
+times phase 4's, per vgg11 batch); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -121,6 +142,17 @@ EDGE_R = (1, 4, 16, 37, 4096)
 EDGE_N = (10, 64, 77, 512, 1000)
 EDGE_T = (1, 3, 7, 18, 40)
 EDGE_T_FC = (1, 3, 7)
+#: phase M: the main path's other four CNNs at full width, each with the
+#: dup_cap and the analytic II of the reference's bench (``BENCH_core.json``
+#: ``stream_*`` rows; ``benchmarks/run.py`` serves resnet50 at 128)
+MODELS = {"resnet18-cifar10": (64, 16), "vgg16-imagenet": (64, 784),
+          "vgg19-imagenet": (64, 784), "resnet50-imagenet": (128, 98)}
+#: the phase-M model also served with VARIATION_PRESETS["all"]
+MODEL_VARIATION = "vgg16-imagenet"
+#: phase M's timed serving runs per model, and profiled passes over the
+#: recorded calls of one batch
+MODEL_WALL_REPS = 3
+MODEL_TIME_REPS = 5
 #: phase R: Monte-Carlo trials per preset on the card, and how many of
 #: the "all" preset's are rerun on the CPU
 ROBUST_TRIALS = 4
@@ -214,7 +246,8 @@ def counters_equal(ra, rb) -> bool:
             and np.array_equal(ra.finish, rb.finish))
 
 
-def vgg11_params(cnn, rng):
+def cnn_params(cnn, rng):
+    """Random float weights of every layer, scaled by fan-in."""
     from repro_torch.configs.cnn import ConvLayer
 
     params = {}
@@ -227,17 +260,17 @@ def vgg11_params(cnn, rng):
     return params
 
 
-def serving_walls(sim, frames):
-    """Wall time per frame of WALL_REPS serving runs: host clock around
+def serving_walls(sim, frames, reps: int = WALL_REPS):
+    """Wall time per frame of ``reps`` serving runs: host clock around
     whole ``serve_stream`` runs that end in a synchronize."""
     from repro_torch.runtime.serve_loop import serve_stream
 
     walls = []
-    for _ in range(WALL_REPS):
+    for _ in range(reps):
         t0 = time.perf_counter()
         serve_stream(sim, frames, batch_window=BATCH_WINDOW)
         torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) / FRAMES)
+        walls.append((time.perf_counter() - t0) / len(frames))
     return walls
 
 
@@ -261,16 +294,52 @@ def check_cim_sass(lib) -> None:
              "products and no IDP4A")
 
 
-def vgg11_inputs():
-    """(config, float params, frames) of vgg11-cifar10 at full width:
-    phase 2's, and the later CNN phases'."""
+def cnn_inputs(name: str = "vgg11-cifar10"):
+    """(config, float params, frames) of a CNN at full width, from one
+    numpy generator seeded with SEED: vgg11's for phase 2 and the later
+    vgg11 phases, the other four models' for phase M."""
     from repro_torch.configs.cnn import CNN_BENCHMARKS
 
-    cnn = CNN_BENCHMARKS["vgg11-cifar10"]()
+    cnn = CNN_BENCHMARKS[name]()
     rng = np.random.default_rng(SEED)
-    params = vgg11_params(cnn, rng)
+    params = cnn_params(cnn, rng)
     frames = rng.random((FRAMES, cnn.input_hw, cnn.input_hw, 3))
     return cnn, params, frames
+
+
+def check_handles(sim, cpu, what: str) -> None:
+    """The card simulator's engine handles hold the CPU one's values:
+    int8 weights, dequantization multipliers and ADC tables (each side
+    quantized its own float weights; calibration copied)."""
+    for li, h in sim._handles.items():
+        g = cpu._handles[li]
+        for field in ("w8_stack", "w8", "deq", "adc"):
+            a, b = getattr(h, field, None), getattr(g, field, None)
+            if (a is None) != (b is None) or (
+                    a is not None and not torch.equal(a.cpu(), b)):
+                fail(f"{what}: {sim.cnn.layers[li].name}'s {field} on the "
+                     "card differs from the CPU's")
+
+
+def check_calls(sim, calls, what: str):
+    """The recorded calls of one batch: one kernel call per fire chunk of
+    every conv layer or width strip (``TraceExecutor`` bounds each call's
+    working set), then exactly one per FC layer on the layer's whole
+    (B, c_in) x (c_in, c_out) operands.  Returns (conv calls, FC
+    layers)."""
+    from repro_torch.configs.cnn import FCLayer
+
+    conv = sum(len(ex._quant_chunks(ex.plan.fires, BATCH_WINDOW))
+               for ex in sim._executors.values())
+    want = [((BATCH_WINDOW, l.c_in), (l.c_in, l.c_out))
+            for l in sim.cnn.layers if isinstance(l, FCLayer)]
+    if len(calls) != conv + len(want):
+        fail(f"{what}: {len(calls)} kernel calls per batch, want {conv} "
+             f"conv + {len(want)} FC")
+    shapes = [(tuple(x.shape), tuple(w.shape)) for x, w, _, _ in calls[conv:]]
+    if shapes != want:
+        fail(f"{what}: FC calls {shapes}, want one per layer {want}")
+    return conv, len(want)
 
 
 def reset_counts(km):
@@ -292,7 +361,7 @@ def main_path(km):
         serve_stream,
     )
 
-    cnn, params, frames = vgg11_inputs()
+    cnn, params, frames = cnn_inputs()
     t0 = time.perf_counter()
     sims = {}
     for dev in ("cuda", "cpu"):
@@ -302,6 +371,7 @@ def main_path(km):
             eng = copy_calibration(sims["cuda"].pe_engine,
                                    CIMEngine(device="cpu"))
         sims[dev] = build_stream_sim(cnn, qp, engine=eng, device=dev)
+    check_handles(sims["cuda"], sims["cpu"], cnn.name)
     log(f"[e2e] {cnn.name}: {sims['cuda'].plan.total_tiles} placed tiles, "
         f"built in {time.perf_counter() - t0:.1f} s (calibrated on the card)")
     # warm the card (first launches, allocator) outside the counted runs
@@ -313,8 +383,10 @@ def main_path(km):
         if var is not None:
             for sim in sims.values():
                 sim.set_variation(var)
+            check_handles(sims["cuda"], sims["cpu"], f"{cnn.name} {flavor}")
         name = "cim_codes" if var is None else "cim_codes_var"
         calls[name] = record_calls(km, sims["cuda"], frames)
+        check_calls(sims["cuda"], calls[name], f"{cnn.name} {flavor}")
         want = {k: 0 for k in km.LAUNCHES}
         want[name] = FRAMES // BATCH_WINDOW * len(calls[name])
         reset_counts(km)
@@ -361,9 +433,10 @@ def main_path(km):
     return sims["cuda"], frames, launches, wall, calls
 
 
-def profile_device(run, what: str) -> None:
+def profile_device(run, what: str):
     """Device busy share of ``run()`` and the kernels that take the
-    device time (``torch.profiler``)."""
+    device time (``torch.profiler``).  Returns the share, or None when
+    the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -387,18 +460,19 @@ def profile_device(run, what: str) -> None:
     if not rows:
         log(f"[profile] {what}: the profiler saw no device time: not "
             "measured")
-        return
+        return None
     log(f"[profile] {what}: wall {wall_us:.1f} us under the profiler, "
         f"device busy {busy:.1f} us ({100 * busy / wall_us:.2f}%)")
     for dev_us, count, key in sorted(rows, reverse=True)[:8]:
         log(f"[profile]   {dev_us:10.1f} us  x{count:<4d} {key[:90]}")
+    return busy / wall_us
 
 
 def device_share(sim, frames):
     """Device busy share of one nominal serving run of all frames."""
     from repro_torch.runtime.serve_loop import serve_stream
 
-    profile_device(
+    return profile_device(
         lambda: serve_stream(sim, frames, batch_window=BATCH_WINDOW),
         f"one serving run of {len(frames)} frames")
 
@@ -589,6 +663,17 @@ def check_kernels(km, calls):
     return worst
 
 
+def calls_bound(calls):
+    """(bound ms, what bounds it) of a list of recorded calls: the larger
+    of their int8 operations at PEAK_INT8_OPS and their bytes at
+    PEAK_BYTES."""
+    ops = sum(work(x, w, adc)[0] for x, w, _, adc in calls)
+    nbytes = sum(work(x, w, adc)[1] for x, w, _, adc in calls)
+    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def time_kernels(km, calls, card, reps: int = 50):
     """Phase 4: each main-path call's device time under
     ``torch.profiler`` (and the CUDA-event time of back-to-back calls,
@@ -601,19 +686,12 @@ def time_kernels(km, calls, card, reps: int = 50):
     def plain(x, w, spec, adc):
         km.cim_codes_plain(x, w, spec, adc=adc)
 
-    def bound(lst):
-        ops = sum(work(x, w, adc)[0] for x, w, _, adc in lst)
-        nbytes = sum(work(x, w, adc)[1] for x, w, _, adc in lst)
-        t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
-        return (max(t_ops, t_bytes) * 1e3,
-                "operations" if t_ops >= t_bytes else "bytes")
-
     rows = {}
     for name, lst in calls.items():
         for i, (x, w, spec, adc) in enumerate(lst):
             args = [(x, w, spec, adc)]
             ms = device_ms(kernel, args, reps)
-            b_ms, _ = bound(args)
+            b_ms, _ = calls_bound(args)
             t, r, _, n = geometry(x, w, spec.n_c)
             plan = km.launch_plan(t, r, n)
             blocks = -(-n // km.COLS) * -(-r // plan.rows) * plan.slices
@@ -625,7 +703,7 @@ def time_kernels(km, calls, card, reps: int = 50):
                 f"{device_ms(plain, args, 10) * 1e3:.3f} us, bound "
                 f"{b_ms * 1e3:.4f} us ({100 * b_ms / ms:.2f}% of it) on "
                 f"{card}")
-        b_ms, by = bound(lst)
+        b_ms, by = calls_bound(lst)
         rows[name] = dict(
             ms=device_ms(kernel, lst, reps),
             host_inclusive_ms=event_ms(kernel, lst, reps),
@@ -635,6 +713,191 @@ def time_kernels(km, calls, card, reps: int = 50):
         log(f"[time] {name}: {len(lst)} calls per {BATCH_WINDOW}-frame "
             f"batch: {rows[name]} on {card}")
     return rows
+
+
+def host_split(sim, frames):
+    """(numerics s, accounting s) of one ``run_stream`` of ``frames``
+    (host clock): the batched numerics pass, ending in a synchronize,
+    and the per-frame analytic accounting pass."""
+    from repro_torch.core.simulator import SimCounters
+    from repro_torch.core.transport import TrafficCounters
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim._stream_numerics(sim._input(frames), BATCH_WINDOW)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(len(frames)):
+        sim._account_frame(SimCounters(), TrafficCounters())
+    return t1 - t0, time.perf_counter() - t1
+
+
+def hold_calls(km, calls, what: str) -> float:
+    """Each recorded call through the kernel and through its plain
+    version on the card, both output modes: equal by value.  Returns
+    the largest |diff| (0.0 when all are equal)."""
+    worst = 0.0
+    for i, (x, w, spec, adc) in enumerate(calls):
+        for emit in (True, False):
+            a = km.cim_codes(x, w, spec, adc=adc, emit_codes=emit)
+            b = km.cim_codes_plain(x, w, spec, adc=adc, emit_codes=emit)
+            torch.cuda.synchronize()
+            err = (a - b).abs().max().item() if a.numel() else 0.0
+            worst = max(worst, err)
+            if not same(a, b):
+                fail(f"{what}: call {i + 1} {geometry(x, w, spec.n_c)} != "
+                     f"plain (emit_codes={emit}): max |diff| {err}")
+    return worst
+
+
+def model_phase(km, name: str, card):
+    """Phase M for one model: serve it at full width on the card (8
+    frames, ``batch_window=4``), nominal and, for MODEL_VARIATION, with
+    every variation source.  Gates: the calls of one batch (conv chunks,
+    one per FC layer), the counted run's launches and weight copies,
+    finite logits of the right shape, measured II == analytic II == the
+    reference bench's, one batch equal to the CPU run (logits by value,
+    counters, traffic, timeline), every recorded call equal to the plain
+    version.  Returns the counted runs' launches by flavor, and the
+    largest |diff| against the plain version by variant."""
+    import gc
+
+    from repro_torch.convert import copy_calibration, params_from_reference
+    from repro_torch.core.engine import CIMEngine
+    from repro_torch.core.variation import VARIATION_PRESETS
+    from repro_torch.runtime.serve_loop import (
+        build_stream_sim,
+        quantize_cnn_params_for_serving,
+        serve_stream,
+    )
+
+    t_phase = time.perf_counter()
+    dup_cap, want_ii = MODELS[name]
+    cnn, params, frames = cnn_inputs(name)
+    t0 = time.perf_counter()
+    sim = build_stream_sim(
+        cnn, quantize_cnn_params_for_serving(params_from_reference(params,
+                                                                   "cuda")),
+        device="cuda", dup_cap=dup_cap)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = build_stream_sim(
+        cnn, quantize_cnn_params_for_serving(params_from_reference(params,
+                                                                   "cpu")),
+        device="cpu", dup_cap=dup_cap,
+        engine=copy_calibration(sim.pe_engine, CIMEngine(device="cpu")))
+    cpu_build_s = time.perf_counter() - t0
+    del params
+    # warm the card (first launches, allocator) outside the counted runs
+    serve_stream(sim, frames[:BATCH_WINDOW], batch_window=BATCH_WINDOW)
+    torch.cuda.synchronize()
+    classes = cnn.layers[-1].c_out
+    flavors = [("nominal", None)]
+    if name == MODEL_VARIATION:
+        flavors.append(("variation", VARIATION_PRESETS["all"]))
+    launches, worst = {}, {}
+    for flavor, var in flavors:
+        what = f"{name} {flavor}"
+        if var is not None:
+            for each in (sim, cpu):
+                each.set_variation(var)
+        check_handles(sim, cpu, what)
+        kname = "cim_codes" if var is None else "cim_codes_var"
+        calls = record_calls(km, sim, frames)
+        conv, fc = check_calls(sim, calls, what)
+        want = {k: 0 for k in km.LAUNCHES}
+        want[kname] = FRAMES // BATCH_WINDOW * len(calls)
+        reset_counts(km)
+        rep = serve_stream(sim, frames, batch_window=BATCH_WINDOW)
+        torch.cuda.synchronize()
+        launches[flavor] = dict(km.LAUNCHES)
+        if launches[flavor] != want or km.WEIGHT_COPIES:
+            fail(f"{what}: launches {launches[flavor]} with "
+                 f"{km.WEIGHT_COPIES} weight copies in one serving run, "
+                 f"want {want} and none")
+        lg = rep.logits
+        if tuple(lg.shape) != (FRAMES, classes) or \
+                not torch.isfinite(lg).all():
+            fail(f"{what}: logits {tuple(lg.shape)} not finite / wrong shape")
+        if not rep.measured_ii == rep.analytic_ii == want_ii:
+            fail(f"{what}: measured II {rep.measured_ii}, analytic "
+                 f"{rep.analytic_ii}, the reference's {want_ii}")
+        walls = serving_walls(sim, frames, MODEL_WALL_REPS)
+        share = split = None
+        if var is None:
+            share = device_share(sim, frames)
+            split = host_split(sim, frames)
+        # one batch on the CPU (plain kernel versions), the same arrivals
+        t0 = time.perf_counter()
+        res = {dev: each.run_stream(frames[:BATCH_WINDOW],
+                                    arrivals=rep.arrivals[:BATCH_WINDOW],
+                                    chunk=BATCH_WINDOW)
+               for dev, each in (("cuda", sim), ("cpu", cpu))}
+        cpu_s = time.perf_counter() - t0
+        if not (same(res["cuda"].logits.cpu(), res["cpu"].logits)
+                and same(lg[:BATCH_WINDOW].cpu(), res["cpu"].logits)):
+            diff = (lg[:BATCH_WINDOW].cpu() - res["cpu"].logits).abs().max()
+            fail(f"{what}: card logits differ from the CPU run ({diff})")
+        if not counters_equal(res["cuda"], res["cpu"]) or \
+                res["cuda"].measured_ii != res["cpu"].measured_ii:
+            fail(f"{what}: counters / traffic / timeline differ from CPU")
+        worst[kname] = hold_calls(km, calls, what)
+
+        def kernel(x, w, spec, adc):
+            km.cim_codes(x, w, spec, adc=adc)
+
+        ms = device_ms(kernel, calls, MODEL_TIME_REPS)
+        b_ms, by = calls_bound(calls)
+        fc_rows, fc_ms = [], []
+        for x, w, spec, adc in calls[conv:]:
+            f_ms = device_ms(kernel, [(x, w, spec, adc)], 20)
+            fc_ms.append(f_ms)
+            f_b, f_by = calls_bound([(x, w, spec, adc)])
+            fc_rows.append(f"{geometry(x, w, spec.n_c)} {f_ms * 1e3:.3f} us "
+                           f"(bound {f_b * 1e3:.4f} us, {f_by})")
+        log(f"[models] {what}: {sim.plan.total_tiles} placed tiles, built "
+            f"in {build_s:.1f} s on the card ({cpu_build_s:.1f} s on the "
+            f"CPU); {len(calls)} calls per {BATCH_WINDOW}-frame batch ({conv} "
+            f"conv, {fc} FC), launches {launches[flavor]}, WEIGHT_COPIES 0; "
+            f"logits {tuple(lg.shape)} finite, == the CPU run by value over "
+            f"{BATCH_WINDOW} frames ({cpu_s:.1f} s), counters, traffic and "
+            f"timeline equal; measured II {rep.measured_ii} == analytic II "
+            f"{rep.analytic_ii}; {2 * len(calls)} calls == plain by value")
+        log(f"[models] {what}: wall ms/frame over {MODEL_WALL_REPS} runs of "
+            f"{FRAMES} frames: median {np.median(walls) * 1e3:.4f}, all "
+            f"{[round(v * 1e3, 4) for v in walls]}; device busy "
+            + ("not profiled" if share is None else f"{100 * share:.2f}%")
+            + ("" if split is None else
+               f"; of a run, the numerics pass {split[0] * 1e3:.1f} ms and "
+               f"the accounting pass {split[1] * 1e3:.1f} ms")
+            + f"; {kname} device time per batch {ms:.4f} ms against a bound "
+            f"of {b_ms:.5f} ms ({by}, {100 * b_ms / ms:.2f}% of it); FC "
+            f"calls: {'; '.join(fc_rows)} on {card}")
+        if name == MODEL_VARIATION and var is None:
+            # the first FC layer as the grid's per-tile calls (how FC
+            # layers ran before they took one call each), for comparison
+            x, w, spec, _ = calls[conv]
+            tiles = [(x[:, k0:k0 + sim.n_c], w[k0:k0 + sim.n_c,
+                                               n0:n0 + sim.n_m], spec, None)
+                     for n0 in range(0, w.shape[1], sim.n_m)
+                     for k0 in range(0, w.shape[0], sim.n_c)]
+            t0 = time.perf_counter()
+            for args in tiles:
+                kernel(*args)
+            torch.cuda.synchronize()
+            tiles_s = time.perf_counter() - t0
+            log(f"[models] {name} {geometry(x, w, spec.n_c)} as {len(tiles)} "
+                f"per-tile calls: device {device_ms(kernel, tiles, 1):.4f} "
+                f"ms, host clock {tiles_s * 1e3:.1f} ms; as one call: device "
+                f"{fc_ms[0]:.4f} ms on {card}")
+        del calls, res, rep, lg
+    del sim, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[models] {name}: phase {time.perf_counter() - t_phase:.1f} s on "
+        f"{card}")
+    return launches, worst
 
 
 def trial_probe(km):
@@ -686,7 +949,7 @@ def robustness_phase(km, calls_per_batch, card):
     )
 
     t_phase = time.perf_counter()
-    cnn, params, frames = vgg11_inputs()
+    cnn, params, frames = cnn_inputs()
     t0 = time.perf_counter()
     sim = build_robust_sim(cnn, params_from_reference(params, "cuda"), frames,
                            device="cuda")
@@ -855,7 +1118,7 @@ def telemetry_phase(km, calls_per_batch, wall_flat, card):
     )
 
     t_phase = time.perf_counter()
-    cnn, params, frames = vgg11_inputs()
+    cnn, params, frames = cnn_inputs()
     qp = quantize_cnn_params_for_serving(params_from_reference(params, "cuda"))
     flat = build_stream_sim(cnn, qp, device="cuda")
     rec, reg = None, MetricsRegistry()
@@ -1283,19 +1546,23 @@ def device_ms(fn, arglist, n):
     for args in arglist:  # warm-up
         fn(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            for args in arglist:
-                fn(*args)
-        torch.cuda.synchronize()
-    total = 0.0
-    for ev in prof.key_averages():
-        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            total += getattr(ev, "self_device_time_total",
-                             getattr(ev, "self_cuda_time_total", 0.0))
-    if total <= 0:
-        fail("the profiler saw no device time")
-    return total / n / 1e3
+    # a profiling session now and then records no device activity at all
+    # (seen once on the card, in phase 4): profile again, then fail
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                for args in arglist:
+                    fn(*args)
+            torch.cuda.synchronize()
+        total = 0.0
+        for ev in prof.key_averages():
+            if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+                total += getattr(ev, "self_device_time_total",
+                                 getattr(ev, "self_cuda_time_total", 0.0))
+        if total > 0:
+            return total / n / 1e3
+        log(f"[profile] session {attempt + 1} saw no device time")
+    fail("the profiler saw no device time")
 
 
 def event_ms(fn, arglist, n):
@@ -1445,6 +1712,22 @@ def main() -> int:
         f"{wall['nominal_again'] * 1e3:.4f}, all "
         f"{[round(v * 1e3, 4) for v in walls]}")
     device_share(sim, frames)
+    # phase M: launches of every counted main-path run, summed by kernel
+    main_launches = {name: launches["nominal" if name == "cim_codes"
+                                    else "variation"][name]
+                     for name in km.LAUNCHES}
+    worst_models = dict.fromkeys(km.LAUNCHES, 0.0)
+    t_models = time.perf_counter()
+    for name in MODELS:
+        counted, worst_m = model_phase(km, name, card)
+        for each in counted.values():
+            for k, v in each.items():
+                main_launches[k] += v
+        for k, v in worst_m.items():
+            worst_models[k] = max(worst_models[k], v)
+    log(f"[models] {len(MODELS)} models served at full width in "
+        f"{time.perf_counter() - t_models:.1f} s; main-path launches "
+        f"(phases 2 and M) {main_launches} on {card}")
     worst = check_kernels(km, calls)
     rows = time_kernels(km, calls, card)
     robustness_phase(km, len(calls["cim_codes"]), card)
@@ -1455,9 +1738,9 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": REPLACES[name],
-            "launches": launches["nominal" if name == "cim_codes"
-                                 else "variation"][name],
-            "max_abs_err": worst[name], "ms": row["ms"],
+            "launches": main_launches[name],
+            "max_abs_err": max(worst[name], worst_models[name]),
+            "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None})
     t_lm = time.perf_counter()

@@ -95,6 +95,15 @@ def f32_scalar(value: float, device) -> torch.Tensor:
     return torch.tensor(np.float32(value), dtype=torch.float32, device=device)
 
 
+def divide(x: torch.Tensor, value: float) -> torch.Tensor:
+    """``x / value`` rounded as an IEEE division on every device, as
+    numpy divides.  On a CUDA tensor PyTorch turns a division by a Python
+    number into a multiply by its reciprocal, which can round to another
+    float; a 0-d divisor on ``x``'s device (filled there, no copy) keeps
+    the division."""
+    return x / torch.full((), value, dtype=x.dtype, device=x.device)
+
+
 # ---------------------------------------------------------------------------
 # Quantization helpers
 # ---------------------------------------------------------------------------
@@ -110,7 +119,7 @@ def quantize_symmetric(x: torch.Tensor, bits: int = 8,
     qmax = 2 ** (bits - 1) - 1
     xa = x.abs()
     amax = xa.amax() if axis is None else xa.amax(dim=axis, keepdim=True)
-    scale = torch.clamp_min(amax, 1e-8) / qmax
+    scale = divide(torch.clamp_min(amax, 1e-8), qmax)
     q = torch.clamp(torch.round(x / scale), -qmax - 1, qmax).to(torch.int8)
     return q, scale.to(torch.float32)
 

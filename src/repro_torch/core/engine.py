@@ -28,7 +28,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.cim import CIMSpec, DEFAULT_SPEC, calibrate_gain
+from repro_torch.core.cim import CIMSpec, DEFAULT_SPEC, calibrate_gain, divide
 from repro_torch.core.simulator import gemm_rows
 from repro_torch.core.variation import VariationModel
 from repro_torch.device import resolve_device
@@ -56,7 +56,7 @@ def quantize_weight(w: torch.Tensor, bits: int = 8
     q_max = 2 ** (bits - 1) - 1
     w32 = w.to(torch.float32).reshape(-1, w.shape[-1])
     amax = w32.abs().amax(dim=0, keepdim=True)
-    s = torch.clamp_min(amax, 1e-8) / q_max
+    s = divide(torch.clamp_min(amax, 1e-8), q_max)
     q = torch.clamp(torch.round(w32 / s), -q_max - 1, q_max).to(torch.int8)
     return q.reshape(w.shape), s.to(torch.float64).reshape(w.shape[-1])
 
@@ -392,7 +392,7 @@ class CIMEngine(PEEngine):
     def quant_stream(self, h, x):
         """Static per-layer activation quantization to int8 (the float64
         divide / round half to even / clip of the reference)."""
-        return torch.clamp(torch.round(x / h.a_scale), -h.a_clip - 1,
+        return torch.clamp(torch.round(divide(x, h.a_scale)), -h.a_clip - 1,
                            h.a_clip).to(torch.int8)
 
     def tiles_mac(self, h: ConvHandle, patches: torch.Tensor) -> torch.Tensor:
@@ -419,6 +419,19 @@ class CIMEngine(PEEngine):
             adc = h.adc[lo:lo + -(-(k1 - k0) // n_c)]
         return _kernel.cim_codes(x, h.w8[k0:k1, n0:n1], h.spec,
                                  adc=adc).to(torch.float64)
+
+    def fc_layer_mac(self, h: FCHandle, x: torch.Tensor) -> torch.Tensor:
+        """A whole FC layer in one kernel call: ``x`` (B, c_in) int8
+        (already quantized) against the resident (c_in, c_out) weights,
+        cut into the layer's ``n_c``-row subarrays (the last one ragged),
+        subarray ``t`` converted by row ``t`` of the ADC table.  Returns
+        (B, c_out) float64 code sums: for grid tiles that each hold
+        whole subarrays, every column chain's sum of its tiles'
+        ``fc_mac`` codes (integers, so the order of the sum is moot)."""
+        adc = None
+        if h.adc is not None:
+            adc = h.adc[:-(-x.shape[1] // h.spec.n_c)]
+        return _kernel.cim_codes(x, h.w8, h.spec, adc=adc).to(torch.float64)
 
     def finalize_fc(self, h, psum, n0, n1):
         return psum * h.deq[n0:n1]

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.cnn import CNNConfig, ConvLayer, FCLayer
-from repro_torch.core.cim import CIMSpec
+from repro_torch.core.cim import CIMSpec, divide
 from repro_torch.core.energy import STEP_CLOCK_HZ
 from repro_torch.core.engine import (
     PEEngine,
@@ -172,6 +172,25 @@ def stream_timeline(arrivals: np.ndarray, occupancy, latency
     return start, finish
 
 
+def stream_timeline_scalar(arrivals: np.ndarray, occupancy, latency
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+    """Reference scalar form of :func:`stream_timeline` — the exact
+    per-cell recurrence the interleaved oracle executes, kept as the
+    differential-test oracle for the vectorized scan."""
+    arr = np.asarray(arrivals, np.int64)
+    t_n, s_n = arr.shape[0], len(occupancy)
+    start = np.zeros((t_n, s_n), np.int64)
+    finish = np.zeros((t_n, s_n), np.int64)
+    for t in range(t_n):
+        for k in range(s_n):
+            ready = finish[t, k - 1] if k else arr[t]
+            init = ready if t == 0 \
+                else max(ready, start[t - 1, k] + occupancy[k])
+            start[t, k] = init
+            finish[t, k] = init + latency[k]
+    return start, finish
+
+
 def _global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """ResNet's global average pool in the reference's order: numpy's
     ``mean(axis=(1, 2))`` adds the spatial positions one by one in
@@ -180,7 +199,7 @@ def _global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     acc = x[:, 0, 0]
     for i in range(1, x.shape[1] * x.shape[2]):
         acc = acc + x[:, i // x.shape[2], i % x.shape[2]]
-    return acc / (x.shape[1] * x.shape[2])
+    return divide(acc, x.shape[1] * x.shape[2])
 
 
 def _as_tensor(leaf, device: torch.device, dtype=None) -> torch.Tensor:

@@ -3,8 +3,10 @@
 
 ``SimCounters`` and the standalone transport are host code copied from
 the reference.  :func:`simulate_fc` walks the same ``compile_fc_block``
-instruction words, MACs each grid tile through the pluggable engine and
-accumulates the column chain on the device.  The per-cycle
+instruction words for the counters and traffic; the exact engine MACs
+each grid tile and accumulates the column chain on the device, a
+quantized engine computes the whole layer's code sums in one kernel
+call.  The per-cycle
 ``BlockSimulator`` interpreter is not ported: it stays the oracle in
 the reference package.
 """
@@ -66,8 +68,14 @@ def simulate_fc(x: torch.Tensor, w: torch.Tensor, n_c: int, n_m: int,
 
     x: (c_in,) or (B, c_in); w: (c_in, c_out) (its shape drives the grid;
     the engine handle holds the resident weights).  Each grid tile holds
-    one ``<= n_c``-row weight slice, MACed by the engine in one call; the
-    column chain accumulates digitally (ADC codes under quantization).
+    one ``<= n_c``-row weight slice; the column chain accumulates
+    digitally (ADC codes under quantization).  The exact engine MACs
+    each tile in its own call, in the chain's order.  A quantized engine
+    computes the whole layer's code sums in one kernel call before the
+    walk (``fc_layer_mac``): codes are integers, so a column's sum is the
+    chain's whatever the order.  That needs every grid tile to MAC and
+    every non-head tile to add its north neighbour's psum, and grid rows
+    of whole ``n_c``-row subarrays; anything else raises.
 
     ``account_only=True`` walks the same grid and emits every
     counter/transport increment — all value- and batch-independent — but
@@ -82,9 +90,17 @@ def simulate_fc(x: torch.Tensor, w: torch.Tensor, n_c: int, n_m: int,
     squeeze = x.dim() == 1
     if squeeze:
         x = x[None]
+    c_in, c_out = w.shape
+    codes = None
     if not account_only:
         x = engine.quant_stream(handle, x)  # engine input domain, once
-    c_in, c_out = w.shape
+        if hasattr(engine, "fc_layer_mac"):
+            if n_c % handle.spec.n_c:
+                raise ValueError(
+                    f"FC grid rows of {n_c} weight rows do not hold whole "
+                    f"{handle.spec.n_c}-row subarrays")
+            codes = engine.fc_layer_mac(handle, x)  # (B, c_out), one call
+    per_tile = not account_only and codes is None
     m_t, m_a, tables = compile_fc_block("fc", c_in, c_out, n_c, n_m, activation)
     cnt = counters if counters is not None else SimCounters()
     out = torch.zeros((x.shape[0], c_out), dtype=torch.float64,
@@ -92,21 +108,27 @@ def simulate_fc(x: torch.Tensor, w: torch.Tensor, n_c: int, n_m: int,
     for j in range(m_a):  # columns compute in parallel; python loop for sim
         n0, n1 = j * n_m, min((j + 1) * n_m, c_out)
         psum = torch.zeros((x.shape[0], n1 - n0), dtype=torch.float64,
-                           device=x.device)
+                           device=x.device) if per_tile else None
         act_fired = False
         for i in range(m_t):
             instr = Instruction.decode(tables[i][j][0])
             k0, k1 = i * n_c, min((i + 1) * n_c, c_in)
-            acc = torch.zeros_like(psum)
-            if instr.has(FROM_PE):
-                if not account_only:
+            if codes is not None and not (instr.has(FROM_PE) and
+                                          instr.rx_from(Port.N) == (i > 0)):
+                raise ValueError(
+                    f"grid tile ({i}, {j}) is not a MAC plus chain-add: the "
+                    "layer's codes are not its column sums")
+            if per_tile:
+                acc = torch.zeros_like(psum)
+                if instr.has(FROM_PE):
                     acc += engine.fc_mac(handle, x[:, k0:k1], k0, k1, n0, n1)
+                if instr.rx_from(Port.N):
+                    # chain-add: the upstream psum received from the north
+                    # (encoded in rx — set only for non-head grid rows)
+                    acc += psum
+                psum = acc
+            if instr.has(FROM_PE):
                 cnt.macs += (k1 - k0) * (n1 - n0)
-            if instr.rx_from(Port.N):
-                # chain-add: the upstream psum received from the north
-                # (encoded in rx — set only for non-head grid rows)
-                acc += psum
-            psum = acc
             if i < m_t - 1:
                 # grid tile (i, j) -> (i+1, j): column-major placement puts
                 # them m_a tiles apart in the snake chain
@@ -118,11 +140,14 @@ def simulate_fc(x: torch.Tensor, w: torch.Tensor, n_c: int, n_m: int,
                     cnt.chain_hops += 1
             if instr.has(ACT_EN):
                 act_fired = True  # column tail: activation after dequant
-        if not account_only:
-            psum = engine.finalize_fc(handle, psum, n0, n1)
         if act_fired:
-            if not account_only:
-                psum = _ACT[activation or "identity"](psum)
-            cnt.act_ops += psum.shape[-1]
+            cnt.act_ops += n1 - n0
+        if account_only:
+            continue
+        if codes is not None:
+            psum = codes[:, n0:n1]
+        psum = engine.finalize_fc(handle, psum, n0, n1)
+        if act_fired:
+            psum = _ACT[activation or "identity"](psum)
         out[:, n0:n1] = psum
     return out[0] if squeeze else out

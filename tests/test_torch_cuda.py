@@ -205,6 +205,75 @@ def test_cuda_kernel_any_split_same_codes(monkeypatch):
                     assert _same(got, want), (t, r, kc, n, rows, slices)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("c_in,c_out", [(25088, 4096), (4096, 4096),
+                                        (4096, 1000)])
+def test_cuda_fc_layer_one_launch(c_in, c_out):
+    """vgg16-imagenet's three FC layers at a 4-frame batch through the
+    engine's one-call FC layer: one launch of the flavor's variant, no
+    weight copy, equal by value to ``cim_codes_plain`` and to the sum
+    down each column of the per-tile ``fc_mac`` grid (n_c = n_m = 256),
+    nominal and with a per-subarray ADC table."""
+    _needs_card()
+    from repro_torch.core.engine import CIMEngine
+
+    rng = np.random.default_rng(c_in + c_out)
+    eng = CIMEngine(device="cuda").set_layer("fc", a_scale=0.05)
+    w = torch.from_numpy((rng.standard_normal((c_in, c_out))
+                          / np.sqrt(c_in)).astype(np.float32)).cuda()
+    h = eng.fc_handle("fc", w)
+    x = _ints(rng, (4, c_in))
+    spec, t = h.spec, -(-c_in // h.spec.n_c)
+    # the engine's table has 2 t + 1 rows; the layer reads the first t
+    for adc in (None, _table(rng, 2 * t + 1, spec)):
+        h.adc = adc
+        before, copies = dict(LAUNCHES), KM.WEIGHT_COPIES
+        got = eng.fc_layer_mac(h, x)
+        torch.cuda.synchronize()
+        launched = {k: LAUNCHES[k] - before[k] for k in before}
+        assert launched == {"cim_codes": int(adc is None),
+                            "cim_codes_var": int(adc is not None)}
+        assert KM.WEIGHT_COPIES == copies
+        plain = cim_codes_plain(x, h.w8, spec,
+                                adc=None if adc is None else adc[:t])
+        assert _same(got, plain.to(torch.float64))
+        chain = torch.zeros_like(got)
+        for n0 in range(0, c_out, 256):
+            n1 = min(n0 + 256, c_out)
+            for k0 in range(0, c_in, spec.n_c):
+                k1 = min(k0 + spec.n_c, c_in)
+                chain[:, n0:n1] += eng.fc_mac(h, x[:, k0:k1], k0, k1, n0, n1)
+        torch.cuda.synchronize()
+        assert _same(got, chain)
+        assert KM.WEIGHT_COPIES == copies
+
+
+@pytest.mark.cuda
+def test_cuda_quantization_matches_cpu():
+    """The steps that divide give the CPU's values on the card: weight
+    scales and codes, activation codes, vgg16's and resnet50's global
+    average pools (7 x 7).  A CUDA division by a Python number multiplies
+    by its reciprocal, which rounds some quotients to another float."""
+    _needs_card()
+    from types import SimpleNamespace
+
+    from repro_torch.core.engine import CIMEngine, quantize_weight
+    from repro_torch.core.network import _global_avg_pool
+
+    rng = np.random.default_rng(11)
+    w = torch.from_numpy(rng.standard_normal((3, 3, 256, 512)) / 48)
+    for bits in (8, 6):
+        q_card, s_card = quantize_weight(w.cuda(), bits)
+        q, s = quantize_weight(w, bits)
+        assert torch.equal(q_card.cpu(), q) and torch.equal(s_card.cpu(), s)
+    h = SimpleNamespace(a_scale=0.0123, a_clip=127.0)
+    x = torch.from_numpy(rng.standard_normal((4, 7, 7, 2048)))
+    assert torch.equal(
+        CIMEngine(device="cuda").quant_stream(h, x.cuda()).cpu(),
+        CIMEngine(device="cpu").quant_stream(h, x))
+    assert torch.equal(_global_avg_pool(x.cuda()).cpu(), _global_avg_pool(x))
+
+
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 
 
