@@ -40,6 +40,28 @@ M. the main path's other four CNNs at full width, one after another:
    the accounting passes, the kernel's device time per batch and per
    FC call beside its bound (and vgg16's first FC layer as the grid's
    per-tile calls), the phase's seconds;
+J. ``trace_jit`` and the CNN simulator's other flavors, on the weights,
+   frames and simulators of phases 2 and M.  Each of the five CNNs is
+   served again through ``build_stream_sim(..., trace_jit=True)`` (the
+   conv blocks as captured CUDA-graph replays, the calibrated engine of
+   the non-jit simulator): logits equal by value to the non-jit counted
+   run, measured II == analytic II, counters, traffic and timeline
+   identical; the first run captures every executor once and replays
+   it per batch, a second run only replays, each counted (graphs,
+   replays, the wrapper's launches, the replayed launches) and the
+   replayed CIM launches seen under ``torch.profiler``; no weight copy.
+   vgg11 also under ``VARIATION_PRESETS["all"]`` (equal to phase 2's
+   variation run) and after ``set_variation(None)`` (equal to nominal).
+   Wall ms/frame of jit and non-jit serving in turns, the numerics
+   pass's host clock of each, device busy share, launches per replay,
+   capture seconds.  The exact engine's ``trace_jit`` (float32, TF32
+   off) on vgg11 at batch 64 within 1e-5 of the float64 run; the
+   per-cell stream oracle (``run_stream(batched=False)``) on vgg11 and
+   resnet18 equal to the batched stream (logits by value, per-frame
+   counters and traffic, start / finish, FIFO depth, II); the CIM mode
+   of ``cnn_forward`` on vgg11 (4 frames) and vgg16 (2 frames) through
+   the kernel's 2-D layout, one launch a layer, equal by value to the
+   CPU run;
 3. each CIM variant against its plain PyTorch version on the card,
    equal by value, both output modes: at the main path's own calls, on
    random int8 inputs at those shapes for n_c in {32, 96, 256} with
@@ -162,6 +184,17 @@ DSE_BUDGET = 8
 DSE_TRIALS, DSE_BATCH = 2, 4
 #: phase T: the chiplet fabric
 CHIPLETS, NOI_TOPOLOGY = 4, "floret"
+#: phase J: the exact engine's trace_jit at the reference bench row's
+#: batch (``benchmarks/run.py``: ``network_sim_vgg11_b64_trace_jit``),
+#: held to the float64 run within the reference's own tolerance for its
+#: float32 flavor (``tests/test_trace.py``, rtol = atol)
+JIT_EXACT_BATCH = 64
+TOL_JIT_EXACT = 1e-5
+#: phase J: the models the per-cell stream oracle runs on, and the CIM
+#: mode's models with their frames (the kernel's grid holds 65,535 row
+#: tiles of 32: vgg16's first conv at 4 frames is 200,704 rows)
+PERCELL_MODELS = ("vgg11-cifar10", "resnet18-cifar10")
+CIM_MODE_FRAMES = {"vgg11-cifar10": 4, "vgg16-imagenet": 2}
 #: phase 3's precisions below 8 bits, (w_bits, a_bits, adc_bits): the
 #: robust DSE's 6-bit operands with 6- and 4-bit ADCs
 LOW_PRECISION = ((6, 6, 6), (6, 6, 4))
@@ -329,8 +362,7 @@ def check_calls(sim, calls, what: str):
     layers)."""
     from repro_torch.configs.cnn import FCLayer
 
-    conv = sum(len(ex._quant_chunks(ex.plan.fires, BATCH_WINDOW))
-               for ex in sim._executors.values())
+    conv = conv_calls(sim)
     want = [((BATCH_WINDOW, l.c_in), (l.c_in, l.c_out))
             for l in sim.cnn.layers if isinstance(l, FCLayer)]
     if len(calls) != conv + len(want):
@@ -378,7 +410,7 @@ def main_path(km):
     serve_stream(sims["cuda"], frames[:BATCH_WINDOW], batch_window=BATCH_WINDOW)
     torch.cuda.synchronize()
 
-    launches, wall, calls = {}, {}, {}
+    launches, wall, calls, reps = {}, {}, {}, {}
     for flavor, var in (("nominal", None), ("variation", VARIATION_PRESETS["all"])):
         if var is not None:
             for sim in sims.values():
@@ -390,7 +422,8 @@ def main_path(km):
         want = {k: 0 for k in km.LAUNCHES}
         want[name] = FRAMES // BATCH_WINDOW * len(calls[name])
         reset_counts(km)
-        rep = serve_stream(sims["cuda"], frames, batch_window=BATCH_WINDOW)
+        rep = reps[flavor] = serve_stream(sims["cuda"], frames,
+                                          batch_window=BATCH_WINDOW)
         torch.cuda.synchronize()
         launches[flavor] = dict(km.LAUNCHES)
         if launches[flavor] != want:
@@ -430,13 +463,18 @@ def main_path(km):
         fail("the nominal serving run never launched cim_codes")
     if launches["variation"]["cim_codes_var"] == 0:
         fail("the variation serving run never launched cim_codes_var")
-    return sims["cuda"], frames, launches, wall, calls
+    return sims["cuda"], frames, launches, wall, calls, reps
+
+
+#: the CIM kernel's device-side name (both variants are instantiations)
+CIM_KERNEL_NAME = "cim_codes_kernel"
 
 
 def profile_device(run, what: str):
     """Device busy share of ``run()`` and the kernels that take the
-    device time (``torch.profiler``).  Returns the share, or None when
-    the profiler saw no device time."""
+    device time (``torch.profiler``).  Returns (the share, the CIM
+    kernel's device launches, graph replays included), or (None, None)
+    when the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -460,12 +498,12 @@ def profile_device(run, what: str):
     if not rows:
         log(f"[profile] {what}: the profiler saw no device time: not "
             "measured")
-        return None
+        return None, None
     log(f"[profile] {what}: wall {wall_us:.1f} us under the profiler, "
         f"device busy {busy:.1f} us ({100 * busy / wall_us:.2f}%)")
     for dev_us, count, key in sorted(rows, reverse=True)[:8]:
         log(f"[profile]   {dev_us:10.1f} us  x{count:<4d} {key[:90]}")
-    return busy / wall_us
+    return busy / wall_us, sum(c for _, c, k in rows if CIM_KERNEL_NAME in k)
 
 
 def device_share(sim, frames):
@@ -474,7 +512,7 @@ def device_share(sim, frames):
 
     return profile_device(
         lambda: serve_stream(sim, frames, batch_window=BATCH_WINDOW),
-        f"one serving run of {len(frames)} frames")
+        f"one serving run of {len(frames)} frames")[0]
 
 
 def record_calls(km, sim, frames):
@@ -775,10 +813,9 @@ def model_phase(km, name: str, card):
     dup_cap, want_ii = MODELS[name]
     cnn, params, frames = cnn_inputs(name)
     t0 = time.perf_counter()
-    sim = build_stream_sim(
-        cnn, quantize_cnn_params_for_serving(params_from_reference(params,
-                                                                   "cuda")),
-        device="cuda", dup_cap=dup_cap)
+    qparams = quantize_cnn_params_for_serving(params_from_reference(params,
+                                                                    "cuda"))
+    sim = build_stream_sim(cnn, qparams, device="cuda", dup_cap=dup_cap)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -796,7 +833,7 @@ def model_phase(km, name: str, card):
     flavors = [("nominal", None)]
     if name == MODEL_VARIATION:
         flavors.append(("variation", VARIATION_PRESETS["all"]))
-    launches, worst = {}, {}
+    launches, worst, jit_row = {}, {}, None
     for flavor, var in flavors:
         what = f"{name} {flavor}"
         if var is not None:
@@ -891,13 +928,312 @@ def model_phase(km, name: str, card):
                 f"per-tile calls: device {device_ms(kernel, tiles, 1):.4f} "
                 f"ms, host clock {tiles_s * 1e3:.1f} ms; as one call: device "
                 f"{fc_ms[0]:.4f} ms on {card}")
+        if var is None:
+            # phase J on this model's simulator, params and frames
+            jit_row = jit_model(km, name, sim, qparams, frames, rep, card,
+                                dup_cap)
+            if name in PERCELL_MODELS:
+                percell(sim, frames, rep.arrivals, name, card)
         del calls, res, rep, lg
-    del sim, cpu
+    del sim, cpu, qparams
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[models] {name}: phase {time.perf_counter() - t_phase:.1f} s on "
         f"{card}")
-    return launches, worst
+    return launches, worst, jit_row
+
+
+def reset_graph_counts():
+    from repro_torch.core import trace
+
+    for d in (trace.GRAPHS, trace.REPLAYED):
+        for k in d:
+            d[k] = 0
+
+
+def conv_calls(sim) -> int:
+    """Kernel calls of one ``BATCH_WINDOW`` batch through the conv blocks
+    (one per fire chunk of every executor)."""
+    return sum(len(ex._quant_chunks(ex.plan.fires, BATCH_WINDOW))
+               for ex in sim._executors.values())
+
+
+def check_jit_counts(km, jit, kname, first: bool, what: str):
+    """The counts of one jit serving run of FRAMES frames: the first
+    batch of a run on new graphs captures every executor once, every
+    batch replays every executor once; the replays run the captured
+    conv launches (``REPLAYED``), the wrapper launches the FC layers per
+    batch and, in a capturing run, the warm-up's conv calls once; the
+    other variant never; no weight copy."""
+    from repro_torch.configs.cnn import FCLayer
+    from repro_torch.core import trace
+
+    batches = FRAMES // BATCH_WINDOW
+    n_ex, conv = len(jit._executors), conv_calls(jit)
+    fc = sum(isinstance(l, FCLayer) for l in jit.cnn.layers)
+    want_graphs = {"captures": n_ex if first else 0,
+                   "replays": batches * n_ex}
+    want_launch = {k: 0 for k in km.LAUNCHES}
+    want_launch[kname] = batches * fc + (conv if first else 0)
+    want_replay = {k: 0 for k in trace.REPLAYED}
+    want_replay[kname] = batches * conv
+    got = (dict(trace.GRAPHS), dict(km.LAUNCHES), dict(trace.REPLAYED))
+    if got != (want_graphs, want_launch, want_replay) or km.WEIGHT_COPIES:
+        fail(f"{what}: graphs / wrapper launches / replayed launches {got} "
+             f"with {km.WEIGHT_COPIES} weight copies, want "
+             f"{(want_graphs, want_launch, want_replay)} and none")
+    per_replay = [sum(g.launches.values()) for ex in jit._executors.values()
+                  for g in ex._graphs.values()]
+    if sum(per_replay) != conv:
+        fail(f"{what}: the graphs hold {sum(per_replay)} launches, want "
+             f"{conv} (one per fire chunk)")
+    return n_ex, conv, fc, per_replay
+
+
+def capture_seconds(prof) -> float:
+    """Host seconds of the ``graph_capture`` spans a Profiler recorded."""
+    open_at, total = {}, 0.0
+    for ev in prof.events:
+        if not ev["name"].startswith("graph_capture:"):
+            continue
+        if ev["ph"] == "B":
+            open_at[ev["name"]] = ev["ts"]
+        elif ev["ph"] == "E":
+            total += ev["ts"] - open_at.pop(ev["name"])
+    return total / 1e6
+
+
+def jit_model(km, name, sim, qparams, frames, rep, card, dup_cap=64,
+              variation_logits=None):
+    """Phase J for one model: the same quantized params served with
+    ``trace_jit=True`` (``build_stream_sim``, the calibrated engine of
+    ``sim``, FRAMES frames, ``batch_window``), against ``rep``, the
+    non-jit counted run of phase 2 / M.  Gates: logits equal by value,
+    II, counters, traffic and timeline identical; the first run captures
+    and replays, a second only replays, counted (``check_jit_counts``)
+    and the CIM kernel launches confirmed under ``torch.profiler``; no
+    weight copy.  Logs wall ms/frame of jit and non-jit serving in turns,
+    the numerics pass's host clock of each, the device busy share, the
+    launches per replay and the capture's seconds.  With
+    ``variation_logits``, also serves with VARIATION_PRESETS["all"]
+    (equal to those logits) and again after ``set_variation(None)``
+    (equal to the nominal run)."""
+    import gc
+
+    from repro_torch.core.variation import VARIATION_PRESETS
+    from repro_torch.runtime.serve_loop import build_stream_sim, serve_stream
+    from repro_torch.telemetry.spans import Profiler
+
+    t0 = time.perf_counter()
+    jit = build_stream_sim(sim.cnn, qparams, engine=sim.pe_engine,
+                           device="cuda", dup_cap=dup_cap, trace_jit=True)
+    build_s = time.perf_counter() - t0
+    what = f"{name} trace_jit"
+    reset_counts(km)
+    reset_graph_counts()
+    t0 = time.perf_counter()
+    with Profiler() as prof:
+        first = serve_stream(jit, frames, batch_window=BATCH_WINDOW)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    n_ex, conv, fc, per_replay = check_jit_counts(km, jit, "cim_codes",
+                                                  True, f"{what} (first)")
+    cap_s = capture_seconds(prof)
+    if not same(first.logits.cpu(), rep.logits.cpu()):
+        diff = (first.logits.cpu() - rep.logits.cpu()).abs().max().item()
+        fail(f"{what}: logits differ from the non-jit run ({diff})")
+    if not first.measured_ii == first.analytic_ii == rep.measured_ii:
+        fail(f"{what}: measured II {first.measured_ii}, analytic "
+             f"{first.analytic_ii}, non-jit {rep.measured_ii}")
+    res = {each: s.run_stream(frames, arrivals=rep.arrivals,
+                              chunk=BATCH_WINDOW)
+           for each, s in (("jit", jit), ("plain", sim))}
+    if not counters_equal(res["jit"], res["plain"]) or not same(
+            res["jit"].logits.cpu(), rep.logits.cpu()):
+        fail(f"{what}: run_stream counters / traffic / timeline / logits "
+             "differ from the non-jit run")
+    # a run on captured graphs, counted and profiled: every conv launch
+    # a replayed one, each seen by the profiler (a session that records
+    # no device activity at all is run again, as in ``device_ms``)
+    for _ in range(3):
+        reset_counts(km)
+        reset_graph_counts()
+        share, seen = profile_device(
+            lambda: serve_stream(jit, frames, batch_window=BATCH_WINDOW),
+            f"{what}: one serving run of {FRAMES} frames on captured graphs")
+        if seen is not None:
+            break
+    check_jit_counts(km, jit, "cim_codes", False, f"{what} (replay)")
+    want_seen = FRAMES // BATCH_WINDOW * (conv + fc)
+    if seen != want_seen:
+        fail(f"{what}: the profiler saw {seen} CIM kernel launches in a "
+             f"replayed run, want {want_seen} (replayed conv + FC)")
+    walls = {"plain": [], "jit": []}
+    for turn in ("plain", "jit", "jit", "plain"):
+        walls[turn] += serving_walls(jit if turn == "jit" else sim, frames,
+                                     MODEL_WALL_REPS)
+    split = {turn: host_split(s, frames) for turn, s in
+             (("plain", sim), ("jit", jit), ("jit2", jit), ("plain2", sim))}
+    log(f"[jit] {what}: built in {build_s:.1f} s; first serving run "
+        f"{first_s:.2f} s, of which capture {cap_s:.2f} s ({n_ex} graphs, "
+        f"warm-up included); logits == non-jit by value, measured II "
+        f"{first.measured_ii} == analytic II, counters, traffic and timeline "
+        f"equal; {n_ex} replays and {conv} replayed launches per "
+        f"{BATCH_WINDOW}-frame batch (per graph {per_replay}), {fc} FC "
+        f"launches; profiler saw {seen} CIM launches in a replayed run; "
+        f"WEIGHT_COPIES 0; device busy "
+        + ("not measured" if share is None else f"{100 * share:.2f}%")
+        + f" on {card}")
+    log(f"[jit] {what}: wall ms/frame in turns (plain, jit, jit, plain; "
+        f"{MODEL_WALL_REPS} runs of {FRAMES} frames each): jit median "
+        f"{np.median(walls['jit']) * 1e3:.4f} all "
+        f"{[round(v * 1e3, 4) for v in walls['jit']]}; non-jit median "
+        f"{np.median(walls['plain']) * 1e3:.4f} all "
+        f"{[round(v * 1e3, 4) for v in walls['plain']]}; numerics pass "
+        f"host ms jit {split['jit'][0] * 1e3:.1f} / "
+        f"{split['jit2'][0] * 1e3:.1f}, non-jit "
+        f"{split['plain'][0] * 1e3:.1f} / {split['plain2'][0] * 1e3:.1f}; "
+        f"accounting pass {split['jit'][1] * 1e3:.1f} ms on {card}")
+    if variation_logits is not None:
+        jit.set_variation(VARIATION_PRESETS["all"])
+        reset_counts(km)
+        reset_graph_counts()
+        var = serve_stream(jit, frames, batch_window=BATCH_WINDOW)
+        torch.cuda.synchronize()
+        check_jit_counts(km, jit, "cim_codes_var", True,
+                         f"{what} variation")
+        if not same(var.logits.cpu(), variation_logits.cpu()):
+            fail(f"{what}: variation logits differ from the non-jit run")
+        jit.set_variation(None)
+        again = serve_stream(jit, frames, batch_window=BATCH_WINDOW)
+        if not same(again.logits.cpu(), rep.logits.cpu()):
+            fail(f"{what}: after set_variation(None) the logits differ from "
+                 "the nominal run")
+        log(f"[jit] {what}: VARIATION_PRESETS['all'] == non-jit variation "
+            f"run by value ({n_ex} graphs captured again, cim_codes_var "
+            f"replayed); set_variation(None) == nominal by value")
+    del jit, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"wall_jit": float(np.median(walls["jit"])),
+            "wall_plain": float(np.median(walls["plain"])),
+            "numerics_jit": split["jit"][0],
+            "numerics_plain": split["plain"][0], "capture_s": cap_s,
+            "graphs": n_ex, "replayed_per_batch": conv, "busy": share}
+
+
+def percell(sim, frames, arrivals, name, card):
+    """Phase J: the per-cell stream oracle (``run_stream(batched=False)``,
+    one stage of one frame a call) against the batched stream on the
+    card: logits by value, per-frame counters and traffic, start /
+    finish, residual FIFO depth, measured II, batch sizes."""
+    t0 = time.perf_counter()
+    cell = sim.run_stream(frames, arrivals=arrivals, batched=False)
+    torch.cuda.synchronize()
+    cell_s = time.perf_counter() - t0
+    batched = sim.run_stream(frames, arrivals=arrivals, chunk=BATCH_WINDOW)
+    if not (same(cell.logits.cpu(), batched.logits.cpu())
+            and counters_equal(cell, batched)
+            and all(dict(a.hops) == dict(b.hops) for a, b in
+                    zip(cell.frame_traffic, batched.frame_traffic))
+            and cell.residual_fifo_depth == batched.residual_fifo_depth
+            and cell.measured_ii == batched.measured_ii
+            and cell.batch_sizes == (1,) * len(frames)):
+        fail(f"{name}: the per-cell oracle differs from the batched stream")
+    log(f"[percell] {name}: run_stream(batched=False) over {len(frames)} "
+        f"frames ({len(frames) * len(sim._stages)} cells, {cell_s:.2f} s) == "
+        f"batched by value (logits, per-frame counters and traffic, "
+        f"start/finish, FIFO depth {cell.residual_fifo_depth}, measured II "
+        f"{cell.measured_ii}) on {card}")
+
+
+def exact_jit(card):
+    """Phase J: the exact engine's trace_jit (float32 flavor, TF32 off) on
+    vgg11 at full width and JIT_EXACT_BATCH frames against the float64
+    run of the same frames on the card: within TOL_JIT_EXACT; counters
+    and traffic identical."""
+    from repro_torch.convert import params_from_reference
+    from repro_torch.core.network import NetworkSimulator
+
+    cnn, params, _ = cnn_inputs()
+    x = np.random.default_rng(SEED + 2).random(
+        (JIT_EXACT_BATCH, cnn.input_hw, cnn.input_hw, 3))
+    p = params_from_reference(params, "cuda")
+    out, secs = {}, {}
+    for flavor, jit in (("float64", False), ("float32", True)):
+        sim = NetworkSimulator(cnn, p, trace_jit=jit, device="cuda")
+        sim.run(x[:2])  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[flavor] = sim.run(x)
+        torch.cuda.synchronize()
+        secs[flavor] = time.perf_counter() - t0
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("exact trace_jit ran with TF32 on")
+    a, b = out["float64"].logits, out["float32"].logits
+    err = (a - b).abs().max().item()
+    if not torch.allclose(b, a, rtol=TOL_JIT_EXACT, atol=TOL_JIT_EXACT) or \
+            dataclasses.asdict(out["float64"].counters) != \
+            dataclasses.asdict(out["float32"].counters) or \
+            dict(out["float64"].traffic.byte_hops) != \
+            dict(out["float32"].traffic.byte_hops):
+        fail(f"exact trace_jit: max |diff| {err} against the float64 run "
+             f"(tolerance {TOL_JIT_EXACT}), or counters / traffic differ")
+    log(f"[jit] vgg11-cifar10 exact trace_jit at batch {JIT_EXACT_BATCH}: "
+        f"max |diff| {err:.3e} against float64 (<= {TOL_JIT_EXACT}), counters "
+        f"and traffic equal; run {secs['float32'] * 1e3:.1f} ms (float64 "
+        f"{secs['float64'] * 1e3:.1f} ms) on {card}")
+
+
+def cim_mode(km, name, card):
+    """Phase J: ``cnn_forward(cim=DEFAULT_SPEC)`` at full width through the
+    kernel's 2-D layout (one launch per conv and FC layer, no weight
+    copy) against the port's CPU run of the same weights and frames:
+    equal by value, finite, of the right shape."""
+    from repro_torch.configs.cnn import ConvLayer
+    from repro_torch.core.cim import DEFAULT_SPEC
+    from repro_torch.models.cnn import cnn_forward
+
+    n = CIM_MODE_FRAMES[name]
+    cnn, params, frames = cnn_inputs(name)
+    for l in cnn.layers:
+        if isinstance(l, ConvLayer):
+            rows = n * l.conv_out_h * l.conv_out_w
+            if -(-rows // km.ROW_TILES[-1]) > km._GRID_Y:
+                fail(f"{name}: {l.name}'s {rows} rows at {n} frames exceed "
+                     "the kernel's grid")
+    out, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        p = {k: torch.from_numpy(v.astype(np.float32)).to(dev)
+             for k, v in params.items()}
+        x = torch.from_numpy(frames[:n].astype(np.float32)).to(dev)
+        if dev == "cuda":
+            reset_counts(km)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out[dev] = cnn_forward(p, x, cnn, cim=DEFAULT_SPEC)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches, copies = dict(km.LAUNCHES), km.WEIGHT_COPIES
+        secs[dev] = time.perf_counter() - t0
+        del p, x
+    want = {"cim_codes": len(cnn.layers), "cim_codes_var": 0}
+    if launches != want or copies:
+        fail(f"{name} CIM mode: launches {launches} with {copies} weight "
+             f"copies, want {want} and none")
+    lg = out["cuda"]
+    if tuple(lg.shape) != (n, cnn.layers[-1].c_out) or \
+            not torch.isfinite(lg).all():
+        fail(f"{name} CIM mode: logits {tuple(lg.shape)} not finite / wrong "
+             "shape")
+    if not same(lg.cpu(), out["cpu"]):
+        diff = (lg.cpu() - out["cpu"]).abs().max().item()
+        fail(f"{name} CIM mode: card logits differ from the CPU run ({diff})")
+    log(f"[cim-mode] {name}: cnn_forward(cim=DEFAULT_SPEC) on {n} frames == "
+        f"the CPU run by value; {launches['cim_codes']} launches (one per "
+        f"layer), WEIGHT_COPIES 0; {secs['cuda']:.2f} s on the card, "
+        f"{secs['cpu']:.2f} s on the CPU; {card}")
+    torch.cuda.empty_cache()
 
 
 def trial_probe(km):
@@ -1702,7 +2038,7 @@ def main() -> int:
                     log(f"[build] {line.strip()}")
     check_cim_sass(km.build()[0])
 
-    sim, frames, launches, wall, calls = main_path(km)
+    sim, frames, launches, wall, calls, reps = main_path(km)
     # nominal again, after the variation run: separates the flavor from
     # the order of the runs in the wall-time comparison
     sim.set_variation(None)
@@ -1712,6 +2048,21 @@ def main() -> int:
         f"{wall['nominal_again'] * 1e3:.4f}, all "
         f"{[round(v * 1e3, 4) for v in walls]}")
     device_share(sim, frames)
+    # phase J on vgg11: phase 2's simulator, params and frames
+    from repro_torch.convert import params_from_reference
+    from repro_torch.runtime.serve_loop import quantize_cnn_params_for_serving
+
+    t_jit = time.perf_counter()
+    qparams = quantize_cnn_params_for_serving(
+        params_from_reference(cnn_inputs()[1], "cuda"))
+    jit_rows = {"vgg11-cifar10": jit_model(
+        km, "vgg11-cifar10", sim, qparams, frames, reps["nominal"], card,
+        variation_logits=reps["variation"].logits)}
+    del qparams
+    percell(sim, frames, reps["nominal"].arrivals, "vgg11-cifar10", card)
+    exact_jit(card)
+    cim_mode(km, "vgg11-cifar10", card)
+    jit_s = time.perf_counter() - t_jit
     # phase M: launches of every counted main-path run, summed by kernel
     main_launches = {name: launches["nominal" if name == "cim_codes"
                                     else "variation"][name]
@@ -1719,15 +2070,28 @@ def main() -> int:
     worst_models = dict.fromkeys(km.LAUNCHES, 0.0)
     t_models = time.perf_counter()
     for name in MODELS:
-        counted, worst_m = model_phase(km, name, card)
+        counted, worst_m, jit_rows[name] = model_phase(km, name, card)
         for each in counted.values():
             for k, v in each.items():
                 main_launches[k] += v
         for k, v in worst_m.items():
             worst_models[k] = max(worst_models[k], v)
     log(f"[models] {len(MODELS)} models served at full width in "
-        f"{time.perf_counter() - t_models:.1f} s; main-path launches "
-        f"(phases 2 and M) {main_launches} on {card}")
+        f"{time.perf_counter() - t_models:.1f} s (phase J's parts included); "
+        f"main-path launches (phases 2 and M) {main_launches} on {card}")
+    t0 = time.perf_counter()
+    cim_mode(km, "vgg16-imagenet", card)
+    jit_s += time.perf_counter() - t0
+    for name, row in jit_rows.items():
+        log(f"[jit] {name}: wall ms/frame jit {row['wall_jit'] * 1e3:.4f} "
+            f"against non-jit {row['wall_plain'] * 1e3:.4f}; numerics pass "
+            f"{row['numerics_jit'] * 1e3:.1f} against "
+            f"{row['numerics_plain'] * 1e3:.1f} ms; {row['graphs']} graphs, "
+            f"{row['replayed_per_batch']} replayed launches a batch, capture "
+            f"{row['capture_s']:.2f} s; busy "
+            + ("not measured" if row["busy"] is None
+               else f"{100 * row['busy']:.2f}%") + f" on {card}")
+    log(f"[jit] phase J outside phase M: {jit_s:.1f} s on {card}")
     worst = check_kernels(km, calls)
     rows = time_kernels(km, calls, card)
     robustness_phase(km, len(calls["cim_codes"]), card)

@@ -395,6 +395,17 @@ class CIMEngine(PEEngine):
         return torch.clamp(torch.round(divide(x, h.a_scale)), -h.a_clip - 1,
                            h.a_clip).to(torch.int8)
 
+    def tile_mac(self, h: ConvHandle, t: int, taps) -> torch.Tensor:
+        """One tile's MAC, the per-tile reference fold's step: ``taps[d]``
+        (rows, Cs) int8, already quantized — the tile's packed-tap window
+        side by side is one subarray's input.  One kernel call (one
+        step, this tile's ADC table row).  Returns (rows, M) float64
+        codes."""
+        x = torch.cat(taps, dim=1)[None]
+        adc = None if h.adc is None else h.adc[t:t + 1]
+        return _kernel.cim_codes(x, h.w8_stack[t:t + 1, :x.shape[2]], h.spec,
+                                 adc=adc).to(torch.float64)
+
     def tiles_mac(self, h: ConvHandle, patches: torch.Tensor) -> torch.Tensor:
         """Batch-of-tiles MAC: ``patches`` (T, R, max kc) int8, already
         quantized, zero past each tile's depth.  One kernel call: T

@@ -9,13 +9,21 @@ on the simulator's device; placement, schedules, transport, counters and
 the stream timing pass are host code copied from the reference, so
 counters, traffic and the stage timeline are identical to it.
 
+``trace_jit=True`` selects the executors' counterparts of the
+reference's jitted flavors (``core/trace.py``): on a quantized engine
+each conv block's fused integer path captured into a CUDA graph per
+input shape and replayed (equal to the eager path by value, so it
+composes with streaming); on the exact engine the float32 flavor
+(allclose only, so not with streaming).
+
 Stream computing (``streaming=True``): :meth:`NetworkSimulator.run_stream`
 runs all frames stage-major in micro-batches (the batched numerics
 pass), then replays the per-frame accounting and the max-plus wavefront
 timeline analytically; the measured steady-state initiation interval
 must emerge equal to ``plan_network``'s analytic slowest-stage bound.
-The per-cell interleaved oracle (``batched=False``) and the per-cycle
-interpreter backend are not ported; they stay in the reference.
+``batched=False`` runs the per-cell interleaved oracle instead, one
+stage of one frame at a time.  The per-cycle interpreter backend is not
+ported; it stays in the reference as the oracle.
 
 Functional notes (as in the reference): weight-duplicated copies share
 weights, so one copy of each block computes the full OFM; residual
@@ -139,6 +147,8 @@ def _is_shortcut(layer) -> bool:
     return isinstance(layer, ConvLayer) and layer.name.endswith("_sc")
 
 
+BACKENDS = ("interp", "trace")
+
 #: default numerics micro-batch for the batched streaming path: frames
 #: per stage-major sweep (bounds the working set; chunk boundaries
 #: cannot change a bit)
@@ -230,19 +240,34 @@ class NetworkSimulator:
         calibrated at build from ``calib_images`` — default: a seeded
         synthetic batch), or a prebuilt ``PEEngine`` on ``device``.
         ``device=None`` means the card; ``"cpu"`` runs the plain kernel
-        versions.  Only ``backend="trace"`` is ported, and
-        ``trace_jit=True`` (the reference's jitted flavor) is not.
+        versions.  Only ``backend="trace"`` is ported.  ``trace_jit=True``
+        runs each conv block as a captured CUDA-graph replay on a
+        quantized engine (the eager path on the CPU), and as the float32
+        flavor on the exact engine (see ``core/trace.py``).
         """
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}: {backend}")
+        if trace_jit and backend != "trace":
+            raise ValueError(
+                "trace_jit=True requires backend='trace' (the default "
+                "backend of the reference is the per-cycle interpreter)")
+        if streaming and backend != "trace":
+            raise ValueError(
+                "streaming=True requires backend='trace' (the pipelined "
+                "executor advances compiled per-stage trace plans)")
         if backend != "trace":
             raise NotImplementedError(
                 "only backend='trace' is ported; the per-cycle interpreter "
                 "stays in the reference package as the oracle")
-        if trace_jit:
-            raise NotImplementedError(
-                "trace_jit=True (the reference's jax.jit flavor) is not "
-                "ported")
         self.device = resolve_device(device)
         self.pe_engine: PEEngine = make_engine(engine, cim_spec, self.device)
+        if streaming and trace_jit and self.pe_engine.name == "exact":
+            raise ValueError(
+                "streaming=True is incompatible with trace_jit=True on "
+                "the exact engine: its float32 flavor is allclose-only, "
+                "which would break run_stream's per-frame "
+                "equal-to-sequential guarantee (the quantized engines' "
+                "captured flavor IS equal, so they may combine)")
         # residual wiring follows the configs/cnn.py naming convention the
         # reference uses (save at `*_a`, add at `residual_from`, project
         # through an immediately-following `*_sc`) — reject anything else
@@ -300,6 +325,7 @@ class NetworkSimulator:
                 "dequantize_params)")
         self.params = fparams
         self.n_c, self.n_m = n_c, n_m
+        self.trace_jit = trace_jit
         self.streaming = streaming
         self.plan: NetworkPlan = plan_network(cnn, n_c=n_c, n_m=n_m,
                                               reuse=reuse, dup_cap=dup_cap,
@@ -408,7 +434,9 @@ class NetworkSimulator:
     def set_variation(self, variation) -> None:
         """Swap the quantized engine's device-variation model
         (``core/variation.py``) and rebuild only the engine handles;
-        cached executors keep their plans and gather indices."""
+        cached executors keep their plans and gather indices and drop
+        their captured graphs, which read the old handles' tensors (the
+        next call captures again)."""
         if not hasattr(self.pe_engine, "variation"):
             raise ValueError(
                 "set_variation requires a quantized engine "
@@ -416,7 +444,7 @@ class NetworkSimulator:
         self.pe_engine.variation = variation
         self._build_handles()
         for (li, _si), ex in self._executors.items():
-            ex.handle = self._handles[li]
+            ex.set_handle(self._handles[li])
 
     def _executor(self, li: int, si: int, sched: BlockSchedule,
                   transport: NoCTransport, counters: SimCounters
@@ -429,7 +457,7 @@ class NetworkSimulator:
             ex = TraceExecutor(
                 sched, self.params[layer.name], bias=None,
                 transport=transport, counters=counters,
-                plan=self._trace_plans[li, si],
+                plan=self._trace_plans[li, si], use_jax=self.trace_jit,
                 engine=self.pe_engine, handle=self._handles[li])
             self._executors[li, si] = ex
         else:
@@ -608,20 +636,24 @@ class NetworkSimulator:
     def run_stream(self, frames, arrivals: Optional[np.ndarray] = None,
                    batched: bool = True,
                    chunk: Optional[int] = None) -> StreamResult:
-        """Pipelined stream computing over ``frames`` (T, H, W, 3): the
-        batched numerics pass (all frames stage-major, ``chunk`` frames
-        per sweep, default ``DEFAULT_STREAM_CHUNK``), then the analytic
-        accounting and timing pass.  ``arrivals`` gives each frame's
-        arrival cycle (non-decreasing; default all at cycle 0, so the
-        measured II is the slowest stage's)."""
+        """Pipelined stream computing over ``frames`` (T, H, W, 3).
+        ``arrivals`` gives each frame's arrival cycle (non-decreasing;
+        default all at cycle 0, so the measured II is the slowest
+        stage's).  Two strategies, equal by construction:
+
+        * ``batched=True``: the batched numerics pass (all frames
+          stage-major, ``chunk`` frames per sweep, default
+          ``DEFAULT_STREAM_CHUNK``), then the analytic accounting and
+          timing pass;
+        * ``batched=False``: the per-cell oracle, the interleaved
+          wavefront loop with one ``_exec_stage`` call per (frame,
+          stage) cell and timing and accounting inline — the
+          differential check of the batched path.
+        """
         if not self.streaming:
             raise ValueError(
                 "run_stream requires NetworkSimulator(..., "
                 "backend='trace', streaming=True)")
-        if not batched:
-            raise NotImplementedError(
-                "the per-cell oracle (batched=False) is not ported; it "
-                "stays in the reference package")
         frames = self._input(frames)
         if frames.dim() != 4:
             raise ValueError(
@@ -644,10 +676,16 @@ class NetworkSimulator:
         self.placement.noc.link_traffic.clear()  # per-stream link stats
         counters = [SimCounters() for _ in range(t_n)]
         traffic = [TrafficCounters() for _ in range(t_n)]
-        logits, batch_sizes = self._stream_numerics(frames, chunk)
-        for t in range(t_n):
-            self._account_frame(counters[t], traffic[t])
-        start, finish = stream_timeline(arr, occ, lat)
+        if batched:
+            logits, batch_sizes = self._stream_numerics(frames, chunk)
+            for t in range(t_n):
+                self._account_frame(counters[t], traffic[t])
+            start, finish = stream_timeline(arr, occ, lat)
+            fifo_depth = self._residual_fifo_depth(t_n)
+        else:
+            logits, start, finish, fifo_depth = self._stream_percell(
+                frames, arr, occ, lat, counters, traffic)
+            batch_sizes = (1,) * t_n
         exits = finish[:, -1]
         return StreamResult(
             logits=logits, frame_counters=counters,
@@ -656,7 +694,7 @@ class NetworkSimulator:
             measured_ii=int(exits[-1] - exits[-2]) if t_n >= 2 else None,
             analytic_ii=self.plan.initiation_interval,
             fill_latency=int(exits[0] - arr[0]),
-            residual_fifo_depth=self._residual_fifo_depth(t_n),
+            residual_fifo_depth=fifo_depth,
             batch_sizes=batch_sizes)
 
     # -- streaming: batched numerics pass ------------------------------------
@@ -784,6 +822,53 @@ class NetworkSimulator:
                 d += max(0, hi - lo + 1)
             depth = max(depth, d)
         return depth
+
+    # -- streaming: interleaved per-cell oracle ------------------------------
+
+    def _stream_percell(self, frames: torch.Tensor, arr: np.ndarray,
+                        occ: List[int], lat: List[int],
+                        counters: List[SimCounters],
+                        traffic: List[TrafficCounters]
+                        ) -> Tuple[torch.Tensor, np.ndarray, np.ndarray, int]:
+        """The interleaved wavefront loop, kept as the differential
+        oracle: one ``_exec_stage`` call per (frame, stage) cell, timing
+        recurrence and accounting inline."""
+        t_n, s_n = frames.shape[0], len(self._stages)
+        stages = self._stages
+        saved: List[Dict[str, Tuple[torch.Tensor, Optional[int]]]] = [
+            {} for _ in range(t_n)]
+        inflight: Dict[int, torch.Tensor] = {}  # frame -> inter-stage value
+        logits: List[Optional[torch.Tensor]] = [None] * t_n
+        start = np.zeros((t_n, s_n), np.int64)
+        finish = np.zeros((t_n, s_n), np.int64)
+        fifo_depth = 0
+        for step in range(t_n + s_n - 1):
+            # wavefront: deeper stages hold older frames (t = step - k)
+            for k in range(s_n - 1, -1, -1):
+                t = step - k
+                if not 0 <= t < t_n:
+                    continue
+                stage = stages[k]
+                x = inflight.pop(t) if k else frames[t:t + 1]
+                y = self._exec_stage(stage, x, saved[t], counters[t],
+                                     traffic[t])
+                # stage timeline: a stage initiates frame t when its
+                # input is ready AND one initiation interval has passed
+                # since it accepted frame t-1
+                ready = finish[t, k - 1] if k else arr[t]
+                init = ready if t == 0 \
+                    else max(ready, start[t - 1, k] + occ[k])
+                start[t, k] = init
+                finish[t, k] = init + lat[k]
+                if k + 1 < s_n:
+                    self._record_ofm(stage.li, stages[k + 1].li, traffic[t])
+                    inflight[t] = y
+                else:
+                    logits[t] = y[0]
+            # shortcut FIFO occupancy across all in-flight frames
+            fifo_depth = max(fifo_depth, sum(len(d) for d in saved))
+        assert not inflight and all(lg is not None for lg in logits)
+        return torch.stack(logits), start, finish, fifo_depth
 
     def _record_residual(self, mesh_root: NoCTransport,
                          src_layer: Optional[int], dst_tile: int,

@@ -14,10 +14,29 @@ the chain/group segments and the analytic event counts.
   T ADC conversions, the code sum over tiles), then the block tail.
   Codes are integers, so gather, chunking and association order cannot
   change a bit: the result equals the reference's ``engine="cim"``
-  trace by value;
+  trace by value.  ``fused=False`` keeps the per-tile fold (one kernel
+  call per tile) for the equality tests;
 * the exact engine runs the per-tile fold in the interpreter's
   association order (allclose to the reference: torch's float64
   reduction order differs from the reference's padded BLAS).
+
+``use_jax=True`` selects the counterparts of the reference's jitted
+flavors (the name is kept for signature parity):
+
+* on the exact engine, the reference's float32 flavor: each tile group
+  is ONE im2col gemm (patches of the group's tiles side by side, their
+  packed-tap weights stacked), the group fold a sum, then the float32
+  tail — allclose to the float64 path, not equal;
+* on a quantized engine, the fused integer path captured once per input
+  shape into a CUDA graph (quantize, pad, gather, one kernel call per
+  chunk, the tail) and replayed: a call copies its input into the
+  graph's static input, replays, and returns a clone of the static
+  output.  The same ops as the eager path, so equal to it by value.  On
+  a CPU tensor the flavor runs the eager path.  Each graph has its own
+  memory pool, so graphs replay in any order.  :data:`GRAPHS` counts
+  captures and replays, :data:`REPLAYED` the CIM kernel launches the
+  replays ran (``kernels/cim_matmul.py::LAUNCHES`` counts the launches
+  the wrapper runs, not those a capture records).
 
 ``SimCounters``/``TrafficCounters`` are derived analytically from the
 plan through the shared transport (``_account``, copied verbatim).
@@ -25,7 +44,7 @@ plan through the shared transport (``_account``, copied verbatim).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +53,14 @@ from repro_torch.core.instructions import BUF_PUSH, FROM_PE, Instruction, Port
 from repro_torch.core.schedule import BlockSchedule
 from repro_torch.core.simulator import SimCounters, _standalone_transport
 from repro_torch.core.transport import CHAIN, GROUP, PSUM_BYTES, NoCTransport
+from repro_torch.telemetry.spans import span
+
+#: captured CUDA graphs of the quantized ``use_jax`` flavor: graphs
+#: captured and replays run, over every executor
+GRAPHS = {"captures": 0, "replays": 0}
+#: CIM kernel launches run by graph replays, by variant (the captured
+#: launches of each graph, added at each of its replays)
+REPLAYED = {"cim_codes": 0, "cim_codes_var": 0}
 
 
 @dataclass(frozen=True)
@@ -116,6 +143,20 @@ def compile_trace(sched: BlockSchedule) -> TracePlan:
     )
 
 
+@dataclass
+class _Graph:
+    """One captured replay of the fused quantized path at one input
+    shape: the graph, its static input and output, the kernel launches
+    it holds (by variant), and the engine handle whose tensors it reads
+    (kept alive with it)."""
+
+    graph: "torch.cuda.CUDAGraph"
+    x: torch.Tensor
+    out: torch.Tensor
+    launches: Dict[str, int]
+    handle: object
+
+
 class TraceExecutor:
     """Runs one compiled block on the engine's device.
 
@@ -130,7 +171,9 @@ class TraceExecutor:
                  transport: Optional[NoCTransport] = None,
                  counters: Optional[SimCounters] = None,
                  plan: Optional[TracePlan] = None,
-                 engine=None, handle=None):
+                 use_jax: bool = False,
+                 engine=None, handle=None,
+                 fused: bool = True):
         from repro_torch.core.engine import ExactEngine, conv_tile_slices
 
         k = sched.k
@@ -146,16 +189,38 @@ class TraceExecutor:
         self.transport = transport if transport is not None \
             else _standalone_transport(sched.chain_len)
         self.plan = plan if plan is not None else compile_trace(sched)
+        self.use_jax = use_jax
+        # quantized engines ride the fused batch-of-tiles lowering;
+        # fused=False pins the per-tile reference fold
+        self.fused = fused and hasattr(self.engine, "tiles_mac")
+        if use_jax and self.engine.name != "exact" and not self.fused:
+            raise ValueError(
+                f"use_jax=True on the {self.engine.name!r} engine is the "
+                "fused integer jit flavor — it has no per-tile form "
+                "(fused=False)")
         self._psum_bytes = sched.c_out * PSUM_BYTES
         dev = self.engine.device
-        if hasattr(self.engine, "tiles_mac"):
-            self._gidx = torch.as_tensor(self._gather_index(), device=dev)
+        if self.fused:
+            self._gidx = torch.as_tensor(self._gather_index(self.handle.kc),
+                                         device=dev)
             self._gathers = None
         else:
             self._gidx = None
             self._gathers = [torch.as_tensor(tt.gather.astype(np.int64),
                                              device=dev)
                              for tt in self.plan.tiles]
+        #: the quantized flavor's captured graphs, by input shape
+        self._graphs: Dict[Tuple[int, ...], _Graph] = {}
+        #: the exact flavor's per-group gather indices and float32 weights
+        self._f32: Optional[Tuple[list, list]] = None
+
+    def set_handle(self, handle) -> None:
+        """Swap the engine handle (a device-variation change): the
+        captured graphs and the float32 weights read the old handle's
+        tensors, so they are dropped and rebuilt at the next call."""
+        self.handle = handle
+        self._graphs.clear()
+        self._f32 = None
 
     # -- execution -----------------------------------------------------------
 
@@ -171,8 +236,13 @@ class TraceExecutor:
         if squeeze:
             ifm = ifm[None]
         assert tuple(ifm.shape[1:]) == (s.h, s.w, s.c_in), ifm.shape
-        if self._gidx is not None:
-            out = self._execute_quant(ifm)
+        if self.fused:
+            if self.use_jax and ifm.device.type == "cuda":
+                out = self._replay(ifm)
+            else:
+                out = self._execute_quant(ifm)
+        elif self.use_jax:
+            out = self._run_f32(ifm)
         else:
             b = ifm.shape[0]
             padded = torch.zeros((b, s.hp, s.wp, s.c_in), dtype=torch.float64,
@@ -184,10 +254,13 @@ class TraceExecutor:
         return out[0] if squeeze else out
 
     def _execute_np(self, stream: torch.Tensor) -> torch.Tensor:
-        """The exact engine: gathers + per-tile MACs + the segment fold,
-        in the interpreter's association order."""
+        """Gathers + per-tile MACs + the segment fold, in the
+        interpreter's association order: the exact engine's path, and
+        the quantized engines' per-tile reference fold (``fused=False``;
+        the stream is quantized once, then one kernel call per tile)."""
         s, plan = self.sched, self.plan
         engine, handle = self.engine, self.handle
+        stream = engine.quant_stream(handle, stream)
         b = stream.shape[0]
         ef = plan.fires
         gsum: Optional[torch.Tensor] = None
@@ -214,15 +287,14 @@ class TraceExecutor:
     #: intermediate ((T, rows, kc) patches / (T, rows, M) dots) per chunk
     _QCHUNK_ELEMS = 1 << 23
 
-    def _gather_index(self) -> np.ndarray:
+    def _gather_index(self, kcs: Sequence[int]) -> np.ndarray:
         """(T, E*F, max kc) int64 flat indices into one frame's padded
-        int8 stream (Hp*Wp*C values plus a trailing zero sentinel):
-        entry (t, f, j) is tap ``j // Cs``, channel ``c_lo + j % Cs`` of
-        tile t's fire f — the columns the reference's per-tile gathers
-        stack (tap-major, then channel); columns past the tile's depth
-        read the sentinel."""
+        stream (Hp*Wp*C values plus a trailing zero sentinel): entry
+        (t, f, j) is tap ``j // Cs``, channel ``c_lo + j % Cs`` of tile
+        t's fire f — the columns the reference's per-tile gathers stack
+        (tap-major, then channel); columns past the tile's depth
+        ``kcs[t]`` read the sentinel."""
         s, plan = self.sched, self.plan
-        kcs = self.handle.kc
         c = s.c_in
         sentinel = s.hp * s.wp * c
         idx = np.full((len(plan.tiles), plan.fires, max(kcs)), sentinel,
@@ -248,7 +320,9 @@ class TraceExecutor:
         """The fused integer-native path: quantize once (int8), one
         batched gather per chunk, one CIM kernel call per chunk, the
         block tail.  Quantization maps the zero padding to zero codes, so
-        quantizing before padding changes nothing."""
+        quantizing before padding changes nothing.  Nothing here copies
+        host data to the device or reads device data back, so the path
+        captures into a CUDA graph as it is (:meth:`_replay`)."""
         s = self.sched
         engine, handle = self.engine, self.handle
         qs = engine.quant_stream(handle, ifm)          # (B, H, W, C) int8
@@ -266,6 +340,104 @@ class TraceExecutor:
             codes = engine.tiles_mac(handle, px)     # (B*rows, M) code sums
             out[:, lo:hi] = codes.reshape(b, hi - lo, m)
         return self._tail(out.reshape(b, s.e, s.f, m))
+
+    # -- the quantized flavor on the card: a captured replay ---------------
+
+    def _replay(self, ifm: torch.Tensor) -> torch.Tensor:
+        """The fused path through this input shape's captured graph
+        (captured at the first call): copy the input into the static
+        input, replay, return a clone of the static output — the next
+        replay overwrites it, and callers keep what they were given."""
+        g = self._graphs.get(tuple(ifm.shape))
+        if g is None:
+            with span(f"graph_capture:{self.sched.layer_name}", cat="jit"):
+                g = self._capture(ifm)
+            self._graphs[tuple(ifm.shape)] = g
+        g.x.copy_(ifm)
+        g.graph.replay()
+        GRAPHS["replays"] += 1
+        for k, v in g.launches.items():
+            REPLAYED[k] += v
+        return g.out.clone()
+
+    def _capture(self, ifm: torch.Tensor) -> _Graph:
+        """Capture :meth:`_execute_quant` at ``ifm``'s shape into a CUDA
+        graph with its own memory pool.  One warm-up run on a side stream
+        comes first (PyTorch's recipe): it builds and loads the kernel
+        library and sets each kernel variant's attributes outside the
+        capture.  A failed capture raises; nothing falls back to the
+        eager path.  The kernel wrapper's launch plan and its alignment
+        choices (``x.data_ptr()``) are taken here, on the host; they stay
+        valid because the graph's pool keeps every address."""
+        dev = ifm.device
+        x = torch.empty(ifm.shape, dtype=ifm.dtype, device=dev)
+        x.copy_(ifm)
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._execute_quant(x)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = self._execute_quant(x)
+        # one kernel call per fire chunk, of the handle's variant
+        kname = "cim_codes" if self.handle.adc is None else "cim_codes_var"
+        launches = {kname: len(self._quant_chunks(self.plan.fires,
+                                                  ifm.shape[0]))}
+        GRAPHS["captures"] += 1
+        return _Graph(graph, x, out, launches, self.handle)
+
+    # -- the exact engine's float32 flavor ------------------------------------
+
+    def _build_f32(self) -> Tuple[list, list]:
+        """Per tile group: the flat gather indices of its tiles' patch
+        columns side by side ((E*F, K_group), tile, then tap, then
+        channel) and the matching float32 weight rows (K_group, M).
+        Within a group the (tile, tap) pairs cover a slice of the K*K*C
+        contraction exactly once each, so a group is ONE gemm."""
+        plan, h = self.plan, self.handle
+        kcs = [tt.pack * (tt.c_hi - tt.c_lo) for tt in plan.tiles]
+        idx = self._gather_index(kcs)
+        dev = self.engine.device
+        gidx, wcats = [], []
+        for lo, hi in plan.segments:
+            gidx.append(torch.as_tensor(np.concatenate(
+                [idx[t, :, :kcs[t]] for t in range(lo, hi)], axis=1),
+                device=dev))
+            wcats.append(torch.cat(
+                [h.tile_w[t][d] for t in range(lo, hi)
+                 for d in range(h.tile_w[t].shape[0])]).to(torch.float32))
+        return gidx, wcats
+
+    def _run_f32(self, ifm: torch.Tensor) -> torch.Tensor:
+        """The reference's float32 flavor of the exact engine: one im2col
+        gemm per tile group, the group fold a sum, the float32 tail.
+        Allclose to the float64 path (another summation order), not
+        equal; counters are identical.  TF32 is pinned off on the card:
+        it would keep about three decimal digits."""
+        torch.backends.cuda.matmul.allow_tf32 = False
+        if self._f32 is None:
+            self._f32 = self._build_f32()
+        s = self.sched
+        b, ef, m = ifm.shape[0], self.plan.fires, s.c_out
+        padded = torch.zeros((b, s.hp, s.wp, s.c_in), dtype=torch.float32,
+                             device=ifm.device)
+        padded[:, s.pad:s.pad + s.h, s.pad:s.pad + s.w] = ifm
+        flat = padded.reshape(b, -1)
+        gsum = None
+        for gidx, wcat in zip(*self._f32):
+            g = (flat[:, gidx].reshape(b * ef, -1) @ wcat).reshape(b, ef, m)
+            gsum = g if gsum is None else g + gsum
+        out = gsum.reshape(b, s.e, s.f, m)
+        if self.bias is not None:
+            out = out + self.bias.to(torch.float32)
+        if s.tail.activation == "relu":
+            out = torch.clamp_min(out, 0.0)
+        ps = s.tail.pool_s
+        if ps:
+            out = out.reshape(b, s.e // ps, ps, s.f // ps, ps, m).amax(
+                dim=(2, 4))
+        return out.to(torch.float64)
 
     def _tail(self, out: torch.Tensor) -> torch.Tensor:
         """Block-tail M-type program: dequantization (quantized engine),
@@ -320,3 +492,11 @@ class TraceExecutor:
                 h = transport.record_bulk(tt.tile_id, tt.dst_south, GROUP,
                                           self._psum_bytes, fires)
                 cnt.group_hops += fires * max(1, h)
+
+
+def simulate_block_trace(sched: BlockSchedule, weights: torch.Tensor,
+                         ifm: torch.Tensor,
+                         bias: Optional[torch.Tensor] = None,
+                         **kw) -> torch.Tensor:
+    """One-shot convenience: compile + execute a block on the fast path."""
+    return TraceExecutor(sched, weights, bias=bias, **kw).run(ifm)

@@ -205,9 +205,10 @@ def cim_codes(x: torch.Tensor, w: torch.Tensor, spec: CIMSpec,
     value ``codes * adc_step``, through the CIM pipeline.
 
     CPU tensors take :func:`cim_codes_plain`.  CUDA tensors launch the
-    kernel (``cim_codes.launches`` counts launches by variant) with
-    :func:`launch_plan`'s tiling; no tiling changes the result.  Nothing
-    falls back to the plain version on the card."""
+    kernel (``cim_codes.launches`` counts launches by variant, not the
+    launches a CUDA graph capture records) with :func:`launch_plan`'s
+    tiling; no tiling changes the result.  Nothing falls back to the
+    plain version on the card."""
     global WEIGHT_COPIES
     t, r, kc, n, k_total = _check(x, w, spec, adc)
     if x.device.type == "cpu":
@@ -249,7 +250,10 @@ def cim_codes(x: torch.Tensor, w: torch.Tensor, spec: CIMSpec,
                      plan.slices, stream)
     if err != 0:
         raise RuntimeError(f"cim_codes launch failed: CUDA error {err}")
-    LAUNCHES["cim_codes_var" if adc is not None else "cim_codes"] += 1
+    # a launch recorded into a CUDA graph runs nothing until the graph
+    # replays; the replaying code counts it there
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES["cim_codes_var" if adc is not None else "cim_codes"] += 1
     return out
 
 

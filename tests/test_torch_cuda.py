@@ -164,6 +164,29 @@ def test_cuda_kernel_low_precision(spec):
 
 
 @pytest.mark.cuda
+def test_cuda_captured_launch_counted_at_run_only():
+    """A ``cim_codes`` call recorded into a CUDA graph by any caller is
+    not counted as a launch; the warm-up call and the graph's replay run
+    the kernel, and the replay equals the eager result."""
+    _needs_card()
+    rng = np.random.default_rng(5)
+    spec = CIMSpec(n_c=128)
+    x, w = _ints(rng, (40, 300)), _ints(rng, (300, 96))
+    before = dict(LAUNCHES)
+    want = cim_codes(x, w, spec)                # warm-up: builds, launches
+    torch.cuda.synchronize()
+    assert LAUNCHES["cim_codes"] == before["cim_codes"] + 1
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = cim_codes(x, w, spec)
+    assert LAUNCHES["cim_codes"] == before["cim_codes"] + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _same(got, want)
+    assert LAUNCHES == {k: before[k] + (k == "cim_codes") for k in before}
+
+
+@pytest.mark.cuda
 def test_cuda_code_width_guard():
     """The kernel sums codes below 2^22 only: a 23-bit ADC
     (``q_max + 1 == 2^22``) runs and equals the plain version, a 24-bit
@@ -272,6 +295,138 @@ def test_cuda_quantization_matches_cpu():
         CIMEngine(device="cuda").quant_stream(h, x.cuda()).cpu(),
         CIMEngine(device="cpu").quant_stream(h, x))
     assert torch.equal(_global_avg_pool(x.cuda()).cpu(), _global_avg_pool(x))
+
+
+def _toy_sims(variation=None):
+    """A reduced CNN (packing, a C = 300 > n_c split chain, pools, an FC
+    head) served on the card twice, sharing one calibrated CIM engine:
+    eager (``trace_jit=False``) and captured (``trace_jit=True``)."""
+    from repro_torch.configs.cnn import CNNConfig, ConvLayer, FCLayer
+    from repro_torch.core.engine import CIMEngine
+    from repro_torch.core.network import NetworkSimulator
+
+    cnn = CNNConfig("toy", "cifar10", 8, (
+        ConvLayer("c0", 8, 8, 3, 32, k=3, pool_k=2, pool_s=2),
+        ConvLayer("c1", 4, 4, 32, 300, k=3),
+        ConvLayer("c2", 4, 4, 300, 64, k=3, pool_k=2, pool_s=2),
+        FCLayer("fc", 256, 10)))
+    rng = np.random.default_rng(21)
+    params = {}
+    for l in cnn.layers:
+        shape = ((l.k, l.k, l.c, l.m) if isinstance(l, ConvLayer)
+                 else (l.c_in, l.c_out))
+        params[l.name] = torch.from_numpy(
+            rng.standard_normal(shape) / np.sqrt(np.prod(shape[:-1])))
+    frames = rng.random((6, 8, 8, 3))
+    eng = CIMEngine(device="cuda")
+    sims = [NetworkSimulator(cnn, params, engine=eng, streaming=True,
+                             calib_images=frames[:2], trace_jit=jit,
+                             device="cuda") for jit in (False, True)]
+    if variation is not None:
+        for sim in sims:
+            sim.set_variation(variation)
+    return sims, frames
+
+
+def _cim_kernel_events(run):
+    """CIM kernel launches that ``torch.profiler`` sees in ``run()`` (a
+    graph replay's kernels included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if "cim_codes_kernel" in ev.key)
+
+
+@pytest.mark.cuda
+def test_cuda_trace_jit_replay_equals_eager():
+    """A captured executor's replay equals its eager run by value (logits
+    of ``run`` and of ``run_stream``); the first call of each executor
+    captures, later calls replay."""
+    _needs_card()
+    from repro_torch.core.trace import GRAPHS
+
+    (eager, jit), frames = _toy_sims()
+    n_ex = len(jit._executors)
+    before = dict(GRAPHS)
+    got = jit.run(frames[:4])
+    assert GRAPHS["captures"] - before["captures"] == n_ex
+    assert GRAPHS["replays"] - before["replays"] == n_ex
+    want = eager.run(frames[:4])
+    torch.cuda.synchronize()
+    assert _same(got.logits, want.logits)
+    res = jit.run_stream(frames, chunk=4)       # a 4- and a 2-frame batch
+    assert GRAPHS["captures"] - before["captures"] == 2 * n_ex
+    assert GRAPHS["replays"] - before["replays"] == 3 * n_ex
+    assert _same(res.logits, eager.run_stream(frames, chunk=4).logits)
+
+
+@pytest.mark.cuda
+def test_cuda_replayed_launches_counted():
+    """A run whose graphs are captured launches no conv kernel through
+    the wrapper: its conv launches are replayed, counted per graph in
+    ``REPLAYED`` (one per fire chunk), and the profiler sees exactly the
+    replayed and the wrapper's (FC) launches — the cluster launches
+    capture and replay."""
+    _needs_card()
+    from repro_torch.core.trace import GRAPHS, REPLAYED
+
+    (_, jit), frames = _toy_sims()
+    jit.run(frames[:4])                         # captures
+    chunks = sum(len(ex._quant_chunks(ex.plan.fires, 4))
+                 for ex in jit._executors.values())
+    assert sum(sum(g.launches.values()) for ex in jit._executors.values()
+               for g in ex._graphs.values()) == chunks
+    before, rep = dict(LAUNCHES), dict(REPLAYED)
+    captures, copies = GRAPHS["captures"], KM.WEIGHT_COPIES
+    seen = _cim_kernel_events(lambda: jit.run(frames[:4]))
+    assert GRAPHS["captures"] == captures
+    assert REPLAYED["cim_codes"] - rep["cim_codes"] == chunks
+    assert LAUNCHES["cim_codes"] - before["cim_codes"] == 1  # the FC layer
+    assert seen == chunks + 1
+    assert KM.WEIGHT_COPIES == copies
+
+
+@pytest.mark.cuda
+def test_cuda_replay_after_set_variation_equals_eager():
+    """``set_variation`` drops the captured graphs (they read the old
+    handles): the next replay, and the one after a swap back to nominal,
+    equal the eager runs by value."""
+    _needs_card()
+    from repro_torch.core.variation import VARIATION_PRESETS
+
+    (eager, jit), frames = _toy_sims()
+    nominal = jit.run(frames[:4]).logits
+    for sim in (eager, jit):
+        sim.set_variation(VARIATION_PRESETS["all"])
+    assert all(not ex._graphs for ex in jit._executors.values())
+    varied = jit.run(frames[:4]).logits
+    assert _same(varied, eager.run(frames[:4]).logits)
+    assert not _same(varied, nominal)
+    for sim in (eager, jit):
+        sim.set_variation(None)
+    assert _same(jit.run(frames[:4]).logits, nominal)
+
+
+@pytest.mark.cuda
+def test_cuda_replay_output_is_fresh_per_call():
+    """Each replay returns a new tensor: a later replay leaves what an
+    earlier call returned unchanged."""
+    _needs_card()
+    (_, jit), frames = _toy_sims()
+    ex = jit._executors[0, 0]
+    x = torch.from_numpy(frames[:4]).cuda()
+    a = ex.run(x, account=False)
+    a_copy = a.clone()
+    b = ex.run(x * 0.5, account=False)
+    torch.cuda.synchronize()
+    assert a.data_ptr() != b.data_ptr()
+    assert torch.equal(a, a_copy) and not torch.equal(a, b)
+    assert all(a.data_ptr() != g.out.data_ptr()
+               for g in ex._graphs.values())
 
 
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}

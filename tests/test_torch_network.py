@@ -219,12 +219,10 @@ def test_entry_points_default_to_the_card():
 
 
 def test_unported_paths_raise():
+    """The per-cycle interpreter backend stays in the reference.
+    (``trace_jit=True`` and ``run_stream(batched=False)`` run now; their
+    parity tests are in ``tests/test_torch_trace_jit.py``.)"""
     _, pcnn, params, x = _setup("toy")
     p = params_from_reference(params, "cpu")
     with pytest.raises(NotImplementedError):
         NetworkSimulator(pcnn, p, backend="interp", device="cpu")
-    with pytest.raises(NotImplementedError):
-        NetworkSimulator(pcnn, p, trace_jit=True, device="cpu")
-    sim = PS.build_stream_sim(pcnn, p, device="cpu")
-    with pytest.raises(NotImplementedError):
-        sim.run_stream(x, batched=False)
