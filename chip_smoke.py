@@ -126,20 +126,44 @@ T. telemetry and chiplets: vgg11 served over 4 floret chiplets with a
    same calls in float32), and where the tiling has edges: head dim 16,
    64, 128 and 256; S 37, 777 and 2049 (not multiples of the 64-key tile
    or the 128-row block); windows 1, 63, 65, 100, 513 and S; GQA groups
-   1, 2, 4 and 8; soft cap off and 50.0; each call launches its dtype's
-   kernel once and the other never;
+   1, 2, 4 and 8; soft cap off and 50.0; and granite's 24 / 8 heads at
+   head dim 64 and jamba's 32 / 8 at 128 (windows 65 and S); each call
+   launches its dtype's kernel once and the other never;
 9. their times at the main path's calls: one local and one global launch
    and the whole prefill's 26 launches, as device time under
    ``torch.profiler`` (the wrapper's host time is not the kernel's),
    beside the plain version, ``scaled_dot_product_attention`` with the
    band mask, the same with ``is_causal=True`` on the global launches
    (exactly their function), and the bound; the rate on unmasked and on
-   computed work (``tile_schedule``) and the share of the bound.
+   computed work (``tile_schedule``) and the share of the bound;
+F. the MoE and Mamba LM families: granite-moe-3b-a800m and
+   falcon-mamba-7b at full width, jamba-v0.1-52b at full width over one
+   8-layer cycle, random weights from a card generator seeded with
+   SEED, each served as in phase 5 (batch 4, prompt 2048, 32 greedy
+   tokens, bfloat16 and the int8 CIM flavor).  Each counted generation
+   resets every kernel count just before and reads them just after:
+   granite 32 launches of the bfloat16 attention kernel, falcon-mamba
+   64 of the selective scan, jamba 1 and 7, and nothing else; tokens in
+   range, logits finite, two prefills bit-equal (the MoE combine is
+   deterministic); the prefill with both kernels' plain versions
+   swapped in within TOL_FAMILY_LOGITS.  The MoE capacity and the
+   (token, k) pairs dropped in one prefill and one decode step; prefill
+   ms, decode ms/token, tokens/s; on the bfloat16 flavor every kernel
+   call of one prefill held against its plain version, device time by
+   kernel and the busy share of a prefill and of four decode steps.
+   Then granite and falcon-mamba cut to 4 layers, and jamba's reduced
+   config, in float32 on the card and on the CPU as in phase 7; the
+   scan kernel against its plain version (rtol = atol = TOL_SCAN) over
+   S 1, 37, 2049, d_inner 256 and 200, d_state 4 and 16, with and
+   without an initial state; its device time per falcon-mamba prefill
+   beside its bound and its plain version's; the phase's seconds.
 
 The line before the last is the ``kernels`` JSON (a CIM variant's
 ``launches`` summed over the counted runs of phases 2 and M, its
-times phase 4's, per vgg11 batch); the last line is
-``{"ok": true, "device": {...}}``.
+times phase 4's, per vgg11 batch; the bfloat16 attention kernel's
+launches those of phases 5 and F, its times phase 9's; the scan's
+launches those of phase F, its times per falcon-mamba prefill); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -240,6 +264,61 @@ TOL_SMALL = {"bfloat16": 1e-3, "int8": 5e-3}
 #: kernel vs plain version, rtol = atol: float32 as the reference holds
 #: its kernel to its oracle; bfloat16 one ulp (2^-8) and then some
 TOL_ATTN = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+#: phase 8's GQA shapes of the phase-F models, (query heads, kv heads,
+#: head dim): granite's group of 3 and jamba's group of 4
+ATTN_FAMILY_SHAPES = ((24, 8, 64), (32, 8, 128))
+
+#: phase F: the MoE and Mamba families at the published widths, batch
+#: LM_BATCH, an LM_PROMPT-token prompt and LM_GEN greedy tokens in both
+#: flavors; jamba cut in depth to one 8-layer cycle (7 mamba layers, the
+#: attention layer at 4, MoE on the odd layers: 13.3 G parameters, 27 GB
+#: in bfloat16; the 32-layer model's 104 GB do not fit one card)
+FAMILY_LAYERS = {"granite-moe-3b-a800m": None, "falcon-mamba-7b": None,
+                 "jamba-v0.1-52b": 8}
+#: launches of each kernel in one generation (the prefill; decode
+#: launches none)
+FAMILY_LAUNCHES = {
+    "granite-moe-3b-a800m": {"local_attention": 32,
+                             "local_attention_f32": 0, "selective_scan": 0},
+    "falcon-mamba-7b": {"local_attention": 0, "local_attention_f32": 0,
+                        "selective_scan": 64},
+    "jamba-v0.1-52b": {"local_attention": 1, "local_attention_f32": 0,
+                       "selective_scan": 7},
+}
+#: phase F's card-against-CPU check in float32: the published widths cut
+#: to 4 layers, jamba at its reduced config (None: a full-width MoE
+#: cycle in float32 is too large for the host)
+FAMILY_SMALL_LAYERS = {"granite-moe-3b-a800m": 4, "falcon-mamba-7b": 4,
+                       "jamba-v0.1-52b": None}
+#: prefill logits of the kernels' run vs the plain versions' run, both in
+#: bfloat16, (max |diff|, mean |diff|), stated before the first run on
+#: the card.  Logits spread about +-4.  falcon-mamba: the two scans agree
+#: to float32 rounding, but y is rounded to bfloat16, so an element on a
+#: rounding edge flips an ulp and 64 layers carry it on (gemma3's 26
+#: attention layers measured 0.082 max, 0.0126 mean).  granite: the
+#: attention kernel rounds as gemma3's does, and in 32 layers of top-8
+#: of 40 experts a router near-tie flips an expert of weight ~0.07.
+#: jamba: a flipped top-2 expert carries weight ~0.5.  The mean bound
+#: catches a systematic error (a wrong kernel moves every logit).
+TOL_FAMILY_LOGITS = {"granite-moe-3b-a800m": (0.5, 0.05),
+                     "falcon-mamba-7b": (0.25, 0.05),
+                     "jamba-v0.1-52b": (2.0, 0.1)}
+#: phase F's kernels as the profiler names them (bfloat16 attention,
+#: scan)
+FAMILY_KERNEL_NAMES = ("tc::attn_kernel", "scan_kernel")
+#: the model whose prefill times the scan kernel, and the kernel's row
+SCAN_ARCH = "falcon-mamba-7b"
+SCAN_SOURCE = "src/repro_torch/csrc/selective_scan.cu"
+#: no TPU kernel: the reference's associative scan, which it replaces
+SCAN_REPLACES = "src/repro/models/ssm.py:107"
+#: scan kernel vs plain version, rtol = atol: both round each multiply
+#: and add apart; the sums over d_state run in other orders
+TOL_SCAN = 1e-5
+#: phase F's edge grid for the scan: S not a multiple of the 16-step
+#: runs, d_inner a multiple and a non-multiple of the 128-channel blocks
+EDGE_SCAN_S = (1, 37, 2049)
+EDGE_SCAN_D = (256, 200)
+EDGE_SCAN_N = (4, 16)
 
 
 def log(*a) -> None:
@@ -470,11 +549,12 @@ def main_path(km):
 CIM_KERNEL_NAME = "cim_codes_kernel"
 
 
-def profile_device(run, what: str):
+def profile_device(run, what: str, keys=(CIM_KERNEL_NAME,)):
     """Device busy share of ``run()`` and the kernels that take the
-    device time (``torch.profiler``).  Returns (the share, the CIM
-    kernel's device launches, graph replays included), or (None, None)
-    when the profiler saw no device time."""
+    device time (``torch.profiler``).  Returns (the share, {key: (device
+    launches, device us) of the kernels whose name holds key}; the CIM
+    kernel's by default, graph replays included), or (None, None) when
+    the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -501,9 +581,14 @@ def profile_device(run, what: str):
         return None, None
     log(f"[profile] {what}: wall {wall_us:.1f} us under the profiler, "
         f"device busy {busy:.1f} us ({100 * busy / wall_us:.2f}%)")
-    for dev_us, count, key in sorted(rows, reverse=True)[:8]:
-        log(f"[profile]   {dev_us:10.1f} us  x{count:<4d} {key[:90]}")
-    return busy / wall_us, sum(c for _, c, k in rows if CIM_KERNEL_NAME in k)
+    for dev_us, count, name in sorted(rows, reverse=True)[:8]:
+        log(f"[profile]   {dev_us:10.1f} us  x{count:<4d} {name[:90]}")
+    found = {key: (sum(c for _, c, name in rows if key in name),
+                   sum(us for us, _, name in rows if key in name))
+             for key in keys}
+    for key, (count, dev_us) in found.items():
+        log(f"[profile]   {key}: {count} launches, {dev_us:.1f} us")
+    return busy / wall_us, found
 
 
 def device_share(sim, frames):
@@ -1053,18 +1138,30 @@ def jit_model(km, name, sim, qparams, frames, rep, card, dup_cap=64,
         fail(f"{what}: run_stream counters / traffic / timeline / logits "
              "differ from the non-jit run")
     # a run on captured graphs, counted and profiled: every conv launch
-    # a replayed one, each seen by the profiler (a session that records
-    # no device activity at all is run again, as in ``device_ms``)
-    for _ in range(3):
+    # a replayed one, each seen by the profiler.  A session that records
+    # no device activity, or misses a replay's records (seen once on the
+    # card: one vgg16 graph's 6 gathers and 6 CIM launches absent from
+    # the records of a run whose replays were all issued), is run again,
+    # as in ``device_ms``; each run's counts and logits are checked
+    want_seen = FRAMES // BATCH_WINDOW * (conv + fc)
+    seen = None
+    for attempt in range(3):
         reset_counts(km)
         reset_graph_counts()
-        share, seen = profile_device(
-            lambda: serve_stream(jit, frames, batch_window=BATCH_WINDOW),
+        out = {}
+        share, found = profile_device(
+            lambda: out.setdefault("rep", serve_stream(
+                jit, frames, batch_window=BATCH_WINDOW)),
             f"{what}: one serving run of {FRAMES} frames on captured graphs")
-        if seen is not None:
+        check_jit_counts(km, jit, "cim_codes", False, f"{what} (replay)")
+        if not same(out["rep"].logits.cpu(), rep.logits.cpu()):
+            fail(f"{what}: the profiled replayed run's logits differ from "
+                 "the non-jit run")
+        seen = None if found is None else found[CIM_KERNEL_NAME][0]
+        if seen == want_seen:
             break
-    check_jit_counts(km, jit, "cim_codes", False, f"{what} (replay)")
-    want_seen = FRAMES // BATCH_WINDOW * (conv + fc)
+        log(f"[profile] {what}: session {attempt + 1} saw {seen} CIM "
+            f"kernel launches of {want_seen}")
     if seen != want_seen:
         fail(f"{what}: the profiler saw {seen} CIM kernel launches in a "
              f"replayed run, want {want_seen} (replayed conv + FC)")
@@ -1575,6 +1672,31 @@ def to_device(tree, dev):
     return tree.to(dev)
 
 
+def timed_generate(prog, params, batch):
+    """LM_REPS timed ``greedy_generate`` runs of LM_GEN tokens through
+    the entry point: the prefill ends where its logits reach
+    ``on_logits`` (after a synchronize).  Returns (prefill s, decode s
+    per token, the last run's prefill logits)."""
+    from repro_torch.runtime.serve_loop import greedy_generate
+
+    pre, dec, seen = [], [], {}
+
+    def prefill_done(i, step_logits):
+        if i == 0:
+            torch.cuda.synchronize()
+            seen["t"], seen["logits"] = time.perf_counter(), step_logits
+
+    for _ in range(LM_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        greedy_generate(prog, params, batch, LM_GEN, on_logits=prefill_done)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        pre.append(seen["t"] - t0)
+        dec.append((t2 - seen["t"]) / (LM_GEN - 1))
+    return pre, dec, seen["logits"]
+
+
 def lm_serving(la):
     """Phase 5: gemma3-1b at full width on the card, both flavors; the
     kernel's launch count per prefill; times; the plain-attention run.
@@ -1613,25 +1735,7 @@ def lm_serving(la):
               and int(tokens.max()) < cfg.vocab_size,
               f"{name}: generated {tuple(tokens.shape)} out of range")
 
-        # timed through the entry point: the prefill ends where its
-        # logits reach on_logits (after a synchronize)
-        pre, dec, seen = [], [], {}
-
-        def prefill_done(i, step_logits):
-            if i == 0:
-                torch.cuda.synchronize()
-                seen["t"], seen["logits"] = time.perf_counter(), step_logits
-
-        for _ in range(LM_REPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            greedy_generate(prog, params, batch, LM_GEN,
-                            on_logits=prefill_done)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            pre.append(seen["t"] - t0)
-            dec.append((t2 - seen["t"]) / (LM_GEN - 1))
-        logits = seen["logits"]
+        pre, dec, logits = timed_generate(prog, params, batch)
         check(tuple(logits.shape) == (LM_BATCH, cfg.vocab_size)
               and bool(torch.isfinite(logits).all()),
               f"{name}: prefill logits {tuple(logits.shape)} not finite")
@@ -1671,7 +1775,7 @@ def lm_serving(la):
             finally:
                 la.grouped_local_attention = real
             profile_device(lambda: prog.prefill_fn(params, batch),
-                           f"one {name} prefill")
+                           f"one {name} prefill", keys=("tc::attn_kernel",))
 
             def decode_steps():
                 logits, caches = prog.prefill_fn(params, batch)
@@ -1682,7 +1786,8 @@ def lm_serving(la):
             caches, token = decode_steps()
             profile_device(
                 lambda: [prog.decode_fn(params, token, caches, LM_PROMPT + i)
-                         for i in range(4)], f"four {name} decode steps")
+                         for i in range(4)], f"four {name} decode steps",
+                keys=())
             del caches
         results[name] = dict(
             launches=launches, prefill_ms=[v * 1e3 for v in pre],
@@ -1756,10 +1861,10 @@ def lm_full_f32_first_tokens(la):
     return f32_launches
 
 
-def lm_reduced_vs_cpu():
-    """Phase 7: both flavors cut to 6 layers at full width, float32 on
-    the card and on the CPU."""
-    from repro_torch.configs import get_config
+def lm_reduced_vs_cpu(cfg, label: str = "lm-small"):
+    """Phase 7 (and phase F's card-against-CPU check): both flavors of
+    ``cfg`` in float32 on the card and on the CPU, batch 1, a
+    SMALL_PROMPT-token prompt, SMALL_GEN tokens."""
     from repro_torch.runtime.serve_loop import (build_serve_program,
                                                 greedy_generate)
 
@@ -1773,7 +1878,6 @@ def lm_reduced_vs_cpu():
     # here explicitly)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=SMALL_LAYERS)
     for name, kv_dtype, cim in LM_FLAVORS:
         t0 = time.perf_counter()
         prog, params, batch = lm_program(cfg, 1, SMALL_PROMPT, SMALL_GEN,
@@ -1791,15 +1895,16 @@ def lm_reduced_vs_cpu():
             a = a.cpu()
             errs.append((a - b).abs().max().item())
             check(torch.allclose(a, b, rtol=tol, atol=tol),
-                  f"{name} reduced: step {i} logits differ from the CPU run "
-                  f"by {errs[-1]} (tolerance {tol})")
+                  f"{cfg.name} {name} reduced: step {i} logits differ from "
+                  f"the CPU run by {errs[-1]} (tolerance {tol})")
         check(torch.equal(tok_card.cpu(), tok_cpu),
-              f"{name} reduced: tokens {tok_card.tolist()} on the card, "
-              f"{tok_cpu.tolist()} on the CPU")
-        log(f"[lm-small] {name}: {SMALL_LAYERS} layers, prompt "
-            f"{SMALL_PROMPT}, {SMALL_GEN} tokens, float32 (TF32 off): "
-            f"tokens equal {tok_cpu[0].tolist()}; max |logit diff| per "
-            f"step {[f'{e:.2e}' for e in errs]} (prefill tolerance "
+              f"{cfg.name} {name} reduced: tokens {tok_card.tolist()} on "
+              f"the card, {tok_cpu.tolist()} on the CPU")
+        log(f"[{label}] {cfg.name} {name}: {cfg.num_layers} layers, "
+            f"d_model {cfg.d_model}, prompt {SMALL_PROMPT}, {SMALL_GEN} "
+            f"tokens, float32 (TF32 off): tokens equal "
+            f"{tok_cpu[0].tolist()}; max |logit diff| per step "
+            f"{[f'{e:.2e}' for e in errs]} (prefill tolerance "
             f"{TOL_SMALL['bfloat16']}, decode {TOL_SMALL[kv_dtype]}); "
             f"{time.perf_counter() - t0:.1f} s")
         del prog, params
@@ -1857,6 +1962,18 @@ def check_attention(la, calls):
                                       f"{window} softcap {cap} {dtype}",
                                       worst)
                             n_checks += 1
+    for h, kvh, d in ATTN_FAMILY_SHAPES:
+        for s in (37, 777, 2049):
+            base = [torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).cuda() for shape in
+                ((1, s, h, d), (1, s, kvh, d), (1, s, kvh, d))]
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = (t.to(dtype) for t in base)
+                for window in (65, s):
+                    attn_case(la, q, k, v, window, None,
+                              f"d {d} S {s} heads {h} / {kvh} window "
+                              f"{window} {dtype}", worst)
+                    n_checks += 1
     log(f"[attention] {n_checks} comparisons (tolerance "
         f"{ {str(k): v for k, v in TOL_ATTN.items()} }); max |diff| at the "
         f"main-path calls {worst_main}; at the edge cases {worst}")
@@ -2007,6 +2124,350 @@ def time_attention(la, calls, card, reps: int = 10):
     return out
 
 
+def family_config(arch: str):
+    """Phase F's config of ``arch``: the published widths, jamba cut in
+    depth to one layer cycle."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if FAMILY_LAYERS[arch] is not None:
+        cfg = dataclasses.replace(cfg, num_layers=FAMILY_LAYERS[arch])
+    return cfg
+
+
+def all_launches(la, ss):
+    return {**la.LAUNCHES, **ss.LAUNCHES}
+
+
+def reset_lm_counts(la, ss):
+    for counts in (la.LAUNCHES, ss.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+class Swapped:
+    """Module attributes replaced for the duration of a ``with`` block:
+    ``Swapped((module, name, fn), ...)``."""
+
+    def __init__(self, *swaps):
+        self.swaps = swaps
+
+    def __enter__(self):
+        self.saved = [getattr(m, n) for m, n, _ in self.swaps]
+        for m, n, fn in self.swaps:
+            setattr(m, n, fn)
+
+    def __exit__(self, *exc):
+        for (m, n, _), fn in zip(self.swaps, self.saved):
+            setattr(m, n, fn)
+
+
+def plain_kernels(la, ss):
+    """Both kernels' plain versions swapped in for the wrappers."""
+    return Swapped((la, "grouped_local_attention",
+                    la.grouped_local_attention_plain),
+                   (ss, "selective_scan", ss.selective_scan_plain))
+
+
+def checked_kernels(la, ss, worst, first):
+    """Wrappers that launch each kernel and hold its result against the
+    plain version on the same inputs (TOL_ATTN, TOL_SCAN); the largest
+    |diff| per kernel goes into ``worst``, the first call's operands of
+    each into ``first["attn"]`` / ``first["scan"]``."""
+    attn, scan = la.grouped_local_attention, ss.selective_scan
+
+    def attn_checked(q, k, v, *, window, softcap=None):
+        out = attn(q, k, v, window=window, softcap=softcap)
+        first.setdefault("attn", (q, k, v, window))
+        ref = la.grouped_local_attention_plain(q, k, v, window=window,
+                                               softcap=softcap)
+        name = ATTN_KERNEL[q.dtype]
+        err = (out.float() - ref.float()).abs().max().item()
+        worst[name] = max(worst.get(name, 0.0), err)
+        check(attn_close(out, ref, q.dtype),
+              f"{name} != plain at main-path call {tuple(q.shape)} window "
+              f"{window}: max |diff| {err}")
+        return out
+
+    def scan_checked(*ops):
+        y, h = scan(*ops)
+        y_ref, h_ref = ss.selective_scan_plain(*ops)
+        err = max((y - y_ref).abs().max().item(),
+                  (h - h_ref).abs().max().item())
+        worst["selective_scan"] = max(worst.get("selective_scan", 0.0), err)
+        check(torch.allclose(y, y_ref, rtol=TOL_SCAN, atol=TOL_SCAN)
+              and torch.allclose(h, h_ref, rtol=TOL_SCAN, atol=TOL_SCAN),
+              f"selective_scan != plain at main-path call "
+              f"{tuple(ops[0].shape)}: max |diff| {err}")
+        first.setdefault("scan", ops)
+        return y, h
+
+    return Swapped((la, "grouped_local_attention", attn_checked),
+                   (ss, "selective_scan", scan_checked))
+
+
+def moe_drops(prog, params, batch):
+    """(capacity, dropped pairs, pairs) summed over the MoE layers of one
+    prefill and of one decode step."""
+    from repro_torch.models import moe as moe_mod
+
+    real = moe_mod.moe_forward
+    seen = []
+
+    def recorder(p, x, cfg, plan):
+        dropped, cap = moe_mod.dropped_pairs(p, x, cfg, plan)
+        seen.append((cap, dropped, x.shape[0] * x.shape[1] * cfg.moe.top_k))
+        return real(p, x, cfg, plan)
+
+    with Swapped((moe_mod, "moe_forward", recorder)):
+        logits, caches = prog.prefill_fn(params, batch)
+        pre = list(seen)
+        seen.clear()
+        token = torch.argmax(logits, dim=-1).to(torch.int32)
+        prog.decode_fn(params, token, caches, batch["tokens"].shape[1])
+    torch.cuda.synchronize()
+    return ({c for c, _, _ in pre}, sum(d for _, d, _ in pre),
+            sum(n for _, _, n in pre)), \
+        ({c for c, _, _ in seen}, sum(d for _, d, _ in seen),
+         sum(n for _, _, n in seen))
+
+
+def scan_work(dt, x, b, c, a, d, h0=None):
+    """(operations, bytes) one scan call must do: 8 per (b, t, c, n)
+    (dt * A, exp, dt * B, * x, decay * h, + drive, h * C, + acc) and 2
+    per (b, t, c) (D * x, +); every operand read once, y and the last
+    state written once."""
+    bsz, s, dl = dt.shape
+    n = a.shape[1]
+    ops = 8 * bsz * s * dl * n + 2 * bsz * s * dl
+    outs = bsz * s * dl + bsz * dl * n
+    nbytes = 4 * (sum(t.numel() for t in (dt, x, b, c, a, d)
+                      if t is not None)
+                  + (h0.numel() if h0 is not None else 0) + outs)
+    return ops, nbytes
+
+
+def family_serving(la, ss, arch: str, card):
+    """Phase F, one model: served at full width in both flavors.
+    Returns per-flavor results and the kernels' launches of the counted
+    runs."""
+    from repro_torch.runtime.serve_loop import greedy_generate
+
+    cfg = family_config(arch)
+    want = FAMILY_LAUNCHES[arch]
+    max_tol, mean_tol = TOL_FAMILY_LOGITS[arch]
+    results, launches, worst, first = {}, {}, {}, {}
+    for name, kv_dtype, cim in LM_FLAVORS:
+        t0 = time.perf_counter()
+        prog, params, batch = lm_program(cfg, LM_BATCH, LM_PROMPT, LM_GEN,
+                                         kv_dtype, cim, "cuda",
+                                         torch.bfloat16)
+        # warm the card (cuBLAS handles, allocator, the kernel libraries)
+        greedy_generate(prog, params, {"tokens": batch["tokens"][:, :128]}, 2)
+        torch.cuda.synchronize()
+        log(f"[F] {arch} {name}: {cfg.num_layers} layers, d_model "
+            f"{cfg.d_model}, vocab {cfg.vocab_size}; set up in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        counted = {}
+        reset_lm_counts(la, ss)
+        torch.cuda.synchronize()
+        tokens = greedy_generate(prog, params, batch, LM_GEN,
+                                 on_logits=lambda i, lg: counted.setdefault(
+                                     "logits", lg))
+        torch.cuda.synchronize()
+        counts = all_launches(la, ss)
+        for key, v in counts.items():
+            launches[key] = launches.get(key, 0) + v
+        check(counts == want,
+              f"{arch} {name}: launches in one generation {counts}, want "
+              f"{want} (one prefill; decode launches none)")
+        check(tuple(tokens.shape) == (LM_BATCH, LM_GEN)
+              and int(tokens.min()) >= 0
+              and int(tokens.max()) < cfg.vocab_size,
+              f"{arch} {name}: generated {tuple(tokens.shape)} out of range")
+
+        pre, dec, logits = timed_generate(prog, params, batch)
+        check(tuple(logits.shape) == (LM_BATCH, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"{arch} {name}: prefill logits {tuple(logits.shape)} not "
+              f"finite")
+        check(torch.equal(logits, counted["logits"]),
+              f"{arch} {name}: two prefills gave other logits (max |diff| "
+              f"{(logits - counted['logits']).abs().max().item()})")
+
+        with plain_kernels(la, ss):
+            ref_logits, _ = prog.prefill_fn(params, batch)
+        torch.cuda.synchronize()
+        diff = (logits - ref_logits).abs()
+        log(f"[F] {arch} {name}: kernels vs plain versions, prefill logits "
+            f"max |diff| {diff.max().item():.6f} (tolerance {max_tol}), "
+            f"mean {diff.mean().item():.6f} (tolerance {mean_tol}); first "
+            f"tokens {torch.argmax(logits, -1).tolist()} vs "
+            f"{torch.argmax(ref_logits, -1).tolist()} (not checked in "
+            f"bfloat16)")
+        check(diff.max().item() <= max_tol and diff.mean().item() <= mean_tol,
+              f"{arch} {name}: prefill logits differ from the plain run")
+        if cfg.moe is not None:
+            (cap_p, drop_p, n_p), (cap_d, drop_d, n_d) = moe_drops(
+                prog, params, batch)
+            log(f"[F] {arch} {name}: MoE capacity {sorted(cap_p)} per "
+                f"expert in a prefill, {sorted(cap_d)} in a decode step; "
+                f"(token, k) pairs dropped: {drop_p} of {n_p} in one "
+                f"prefill, {drop_d} of {n_d} in one decode step")
+        if name == "bf16":
+            with checked_kernels(la, ss, worst, first):
+                prog.prefill_fn(params, batch)
+            torch.cuda.synchronize()
+            share, found = profile_device(
+                lambda: prog.prefill_fn(params, batch),
+                f"{arch}: one {name} prefill", keys=FAMILY_KERNEL_NAMES)
+            caches = prog.prefill_fn(params, batch)[1]
+            token = tokens[:, 0].contiguous()
+            profile_device(
+                lambda: [prog.decode_fn(params, token, caches, LM_PROMPT + i)
+                         for i in range(4)],
+                f"{arch}: four {name} decode steps", keys=())
+            del caches
+            results["profile"] = dict(busy=share, kernels=found)
+        results[name] = dict(
+            prefill_ms=[v * 1e3 for v in pre],
+            decode_ms=[v * 1e3 for v in dec],
+            tok_s=LM_BATCH / float(np.median(dec)),
+            max_logit_diff=diff.max().item(),
+            mean_logit_diff=diff.mean().item())
+        log(f"[F] {arch} {name}: launches {counts}; prefill ms "
+            f"{[round(v, 3) for v in results[name]['prefill_ms']]} (median "
+            f"{np.median(results[name]['prefill_ms']):.3f}); decode "
+            f"ms/token {[round(v, 4) for v in results[name]['decode_ms']]} "
+            f"(median {np.median(results[name]['decode_ms']):.4f}, "
+            f"{results[name]['tok_s']:.1f} tokens/s at batch {LM_BATCH}); "
+            f"sample {tokens[0, :8].tolist()}; "
+            f"{time.perf_counter() - t0:.1f} s on {card}")
+        del prog, params, batch, logits, ref_logits, counted
+        torch.cuda.empty_cache()
+    return results, launches, worst, first
+
+
+def check_scan(ss):
+    """Phase F: the scan kernel against its plain version over an edge
+    grid; one launch a call.  Returns the largest |diff|."""
+    rng = np.random.default_rng(SEED + 3)
+    worst, n_checks = 0.0, 0
+    for n in EDGE_SCAN_N:
+        for s in EDGE_SCAN_S:
+            for dl in EDGE_SCAN_D:
+                dt = np.log1p(np.exp(rng.standard_normal((2, s, dl)) - 2.0))
+                a = -np.tile(np.arange(1, n + 1, dtype=np.float64), (dl, 1))
+                base = [dt, rng.standard_normal((2, s, dl)),
+                        rng.standard_normal((2, s, n)),
+                        rng.standard_normal((2, s, n)), a,
+                        rng.standard_normal(dl)]
+                ops = [torch.from_numpy(v.astype(np.float32)).cuda()
+                       for v in base]
+                h0 = torch.from_numpy(rng.standard_normal(
+                    (2, dl, n)).astype(np.float32)).cuda()
+                for init in (None, h0):
+                    before = ss.LAUNCHES["selective_scan"]
+                    y, h = ss.selective_scan(*ops, init)
+                    launched = ss.LAUNCHES["selective_scan"] - before
+                    y_ref, h_ref = ss.selective_scan_plain(*ops, init)
+                    torch.cuda.synchronize()
+                    err = max((y - y_ref).abs().max().item(),
+                              (h - h_ref).abs().max().item())
+                    worst = max(worst, err)
+                    what = (f"S {s} d_inner {dl} d_state {n} h0 "
+                            f"{init is not None}")
+                    check(launched == 1,
+                          f"selective_scan at {what}: {launched} launches")
+                    check(torch.allclose(y, y_ref, rtol=TOL_SCAN,
+                                         atol=TOL_SCAN)
+                          and torch.allclose(h, h_ref, rtol=TOL_SCAN,
+                                             atol=TOL_SCAN),
+                          f"selective_scan != plain at {what}: max |diff| "
+                          f"{err}")
+                    n_checks += 1
+    log(f"[scan] {n_checks} edge comparisons (rtol = atol = {TOL_SCAN}): "
+        f"max |diff| {worst:.3e}")
+    return worst
+
+
+def families_phase(la, ss, card):
+    """Phase F: granite-moe-3b-a800m, falcon-mamba-7b and jamba-v0.1-52b
+    (one 8-layer cycle) served at full width, both flavors; the card
+    against the CPU in float32; the scan kernel against its plain version
+    and its times.  Returns the scan's ``kernels`` row and the bfloat16
+    attention kernel's launches in the counted runs."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    launches, worst, scan_call = {}, {}, None
+    for arch in FAMILY_LAYERS:
+        res, counted, worst_a, first = family_serving(la, ss, arch, card)
+        for key, v in counted.items():
+            launches[key] = launches.get(key, 0) + v
+        for key, v in worst_a.items():
+            worst[key] = max(worst.get(key, 0.0), v)
+        if arch == SCAN_ARCH:
+            scan_call, scan_profile = first["scan"], res["profile"]
+        if "attn" in first:
+            n = FAMILY_LAUNCHES[arch]["local_attention"]
+            ops, nbytes = attn_work(*first["attn"])
+            found = res["profile"]["kernels"] or {}
+            dev = found.get("tc::attn_kernel", (None, None))
+            bound = n * max(ops / PEAK_BF16_OPS, nbytes / PEAK_BYTES)
+            log(f"[F] {arch}: bfloat16 attention, q "
+                f"{tuple(first['attn'][0].shape)}: {dev[0]} launches, "
+                f"{dev[1]} us of device time in one prefill; bound "
+                f"{bound * 1e3:.4f} ms for its {n} launches on {card}")
+        log(f"[F] {arch}: prefill ms / decode ms per token / tokens per s "
+            "(medians): " + "; ".join(
+                f"{k} {np.median(v['prefill_ms']):.3f} / "
+                f"{np.median(v['decode_ms']):.4f} / {v['tok_s']:.1f}"
+                for k, v in res.items() if k != "profile")
+            + f"; busy {res['profile']['busy']} in a bf16 prefill on {card}")
+    log(f"[F] main-path calls vs plain versions: max |diff| {worst}")
+
+    t0 = time.perf_counter()
+    for arch in FAMILY_LAYERS:
+        cfg = get_config(arch)
+        cfg = (cfg.reduced() if FAMILY_SMALL_LAYERS[arch] is None
+               else dataclasses.replace(
+                   cfg, num_layers=FAMILY_SMALL_LAYERS[arch]))
+        lm_reduced_vs_cpu(cfg, "F-small")
+    log(f"[F] card against CPU: {time.perf_counter() - t0:.1f} s")
+    worst_edge = check_scan(ss)
+
+    # the scan's times: the first call of one falcon-mamba bf16 prefill,
+    # repeated as often as a prefill launches it (every call has that
+    # shape), as device time
+    per_prefill = FAMILY_LAUNCHES[SCAN_ARCH]["selective_scan"]
+    ops, nbytes = scan_work(*scan_call)
+    t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_BYTES
+    ms = device_ms(lambda *a: ss.selective_scan(*a), [scan_call] * per_prefill,
+                   1)
+    plain_ms = device_ms(lambda *a: ss.selective_scan_plain(*a),
+                         [scan_call] * per_prefill, 1)
+    bound_ms = max(t_ops, t_bytes) * 1e3 * per_prefill
+    row = {"name": "selective_scan", "route": "cuda", "source": SCAN_SOURCE,
+           "replaces": SCAN_REPLACES,
+           "launches": launches["selective_scan"],
+           "max_abs_err": max(worst.get("selective_scan", 0.0), worst_edge),
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_ms": None}
+    log(f"[time] selective_scan per {SCAN_ARCH} prefill ({per_prefill} "
+        f"calls, dt {tuple(scan_call[0].shape)}, d_state "
+        f"{scan_call[4].shape[1]}): {ms:.4f} ms device time (profiled "
+        f"in the prefill, launches and us: {scan_profile['kernels']}), "
+        f"bound {bound_ms:.4f} "
+        f"ms ({row['bound_by']}; {ops / 1e9:.3f} GFLOP, "
+        f"{nbytes / 1e9:.3f} GB a call), {100 * bound_ms / ms:.1f}% of it; "
+        f"plain {plain_ms:.4f} ms on {card}")
+    log(f"[F] phase F: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return row, launches["local_attention"], worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2015,6 +2476,8 @@ def main() -> int:
     try:
         import repro_torch.kernels.cim_matmul as km
         import repro_torch.kernels.local_attention as la
+        import repro_torch.kernels.selective_scan as ss
+        from repro_torch.configs import get_config
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}",
               file=sys.stderr)
@@ -2028,8 +2491,8 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
     # one nvcc per source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(m.build) for m in (km, la)]
+    with ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(m.build) for m in (km, la, ss)]
         for fut in builds:
             lib, build_log = fut.result()
             log(f"[build] {lib.name} after {time.perf_counter() - t0:.1f} s")
@@ -2110,11 +2573,24 @@ def main() -> int:
     t_lm = time.perf_counter()
     lm, attn_calls = lm_serving(la)
     f32_launches = lm_full_f32_first_tokens(la)
-    lm_reduced_vs_cpu()
+    lm_reduced_vs_cpu(dataclasses.replace(get_config(LM_ARCH),
+                                          num_layers=SMALL_LAYERS))
     worst_attn = check_attention(la, attn_calls)
     attn = time_attention(la, attn_calls, card)
-    launches_attn = {"local_attention": lm["bf16"]["launches"],
+    log(f"[lm] {LM_ARCH} serving phases took "
+        f"{time.perf_counter() - t_lm:.1f} s; median prefill ms / decode "
+        f"ms per token / tokens per s: "
+        + "; ".join(f"{k} {np.median(v['prefill_ms']):.3f} / "
+                    f"{np.median(v['decode_ms']):.4f} / {v['tok_s']:.1f}"
+                    for k, v in lm.items()) + f" on {card}")
+    scan_row, family_attn, worst_family = families_phase(la, ss, card)
+    # phases 5 and 6 (gemma3) and phase F's counted runs
+    launches_attn = {"local_attention": lm["bf16"]["launches"]
+                     + family_attn,
                      "local_attention_f32": f32_launches}
+    worst_attn["local_attention"] = max(
+        worst_attn["local_attention"],
+        worst_family.get("local_attention", 0.0))
     for name, row in attn.items():
         kernels.append({
             "name": name, "route": "cuda", "source": ATTN_SOURCE,
@@ -2122,6 +2598,7 @@ def main() -> int:
             "max_abs_err": worst_attn[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    kernels.append(scan_row)
     bf16 = attn["local_attention"]
     log(f"[attention] bfloat16 kernel per prefill: {bf16['ms']:.4f} ms, "
         f"{bf16['tflops_unmasked']:.1f} TFLOP/s on unmasked work "
@@ -2131,12 +2608,6 @@ def main() -> int:
         f"with is_causal on the global launches "
         f"{bf16['library_causal_ms']:.4f} ms; plain {bf16['plain_ms']:.4f} ms "
         f"on {card}")
-    log(f"[lm] {LM_ARCH} serving phases took "
-        f"{time.perf_counter() - t_lm:.1f} s; median prefill ms / decode "
-        f"ms per token / tokens per s: "
-        + "; ".join(f"{k} {np.median(v['prefill_ms']):.3f} / "
-                    f"{np.median(v['decode_ms']):.4f} / {v['tok_s']:.1f}"
-                    for k, v in lm.items()) + f" on {card}")
     if FAILURES:
         fail(f"{len(FAILURES)} LM checks failed: {FAILURES}")
     log(f"[e2e] wall per frame (ms, median of {WALL_REPS} runs): nominal "

@@ -5,10 +5,14 @@ CIM weights and an int8 KV cache, on one card.
       --full [--cim-weights --kv-dtype int8] [--batch 4] \
       [--prompt-len 32] [--gen 16]
 
+Any arch the port runs: the dense GQA stacks (gemma3-1b, gemma2-27b,
+qwen2-0.5b, minitron-8b), granite-moe-3b-a800m (MoE), falcon-mamba-7b
+(Mamba) and jamba-v0.1-52b (Mamba + attention + MoE; at ``--full`` its
+32 layers hold 104 GB in bfloat16, more than one 80 GB card).
 Weights are random, from the port's ``init_params`` with a generator
 seeded with 0; the prompt is random token ids from the same generator.
 Without ``--full`` the arch's reduced config runs.  ``--device cpu``
-runs on the CPU (the attention kernel's plain version).
+runs on the CPU (the kernels' plain versions).
 """
 from __future__ import annotations
 

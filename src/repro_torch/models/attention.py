@@ -1,8 +1,10 @@
-"""GQA attention on torch — the dense-GQA, tp = 1 subset of
-``repro/models/attention.py``: projections with optional QKV bias, RoPE,
-sliding windows and logit soft caps; prefill through the sliding-window
-kernel, and one-token decode against a bfloat16 / float or int8 KV
-cache kept as a ring buffer on local layers.
+"""GQA attention on torch — the GQA, tp = 1 subset of
+``repro/models/attention.py``, for every attention layer the port runs
+(the dense stacks, granite-moe's, jamba's one in eight): projections
+with optional QKV bias, RoPE, sliding windows and logit soft caps;
+prefill through the sliding-window kernel, and one-token decode against
+a bfloat16 / float or int8 KV cache kept as a ring buffer on local
+layers.
 
 MLA (DeepSeek-V3 latent attention) and the sequence-sharded decode of
 tp > 1 are not ported (ROADMAP Queue 1 items 14 and 15).

@@ -30,20 +30,27 @@ from repro_torch.kernels import local_attention as attention_kernel
 @dataclass(frozen=True)
 class ShardingPlan:
     """The parallel layout of one (arch, device) pair: tp = 1 only, so
-    every device holds all heads, the whole vocabulary and every weight
-    whole."""
+    every device holds all heads, the whole vocabulary, every expert and
+    every weight whole."""
 
     tp: int = 1
+    #: experts added to make the count a multiple of tp (0 at tp = 1)
+    experts_pad: int = 0
 
     def __post_init__(self):
-        if self.tp != 1:
+        if self.tp != 1 or self.experts_pad:
             raise NotImplementedError(
                 "tp > 1 (ring dataflow, group trick, sequence-sharded "
-                "cache) is not ported: ROADMAP Queue 1 item 15")
+                "cache, expert padding and all_to_all) is not ported: "
+                "ROADMAP Queue 1 item 15")
 
     @staticmethod
     def for_model(cfg: ModelConfig, tp: int = 1) -> "ShardingPlan":
         return ShardingPlan(tp=tp)
+
+    def shard(self, n: int) -> int:
+        """This device's share of ``n`` (all of it at tp = 1)."""
+        return n // self.tp
 
 
 # ---------------------------------------------------------------------------

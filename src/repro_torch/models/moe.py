@@ -1,0 +1,155 @@
+"""Mixture-of-Experts on torch — the tp = 1 subset of
+``repro/models/moe.py`` (jamba 16e/top-2, granite 40e/top-8, deepseek-v3
+256e/top-8 + shared experts).
+
+The reference shards experts over the model axis and moves tokens to
+them with one ``all_to_all`` each way; at tp = 1 every expert is local
+and the exchange is a reshape, so only that case is ported (tp > 1 is
+ROADMAP Queue 1 item 15).  What stays is the reference's dispatch:
+capacity-sliced, Switch-style token dropping.  The (token, k) pairs are
+sorted stably by expert, each keeps its position within its expert's
+group, and a pair whose position reaches the capacity is dropped.
+
+One departure, in the combine: the reference scatter-adds each token's
+K contributions in float32.  On the card ``index_add_`` adds them
+through atomics in no fixed order, which moves the last bits from run to
+run (and with them a bfloat16 rounding, and a greedy token).  Here each
+token's K contributions are gathered into (T, K, D), dropped pairs zero,
+and summed over k by one fixed-order reduction: two runs on the same
+inputs give the same bits.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import (
+    ACT,
+    ShardingPlan,
+    dense_init,
+    gated_act,
+    resolve_w,
+)
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, plan: ShardingPlan,
+             dtype):
+    m = cfg.moe
+    d, f = cfg.d_model, m.d_ff_expert
+    e_local = plan.shard(m.num_experts + plan.experts_pad)
+    p = {
+        "router": dense_init(gen, d, (d, m.num_experts), torch.float32),
+        "w_in": dense_init(gen, d, (e_local, d, f), dtype),
+        "w_out": dense_init(gen, f, (e_local, f, d), dtype),
+    }
+    if gated_act(cfg.activation):
+        p["w_gate"] = dense_init(gen, d, (e_local, d, f), dtype)
+    if m.num_shared_experts:
+        fs = f * m.num_shared_experts
+        p["shared_in"] = dense_init(gen, d, (d, fs), dtype)
+        p["shared_out"] = dense_init(gen, fs, (fs, d), dtype)
+        if gated_act(cfg.activation):
+            p["shared_gate"] = dense_init(gen, d, (d, fs), dtype)
+    return p
+
+
+def capacity(t: int, cfg: ModelConfig, plan: ShardingPlan) -> int:
+    """Slots per expert for ``t`` tokens: the reference's expression
+    (``repro/models/moe.py:82``), at least 1."""
+    m = cfg.moe
+    e_total = m.num_experts + plan.experts_pad
+    return max(int(math.ceil(t * m.top_k / e_total * m.capacity_factor)), 1)
+
+
+def route(p, xt: torch.Tensor, cfg: ModelConfig, plan: ShardingPlan):
+    """Router of (T, D) tokens -> (gate weights (T, K) float32, each
+    (token, k) pair's slot in the (E * cap) table or -1 when dropped
+    (T, K), cap, aux loss)."""
+    m = cfg.moe
+    t = xt.shape[0]
+    e_total = m.num_experts + plan.experts_pad
+    logits = torch.matmul(xt.float(), p["router"].float())  # (T, E_real)
+    probs = torch.softmax(logits, dim=-1)
+    gate_w, gate_e = torch.topk(probs, m.top_k, dim=-1)      # descending
+    gate_w = gate_w / torch.clamp_min(gate_w.sum(-1, keepdim=True), 1e-9)
+
+    # load-balance aux loss (Switch): E * sum_e f_e * P_e
+    me = torch.mean(probs, dim=0)
+    counts = torch.bincount(gate_e.reshape(-1), minlength=e_total)
+    ce_frac = counts.float() / (t * m.top_k)
+    aux = m.num_experts * torch.sum(me * ce_frac) * m.aux_loss_coef
+
+    # dispatch: sort (token, k) pairs by expert (stable), slice capacity
+    cap = capacity(t, cfg, plan)
+    flat_e = gate_e.reshape(-1)
+    order = torch.sort(flat_e, stable=True).indices
+    sorted_e = flat_e[order]
+    pos_in_e = (torch.arange(t * m.top_k, device=xt.device)
+                - torch.searchsorted(sorted_e, sorted_e, side="left"))
+    slot_sorted = torch.where(pos_in_e < cap, sorted_e * cap + pos_in_e,
+                              torch.full_like(pos_in_e, -1))
+    slot = torch.empty_like(slot_sorted)
+    slot[order] = slot_sorted
+    return gate_w, slot.reshape(t, m.top_k), cap, aux
+
+
+def moe_forward(p, x: torch.Tensor, cfg: ModelConfig, plan: ShardingPlan
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (same shape, aux loss scalar)."""
+    m = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+    e_total = m.num_experts + plan.experts_pad
+    act = ACT[cfg.activation]
+
+    gate_w, slot, cap, aux = route(p, xt, cfg, plan)
+    # slot table: (E, cap) of token indices, t = the empty slot's zero row
+    kept = slot.reshape(-1) >= 0
+    slot_tok = torch.full((e_total * cap,), t, dtype=torch.long,
+                          device=x.device)
+    tok = torch.arange(t, device=x.device).repeat_interleave(m.top_k)
+    slot_tok[slot.reshape(-1)[kept]] = tok[kept]
+    xt_pad = torch.cat([xt, xt.new_zeros((1, d))], dim=0)
+    dispatched = xt_pad[slot_tok].reshape(e_total, cap, d)
+
+    # expert FFN, batched over the experts, in x's dtype
+    h = torch.bmm(dispatched, resolve_w(p["w_in"], x))
+    if "w_gate" in p:
+        g = torch.bmm(dispatched, resolve_w(p["w_gate"], x))
+        h = (act(g.float()) * h.float()).to(x.dtype)
+    else:
+        h = act(h.float()).to(x.dtype)
+    y = torch.bmm(h, resolve_w(p["w_out"], x)).reshape(e_total * cap, d)
+
+    # combine: each token's K contributions (dropped pairs zero), summed
+    # over k in one fixed-order reduction
+    y_pad = torch.cat([y, y.new_zeros((1, d))], dim=0)
+    rows = torch.where(slot >= 0, slot, torch.full_like(slot, e_total * cap))
+    contrib = y_pad[rows].float() * torch.where(
+        slot >= 0, gate_w, torch.zeros_like(gate_w))[..., None]  # (T, K, D)
+    out = contrib.sum(dim=1).to(x.dtype)
+
+    # shared experts (dense, always on), float32 products
+    if "shared_in" in p:
+        hs = torch.matmul(xt.float(), resolve_w(p["shared_in"], x).float())
+        if "shared_gate" in p:
+            gs = torch.matmul(xt.float(),
+                              resolve_w(p["shared_gate"], x).float())
+            hs = act(gs) * hs
+        else:
+            hs = act(hs)
+        out = out + torch.matmul(
+            hs.to(x.dtype).float(),
+            resolve_w(p["shared_out"], x).float()).to(x.dtype)
+    return out.reshape(b, s, d), aux
+
+
+def dropped_pairs(p, x: torch.Tensor, cfg: ModelConfig, plan: ShardingPlan
+                  ) -> Tuple[int, int]:
+    """(dropped (token, k) pairs, capacity) of ``moe_forward`` on x."""
+    _, slot, cap, _ = route(p, x.reshape(-1, x.shape[-1]), cfg, plan)
+    return int((slot < 0).sum()), cap

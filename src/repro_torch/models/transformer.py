@@ -1,5 +1,7 @@
-"""Decoder-only LM on torch — the dense, attention-only, tp = 1 subset of
-``repro/models/transformer.py``.
+"""Decoder-only LM on torch — the tp = 1 subset of
+``repro/models/transformer.py``: dense GQA stacks (gemma, qwen2,
+minitron), MoE stacks (granite-moe), attention-free Mamba stacks
+(falcon-mamba) and the Mamba + attention + MoE hybrid (jamba).
 
 The reference groups layers into segments (maximal runs of a repeating
 layer cycle), stacks each segment's parameters over its repeat count and
@@ -10,12 +12,17 @@ one dict per layer, in layer order, and the scan is a Python loop;
 int8-quantization decisions (``runtime/serve_loop.quantize_decisions``).
 
 Params: ``{"embed": (V, D), "final_norm": (D,), ["head": (D, V)],
-"layers": [{"norm1", "attn": {wq, wk, wv, wo, [bq, bk, bv]}, "norm2",
-"mlp": {w_in, [w_gate], w_out}}, ...]}``; any matmul weight may be a
-``{"q", "s"}`` int8 leaf.  Caches: one dict per layer, ``k`` / ``v``
-(B, S, KV, hd) (+ ``k_scale`` / ``v_scale`` (B, S, KV, 1) when int8).
+"layers": [{"norm1", "attn": {wq, wk, wv, wo, [bq, bk, bv]} | "mamba":
+{w_in_x, w_in_z, conv_w, conv_b, x_proj, dt_proj, dt_bias, A_log, D,
+w_out}, ["norm2"], ["mlp": {w_in, [w_gate], w_out}] | ["moe": {router,
+w_in, [w_gate], w_out} (experts stacked on axis 0)]}, ...]}``; any
+matmul weight may be a ``{"q", "s"}`` int8 leaf.  Caches: one dict per
+layer; attention ``k`` / ``v`` (B, S, KV, hd) (+ ``k_scale`` /
+``v_scale`` (B, S, KV, 1) when int8), mamba ``h`` (B, d_inner, d_state)
+float32 and ``conv`` (B, d_conv - 1, d_inner).
 
-Mamba, MoE, MLA, encoder-decoder and modality frontends are not ported
+MLA and multi-token prediction (deepseek-v3), the encoder-decoder
+(seamless-m4t) and the modality frontends (internvl2) are not ported
 (ROADMAP Queue 1 item 14); :func:`check_supported` says so.
 """
 from __future__ import annotations
@@ -29,6 +36,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (
     ACT,
     ShardingPlan,
@@ -104,16 +113,11 @@ def build_segments(cfg: ModelConfig) -> List[Segment]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet: only dense decoder-only
-    GQA stacks are ported."""
+    """Raise for what the port does not run yet: MLA, multi-token
+    prediction, the encoder-decoder and the modality frontends."""
     missing = []
-    if cfg.attention is None or cfg.attention.kind != "gqa":
-        missing.append("MLA attention" if cfg.attention is not None
-                       else "attention-free stacks")
-    if any(kind != "attn" for kind in cfg.layer_cycle):
-        missing.append("mamba layers")
-    if cfg.moe is not None:
-        missing.append("MoE layers")
+    if cfg.attention is not None and cfg.attention.kind != "gqa":
+        missing.append("MLA attention")
     if cfg.is_encdec:
         missing.append("encoder-decoder")
     if cfg.frontend is not None and cfg.frontend.kind != "none":
@@ -123,7 +127,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported (ROADMAP Queue 1 "
-            "item 14); the port runs dense GQA stacks")
+            "item 14); the port runs GQA, MoE and Mamba decoder stacks")
 
 
 # ---------------------------------------------------------------------------
@@ -135,16 +139,21 @@ def init_layer(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig,
                plan: ShardingPlan, dtype) -> Dict[str, Any]:
     dev = gen.device
     p: Dict[str, Any] = {
-        "norm1": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
-        "attn": attn_mod.init_gqa(gen, cfg, plan, dtype),
-    }
+        "norm1": torch.zeros((cfg.d_model,), dtype=dtype, device=dev)}
+    if spec.kind == "attn":
+        p["attn"] = attn_mod.init_gqa(gen, cfg, plan, dtype)
+    else:
+        p["mamba"] = ssm_mod.init_mamba(gen, cfg, plan, dtype)
+    if spec.mlp != "none":
+        p["norm2"] = torch.zeros((cfg.d_model,), dtype=dtype, device=dev)
     if spec.mlp == "dense":
         d, f = cfg.d_model, cfg.d_ff
-        p["norm2"] = torch.zeros((d,), dtype=dtype, device=dev)
         p["mlp"] = {"w_in": dense_init(gen, d, (d, f), dtype),
                     "w_out": dense_init(gen, f, (f, d), dtype)}
         if gated_act(cfg.activation):
             p["mlp"]["w_gate"] = dense_init(gen, d, (d, f), dtype)
+    elif spec.mlp == "moe":
+        p["moe"] = moe_mod.init_moe(gen, cfg, plan, dtype)
     return p
 
 
@@ -160,32 +169,45 @@ def mlp_forward(p, x: torch.Tensor, cfg: ModelConfig, plan: ShardingPlan
     return local_linear(h, p["w_out"])
 
 
+def _mlp_block(p, x: torch.Tensor, spec: LayerSpec, cfg: ModelConfig,
+               plan: ShardingPlan) -> torch.Tensor:
+    """The residual's second half: norm2 and the dense MLP or the MoE
+    (whose aux loss serving drops)."""
+    if spec.mlp == "none":
+        return x
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    if spec.mlp == "dense":
+        return x + mlp_forward(p["mlp"], h, cfg, plan)
+    return x + moe_mod.moe_forward(p["moe"], h, cfg, plan)[0]
+
+
 def apply_layer(p, x: torch.Tensor, spec: LayerSpec, cfg: ModelConfig,
                 plan: ShardingPlan, positions: torch.Tensor, *,
                 want_cache: bool = False, kv_dtype: str = "bfloat16"):
     """Pre-norm residual layer.  Returns (x, cache)."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    o, cache = attn_mod.gqa_forward(p["attn"], h, cfg, spec.pattern_idx,
-                                    plan, positions, want_cache=want_cache,
-                                    kv_dtype=kv_dtype)
-    x = x + o
-    if spec.mlp == "dense":
-        h = rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + mlp_forward(p["mlp"], h, cfg, plan)
-    return x, cache
+    if spec.kind == "attn":
+        o, cache = attn_mod.gqa_forward(p["attn"], h, cfg, spec.pattern_idx,
+                                        plan, positions,
+                                        want_cache=want_cache,
+                                        kv_dtype=kv_dtype)
+    else:
+        o, cache = ssm_mod.mamba_forward(p["mamba"], h, cfg, plan,
+                                         want_cache=want_cache)
+    return _mlp_block(p, x + o, spec, cfg, plan), cache
 
 
 def decode_layer(p, x: torch.Tensor, cache, pos: int, spec: LayerSpec,
                  cfg: ModelConfig, plan: ShardingPlan,
                  kv_dtype: str = "bfloat16"):
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    o, cache = attn_mod.gqa_decode(p["attn"], h, cache, pos, cfg,
-                                   spec.pattern_idx, plan, kv_dtype=kv_dtype)
-    x = x + o
-    if spec.mlp == "dense":
-        h = rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + mlp_forward(p["mlp"], h, cfg, plan)
-    return x, cache
+    if spec.kind == "attn":
+        o, cache = attn_mod.gqa_decode(p["attn"], h, cache, pos, cfg,
+                                       spec.pattern_idx, plan,
+                                       kv_dtype=kv_dtype)
+    else:
+        o, cache = ssm_mod.mamba_decode(p["mamba"], h, cache, cfg, plan)
+    return _mlp_block(p, x + o, spec, cfg, plan), cache
 
 
 # ---------------------------------------------------------------------------
@@ -284,6 +306,9 @@ def prepare_decode_caches(caches, cfg: ModelConfig, plan: ShardingPlan,
     sliding-window layers into their ring-buffer layout."""
     out = []
     for spec, c in zip(layer_specs(cfg), caches):
+        if spec.kind == "mamba":  # O(1) state: nothing grows
+            out.append(c)
+            continue
         window = cfg.attention.layer_window(spec.pattern_idx)
         target = s_max if window is None else attn_mod._ring_len(window,
                                                                  s_max)
@@ -328,8 +353,11 @@ def init_cache(cfg: ModelConfig, plan: ShardingPlan, batch: int, s_max: int,
     dev = resolve_device(device)
     out = []
     for spec in layer_specs(cfg):
-        shapes = attn_mod.gqa_cache_shape(cfg, plan, batch, s_max,
-                                          spec.pattern_idx, kv_dtype)
+        if spec.kind == "mamba":
+            shapes = ssm_mod.mamba_cache_shape(cfg, plan, batch)
+        else:
+            shapes = attn_mod.gqa_cache_shape(cfg, plan, batch, s_max,
+                                              spec.pattern_idx, kv_dtype)
         out.append({k: torch.zeros(sh, dtype=dt, device=dev)
                     for k, (sh, dt) in shapes.items()})
     return out

@@ -1,12 +1,15 @@
 """Serving on torch — ``repro/runtime/serve_loop.py`` on one card.
 
 LM half: :func:`build_serve_program` gives prefill and one-token decode
-functions for a dense GQA model (``models/transformer.py``; prefill
-attention runs the sliding-window Hopper kernel), and
-:func:`greedy_generate` drives them.  With ``cim_weights`` the matmul
-weights are int8 ``{"q", "s"}`` leaves (Domino: 8-bit weights resident
-in the arrays), dequantized on use; ``kv_dtype="int8"`` keeps the KV
-cache in int8.  The reference's mesh, ``shard_map`` and cache
+functions for a GQA, MoE or Mamba decoder stack (``models/transformer.py``;
+prefill attention runs the sliding-window Hopper kernel, the Mamba
+prefill the selective-scan kernel), and :func:`greedy_generate` drives
+them.  With ``cim_weights`` the matmul weights are int8 ``{"q", "s"}``
+leaves (Domino: 8-bit weights resident in the arrays; stacked (E, d, f)
+expert weights get a scale per expert and column), dequantized on use;
+the router and the Mamba ``conv_w``, ``A_log``, ``D`` and ``dt_bias``
+stay float.  ``kv_dtype="int8"`` keeps the KV cache in int8 (Mamba
+state stays float32).  The reference's mesh, ``shard_map`` and cache
 PartitionSpecs have no counterpart on one card (tp > 1 is ROADMAP
 Queue 1 item 15).
 

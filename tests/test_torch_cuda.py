@@ -482,3 +482,87 @@ def test_cuda_local_attention_matches_plain(d, dtype):
         b = LA.local_attention_plain(qb, kb, vb, window=7)
         torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
     assert calls == 3 * 4 * 6 * 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv,d", [(6, 2, 64), (24, 8, 64), (8, 2, 128)])
+def test_cuda_local_attention_odd_groups(h, kv, d, dtype):
+    """granite's GQA group of 3 at head dim 64 (reduced 6 / 2 and
+    published 24 / 8 heads) and jamba's group of 4 at head dim 128, full
+    causal and windowed, S ragged against the tiles."""
+    _needs_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(h * 100 + d)
+    tol = ATTN_TOL[dtype]
+    name = ("local_attention" if dtype == torch.bfloat16
+            else "local_attention_f32")
+    for s in (37, 300):
+        q = _normal(rng, (2, s, h, d), dtype)
+        k, v = (_normal(rng, (2, s, kv, d), dtype) for _ in range(2))
+        for window in (s, 65):
+            before = LA.LAUNCHES[name]
+            a = LA.grouped_local_attention(q, k, v, window=window)
+            b = LA.grouped_local_attention_plain(q, k, v, window=window)
+            torch.cuda.synchronize()
+            assert LA.LAUNCHES[name] == before + 1
+            torch.testing.assert_close(a.float(), b.float(), rtol=tol,
+                                       atol=tol)
+
+
+#: the scan kernel against its plain version: both round each multiply
+#: and add apart (the kernel is built with -fmad=false); the sums over
+#: d_state run in other orders, and exp may differ by an ulp
+SCAN_TOL = 1e-5
+
+
+def _scan_operands(rng, bsz, s, dl, n, h0):
+    dt = np.log1p(np.exp(rng.standard_normal((bsz, s, dl)) - 2.0))
+    a = -np.tile(np.arange(1, n + 1, dtype=np.float64), (dl, 1))
+    ops = [dt, rng.standard_normal((bsz, s, dl)),
+           rng.standard_normal((bsz, s, n)), rng.standard_normal((bsz, s, n)),
+           a, rng.standard_normal(dl),
+           rng.standard_normal((bsz, dl, n)) if h0 else None]
+    return [None if v is None else
+            torch.from_numpy(v.astype(np.float32)).cuda() for v in ops]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 16])
+def test_cuda_selective_scan_matches_plain(n):
+    """Ragged shapes: S not a multiple of the kernel's 16-step runs
+    (1, 37, 2049), d_inner a multiple and a non-multiple of its
+    128-channel blocks, with and without an initial state; one launch a
+    call."""
+    from repro_torch.kernels import selective_scan as SS
+
+    _needs_card()
+    rng = np.random.default_rng(n)
+    calls = 0
+    for bsz, s, dl in ((1, 1, 128), (2, 37, 200), (3, 2049, 256),
+                       (1, 16, 5)):
+        for h0 in (False, True):
+            ops = _scan_operands(rng, bsz, s, dl, n, h0)
+            before = SS.LAUNCHES["selective_scan"]
+            y, h = SS.selective_scan(*ops)
+            torch.cuda.synchronize()
+            assert SS.LAUNCHES["selective_scan"] == before + 1
+            y_ref, h_ref = SS.selective_scan_plain(*ops)
+            torch.testing.assert_close(y, y_ref, rtol=SCAN_TOL,
+                                       atol=SCAN_TOL)
+            torch.testing.assert_close(h, h_ref, rtol=SCAN_TOL,
+                                       atol=SCAN_TOL)
+            calls += 1
+    assert calls == 8
+
+
+@pytest.mark.cuda
+def test_cuda_selective_scan_rejects_unbuilt_state_size():
+    from repro_torch.kernels import selective_scan as SS
+
+    _needs_card()
+    ops = _scan_operands(np.random.default_rng(0), 1, 4, 8, 8, False)
+    before = SS.LAUNCHES["selective_scan"]
+    with pytest.raises(ValueError, match="d_state"):
+        SS.selective_scan(*ops)
+    assert SS.LAUNCHES["selective_scan"] == before

@@ -11,9 +11,14 @@ Configs: gemma3-1b reduced to 14 layers (a 6-layer cycle stacked twice
 plus an unstacked 2-layer cycle; local layers with window 8 and global
 layers), gemma2-27b reduced (attention and final soft caps), qwen2-0.5b
 reduced (QKV bias, silu), minitron-8b reduced (squared ReLU without a
-gate; an untied head, which the reference dequantizes to bfloat16).
+gate; an untied head, which the reference dequantizes to bfloat16),
+granite-moe-3b-a800m reduced (2 MoE layers, stacked), falcon-mamba-7b
+reduced (2 Mamba layers, stacked, untied head) and jamba-v0.1-52b
+reduced (one 8-layer cycle: Mamba, attention, dense and MoE MLPs).
 The prompt (12) is longer than the local layers' ring (9), and the
-decode steps wrap the ring.
+decode steps wrap the ring.  Dropping MoE pairs, granite's GQA group
+of 3 and the Mamba block at the published state size are held in
+``test_torch_moe_ssm.py``.
 
 Tolerances: logits rtol = atol = 1e-4 in float32 (both sides sum in
 other orders); 2e-3 for decode logits with the int8 KV cache, where a k
@@ -58,7 +63,9 @@ TOL_INT8_KV = 2e-3
 #: gemma3 keeps the reference's default size floor, which quantizes the
 #: stacked 6-cycle's w_in but not the unstacked 2-cycle's
 ARCHS = {"gemma3-1b": (14, 1 << 14), "gemma2-27b": (None, 1),
-         "qwen2-0.5b": (None, 1), "minitron-8b": (None, 1)}
+         "qwen2-0.5b": (None, 1), "minitron-8b": (None, 1),
+         "granite-moe-3b-a800m": (None, 1), "falcon-mamba-7b": (None, 1),
+         "jamba-v0.1-52b": (None, 1)}
 
 
 def _configs(arch):
@@ -80,7 +87,7 @@ def _ref_params(rcfg, seed):
     def one(path, leaf):
         a = np.asarray(leaf)
         name = str(path[-1])
-        if any(n in name for n in ("norm", "bq", "bk", "bv")):
+        if any(n in name for n in ("norm", "bq", "bk", "bv", "conv_b")):
             a = (0.1 * rng.standard_normal(a.shape)).astype(a.dtype)
         return a
 
@@ -272,8 +279,7 @@ def test_serving_params_quantize_only_with_cim_weights():
     assert torch.is_tensor(served["embed"])
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "deepseek-v3-671b",
-                                  "falcon-mamba-7b", "granite-moe-3b-a800m",
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b",
                                   "seamless-m4t-large-v2", "internvl2-2b"])
 def test_unported_families_raise(arch):
     cfg = get_config(arch).reduced()
@@ -301,10 +307,12 @@ def test_init_cache_defaults_to_the_card():
         T.init_cache(cfg, ShardingPlan(), 1, 8)
 
 
-def test_serve_cli_runs_on_cpu(capsys):
+@pytest.mark.parametrize("arch", ["gemma3-1b", "granite-moe-3b-a800m",
+                                  "falcon-mamba-7b", "jamba-v0.1-52b"])
+def test_serve_cli_runs_on_cpu(arch, capsys):
     from repro_torch.launch.serve import main
 
-    assert main(["--arch", "gemma3-1b", "--device", "cpu", "--batch", "2",
+    assert main(["--arch", arch, "--device", "cpu", "--batch", "2",
                  "--prompt-len", "10", "--gen", "4", "--cim-weights",
                  "--kv-dtype", "int8"]) == 0
     out = capsys.readouterr().out
