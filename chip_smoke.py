@@ -116,7 +116,8 @@ T. telemetry and chiplets: vgg11 served over 4 floret chiplets with a
 6. the same full-width prefill of both flavors in float32 on the card
    (TF32 off), with the kernel and with its plain version swapped in:
    26 launches of the float32 (CUDA-core) kernel and none of the
-   bfloat16 one, and every first token equal;
+   bfloat16 one, and every first token equal; the float32 prefill's ms
+   (median of LM_REPS);
 7. the same two flavors cut only in depth (6 layers: 5 local + 1
    global; batch 1, prompt 640, 4 tokens), in float32 on the card
    (TF32 off) and on the CPU (the kernel's plain version): logits within
@@ -127,15 +128,20 @@ T. telemetry and chiplets: vgg11 served over 4 floret chiplets with a
    64, 128 and 256; S 37, 777 and 2049 (not multiples of the 64-key tile
    or the 128-row block); windows 1, 63, 65, 100, 513 and S; GQA groups
    1, 2, 4 and 8; soft cap off and 50.0; and granite's 24 / 8 heads at
-   head dim 64 and jamba's 32 / 8 at 128 (windows 65 and S); each call
-   launches its dtype's kernel once and the other never;
+   head dim 64 and jamba's 32 / 8 at 128 (windows 65 and S); and the
+   float32 kernel at its own edges: every head dim, S 63, 64, 65 and 129,
+   windows 3, 4, 5, 7, 8, 9, 63, 64, 65 and S (its 4-key P V groups,
+   8-row warps and 64-key tiles), groups 1 and 4, soft cap off
+   and 50.0; each call launches its dtype's kernel once and the other
+   never;
 9. their times at the main path's calls: one local and one global launch
    and the whole prefill's 26 launches, as device time under
    ``torch.profiler`` (the wrapper's host time is not the kernel's),
    beside the plain version, ``scaled_dot_product_attention`` with the
    band mask, the same with ``is_causal=True`` on the global launches
    (exactly their function), and the bound; the rate on unmasked and on
-   computed work (``tile_schedule``) and the share of the bound;
+   computed work (``tile_schedule`` at each kernel's tiles) and the share
+   of the bound;
 F. the MoE and Mamba LM families: granite-moe-3b-a800m and
    falcon-mamba-7b at full width, jamba-v0.1-52b at full width over one
    8-layer cycle, random weights from a card generator seeded with
@@ -154,9 +160,10 @@ F. the MoE and Mamba LM families: granite-moe-3b-a800m and
    Then granite and falcon-mamba cut to 4 layers, and jamba's reduced
    config, in float32 on the card and on the CPU as in phase 7; the
    scan kernel against its plain version (rtol = atol = TOL_SCAN) over
-   S 1, 37, 2049, d_inner 256 and 200, d_state 4 and 16, with and
-   without an initial state; its device time per falcon-mamba prefill
-   beside its bound and its plain version's; the phase's seconds.
+   S 1, 17, 37, 48, 2049, d_inner 256, 200, 130 and 5, d_state 4 and
+   16, with and without an initial state; its device time per
+   falcon-mamba prefill beside its bound and its plain version's; the
+   phase's seconds.
 
 The line before the last is the ``kernels`` JSON (a CIM variant's
 ``launches`` summed over the counted runs of phases 2 and M, its
@@ -267,6 +274,11 @@ TOL_ATTN = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 #: phase 8's GQA shapes of the phase-F models, (query heads, kv heads,
 #: head dim): granite's group of 3 and jamba's group of 4
 ATTN_FAMILY_SHAPES = ((24, 8, 64), (32, 8, 128))
+#: phase 8's grid at the float32 kernel's own edges: S on each side of
+#: its 64-row blocks and 64-key tiles, windows on each side of its 4-key
+#: P V groups, 8-row warps and 64-key tiles
+EDGE_F32_S = (63, 64, 65, 129)
+EDGE_F32_WINDOWS = (3, 4, 5, 7, 8, 9, 63, 64, 65)
 
 #: phase F: the MoE and Mamba families at the published widths, batch
 #: LM_BATCH, an LM_PROMPT-token prompt and LM_GEN greedy tokens in both
@@ -312,12 +324,15 @@ SCAN_SOURCE = "src/repro_torch/csrc/selective_scan.cu"
 #: no TPU kernel: the reference's associative scan, which it replaces
 SCAN_REPLACES = "src/repro/models/ssm.py:107"
 #: scan kernel vs plain version, rtol = atol: both round each multiply
-#: and add apart; the sums over d_state run in other orders
+#: and add of the state apart; y's sum over d_state runs in another
+#: order, with fused multiply-adds
 TOL_SCAN = 1e-5
-#: phase F's edge grid for the scan: S not a multiple of the 16-step
-#: runs, d_inner a multiple and a non-multiple of the 128-channel blocks
-EDGE_SCAN_S = (1, 37, 2049)
-EDGE_SCAN_D = (256, 200)
+#: phase F's edge grid for the scan: S below, at and past the 16-step
+#: runs and the 3-run ring (1, 17, 37, 48, 2049), d_inner a multiple of
+#: the 64-channel blocks (256), not one (200, 130), and not a multiple
+#: of 4 (5: 4-byte copies in place of 16-byte ones)
+EDGE_SCAN_S = (1, 17, 37, 48, 2049)
+EDGE_SCAN_D = (256, 200, 130, 5)
 EDGE_SCAN_N = (4, 16)
 
 
@@ -1831,6 +1846,12 @@ def lm_full_f32_first_tokens(la):
         launches = counts["local_attention_f32"]
         if name == LM_FLAVORS[0][0]:
             f32_launches = launches
+        walls = []  # the float32 prefill's wall time, as in phase 5
+        for _ in range(LM_REPS):
+            t1 = time.perf_counter()
+            prog.prefill_fn(params, batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
         real = la.grouped_local_attention
         la.grouped_local_attention = la.grouped_local_attention_plain
         try:
@@ -1847,7 +1868,9 @@ def lm_full_f32_first_tokens(la):
             f"{(logits - ref_logits).abs().max().item():.3e}; first tokens "
             f"{first.tolist()} vs {ref_first.tolist()}; plain run's top-2 "
             f"margins {[f'{m:.3e}' for m in margin.tolist()]}; "
-            f"launches {counts}; {time.perf_counter() - t0:.1f} s")
+            f"launches {counts}; prefill ms "
+            f"{[round(v, 3) for v in walls]} (median "
+            f"{np.median(walls):.3f}); {time.perf_counter() - t0:.1f} s")
         check(counts == {"local_attention": 0,
                          "local_attention_f32": cfg.num_layers},
               f"{name} float32: attention launches in one prefill {counts}, "
@@ -1974,6 +1997,18 @@ def check_attention(la, calls):
                               f"d {d} S {s} heads {h} / {kvh} window "
                               f"{window} {dtype}", worst)
                     n_checks += 1
+    for d in la.HEAD_DIMS:  # the float32 kernel's own tile edges
+        for s in EDGE_F32_S:
+            for group in (1, 4):
+                q, k, v = [torch.from_numpy(rng.standard_normal(shape).astype(
+                    np.float32)).cuda() for shape in
+                    ((1, s, 2 * group, d), (1, s, 2, d), (1, s, 2, d))]
+                for window in EDGE_F32_WINDOWS + (s,):
+                    for cap in (None, 50.0):
+                        attn_case(la, q, k, v, window, cap,
+                                  f"d {d} S {s} group {group} window "
+                                  f"{window} softcap {cap} float32", worst)
+                        n_checks += 1
     log(f"[attention] {n_checks} comparisons (tolerance "
         f"{ {str(k): v for k, v in TOL_ATTN.items()} }); max |diff| at the "
         f"main-path calls {worst_main}; at the edge cases {worst}")
@@ -1990,10 +2025,17 @@ def attn_work(q, k, v, window):
     return 4 * d * pairs * b * h, nbytes
 
 
-def device_ms(fn, arglist, n):
+def device_ms(fn, arglist, n, kernel=None):
     """Device time (ms) of one pass of ``fn`` over ``arglist``: the sum of
     the device kernels' own times under ``torch.profiler``, so the host's
-    launch time and the idle gaps between launches do not count."""
+    launch time and the idle gaps between launches do not count.
+
+    ``kernel``: a substring of the name of the one kernel each call
+    launches.  Only that kernel's records count, as their mean times the
+    calls of a pass: the profiler does not record every launch of a long
+    run of them (seen on the card: about half of 20 back-to-back float32
+    attention launches), and a sum over the records it kept, divided by
+    the launches made, would come out short."""
     from torch.profiler import ProfilerActivity, profile
 
     for args in arglist:  # warm-up
@@ -2007,13 +2049,22 @@ def device_ms(fn, arglist, n):
                 for args in arglist:
                     fn(*args)
             torch.cuda.synchronize()
-        total = 0.0
+        total, count = 0.0, 0
         for ev in prof.key_averages():
-            if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-                total += getattr(ev, "self_device_time_total",
-                                 getattr(ev, "self_cuda_time_total", 0.0))
-        if total > 0:
+            if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+                continue
+            if kernel is not None and kernel not in ev.key:
+                continue
+            total += getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0.0))
+            count += ev.count
+        if total > 0 and kernel is None:
             return total / n / 1e3
+        if total > 0:
+            if count != n * len(arglist):
+                log(f"[profile] {count} of {n * len(arglist)} launches of "
+                    f"{kernel} recorded; their mean counts")
+            return total / count * len(arglist) / 1e3
         log(f"[profile] session {attempt + 1} saw no device time")
     fail("the profiler saw no device time")
 
@@ -2092,12 +2143,13 @@ def time_attention(la, calls, card, reps: int = 10):
             sel = [args[i] for i in idx]
             ops = sum(attn_work(*c[:4])[0] for c in sel)
             nbytes = sum(attn_work(*c[:4])[1] for c in sel)
+            tiles = {} if dtype == torch.bfloat16 else la.F32_TILES
             computed = sum(
                 c[0].shape[0] * c[0].shape[2]
-                * la.tile_schedule(c[0].shape[1], c[3]).operations(
+                * la.tile_schedule(c[0].shape[1], c[3], **tiles).operations(
                     c[0].shape[3]) for c in sel)
             t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
-            row = dict(ms=device_ms(kernel, sel, n),
+            row = dict(ms=device_ms(kernel, sel, n, kernel="attn_kernel"),
                        host_inclusive_ms=event_ms(kernel, sel, n),
                        plain_ms=device_ms(plain, sel, n),
                        library_ms=(device_ms(library,
@@ -2111,8 +2163,7 @@ def time_attention(la, calls, card, reps: int = 10):
                 row["library_causal_ms"] = device_ms(
                     library_causal, [causal_args[i] for i in idx], n)
             row["tflops_unmasked"] = ops / row["ms"] / 1e9
-            if dtype == torch.bfloat16:
-                row["tflops_computed"] = computed / row["ms"] / 1e9
+            row["tflops_computed"] = computed / row["ms"] / 1e9
             row["share_of_bound"] = row["bound_ms"] / row["ms"]
             q = sel[0][0]
             log(f"[time] {name} {label}, q {tuple(q.shape)} {q.dtype}, "
@@ -2445,7 +2496,7 @@ def families_phase(la, ss, card):
     ops, nbytes = scan_work(*scan_call)
     t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_BYTES
     ms = device_ms(lambda *a: ss.selective_scan(*a), [scan_call] * per_prefill,
-                   1)
+                   1, kernel="scan_kernel")
     plain_ms = device_ms(lambda *a: ss.selective_scan_plain(*a),
                          [scan_call] * per_prefill, 1)
     bound_ms = max(t_ops, t_bytes) * 1e3 * per_prefill
@@ -2599,15 +2650,17 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     kernels.append(scan_row)
-    bf16 = attn["local_attention"]
-    log(f"[attention] bfloat16 kernel per prefill: {bf16['ms']:.4f} ms, "
-        f"{bf16['tflops_unmasked']:.1f} TFLOP/s on unmasked work "
-        f"({bf16['tflops_computed']:.1f} on computed work), "
-        f"{100 * bf16['share_of_bound']:.1f}% of the {bf16['bound_ms']:.4f} "
-        f"ms bound; SDPA with the band mask {bf16['library_ms']:.4f} ms, "
-        f"with is_causal on the global launches "
-        f"{bf16['library_causal_ms']:.4f} ms; plain {bf16['plain_ms']:.4f} ms "
-        f"on {card}")
+    for name, label in (("local_attention", "bfloat16"),
+                        ("local_attention_f32", "float32")):
+        row = attn[name]
+        log(f"[attention] {label} kernel per prefill: {row['ms']:.4f} ms, "
+            f"{row['tflops_unmasked']:.1f} TFLOP/s on unmasked work "
+            f"({row['tflops_computed']:.1f} on computed work), "
+            f"{100 * row['share_of_bound']:.1f}% of the "
+            f"{row['bound_ms']:.4f} ms bound; SDPA with the band mask "
+            f"{row['library_ms']:.4f} ms, with is_causal on the global "
+            f"launches {row['library_causal_ms']:.4f} ms; plain "
+            f"{row['plain_ms']:.4f} ms on {card}")
     if FAILURES:
         fail(f"{len(FAILURES)} LM checks failed: {FAILURES}")
     log(f"[e2e] wall per frame (ms, median of {WALL_REPS} runs): nominal "

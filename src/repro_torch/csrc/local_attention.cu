@@ -65,13 +65,49 @@
 // is exactly 0; tanhf without fast math; o = acc * (1 / max(l, 1e-30))
 // with the reciprocal taken once per row.
 //
-// float32: CUDA cores (simt::attn_kernel), the first version's code:
-// 64-row query tiles and 64-key tiles staged in shared memory as f32
-// (row stride D + 1, 209 KB at D = 256, one block per SM), both products
-// as f32 FMAs (67 TFLOP/s peak), every visited tile computed whole and
-// masked after; expf and tanhf without fast math.  The float32 path
-// must hold the plain version to 2e-5, which TF32 tensor cores would
-// not.
+// float32: CUDA cores (simt::attn_kernel).  The float32 path must hold
+// the plain version to 2e-5, which TF32 tensor cores would not, so both
+// products are f32 FMAs and the bound is 67 TFLOP/s.  What bounds this
+// kernel is then feeding those FMAs: an SM's schedulers issue one warp
+// instruction a clock each, and its shared memory delivers 128 bytes a
+// clock, one byte per FMA the SM can issue, so a thread's register tile
+// must be 8 x 8 (16 bytes of operands per 16 FMAs) or the loads, and not
+// the FMAs, set the pace; every barrier and every masked pair is an FMA
+// not issued too.  The first version read two scalars from shared memory
+// per FMA pair in Q K^T (4 x 4 tiles, row stride D + 1, no 16-byte
+// loads), copied tiles synchronously between two barriers, and computed
+// and masked every visited tile whole.  The design now, one block of
+// 256 threads per (batch, head, 64 query rows), one block an SM:
+//  1. 8 x 8 register tiles read as float4s.  Q K^T splits the head dim
+//     in quarters over 4 lanes: warp w owns rows 8 w ... 8 w + 7, and
+//     lane ko + 8 qd sums their products with keys ko + 8 j over the
+//     quarter qd, 4 d at a time (16 loads per 256 FMAs); two rounds of
+//     shuffles (lane ^ 16, then ^ 8) leave each lane 4 rows x 4 keys of
+//     whole scores, a row's 64 keys on 16 lanes.  P V gives each thread
+//     8 rows x 8 head-dim columns at D = 256 (8 x 4 at 128, 4 x 4 at 64)
+//     and reads p and v 4 keys at a time (16 loads per 256 FMAs).  k is
+//     XOR-swizzled by row, 16 bytes at a time, so the rows a quarter-
+//     warp reads at one chunk sit in separate bank groups; q and p reads
+//     are broadcasts, v reads contiguous.  The tiles are q, k, v (64 x D
+//     each, 192 KB at D = 256) and p (64 x 68): nothing is padded by a
+//     float.
+//  2. cp.async copies, 16 bytes each, overlapped with the products: a
+//     tile's v is loaded while its scores are computed, the next k
+//     while P V runs, into the buffer the other product has just
+//     released; two barriers a tile.  A tile with every row below S is
+//     copied with no clamp and no test per row.
+//  3. Each warp classifies each visited tile against its 8 rows: a tile
+//     with no masked pair for them is not masked, and P V runs only on
+//     the groups of 4 keys that hold a pair of their windows
+//     (tile_schedule counts this with F32_TILES).  Skipping is exact for
+//     the reason the bfloat16 kernel's is.
+//  4. The grid runs (batch, head) fastest, so the query heads of one kv
+//     head read its k and v from L2 side by side, and the query tiles in
+//     reverse, longest first.
+// The softmax is the first version's, op for op: expf and tanhf without
+// fast math, -1e30 for a masked score, corr = exp(m_prev - m_new), o =
+// acc / max(l, 1e-30); each score's d and each output's keys are summed
+// in order, the quarters of d in a fixed order.
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -93,183 +129,345 @@ struct Geometry {
 };
 
 namespace simt {
-constexpr int BQ = 64;                 // query rows per block
-constexpr int BK = 64;                 // keys per tile
-constexpr int TX = 16;                 // threads along keys / head dim
-constexpr int TY = 16;                 // threads along query rows
-constexpr int THREADS = TX * TY;       // 256
-constexpr int RQ = BQ / TY;            // query rows per thread
-constexpr int CK = BK / TX;            // keys per thread
-constexpr int LDP = BK + 1;            // row stride of the p tile
+constexpr int BQ = 64;            // query rows per block
+constexpr int BK = 64;            // keys per tile
+constexpr int THREADS = 256;
+// Q K^T: warp w owns rows 8 w ... 8 w + 7; lane ko + 8 qd (ko < 8, qd < 4)
+// sums their products with keys ko + 8 j (j < 8) over the quarter qd of
+// the head dim, an 8 x 8 register tile; two rounds of shuffles then leave
+// each lane 4 rows x 4 keys of whole scores (SR x SK), and a row's 64
+// keys on 16 lanes
+constexpr int SR = 4;           // score rows per lane after the sum
+constexpr int SK = 4;           // score keys per lane after the sum
+constexpr int LDP = BK + 4;     // row stride of the p tile
 
+// P V: thread (tr, tc) of a TR x TC grid holds rows RM tr ... RM tr +
+// RM - 1 of the output and its columns 4 tc + 4 TC m ... + 3 (m < RN / 4)
+template <int D>
+struct PV {
+  static constexpr int TC = D / 4 < 32 ? D / 4 : 32;
+  static constexpr int RN = D / TC;  // output columns per thread, 4 or 8
+  static constexpr int TR = THREADS / TC;
+  static constexpr int RM = BQ / TR;  // output rows per thread
+};
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// floats of shared memory: q, k, v tiles (BQ or BK rows of D), the p
+// tile, and per row the correction of the running sum and the sum itself
+template <int D>
+constexpr int smem_floats() {
+  return (BQ + 2 * BK) * D + BQ * LDP + 2 * BQ;
 }
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(valid)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// rows [lo, lo + n) of one head, D wide, into a (n, D + 1) f32 tile;
-// rows at or past s read as zero
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+// Where 16-byte chunk `ch` of row `r` of the k tile sits in shared
+// memory: XOR-swizzled by row, so that the 8 rows a quarter-warp reads
+// at one chunk sit in 8 bank groups.  The q and v tiles are not
+// swizzled (a quarter-warp reads one q row, a warp one v row's chunks
+// side by side).
+template <int D>
+__device__ __forceinline__ int k_chunk(int r, int ch) {
+  return ch ^ (r & (D / 4 < 8 ? D / 4 - 1 : 7));
+}
+
+// cp.async of rows [lo, lo + 64) of one head, D wide, into a (64, D)
+// tile; rows at or past s are zero-filled
+template <int D, bool kSwizzled>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           long long row_stride, int lo,
-                                          int n, int s) {
-  constexpr int LD = D + 1;
-  for (int i = threadIdx.x; i < n * D; i += THREADS) {
-    const int r = i / D, c = i % D;
+                                          int s) {
+  constexpr int CH = D / 4;             // 16-byte chunks per row
+  constexpr int STEP = THREADS / CH;    // rows apart of a thread's copies
+  const int ch = threadIdx.x % CH;      // the same chunk of every row
+  const int r0 = threadIdx.x / CH;
+  const float* from = src + 4 * ch;
+  if (lo + BK <= s) {  // every row in range: no clamp, no test
+    const float* at = from + static_cast<long long>(lo + r0) * row_stride;
+    const long long step = STEP * row_stride;
+#pragma unroll
+    for (int u = 0; u < BK / STEP; ++u) {
+      const int r = r0 + STEP * u;
+      cp_async16(dst + r * D + 4 * (kSwizzled ? k_chunk<D>(r, ch) : ch),
+                 at + u * step, 16);
+    }
+    return;
+  }
+#pragma unroll
+  for (int u = 0; u < BK / STEP; ++u) {
+    const int r = r0 + STEP * u;
     const int pos = lo + r;
-    dst[r * LD + c] = pos < s ? to_f32(src[pos * row_stride + c]) : 0.0f;
+    cp_async16(dst + r * D + 4 * (kSwizzled ? k_chunk<D>(r, ch) : ch),
+               from + static_cast<long long>(min(pos, s - 1)) * row_stride,
+               pos < s ? 16 : 0);
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-    attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o,
-                           Geometry g) {
-  constexpr int LD = D + 1;
-  constexpr int DC = D / TX;  // head-dim columns per thread
-  extern __shared__ float smem[];
-  float* sq = smem;            // BQ x LD
-  float* sk = sq + BQ * LD;    // BK x LD
-  float* sv = sk + BK * LD;    // BK x LD
-  float* sp = sv + BK * LD;    // BQ x LDP
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, float* __restrict__ o,
+                Geometry g) {
+  using M = PV<D>;
+  constexpr int C4 = D / 4;
+  extern __shared__ float4 smem4[];
+  float* sq = reinterpret_cast<float*>(smem4);  // BQ x D
+  float* sk = sq + BQ * D;                      // BK x D, swizzled
+  float* sv = sk + BK * D;                      // BK x D
+  float* sp = sv + BK * D;                      // BQ x LDP
+  float* scorr = sp + BQ * LDP;                 // BQ
+  float* sl = scorr + BQ;                       // BQ
+  const float4* sq4 = reinterpret_cast<const float4*>(sq);
+  const float4* sk4 = reinterpret_cast<const float4*>(sk);
+  const float4* sv4 = reinterpret_cast<const float4*>(sv);
+  const float4* sp4 = reinterpret_cast<const float4*>(sp);
 
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-  const int b = blockIdx.y / g.h;
-  const int head = blockIdx.y % g.h;
+  const int w = threadIdx.x / 32, ko = threadIdx.x % 8;
+  const int qd = threadIdx.x / 8 % 4;  // quarter of the head dim
+  const int b0 = qd & 1, b1 = qd >> 1;
+  // a lane's 8 rows and 8 keys start at the half it keeps after the
+  // sums: rows 4 b1 ... and keys 8 (4 b0) ... first
+  const int row0 = 8 * w + 4 * b1;
+  const int tc = threadIdx.x % M::TC, tr = threadIdx.x / M::TC;
+  // (batch, head) fastest, so the heads of a kv head run side by side;
+  // query tiles in reverse, the longest causal ones first
+  const int b = blockIdx.x / g.h;
+  const int head = blockIdx.x % g.h;
   const int kv_head = head / g.group;
-  const int q_lo = blockIdx.x * BQ;
+  const int q_lo = (gridDim.y - 1 - blockIdx.y) * BQ;
   const int q_hi = min(q_lo + BQ, g.s) - 1;
 
-  const T* qb = q + b * g.q_sb + head * g.q_sh;
-  const T* kb = k + b * g.k_sb + kv_head * g.k_sh;
-  const T* vb = v + b * g.v_sb + kv_head * g.v_sh;
-  load_tile<T, D>(sq, qb, g.q_ss, q_lo, BQ, g.s);
+  const float* qb = q + b * g.q_sb + head * g.q_sh;
+  const float* kb = k + b * g.k_sb + kv_head * g.k_sh;
+  const float* vb = v + b * g.v_sb + kv_head * g.v_sh;
 
-  float m[RQ], l[RQ], acc[RQ][DC];
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    m[i] = kMasked;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.0f;
-  }
-
+  // the key tiles that hold a key of some row's window: every one of
+  // them has an unmasked pair, so none is skipped inside the range
   const int t_first = max(0, q_lo - g.window + 1) / BK;
   const int t_last = q_hi / BK;
+  load_tile<D, false>(sq, qb, g.q_ss, q_lo, g.s);
+  load_tile<D, true>(sk, kb, g.k_ss, t_first * BK, g.s);
+  cp_async_commit();
+
+  float m[SR], l[SR];
+#pragma unroll
+  for (int i = 0; i < SR; ++i) {
+    m[i] = kMasked;
+    l[i] = 0.0f;
+  }
+  float acc[M::RM][M::RN];
+#pragma unroll
+  for (int i = 0; i < M::RM; ++i)
+#pragma unroll
+    for (int c = 0; c < M::RN; ++c) acc[i][c] = 0.0f;
+
   for (int t = t_first; t <= t_last; ++t) {
     const int k_lo = t * BK;
-    __syncthreads();  // the previous tile's k, v and p are consumed
-    load_tile<T, D>(sk, kb, g.k_ss, k_lo, BK, g.s);
-    load_tile<T, D>(sv, vb, g.v_ss, k_lo, BK, g.s);
-    __syncthreads();
+    cp_async_wait_all();  // this tile's k (and q)
+    __syncthreads();      // ... landed for all; the last P V is done
+    load_tile<D, false>(sv, vb, g.v_ss, k_lo, g.s);
+    cp_async_commit();
 
-    // scores of rows ty + TY * i against keys tx + TX * j
-    float sc[RQ][CK];
+    // this warp's rows against the tile: a tile with no masked pair for
+    // them (rows past S included) is not masked, and one with no pair of
+    // their windows is not multiplied (its scores are all masked)
+    const int r_lo = q_lo + 8 * w, r_hi = min(r_lo + 7, g.s - 1);
+    const bool partial =
+        !(k_lo + BK - 1 <= r_lo && k_lo > r_lo + 7 - g.window);
+    const bool live =
+        r_lo < g.s && k_lo <= r_hi && k_lo + BK - 1 > r_lo - g.window;
+    // partial scores over this lane's quarter of d, 4 d at a time; part
+    // [i][j]: row 8 w + (4 b1 + i) % 8, key ko + 8 j
+    constexpr int SQ = C4 / 4;  // float4s of d in a quarter
+    float part[8][8];
 #pragma unroll
-    for (int i = 0; i < RQ; ++i)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < CK; ++j) sc[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qa[RQ], ka[CK];
+      for (int j = 0; j < 8; ++j) part[i][j] = 0.0f;
+#pragma unroll 2
+    for (int u = 0; u < (live ? SQ : 0); ++u) {
+      const int c4 = qd * SQ + u;
+      float4 qa[8];
 #pragma unroll
-      for (int i = 0; i < RQ; ++i) qa[i] = sq[(ty + TY * i) * LD + d];
+      for (int i = 0; i < 8; ++i)
+        qa[i] = sq4[(8 * w + (4 * b1 + i) % 8) * C4 + c4];
 #pragma unroll
-      for (int j = 0; j < CK; ++j) ka[j] = sk[(tx + TX * j) * LD + d];
+      for (int j = 0; j < 8; ++j) {
+        const float4 ka = sk4[(ko + 8 * j) * C4 + k_chunk<D>(ko, c4)];
 #pragma unroll
-      for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int j = 0; j < CK; ++j) sc[i][j] = fmaf(qa[i], ka[j], sc[i][j]);
+        for (int i = 0; i < 8; ++i) {
+          part[i][j] = fmaf(qa[i].x, ka.x, part[i][j]);
+          part[i][j] = fmaf(qa[i].y, ka.y, part[i][j]);
+          part[i][j] = fmaf(qa[i].z, ka.z, part[i][j]);
+          part[i][j] = fmaf(qa[i].w, ka.w, part[i][j]);
+        }
+      }
     }
-
+    // whole scores: rows with the lane of the other half of d (lane ^
+    // 16: each keeps its first 4 rows and sends its last 4, the other
+    // lane's first 4), then keys 8 (4 b0) ... with the lane ^ 8
 #pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const int row = ty + TY * i;
-      const int qp = q_lo + row;
-      float mx = kMasked;
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        const int kp = k_lo + tx + TX * j;
+      for (int j = 0; j < 8; ++j)
+        part[i][j] = part[i][j] +
+                     __shfl_xor_sync(0xffffffffu, part[4 + i][j], 16);
+    float sc[SR][SK];
+#pragma unroll
+    for (int i = 0; i < SR; ++i)
+#pragma unroll
+      for (int j = 0; j < SK; ++j) {
+        const float keep = b0 ? part[i][4 + j] : part[i][j];
+        const float send = b0 ? part[i][j] : part[i][4 + j];
+        sc[i][j] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+      }
+    // (the rows' reductions side by side, so their shuffles overlap; a
+    // row's keys are on the 16 lanes that differ in ko and b0)
+    float mx[SR], rs[SR];
+#pragma unroll
+    for (int i = 0; i < SR; ++i) {
+      const int qp = q_lo + row0 + i;
+      mx[i] = kMasked;
+#pragma unroll
+      for (int j = 0; j < SK; ++j) {
+        const int kp = k_lo + ko + 8 * (4 * b0 + j);
         float x = sc[i][j] * g.scale;
         if (g.softcap > 0.0f) x = tanhf(x / g.softcap) * g.softcap;
-        x = (kp <= qp && kp > qp - g.window) ? x : kMasked;
+        if (partial) x = (kp <= qp && kp > qp - g.window) ? x : kMasked;
         sc[i][j] = x;
-        mx = fmaxf(mx, x);
+        mx[i] = fmaxf(mx[i], x);
       }
-      // the TX threads of a row are one half-warp
-#pragma unroll
-      for (int off = TX / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      float rs = 0.0f;
-#pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        const float p = expf(sc[i][j] - m_new);
-        rs += p;
-        sp[row * LDP + tx + TX * j] = to_f32(from_f32<T>(p));
-      }
-#pragma unroll
-      for (int off = TX / 2; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + rs;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= corr;
-      m[i] = m_new;
     }
-    __syncthreads();  // the p tile is complete
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+#pragma unroll
+      for (int i = 0; i < SR; ++i)
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], off));
+#pragma unroll
+    for (int i = 0; i < SR; ++i) {
+      mx[i] = fmaxf(m[i], mx[i]);  // the new running max
+      rs[i] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < SK; ++j) {
+        const float p = expf(sc[i][j] - mx[i]);
+        rs[i] += p;
+        sp[(row0 + i) * LDP + ko + 8 * (4 * b0 + j)] = p;
+      }
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+#pragma unroll
+      for (int i = 0; i < SR; ++i)
+        rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], off);
+#pragma unroll
+    for (int i = 0; i < SR; ++i) {
+      const float corr = expf(m[i] - mx[i]);
+      l[i] = l[i] * corr + rs[i];
+      m[i] = mx[i];
+      if (threadIdx.x % 16 == 0) scorr[row0 + i] = corr;
+    }
+    cp_async_wait_all();  // this tile's v
+    __syncthreads();      // ... landed for all; p and corr written
+    if (t < t_last) {     // the next k into the tile just read
+      load_tile<D, true>(sk, kb, g.k_ss, k_lo + BK, g.s);
+      cp_async_commit();
+    }
 
+    // o = o * corr + p v, the keys in order
+    float cr[M::RM];
+#pragma unroll
+    for (int i = 0; i < M::RM; ++i) cr[i] = scorr[M::RM * tr + i];
+#pragma unroll
+    for (int i = 0; i < M::RM; ++i)
+#pragma unroll
+      for (int c = 0; c < M::RN; ++c) acc[i][c] *= cr[i];
+    // only the groups of 4 keys that hold a pair of the windows of this
+    // thread's group of 8 rows: p is 0 at any other key (or wiped later
+    // by corr = 0, for a row that has seen no key of its window yet)
+    const int g_lo = q_lo + (M::RM * tr & ~7);
+    const int g_hi = min(g_lo + 7, g.s - 1);
+    const int j4_lo = max(0, g_lo - g.window + 1 - k_lo) / 4;
+    const int j4_hi = g_lo < g.s ? min(BK - 1, g_hi - k_lo) / 4 : -1;
 #pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float pa[RQ];
+    for (int j4 = j4_lo; j4 <= j4_hi; ++j4) {
+      float4 pa[M::RM];
 #pragma unroll
-      for (int i = 0; i < RQ; ++i) pa[i] = sp[(ty + TY * i) * LDP + j];
+      for (int i = 0; i < M::RM; ++i)
+        pa[i] = sp4[(M::RM * tr + i) * (LDP / 4) + j4];
 #pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const float vv = sv[j * LD + tx + TX * c];
+      for (int jj = 0; jj < 4; ++jj) {
+        float4 va[M::RN / 4];
 #pragma unroll
-        for (int i = 0; i < RQ; ++i) acc[i][c] = fmaf(pa[i], vv, acc[i][c]);
+        for (int n = 0; n < M::RN / 4; ++n)
+          va[n] = sv4[(4 * j4 + jj) * C4 + tc + M::TC * n];
+#pragma unroll
+        for (int i = 0; i < M::RM; ++i) {
+          const float p = jj == 0   ? pa[i].x
+                          : jj == 1 ? pa[i].y
+                          : jj == 2 ? pa[i].z
+                                    : pa[i].w;
+#pragma unroll
+          for (int n = 0; n < M::RN / 4; ++n) {
+            acc[i][4 * n] = fmaf(p, va[n].x, acc[i][4 * n]);
+            acc[i][4 * n + 1] = fmaf(p, va[n].y, acc[i][4 * n + 1]);
+            acc[i][4 * n + 2] = fmaf(p, va[n].z, acc[i][4 * n + 2]);
+            acc[i][4 * n + 3] = fmaf(p, va[n].w, acc[i][4 * n + 3]);
+          }
+        }
       }
     }
   }
 
-  T* ob = o + b * g.o_sb + head * g.o_sh;
+  if (threadIdx.x % 16 == 0) {
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int qp = q_lo + ty + TY * i;
+    for (int i = 0; i < SR; ++i) sl[row0 + i] = l[i];
+  }
+  __syncthreads();
+  float* ob = o + b * g.o_sb + head * g.o_sh;
+#pragma unroll
+  for (int i = 0; i < M::RM; ++i) {
+    const int row = M::RM * tr + i;
+    const int qp = q_lo + row;
     if (qp >= g.s) continue;
-    const float den = fmaxf(l[i], 1e-30f);
+    const float den = fmaxf(sl[row], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < DC; ++c)
-      ob[qp * g.o_ss + tx + TX * c] = from_f32<T>(acc[i][c] / den);
+    for (int n = 0; n < M::RN / 4; ++n) {
+      float4 out;
+      out.x = acc[i][4 * n] / den;
+      out.y = acc[i][4 * n + 1] / den;
+      out.z = acc[i][4 * n + 2] / den;
+      out.w = acc[i][4 * n + 3] / den;
+      *reinterpret_cast<float4*>(ob + qp * g.o_ss + 4 * (tc + M::TC * n)) =
+          out;
+    }
   }
 }
 
+// q, k, v and o need rows on 16 bytes (the wrapper copies a view whose
+// rows are not)
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o,
            const Geometry& g, int batch, cudaStream_t stream) {
-  constexpr int LD = D + 1;
-  const size_t smem = sizeof(float) * ((BQ + 2 * BK) * LD + BQ * LDP);
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((g.s + BQ - 1) / BQ, batch * g.h);
-  attn_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), g);
+  static_assert(sizeof(T) == 4, "the CUDA-core kernel is float32");
+  const int smem = static_cast<int>(sizeof(float)) * smem_floats<D>();
+  static const cudaError_t attr = cudaFuncSetAttribute(  // once per D
+      attn_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(batch * g.h, (g.s + BQ - 1) / BQ);
+  attn_kernel<D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), g);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,8 +14,10 @@ build or launch of either raises):
   both products), K/V streamed by TMA through a shared-memory ring, key
   tiles and chunks that hold no unmasked pair skipped, the heaviest
   query tiles launched first; ``LAUNCHES["local_attention"]``;
-* float32 — the first version's CUDA-core kernel, which holds the
-  plain version to 2e-5; ``LAUNCHES["local_attention_f32"]``.
+* float32 — CUDA cores (float32 FMAs, so it holds the plain version to
+  2e-5): float4 register tiles, K/V copied by ``cp.async`` under the
+  products, tiles with no masked pair left unmasked;
+  ``LAUNCHES["local_attention_f32"]``.
 
 Two entry points launch them:
 
@@ -32,8 +34,9 @@ built with ``nvcc`` for ``sm_90a`` at first use
 (``kernels/_build.py``) and loaded with ``ctypes``.  On a CPU tensor
 the wrappers compute :func:`grouped_local_attention_plain`, a dense
 masked softmax in plain PyTorch; on a CUDA tensor they launch the
-kernel or raise.  :func:`tile_schedule` counts what the bfloat16
-kernel visits, skips and computes at a given (S, window).
+kernel or raise.  :func:`tile_schedule` counts what a kernel visits,
+skips and computes at a given (S, window): the bfloat16 kernel's tiles
+by default, the float32 kernel's with ``F32_TILES``.
 """
 from __future__ import annotations
 
@@ -58,17 +61,24 @@ LAUNCHES = {"local_attention": 0, "local_attention_f32": 0}
 #: the bfloat16 kernel's tiling (``tc::`` in the CUDA source): query rows
 #: per block, keys per tile, rows per warpgroup, keys per chunk of P V
 TC_BLOCK_Q, TC_BLOCK_K, TC_ROWS, TC_CHUNK = 128, 64, 64, 16
+#: the float32 kernel's (``simt::``) in :func:`tile_schedule`'s terms:
+#: 64 query rows per block, 64 keys per tile, classified per warp of 8
+#: rows, which runs P V on the groups of 4 keys that hold a pair of its
+#: rows' windows
+F32_BLOCK_Q, F32_BLOCK_K = 64, 64
+F32_TILES = dict(block_q=F32_BLOCK_Q, block_k=F32_BLOCK_K, rows=8, chunk=4)
 
 
 class TileSchedule(NamedTuple):
-    """What the bfloat16 kernel does for one (batch, head) at (S,
-    window).  ``visited``: (query tile, key tile) pairs the blocks walk.
-    Per warpgroup (64 query rows) and visited key tile: ``skipped`` (no
-    16-key chunk can hold an unmasked pair: neither product runs),
-    ``full`` (no masked pair: the mask is not applied) and ``partial``.
-    ``s_pairs``: (row, key) pairs of Q K^T, 64 x 64 per warpgroup tile
-    not skipped; ``pv_pairs``: pairs of P V, 64 x 16 per live chunk;
-    ``unmasked_pairs``: the pairs the function needs."""
+    """What a kernel does for one (batch, head) at (S, window).
+    ``visited``: (query tile, key tile) pairs the blocks walk.  Per group
+    of rows that classifies together (a warpgroup of 64 in the bfloat16
+    kernel, a warp's 8 in the float32 one) and visited key tile:
+    ``skipped`` (no chunk of P V can hold an unmasked pair: neither
+    product runs), ``full`` (no masked pair: the mask is not applied)
+    and ``partial``.  ``s_pairs``: (row, key) pairs of Q K^T, rows x
+    keys per tile not skipped; ``pv_pairs``: pairs of P V, rows x chunk
+    per live chunk; ``unmasked_pairs``: the pairs the function needs."""
     visited: int
     full: int
     partial: int
@@ -83,32 +93,36 @@ class TileSchedule(NamedTuple):
         return 2 * d * (self.s_pairs + self.pv_pairs)
 
 
-def tile_schedule(s: int, window: int) -> TileSchedule:
-    """The bfloat16 kernel's tile classification, made as the CUDA source
-    makes it, counted for one (batch, head)."""
+def tile_schedule(s: int, window: int, block_q: int = TC_BLOCK_Q,
+                  block_k: int = TC_BLOCK_K, rows: int = TC_ROWS,
+                  chunk: int = TC_CHUNK) -> TileSchedule:
+    """A kernel's tile classification, made as the CUDA source makes it,
+    counted for one (batch, head): query rows per block, keys per tile,
+    rows that classify together, keys per chunk of P V.  The defaults are
+    the bfloat16 kernel's; ``tile_schedule(s, window, **F32_TILES)`` is
+    the float32 kernel's."""
     window = min(int(window), s)
     visited = full = partial = skipped = s_pairs = pv_pairs = 0
-    for q_lo in range(0, s, TC_BLOCK_Q):
-        q_hi = min(q_lo + TC_BLOCK_Q, s) - 1
-        for t in range(max(0, q_lo - window + 1) // TC_BLOCK_K,
-                       q_hi // TC_BLOCK_K + 1):
+    for q_lo in range(0, s, block_q):
+        q_hi = min(q_lo + block_q, s) - 1
+        for t in range(max(0, q_lo - window + 1) // block_k,
+                       q_hi // block_k + 1):
             visited += 1
-            k_lo = t * TC_BLOCK_K
-            for r_lo in range(q_lo, min(q_lo + TC_BLOCK_Q, s), TC_ROWS):
-                r_hi = min(r_lo + TC_ROWS - 1, s - 1)
-                live = sum(1 for c in range(k_lo, k_lo + TC_BLOCK_K,
-                                            TC_CHUNK)
-                           if c <= r_hi and c + TC_CHUNK - 1 > r_lo - window)
+            k_lo = t * block_k
+            for r_lo in range(q_lo, min(q_lo + block_q, s), rows):
+                r_hi = min(r_lo + rows - 1, s - 1)
+                live = sum(1 for c in range(k_lo, k_lo + block_k, chunk)
+                           if c <= r_hi and c + chunk - 1 > r_lo - window)
                 if not live:
                     skipped += 1
                     continue
-                if (k_lo + TC_BLOCK_K - 1 <= r_lo
-                        and k_lo > r_lo + TC_ROWS - 1 - window):
+                if (k_lo + block_k - 1 <= r_lo
+                        and k_lo > r_lo + rows - 1 - window):
                     full += 1
                 else:
                     partial += 1
-                s_pairs += TC_ROWS * TC_BLOCK_K
-                pv_pairs += TC_ROWS * TC_CHUNK * live
+                s_pairs += rows * block_k
+                pv_pairs += rows * chunk * live
     unmasked = window * (window + 1) // 2 + (s - window) * window
     return TileSchedule(visited, full, partial, skipped, s_pairs, pv_pairs,
                         unmasked)
@@ -205,19 +219,19 @@ def grouped_local_attention(q: torch.Tensor, k: torch.Tensor,
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("q, k and v need unit stride along the head dim")
     bf16 = q.dtype == torch.bfloat16
-    if (-(-s // TC_BLOCK_Q) if bf16 else b * h) > 65535:
+    if -(-s // (TC_BLOCK_Q if bf16 else F32_BLOCK_Q)) > 65535:
         raise ValueError(f"(B, S, H) = ({b}, {s}, {h}) exceeds the kernel's "
                          f"grid")
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    if bf16:
-        # the tensor-core kernel's TMA copies need rows that start on
-        # 16 bytes: a view whose rows do not is copied once
-        q, k, v = (t if t.data_ptr() % 16 == 0
-                   and all(st % 8 == 0 for st in t.stride()[:3])
-                   else t.clone(memory_format=torch.contiguous_format)
-                   for t in (q, k, v))
+    # both kernels copy rows in 16-byte pieces (TMA, cp.async), so rows
+    # must start on 16 bytes: a view whose rows do not is copied once
+    per16 = 16 // q.element_size()
+    q, k, v = (t if t.data_ptr() % 16 == 0
+               and all(st % per16 == 0 for st in t.stride()[:3])
+               else t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
     launch = _launcher()
     operands = []  # pointer and (batch, seq, head) strides of each
     for t in (q, k, v, out):

@@ -15,6 +15,16 @@ float32.  :func:`selective_scan` returns y (B, S, d_inner) and the last
 state (B, d_inner, d_state) for the decode cache.  The silu(z) gate and
 the output projection stay in PyTorch, as in the reference.
 
+The kernel is bound by instruction issue on the H100 (the precise
+``expf`` is eight of a state step's 14 instructions), so its design
+issues little else: each channel's states are split over
+``STATE_GROUPS[d_state]`` lanes of a warp that walk them op for op as
+the plain version does (the state rounds exactly as there; each lane's
+share of ``sum_n h * C`` is summed with fused multiply-adds and the
+lanes' shares are added in a fixed order), and each block of
+``BLOCK_CHANNELS`` channels stages runs of ``RUN_STEPS`` time steps of
+dt, x, B and C in shared memory with ``cp.async``, three runs in a ring.
+
 The CUDA source is ``csrc/selective_scan.cu`` (its header notes what
 bounds the kernel on the H100 and what the design does about it), built
 with ``nvcc`` for ``sm_90a`` and ``-fmad=false`` at first use
@@ -39,6 +49,11 @@ NVCC_FLAGS = ("-fmad=false",)
 #: state sizes the kernel is instantiated for: the reduced configs' 4 and
 #: the published models' 16
 D_STATES = (4, 16)
+#: the CUDA source's tiling: lanes a channel's states are split over, by
+#: d_state; channels per block; time steps per staged run
+STATE_GROUPS = {4: 1, 16: 2}
+BLOCK_CHANNELS = 64
+RUN_STEPS = 16
 #: kernel launches; the wrapper adds one where it launches, and nowhere
 #: else
 LAUNCHES = {"selective_scan": 0}

@@ -485,6 +485,69 @@ def test_cuda_local_attention_matches_plain(d, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+def test_cuda_local_attention_f32_tile_edges(d):
+    """The float32 kernel at its own edges: S on each side of its 64-row
+    blocks and 64-key tiles (63, 64, 65, 129), windows on each side of
+    its 4-key P V groups, 8-row warps and 64-key tiles, GQA
+    groups 1 and 4, soft cap off and 50.0; one launch a call."""
+    _needs_card()
+    rng = np.random.default_rng(100 + d)
+    tol = ATTN_TOL[torch.float32]
+    calls = 0
+    for s in (63, 64, 65, 129):
+        for group in (1, 4):
+            q = _normal(rng, (2, s, 2 * group, d), torch.float32)
+            k, v = (_normal(rng, (2, s, 2, d), torch.float32)
+                    for _ in range(2))
+            for window in (3, 4, 5, 7, 8, 9, 63, 64, 65, s):
+                for cap in (None, 50.0):
+                    before = dict(LA.LAUNCHES)
+                    a = LA.grouped_local_attention(q, k, v, window=window,
+                                                   softcap=cap)
+                    b = LA.grouped_local_attention_plain(
+                        q, k, v, window=window, softcap=cap)
+                    torch.cuda.synchronize()
+                    assert LA.LAUNCHES["local_attention_f32"] == \
+                        before["local_attention_f32"] + 1
+                    assert LA.LAUNCHES["local_attention"] == \
+                        before["local_attention"]
+                    torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+                    calls += 1
+    assert calls == 4 * 2 * 10 * 2
+
+
+@pytest.mark.cuda
+def test_cuda_local_attention_f32_reads_unaligned_views():
+    """A strided view whose rows start on 16 bytes is read in place; one
+    whose rows do not is copied once by the wrapper."""
+    _needs_card()
+    rng = np.random.default_rng(7)
+    base = _normal(rng, (2, 300, 4, 3, 64), torch.float32)
+    q, k, v = base[..., 0, :], base[:, :, :1, 1, :], base[:, :, :1, 2, :]
+    flat = _normal(rng, (2 * 100 * 2 * 64 + 1,), torch.float32)
+    qm = flat[1:].view(2, 100, 2, 64)
+    for args, window in (((q, k, v), 65), ((qm, qm, qm), 33)):
+        before = LA.LAUNCHES["local_attention_f32"]
+        a = LA.grouped_local_attention(*args, window=window)
+        b = LA.grouped_local_attention_plain(*args, window=window)
+        torch.cuda.synchronize()
+        assert LA.LAUNCHES["local_attention_f32"] == before + 1
+        torch.testing.assert_close(a, b, rtol=ATTN_TOL[torch.float32],
+                                   atol=ATTN_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_cuda_local_attention_rejects_unbuilt_head_dim():
+    _needs_card()
+    q = torch.zeros((1, 8, 2, 32), device="cuda")
+    before = dict(LA.LAUNCHES)
+    with pytest.raises(ValueError, match="head dim"):
+        LA.grouped_local_attention(q, q, q, window=4)
+    assert LA.LAUNCHES == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,kv,d", [(6, 2, 64), (24, 8, 64), (8, 2, 128)])
 def test_cuda_local_attention_odd_groups(h, kv, d, dtype):
@@ -511,8 +574,9 @@ def test_cuda_local_attention_odd_groups(h, kv, d, dtype):
 
 
 #: the scan kernel against its plain version: both round each multiply
-#: and add apart (the kernel is built with -fmad=false); the sums over
-#: d_state run in other orders, and exp may differ by an ulp
+#: and add of the state apart (the kernel is built with -fmad=false); y's
+#: sums over d_state run in other orders (the kernel's with fused
+#: multiply-adds), and exp may differ by an ulp
 SCAN_TOL = 1e-5
 
 
@@ -530,17 +594,18 @@ def _scan_operands(rng, bsz, s, dl, n, h0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [4, 16])
 def test_cuda_selective_scan_matches_plain(n):
-    """Ragged shapes: S not a multiple of the kernel's 16-step runs
-    (1, 37, 2049), d_inner a multiple and a non-multiple of its
-    128-channel blocks, with and without an initial state; one launch a
-    call."""
+    """Ragged shapes: S below, at and past the kernel's 16-step runs and
+    its 3-run ring (1, 16, 17, 37, 48, 49, 2049), d_inner a multiple and a
+    non-multiple of its 64-channel blocks and of 4 (4-byte copies), with
+    and without an initial state; one launch a call."""
     from repro_torch.kernels import selective_scan as SS
 
     _needs_card()
     rng = np.random.default_rng(n)
     calls = 0
-    for bsz, s, dl in ((1, 1, 128), (2, 37, 200), (3, 2049, 256),
-                       (1, 16, 5)):
+    shapes = ((1, 1, 128), (2, 37, 200), (3, 2049, 256), (1, 16, 5),
+              (2, 17, 64), (1, 48, 130), (2, 49, 65))
+    for bsz, s, dl in shapes:
         for h0 in (False, True):
             ops = _scan_operands(rng, bsz, s, dl, n, h0)
             before = SS.LAUNCHES["selective_scan"]
@@ -553,7 +618,27 @@ def test_cuda_selective_scan_matches_plain(n):
             torch.testing.assert_close(h, h_ref, rtol=SCAN_TOL,
                                        atol=SCAN_TOL)
             calls += 1
-    assert calls == 8
+    assert calls == 2 * len(shapes)
+
+
+@pytest.mark.cuda
+def test_cuda_selective_scan_reads_unaligned_views():
+    """dt as a view that does not start on 16 bytes: the kernel copies
+    4 bytes at a time, with the same result."""
+    from repro_torch.kernels import selective_scan as SS
+
+    _needs_card()
+    ops = _scan_operands(np.random.default_rng(5), 2, 37, 64, 16, False)
+    flat = torch.empty(ops[0].numel() + 1, device="cuda")
+    dt = flat[1:].view(ops[0].shape)
+    dt.copy_(ops[0])
+    before = SS.LAUNCHES["selective_scan"]
+    y, h = SS.selective_scan(dt, *ops[1:])
+    y_ref, h_ref = SS.selective_scan_plain(dt, *ops[1:])
+    torch.cuda.synchronize()
+    assert SS.LAUNCHES["selective_scan"] == before + 1
+    torch.testing.assert_close(y, y_ref, rtol=SCAN_TOL, atol=SCAN_TOL)
+    torch.testing.assert_close(h, h_ref, rtol=SCAN_TOL, atol=SCAN_TOL)
 
 
 @pytest.mark.cuda
