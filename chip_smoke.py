@@ -133,7 +133,10 @@ T. telemetry and chiplets: vgg11 served over 4 floret chiplets with a
    windows 3, 4, 5, 7, 8, 9, 63, 64, 65 and S (its 4-key P V groups,
    8-row warps and 64-key tiles), groups 1 and 4, soft cap off
    and 50.0; each call launches its dtype's kernel once and the other
-   never;
+   never.  After phase F, the same for deepseek-v3's MLA head dims (q / k
+   192 against v 128): its prefill's 4 calls in both dtypes; S 37, 777
+   and 2049, windows 1, 63, 65, 100, 513 and S, groups 1 and 4, soft cap
+   off and 50.0, in both dtypes; the float32 kernel at its own edges;
 9. their times at the main path's calls: one local and one global launch
    and the whole prefill's 26 launches, as device time under
    ``torch.profiler`` (the wrapper's host time is not the kernel's),
@@ -141,24 +144,31 @@ T. telemetry and chiplets: vgg11 served over 4 floret chiplets with a
    band mask, the same with ``is_causal=True`` on the global launches
    (exactly their function), and the bound; the rate on unmasked and on
    computed work (``tile_schedule`` at each kernel's tiles) and the share
-   of the bound;
-F. the MoE and Mamba LM families: granite-moe-3b-a800m and
+   of the bound.  After phase F, one of deepseek-v3's prefill calls, q
+   (4, 2048, 128, 192) against v (4, 2048, 128, 128), full causal, in
+   both dtypes: device time beside the plain version, SDPA with
+   ``is_causal=True`` (exactly its function) and the bound;
+F. the MoE, Mamba and MLA LM families: granite-moe-3b-a800m and
    falcon-mamba-7b at full width, jamba-v0.1-52b at full width over one
-   8-layer cycle, random weights from a card generator seeded with
-   SEED, each served as in phase 5 (batch 4, prompt 2048, 32 greedy
-   tokens, bfloat16 and the int8 CIM flavor).  Each counted generation
-   resets every kernel count just before and reads them just after:
-   granite 32 launches of the bfloat16 attention kernel, falcon-mamba
-   64 of the selective scan, jamba 1 and 7, and nothing else; tokens in
-   range, logits finite, two prefills bit-equal (the MoE combine is
-   deterministic); the prefill with both kernels' plain versions
-   swapped in within TOL_FAMILY_LOGITS.  The MoE capacity and the
-   (token, k) pairs dropped in one prefill and one decode step; prefill
-   ms, decode ms/token, tokens/s; on the bfloat16 flavor every kernel
-   call of one prefill held against its plain version, device time by
-   kernel and the busy share of a prefill and of four decode steps.
-   Then granite and falcon-mamba cut to 4 layers, and jamba's reduced
-   config, in float32 on the card and on the CPU as in phase 7; the
+   8-layer cycle, deepseek-v3-671b at full width over its first 4
+   layers (3 dense, 1 MoE; no MTP, which serving never reads), random
+   weights from a card generator seeded with SEED, each served as in
+   phase 5 (batch 4, prompt 2048, 32 greedy tokens, bfloat16 and the
+   int8 CIM flavor).  Each counted generation resets every kernel count
+   just before and reads them just after: granite 32 launches of the
+   bfloat16 attention kernel, falcon-mamba 64 of the selective scan,
+   jamba 1 and 7, deepseek 4 of the attention kernel at its (192, 128)
+   head dims, and nothing else; tokens in range, logits finite, two
+   prefills bit-equal (the MoE combine is deterministic); the prefill
+   with both kernels' plain versions swapped in within
+   TOL_FAMILY_LOGITS.  The MoE capacity and the (token, k) pairs dropped
+   in one prefill and one decode step; the flavor's peak device memory;
+   prefill ms, decode ms/token, tokens/s; on the bfloat16 flavor every
+   kernel call of one prefill held against its plain version, device
+   time by kernel and the busy share of a prefill and of four decode
+   steps.  Then granite and falcon-mamba cut to 4 layers, deepseek to
+   its first 2 (dense), and jamba's reduced config, in float32 on the
+   card and on the CPU as in phase 7; the
    scan kernel against its plain version (rtol = atol = TOL_SCAN) over
    S 1, 17, 37, 48, 2049, d_inner 256, 200, 130 and 5, d_state 4 and
    16, with and without an initial state; its device time per
@@ -280,13 +290,18 @@ ATTN_FAMILY_SHAPES = ((24, 8, 64), (32, 8, 128))
 EDGE_F32_S = (63, 64, 65, 129)
 EDGE_F32_WINDOWS = (3, 4, 5, 7, 8, 9, 63, 64, 65)
 
-#: phase F: the MoE and Mamba families at the published widths, batch
-#: LM_BATCH, an LM_PROMPT-token prompt and LM_GEN greedy tokens in both
-#: flavors; jamba cut in depth to one 8-layer cycle (7 mamba layers, the
-#: attention layer at 4, MoE on the odd layers: 13.3 G parameters, 27 GB
-#: in bfloat16; the 32-layer model's 104 GB do not fit one card)
+#: phase F: the MoE, Mamba and MLA families at the published widths,
+#: batch LM_BATCH, an LM_PROMPT-token prompt and LM_GEN greedy tokens in
+#: both flavors; jamba cut in depth to one 8-layer cycle (7 mamba
+#: layers, the attention layer at 4, MoE on the odd layers: 13.3 G
+#: parameters, 27 GB in bfloat16; the 32-layer model's 104 GB do not fit
+#: one card); deepseek-v3 cut to its first 4 layers (3 dense of d_ff
+#: 18432, then 1 MoE of 256 experts top-8 and a shared one: 15.1 G
+#: parameters, 30.2 GB in bfloat16; the 61 layers' 671 G do not fit one
+#: card) and its MTP block left out (``family_config``: serving never
+#: reads it)
 FAMILY_LAYERS = {"granite-moe-3b-a800m": None, "falcon-mamba-7b": None,
-                 "jamba-v0.1-52b": 8}
+                 "jamba-v0.1-52b": 8, "deepseek-v3-671b": 4}
 #: launches of each kernel in one generation (the prefill; decode
 #: launches none)
 FAMILY_LAUNCHES = {
@@ -296,12 +311,16 @@ FAMILY_LAUNCHES = {
                         "selective_scan": 64},
     "jamba-v0.1-52b": {"local_attention": 1, "local_attention_f32": 0,
                        "selective_scan": 7},
+    "deepseek-v3-671b": {"local_attention": 4, "local_attention_f32": 0,
+                         "selective_scan": 0},
 }
 #: phase F's card-against-CPU check in float32: the published widths cut
-#: to 4 layers, jamba at its reduced config (None: a full-width MoE
+#: to 4 layers, deepseek's to its first 2 (both dense: 3.0 G parameters,
+#: 12 GB in float32, with all 128 heads through the float32 kernel at
+#: (192, 128)), jamba at its reduced config (None: a full-width MoE
 #: cycle in float32 is too large for the host)
 FAMILY_SMALL_LAYERS = {"granite-moe-3b-a800m": 4, "falcon-mamba-7b": 4,
-                       "jamba-v0.1-52b": None}
+                       "jamba-v0.1-52b": None, "deepseek-v3-671b": 2}
 #: prefill logits of the kernels' run vs the plain versions' run, both in
 #: bfloat16, (max |diff|, mean |diff|), stated before the first run on
 #: the card.  Logits spread about +-4.  falcon-mamba: the two scans agree
@@ -312,9 +331,20 @@ FAMILY_SMALL_LAYERS = {"granite-moe-3b-a800m": 4, "falcon-mamba-7b": 4,
 #: of 40 experts a router near-tie flips an expert of weight ~0.07.
 #: jamba: a flipped top-2 expert carries weight ~0.5.  The mean bound
 #: catches a systematic error (a wrong kernel moves every logit).
+#: deepseek-v3 (stated before its first run on the card): the attention
+#: kernel rounds as gemma3's does, over 4 layers, not 26; its one MoE
+#: layer is the last, so only the last token's routing reaches the
+#: logits, and a near-tie in its top-8 of 256 can flip an expert of
+#: renormalized weight about 1/8, which moves the logits by a few
+#: hundredths of their spread: granite's bounds.
 TOL_FAMILY_LOGITS = {"granite-moe-3b-a800m": (0.5, 0.05),
                      "falcon-mamba-7b": (0.25, 0.05),
-                     "jamba-v0.1-52b": (2.0, 0.1)}
+                     "jamba-v0.1-52b": (2.0, 0.1),
+                     "deepseek-v3-671b": (0.5, 0.05)}
+#: phase F's MLA model: its prefill's attention calls, at the kernel's
+#: (192, 128) head dims, are held against the plain version over phase
+#: 8's grid and timed as in phase 9
+MLA_ARCH = "deepseek-v3-671b"
 #: phase F's kernels as the profiler names them (bfloat16 attention,
 #: scan)
 FAMILY_KERNEL_NAMES = ("tc::attn_kernel", "scan_kernel")
@@ -2016,13 +2046,16 @@ def check_attention(la, calls):
 
 
 def attn_work(q, k, v, window):
-    """(operations, bytes) one call must do: 4 * D per unmasked
-    (query, key) pair; q, k, v read once, the output written once."""
+    """(operations, bytes) one call must do: 2 * (DQK + DV) per unmasked
+    (query, key) pair (Q K^T at q's head dim, P V at v's); q, k, v read
+    once, the (B, S, H, DV) output written once."""
     b, s, h, d = q.shape
+    dv = v.shape[3]
     w = min(window, s)
     pairs = w * (w + 1) // 2 + (s - w) * w
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    return 4 * d * pairs * b * h, nbytes
+    nbytes = (q.numel() + k.numel() + v.numel() + b * s * h * dv
+              ) * q.element_size()
+    return 2 * (d + dv) * pairs * b * h, nbytes
 
 
 def device_ms(fn, arglist, n, kernel=None):
@@ -2147,7 +2180,7 @@ def time_attention(la, calls, card, reps: int = 10):
             computed = sum(
                 c[0].shape[0] * c[0].shape[2]
                 * la.tile_schedule(c[0].shape[1], c[3], **tiles).operations(
-                    c[0].shape[3]) for c in sel)
+                    c[0].shape[3], c[2].shape[3]) for c in sel)
             t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
             row = dict(ms=device_ms(kernel, sel, n, kernel="attn_kernel"),
                        host_inclusive_ms=event_ms(kernel, sel, n),
@@ -2175,15 +2208,26 @@ def time_attention(la, calls, card, reps: int = 10):
     return out
 
 
-def family_config(arch: str):
-    """Phase F's config of ``arch``: the published widths, jamba cut in
-    depth to one layer cycle."""
+def family_config(arch: str, layers=None):
+    """Phase F's config of ``arch``: the published widths, cut in depth
+    to ``layers`` (``FAMILY_LAYERS[arch]`` by default, None: uncut), with
+    no multi-token-prediction block (serving never reads it)."""
     from repro_torch.configs import get_config
 
-    cfg = get_config(arch)
-    if FAMILY_LAYERS[arch] is not None:
-        cfg = dataclasses.replace(cfg, num_layers=FAMILY_LAYERS[arch])
+    layers = FAMILY_LAYERS[arch] if layers is None else layers
+    cfg = dataclasses.replace(get_config(arch), mtp_depth=0)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     return cfg
+
+
+def n_params(tree) -> int:
+    """Elements of every tensor in a params tree."""
+    if isinstance(tree, dict):
+        return sum(n_params(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(n_params(v) for v in tree)
+    return tree.numel()
 
 
 def all_launches(la, ss):
@@ -2224,12 +2268,14 @@ def checked_kernels(la, ss, worst, first):
     """Wrappers that launch each kernel and hold its result against the
     plain version on the same inputs (TOL_ATTN, TOL_SCAN); the largest
     |diff| per kernel goes into ``worst``, the first call's operands of
-    each into ``first["attn"]`` / ``first["scan"]``."""
+    each into ``first["attn"]`` / ``first["scan"]``, every attention
+    call's into ``first["attn_calls"]``."""
     attn, scan = la.grouped_local_attention, ss.selective_scan
 
     def attn_checked(q, k, v, *, window, softcap=None):
         out = attn(q, k, v, window=window, softcap=softcap)
         first.setdefault("attn", (q, k, v, window))
+        first.setdefault("attn_calls", []).append((q, k, v, window, softcap))
         ref = la.grouped_local_attention_plain(q, k, v, window=window,
                                                softcap=softcap)
         name = ATTN_KERNEL[q.dtype]
@@ -2310,6 +2356,7 @@ def family_serving(la, ss, arch: str, card):
     results, launches, worst, first = {}, {}, {}, {}
     for name, kv_dtype, cim in LM_FLAVORS:
         t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
         prog, params, batch = lm_program(cfg, LM_BATCH, LM_PROMPT, LM_GEN,
                                          kv_dtype, cim, "cuda",
                                          torch.bfloat16)
@@ -2317,7 +2364,8 @@ def family_serving(la, ss, arch: str, card):
         greedy_generate(prog, params, {"tokens": batch["tokens"][:, :128]}, 2)
         torch.cuda.synchronize()
         log(f"[F] {arch} {name}: {cfg.num_layers} layers, d_model "
-            f"{cfg.d_model}, vocab {cfg.vocab_size}; set up in "
+            f"{cfg.d_model}, vocab {cfg.vocab_size}, {n_params(params)} "
+            f"served tensor elements; set up in "
             f"{time.perf_counter() - t0:.1f} s")
 
         counted = {}
@@ -2393,7 +2441,8 @@ def family_serving(la, ss, arch: str, card):
             f"ms/token {[round(v, 4) for v in results[name]['decode_ms']]} "
             f"(median {np.median(results[name]['decode_ms']):.4f}, "
             f"{results[name]['tok_s']:.1f} tokens/s at batch {LM_BATCH}); "
-            f"sample {tokens[0, :8].tolist()}; "
+            f"sample {tokens[0, :8].tolist()}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
             f"{time.perf_counter() - t0:.1f} s on {card}")
         del prog, params, batch, logits, ref_logits, counted
         torch.cuda.empty_cache()
@@ -2443,12 +2492,125 @@ def check_scan(ss):
     return worst
 
 
+def check_mla_attention(la, calls):
+    """Phase 8 at deepseek-v3's MLA head dims (q / k 192, v 128): both
+    kernels against their plain version at its prefill's calls and over
+    the edge grid.  Returns each kernel's largest |diff|."""
+    names = list(ATTN_KERNEL.values())
+    worst_main, worst = (dict.fromkeys(names, 0.0) for _ in range(2))
+    n_checks = 0
+    for q, k, v, window, cap in calls:
+        for dtype in (torch.bfloat16, torch.float32):
+            attn_case(la, q.to(dtype), k.to(dtype), v.to(dtype), window, cap,
+                      f"MLA main-path call {tuple(q.shape)} v "
+                      f"{tuple(v.shape)} window {window} {dtype}",
+                      worst_main)
+            n_checks += 1
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 4)
+
+    def operands(s, group):
+        return [torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).cuda() for shape in
+            ((1, s, 2 * group, 192), (1, s, 2, 192), (1, s, 2, 128))]
+
+    for s in (37, 777, 2049):
+        for group in (1, 4):
+            base = operands(s, group)
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = (t.to(dtype) for t in base)
+                for window in (1, 63, 65, 100, 513, s):
+                    for cap in (None, 50.0):
+                        attn_case(la, q, k, v, window, cap,
+                                  f"MLA S {s} group {group} window {window} "
+                                  f"softcap {cap} {dtype}", worst)
+                        n_checks += 1
+    for s in EDGE_F32_S:  # the float32 kernel's own tile edges
+        for group in (1, 4):
+            q, k, v = operands(s, group)
+            for window in EDGE_F32_WINDOWS + (s,):
+                for cap in (None, 50.0):
+                    attn_case(la, q, k, v, window, cap,
+                              f"MLA S {s} group {group} window {window} "
+                              f"softcap {cap} float32", worst)
+                    n_checks += 1
+    log(f"[attention] MLA head dims (q/k 192, v 128): {n_checks} "
+        f"comparisons (tolerance "
+        f"{ {str(k): v for k, v in TOL_ATTN.items()} }); max |diff| at the "
+        f"main-path calls {worst_main}; at the edge cases {worst}")
+    return {name: max(worst_main[name], worst[name]) for name in names}
+
+
+def time_mla_attention(la, call, card, reps: int = 20):
+    """Phase 9 at deepseek-v3's MLA head dims: one prefill call of each
+    kernel (q (4, 2048, 128, 192), v (4, 2048, 128, 128), full causal) as
+    device time, beside the plain version, SDPA with ``is_causal=True``
+    (exactly its function) and the bound.  Returns the rows by kernel."""
+    import torch.nn.functional as F
+
+    def kernel(q, k, v, window, cap):
+        la.grouped_local_attention(q, k, v, window=window, softcap=cap)
+
+    def plain(q, k, v, window, cap):
+        la.grouped_local_attention_plain(q, k, v, window=window,
+                                         softcap=cap)
+
+    def library_causal(q, k, v):
+        F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    out = {}
+    for dtype, peak in ((torch.bfloat16, PEAK_BF16_OPS),
+                        (torch.float32, PEAK_F32_OPS)):
+        name = ATTN_KERNEL[dtype]
+        q, k, v, window, cap = call
+        args = (q.to(dtype), k.to(dtype), v.to(dtype), window, cap)
+        ops, nbytes = attn_work(*args[:4])
+        t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
+        s = q.shape[1]
+        computed = q.shape[0] * q.shape[2] * la.tile_schedule(
+            s, window, **({} if dtype == torch.bfloat16 else la.F32_TILES)
+        ).operations(q.shape[3], v.shape[3])
+        row = dict(ms=device_ms(kernel, [args], reps, kernel="attn_kernel"),
+                   host_inclusive_ms=event_ms(kernel, [args], reps),
+                   plain_ms=device_ms(plain, [args], 3),
+                   bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+        if window >= s and cap is None:
+            # SDPA's device time, and CUDA events around back-to-back
+            # calls: the profiler may not record every launch of a run,
+            # and SDPA's kernels are not known by name beforehand
+            qkv = tuple(t.transpose(1, 2).contiguous() for t in args[:3])
+            try:
+                row["library_causal_ms"] = device_ms(library_causal, [qkv],
+                                                     reps)
+                row["library_causal_event_ms"] = event_ms(library_causal,
+                                                          [qkv], reps)
+                profile_device(lambda: library_causal(*qkv),
+                               f"SDPA is_causal, {dtype}", keys=())
+            except RuntimeError as e:  # a yardstick; the kernel is timed
+                log(f"[time] SDPA is_causal at the MLA head dims: {e}")
+                row["library_causal_ms"] = None
+            del qkv
+        row["tflops_unmasked"] = ops / row["ms"] / 1e9
+        row["tflops_computed"] = computed / row["ms"] / 1e9
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        log(f"[time] {name} one MLA prefill launch, q {tuple(q.shape)} v "
+            f"{tuple(v.shape)} {dtype}, window {window}: {row} "
+            f"({ops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB) on {card}")
+        out[name] = row
+        del args
+        torch.cuda.empty_cache()
+    return out
+
+
 def families_phase(la, ss, card):
-    """Phase F: granite-moe-3b-a800m, falcon-mamba-7b and jamba-v0.1-52b
-    (one 8-layer cycle) served at full width, both flavors; the card
-    against the CPU in float32; the scan kernel against its plain version
-    and its times.  Returns the scan's ``kernels`` row and the bfloat16
-    attention kernel's launches in the counted runs."""
+    """Phase F: granite-moe-3b-a800m, falcon-mamba-7b, jamba-v0.1-52b
+    (one 8-layer cycle) and deepseek-v3-671b (its first 4 layers) served
+    at full width, both flavors; the card against the CPU in float32; the
+    scan kernel against its plain version and its times; phases 8 and 9
+    at deepseek's MLA head dims.  Returns the scan's ``kernels`` row, the
+    bfloat16 attention kernel's launches in the counted runs and each
+    kernel's largest |diff| from its plain version."""
     from repro_torch.configs import get_config
 
     t_phase = time.perf_counter()
@@ -2461,6 +2623,8 @@ def families_phase(la, ss, card):
             worst[key] = max(worst.get(key, 0.0), v)
         if arch == SCAN_ARCH:
             scan_call, scan_profile = first["scan"], res["profile"]
+        if arch == MLA_ARCH:
+            mla_calls = first["attn_calls"]
         if "attn" in first:
             n = FAMILY_LAUNCHES[arch]["local_attention"]
             ops, nbytes = attn_work(*first["attn"])
@@ -2481,13 +2645,16 @@ def families_phase(la, ss, card):
 
     t0 = time.perf_counter()
     for arch in FAMILY_LAYERS:
-        cfg = get_config(arch)
-        cfg = (cfg.reduced() if FAMILY_SMALL_LAYERS[arch] is None
-               else dataclasses.replace(
-                   cfg, num_layers=FAMILY_SMALL_LAYERS[arch]))
+        cfg = (get_config(arch).reduced() if FAMILY_SMALL_LAYERS[arch] is None
+               else family_config(arch, FAMILY_SMALL_LAYERS[arch]))
         lm_reduced_vs_cpu(cfg, "F-small")
     log(f"[F] card against CPU: {time.perf_counter() - t0:.1f} s")
     worst_edge = check_scan(ss)
+    # phases 8 and 9 at the MLA head dims, on deepseek's prefill calls
+    for key, v in check_mla_attention(la, mla_calls).items():
+        worst[key] = max(worst.get(key, 0.0), v)
+    time_mla_attention(la, mla_calls[0], card)
+    del mla_calls
 
     # the scan's times: the first call of one falcon-mamba bf16 prefill,
     # repeated as often as a prefill launches it (every call has that
@@ -2639,9 +2806,8 @@ def main() -> int:
     launches_attn = {"local_attention": lm["bf16"]["launches"]
                      + family_attn,
                      "local_attention_f32": f32_launches}
-    worst_attn["local_attention"] = max(
-        worst_attn["local_attention"],
-        worst_family.get("local_attention", 0.0))
+    for name in worst_attn:
+        worst_attn[name] = max(worst_attn[name], worst_family.get(name, 0.0))
     for name, row in attn.items():
         kernels.append({
             "name": name, "route": "cuda", "source": ATTN_SOURCE,

@@ -4,7 +4,7 @@
 // through local_attention, whose pallas_call is at :116).  For each
 // query row i of each (batch, head):
 //
-//   s_ij = (q_i . k_j) * D^-0.5      [then tanh(s / cap) * cap, cap > 0]
+//   s_ij = (q_i . k_j) * DQK^-0.5    [then tanh(s / cap) * cap, cap > 0]
 //   mask: j <= i and j > i - window  (a masked score is -1e30, not -inf)
 //   online softmax over the key tiles in order, all in f32: running max
 //   m, denominator l and accumulator acc; p = exp(s - m_new), rounded to
@@ -18,15 +18,23 @@
 // acc in VMEM along the kv axis; here one block owns one (batch, head,
 // query tile), keeps m / l / acc in registers and loops itself over the
 // key tiles that meet [q_lo - window + 1, q_hi].  GQA: q is read as
-// (B, S, H, D) and k, v as (B, S, KV, D) through element strides (unit
-// stride along D); head h reads kv head h / group, so no repeated or
-// transposed copy is made.
+// (B, S, H, DQK), k as (B, S, KV, DQK) and v as (B, S, KV, DV) through
+// element strides (unit stride along the head dim); head h reads kv head
+// h / group, so no repeated or transposed copy is made.  The output is
+// (B, S, H, DV).
 //
-// What bounds it on the H100: operations, 4 * D per unmasked (query,
-// key) pair (two products of 2 * D) against 989 TFLOP/s of bf16 tensor
+// Head dims.  q and k share DQK, v has DV of its own, and the kernels
+// are templates on the pair: (D, D) for D = 16, 64, 128, 256, and
+// deepseek-v3's MLA, (192, 128): q and k carry 128 "nope" and 64 rope
+// dims, v 128.  Nothing is padded to a common width: Q K^T runs at DQK
+// and P V at DV, the work the bound below counts.
+//
+// What bounds it on the H100: operations, 2 * (DQK + DV) per unmasked
+// (query, key) pair (Q K^T and P V) against 989 TFLOP/s of bf16 tensor
 // cores.  At gemma3-1b's prefill (D = 256, S = 2048) q, k, v read once
 // and o written once against 3.35 TB/s take 1.2x less time than that
-// on a local layer (window 512) and 2.8x less on a global one.
+// on a local layer (window 512) and 2.8x less on a global one; at
+// deepseek-v3's (192, 128, S = 2048, causal) 1.7x less.
 //
 // Two kernels, chosen by dtype (a dispatch, not a fallback):
 //
@@ -35,7 +43,8 @@
 // does about what held the first version back:
 //  1. Both products on the tensor cores with wgmma, f32 accumulators:
 //     S = Q K^T as m64n64k16 with Q and K read from shared memory, and
-//     O += P V as m64nDk16 (D = 256: 128 accumulator registers a thread)
+//     O += P V as m64nDVk16 (DV = 256: 128 accumulator registers a
+//     thread)
 //     with P taken from the S accumulators as the register A operand
 //     (rounded to bf16) and V as an MN-major operand in shared memory.
 //  2. No shared-memory loads by the threads: wgmma reads its shared
@@ -43,7 +52,8 @@
 //     operations.
 //  3. Tiles stay bf16 in shared memory, in 64-column atoms with the
 //     128-byte swizzle: q 64 KB and a 2-stage K/V ring of 2 x 64 KB at
-//     D = 256.  TMA loads them (one thread issues a tile, the hardware
+//     D = 256; at (192, 128) q and k are 3 atoms wide, v 2: q 48 KB, the
+//     ring 2 x (24 + 16) KB, and S takes 12 k16 steps.  TMA loads them (one thread issues a tile, the hardware
 //     computes the addresses and zero-fills past S), each tile's bytes
 //     complete an mbarrier, and a stage's next tile goes out as soon as
 //     both warpgroups are done with it, while they compute the other
@@ -59,7 +69,7 @@
 //     otherwise wiped by corr = 0 later, as above.
 //  5. The grid is (batch * heads, query tiles) with the query tile
 //     reversed, so the causal layers' longest tiles launch first.
-// The softmax runs in the log2 domain: scores times D^-0.5 log2(e)
+// The softmax runs in the log2 domain: scores times DQK^-0.5 log2(e)
 // (exp2 with log2(e) folded in, ex2.approx.ftz), the difference from
 // the running max taken before the exponential so that -1e30 - (-1e30)
 // is exactly 0; tanhf without fast math; o = acc * (1 / max(l, 1e-30))
@@ -77,7 +87,8 @@
 // per FMA pair in Q K^T (4 x 4 tiles, row stride D + 1, no 16-byte
 // loads), copied tiles synchronously between two barriers, and computed
 // and masked every visited tile whole.  The design now, one block of
-// 256 threads per (batch, head, 64 query rows), one block an SM:
+// 256 threads per (batch, head, 64 query rows), one block an SM (at
+// (192, 128) Q K^T's quarters are 48 wide and P V runs at DV = 128):
 //  1. 8 x 8 register tiles read as float4s.  Q K^T splits the head dim
 //     in quarters over 4 lanes: warp w owns rows 8 w ... 8 w + 7, and
 //     lane ko + 8 qd sums their products with keys ko + 8 j over the
@@ -151,11 +162,12 @@ struct PV {
   static constexpr int RM = BQ / TR;  // output rows per thread
 };
 
-// floats of shared memory: q, k, v tiles (BQ or BK rows of D), the p
-// tile, and per row the correction of the running sum and the sum itself
-template <int D>
+// floats of shared memory: q and k tiles (BQ or BK rows of DQK), the v
+// tile (BK rows of DV), the p tile, and per row the correction of the
+// running sum and the sum itself
+template <int DQK, int DV>
 constexpr int smem_floats() {
-  return (BQ + 2 * BK) * D + BQ * LDP + 2 * BQ;
+  return (BQ + BK) * DQK + BK * DV + BQ * LDP + 2 * BQ;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -189,6 +201,22 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           long long row_stride, int lo,
                                           int s) {
   constexpr int CH = D / 4;             // 16-byte chunks per row
+  if constexpr (THREADS % CH != 0) {
+    // a row's chunks do not divide the threads (D = 192: 48): the tile's
+    // chunks are dealt out in order, BK * CH / THREADS to a thread
+    static_assert(BK * CH % THREADS == 0, "a tile's chunks per thread");
+#pragma unroll
+    for (int u = 0; u < BK * CH / THREADS; ++u) {
+      const int i = threadIdx.x + THREADS * u;
+      const int r = i / CH, ch = i % CH;
+      const int pos = lo + r;
+      cp_async16(dst + r * D + 4 * (kSwizzled ? k_chunk<D>(r, ch) : ch),
+                 src + 4 * ch +
+                     static_cast<long long>(min(pos, s - 1)) * row_stride,
+                 pos < s ? 16 : 0);
+    }
+    return;
+  }
   constexpr int STEP = THREADS / CH;    // rows apart of a thread's copies
   const int ch = threadIdx.x % CH;      // the same chunk of every row
   const int r0 = threadIdx.x / CH;
@@ -214,18 +242,19 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
     attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, float* __restrict__ o,
                 Geometry g) {
-  using M = PV<D>;
-  constexpr int C4 = D / 4;
+  using M = PV<DV>;
+  constexpr int C4 = DQK / 4;   // float4s of a q or k row
+  constexpr int CV4 = DV / 4;   // float4s of a v row
   extern __shared__ float4 smem4[];
-  float* sq = reinterpret_cast<float*>(smem4);  // BQ x D
-  float* sk = sq + BQ * D;                      // BK x D, swizzled
-  float* sv = sk + BK * D;                      // BK x D
-  float* sp = sv + BK * D;                      // BQ x LDP
+  float* sq = reinterpret_cast<float*>(smem4);  // BQ x DQK
+  float* sk = sq + BQ * DQK;                    // BK x DQK, swizzled
+  float* sv = sk + BK * DQK;                    // BK x DV
+  float* sp = sv + BK * DV;                     // BQ x LDP
   float* scorr = sp + BQ * LDP;                 // BQ
   float* sl = scorr + BQ;                       // BQ
   const float4* sq4 = reinterpret_cast<const float4*>(sq);
@@ -256,8 +285,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   // them has an unmasked pair, so none is skipped inside the range
   const int t_first = max(0, q_lo - g.window + 1) / BK;
   const int t_last = q_hi / BK;
-  load_tile<D, false>(sq, qb, g.q_ss, q_lo, g.s);
-  load_tile<D, true>(sk, kb, g.k_ss, t_first * BK, g.s);
+  load_tile<DQK, false>(sq, qb, g.q_ss, q_lo, g.s);
+  load_tile<DQK, true>(sk, kb, g.k_ss, t_first * BK, g.s);
   cp_async_commit();
 
   float m[SR], l[SR];
@@ -276,7 +305,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int k_lo = t * BK;
     cp_async_wait_all();  // this tile's k (and q)
     __syncthreads();      // ... landed for all; the last P V is done
-    load_tile<D, false>(sv, vb, g.v_ss, k_lo, g.s);
+    load_tile<DV, false>(sv, vb, g.v_ss, k_lo, g.s);
     cp_async_commit();
 
     // this warp's rows against the tile: a tile with no masked pair for
@@ -304,7 +333,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         qa[i] = sq4[(8 * w + (4 * b1 + i) % 8) * C4 + c4];
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const float4 ka = sk4[(ko + 8 * j) * C4 + k_chunk<D>(ko, c4)];
+        const float4 ka = sk4[(ko + 8 * j) * C4 + k_chunk<DQK>(ko, c4)];
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           part[i][j] = fmaf(qa[i].x, ka.x, part[i][j]);
@@ -380,7 +409,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     cp_async_wait_all();  // this tile's v
     __syncthreads();      // ... landed for all; p and corr written
     if (t < t_last) {     // the next k into the tile just read
-      load_tile<D, true>(sk, kb, g.k_ss, k_lo + BK, g.s);
+      load_tile<DQK, true>(sk, kb, g.k_ss, k_lo + BK, g.s);
       cp_async_commit();
     }
 
@@ -410,7 +439,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         float4 va[M::RN / 4];
 #pragma unroll
         for (int n = 0; n < M::RN / 4; ++n)
-          va[n] = sv4[(4 * j4 + jj) * C4 + tc + M::TC * n];
+          va[n] = sv4[(4 * j4 + jj) * CV4 + tc + M::TC * n];
 #pragma unroll
         for (int i = 0; i < M::RM; ++i) {
           const float p = jj == 0   ? pa[i].x
@@ -456,16 +485,18 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // q, k, v and o need rows on 16 bytes (the wrapper copies a view whose
 // rows are not)
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o,
            const Geometry& g, int batch, cudaStream_t stream) {
   static_assert(sizeof(T) == 4, "the CUDA-core kernel is float32");
-  const int smem = static_cast<int>(sizeof(float)) * smem_floats<D>();
-  static const cudaError_t attr = cudaFuncSetAttribute(  // once per D
-      attn_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int smem =
+      static_cast<int>(sizeof(float)) * smem_floats<DQK, DV>();
+  static const cudaError_t attr = cudaFuncSetAttribute(  // once per pair
+      attn_kernel<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(batch * g.h, (g.s + BQ - 1) / BQ);
-  attn_kernel<D><<<grid, THREADS, smem, stream>>>(
+  attn_kernel<DQK, DV><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), g);
   return static_cast<int>(cudaGetLastError());
@@ -487,10 +518,11 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // shared-memory width of a tile row: D, or one atom zero-padded past D
 __host__ __device__ constexpr int width(int d) { return d < ATOM ? ATOM : d; }
-__host__ __device__ constexpr int smem_bytes(int d) {
-  // the tiles, 1024 bytes of slack to put them on a 1024-byte boundary,
-  // and the barriers and counters
-  return 2 * (BQ + STAGES * 2 * BK) * width(d) + 1024 + 64;
+__host__ __device__ constexpr int smem_bytes(int dqk, int dv) {
+  // the q tile and the K/V ring, 1024 bytes of slack to put them on a
+  // 1024-byte boundary, and the barriers and counters
+  return 2 * (BQ * width(dqk) + STAGES * BK * (width(dqk) + width(dv))) +
+         1024 + 64;
 }
 
 // Byte offset of 16-byte chunk `chunk` (columns 8 chunk ...) of row `row`
@@ -735,18 +767,20 @@ __device__ __forceinline__ void softmax(float (&sc)[32], float (&m)[2],
 
 // K and V of tile t (counted from the first visited, t0) into ring
 // stage (t - t0) % 2 with TMA: 64-column boxes in the 128-byte swizzle,
-// completing the stage's `full` barrier
-template <int D>
+// completing the stage's `full` barrier; K (DQK wide) first in the
+// stage, then V (DV wide, DV <= DQK)
+template <int DQK, int DV>
 __device__ __forceinline__ void load_kv(unsigned char* stage_kv,
                                         uint64_t* full, const CUtensorMap* tk,
                                         const CUtensorMap* tv, int kv_head,
                                         int t, int b) {
-  constexpr int KV_BYTES = 2 * BK * width(D);
-  mbar_expect(full, 2 * KV_BYTES);
-  for (int a = 0; a < width(D) / ATOM; ++a) {
+  constexpr int K_BYTES = 2 * BK * width(DQK), V_BYTES = 2 * BK * width(DV);
+  mbar_expect(full, K_BYTES + V_BYTES);
+  for (int a = 0; a < width(DQK) / ATOM; ++a) {
     tma_load(stage_kv + a * BK * 128, tk, a * ATOM, kv_head, t * BK, b, full);
-    tma_load(stage_kv + KV_BYTES + a * BK * 128, tv, a * ATOM, kv_head,
-             t * BK, b, full);
+    if (a < width(DV) / ATOM)
+      tma_load(stage_kv + K_BYTES + a * BK * 128, tv, a * ATOM, kv_head,
+               t * BK, b, full);
   }
 }
 
@@ -763,18 +797,22 @@ __device__ __forceinline__ void load_kv(unsigned char* stage_kv,
 // Turns.  The warpgroups take turns on the tensor cores through named
 // barriers 1 and 2: one issues S = Q K^T only after the other has issued
 // its own, so one warpgroup's softmax runs while the other's products do.
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
     attn_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
                 bf16* __restrict__ o, Geometry g) {
-  constexpr int Q_BYTES = 2 * BQ * width(D), KV_BYTES = 2 * BK * width(D);
+  // the output is staged through the q tile, which must hold DV columns
+  static_assert(DV <= width(DQK), "v wider than q");
+  constexpr int Q_BYTES = 2 * BQ * width(DQK);
+  constexpr int K_BYTES = 2 * BK * width(DQK);
+  constexpr int STAGE_BYTES = K_BYTES + 2 * BK * width(DV);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sq =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* skv = sq + Q_BYTES;  // stage i: K, then V
-  uint64_t* bars = reinterpret_cast<uint64_t*>(skv + STAGES * 2 * KV_BYTES);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(skv + STAGES * STAGE_BYTES);
   uint64_t* full = bars;  // [STAGES]: the stage's tile landed
   uint64_t* q_full = bars + STAGES;
   int* done = reinterpret_cast<int*>(bars + STAGES + 1);  // [STAGES]
@@ -799,11 +837,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     mbar_init(q_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     mbar_expect(q_full, Q_BYTES);
-    for (int a = 0; a < width(D) / ATOM; ++a)
+    for (int a = 0; a < width(DQK) / ATOM; ++a)
       tma_load(sq + a * BQ * 128, &tq, a * ATOM, head, q_lo, b, q_full);
     for (int t = t0; t <= min(t1, t0 + STAGES - 1); ++t)
-      load_kv<D>(skv + (t - t0) * 2 * KV_BYTES, &full[t - t0], &tk, &tv,
-                 kv_head, t, b);
+      load_kv<DQK, DV>(skv + (t - t0) * STAGE_BYTES, &full[t - t0], &tk,
+                       &tv, kv_head, t, b);
   }
   __syncthreads();
 
@@ -817,9 +855,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   const float scale_log2 = g.scale * kLog2e;
   float m[2] = {kMasked, kMasked}, l[2] = {0.0f, 0.0f};  // l: this lane's
   float corr[2];                                         // columns only
-  float acc[width(D) / 2];
+  float acc[width(DV) / 2];
 #pragma unroll
-  for (int i = 0; i < width(D) / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < width(DV) / 2; ++i) acc[i] = 0.0f;
   float sc[32];  // S, then p, of one tile (a sum's first wgmma ignores it)
 #pragma unroll
   for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
@@ -839,8 +877,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (r_lo < g.s && c <= r_hi && c + 15 > r_lo - g.window)
         live |= 1 << j;
     }
-    unsigned char* sk = skv + stage * 2 * KV_BYTES;
-    const unsigned char* sv = sk + KV_BYTES;
+    unsigned char* sk = skv + stage * STAGE_BYTES;
+    const unsigned char* sv = sk + K_BYTES;
     mbar_wait(&full[stage], (i / STAGES) & 1);
 
     // S = Q K^T, both K-major: 8-row groups 1024 bytes apart, k16 steps
@@ -853,7 +891,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (live) {
       wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks)
+      for (int ks = 0; ks < DQK / 16; ++ks)
         wgmma_ss(sc,
                  desc(sq_wg + (ks / 4) * BQ * 128 + (ks % 4) * 32, 0, 1024),
                  desc(sk + (ks / 4) * BK * 128 + (ks % 4) * 32, 0, 1024),
@@ -871,7 +909,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       softmax(sc, m, l, corr, k_lo, live, partial, row0, col, g,
               scale_log2);
 #pragma unroll
-      for (int i = 0; i < width(D) / 2; ++i) acc[i] *= corr[(i / 2) % 2];
+      for (int i = 0; i < width(DV) / 2; ++i) acc[i] *= corr[(i / 2) % 2];
 
       // O += P V, 16 keys at a time: the S accumulators of chunk j are
       // its A fragment; V MN-major: 8-key groups 1024 bytes apart,
@@ -886,12 +924,12 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         if (live >> j & 1)
-          wgmma_rs<width(D)>(acc, pa[j],
-                             desc(sv + j * 16 * 128, BK * 128, 1024));
+          wgmma_rs<width(DV)>(acc, pa[j],
+                              desc(sv + j * 16 * 128, BK * 128, 1024));
       wgmma_commit();
       wgmma_wait();
 #pragma unroll
-      for (int i = 0; i < width(D) / 2; ++i) keep(acc[i]);
+      for (int i = 0; i < width(DV) / 2; ++i) keep(acc[i]);
     } else {
       pass_turn(wg, t < t1);
     }
@@ -905,7 +943,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       __threadfence_block();
       if (atomicAdd(&done[stage], 1) & 1) {
         __threadfence_block();
-        load_kv<D>(sk, &full[stage], &tk, &tv, kv_head, t + STAGES, b);
+        load_kv<DQK, DV>(sk, &full[stage], &tk, &tv, kv_head, t + STAGES,
+                         b);
       }
     }
   }
@@ -922,7 +961,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   const int r0 = 64 * wg + 16 * warp;  // first row of this warp in the tile
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < DV / 8; ++n) {
     *reinterpret_cast<__nv_bfloat162*>(
         sq + tile_off<BQ>(r0 + lane / 4, n) + 2 * col) =
         __floats2bfloat162_rn(acc[4 * n] * inv[0], acc[4 * n + 1] * inv[0]);
@@ -933,7 +972,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   __syncwarp();
   bf16* ob = o + b * g.o_sb + head * g.o_sh;
-  constexpr int C = D / 8;
+  constexpr int C = DV / 8;
   const int p_lo = q_lo + r0;
   for (int i = lane; i < 16 * C; i += 32) {
     const int r = i / C, c = i % C;
@@ -981,63 +1020,65 @@ int tensor_map(CUtensorMap* map, const void* base, long long sb,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o,
            const Geometry& g, int batch, cudaStream_t stream) {
-  const int smem = smem_bytes(D);
-  static const cudaError_t attr = cudaFuncSetAttribute(  // once per D
-      attn_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int smem = smem_bytes(DQK, DV);
+  static const cudaError_t attr = cudaFuncSetAttribute(  // once per pair
+      attn_kernel<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int kv = g.h / g.group;
   CUtensorMap tq, tk, tv;
-  int err = tensor_map(&tq, q, g.q_sb, g.q_ss, g.q_sh, batch, g.s, g.h, D,
+  int err = tensor_map(&tq, q, g.q_sb, g.q_ss, g.q_sh, batch, g.s, g.h, DQK,
                        BQ);
   if (!err)
-    err = tensor_map(&tk, k, g.k_sb, g.k_ss, g.k_sh, batch, g.s, kv, D, BK);
+    err = tensor_map(&tk, k, g.k_sb, g.k_ss, g.k_sh, batch, g.s, kv, DQK,
+                     BK);
   if (!err)
-    err = tensor_map(&tv, v, g.v_sb, g.v_ss, g.v_sh, batch, g.s, kv, D, BK);
+    err = tensor_map(&tv, v, g.v_sb, g.v_ss, g.v_sh, batch, g.s, kv, DV, BK);
   if (err) return err;
   const dim3 grid(batch * g.h, (g.s + BQ - 1) / BQ);
-  attn_kernel<D><<<grid, THREADS, smem, stream>>>(
+  attn_kernel<DQK, DV><<<grid, THREADS, smem, stream>>>(
       tq, tk, tv, static_cast<bf16*>(o), g);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tc
 
+// the (q/k, v) head-dim pairs built; any other is refused
 int launch_d(const void* q, const void* k, const void* v, void* o,
-             const Geometry& g, int batch, int d, bool bf16,
+             const Geometry& g, int batch, int dqk, int dv, bool bf16,
              cudaStream_t stream) {
-#define ATTN_CASE(D)                                                        \
-  case D:                                                                   \
-    return bf16 ? tc::launch<D>(q, k, v, o, g, batch, stream)               \
-                : simt::launch<float, D>(q, k, v, o, g, batch, stream);
-  switch (d) {
-    ATTN_CASE(16)
-    ATTN_CASE(64)
-    ATTN_CASE(128)
-    ATTN_CASE(256)
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define ATTN_CASE(DQK, DV)                                                  \
+  if (dqk == DQK && dv == DV)                                               \
+    return bf16 ? tc::launch<DQK, DV>(q, k, v, o, g, batch, stream)         \
+                : simt::launch<float, DQK, DV>(q, k, v, o, g, batch, stream);
+  ATTN_CASE(16, 16)
+  ATTN_CASE(64, 64)
+  ATTN_CASE(128, 128)
+  ATTN_CASE(256, 256)
+  ATTN_CASE(192, 128)
 #undef ATTN_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes.  Strides are in elements; `bf16`
-// selects the bfloat16 tensor-core kernel, else the float32 one, for
-// q, k, v and o alike.  Returns cudaGetLastError() after the launch (0
-// on success).
+// Plain C entry point for ctypes.  Strides are in elements; q and k are
+// dqk wide, v and o dv wide; `bf16` selects the bfloat16 tensor-core
+// kernel, else the float32 one, for q, k, v and o alike.  Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int local_attention_launch(
     const void* q, long long q_sb, long long q_ss, long long q_sh,
     const void* k, long long k_sb, long long k_ss, long long k_sh,
     const void* v, long long v_sb, long long v_ss, long long v_sh, void* o,
     long long o_sb, long long o_ss, long long o_sh, int batch, int s, int h,
-    int group, int d, int window, float scale, float softcap, int bf16,
-    void* stream) {
+    int group, int dqk, int dv, int window, float scale, float softcap,
+    int bf16, void* stream) {
   const Geometry g{q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                    o_sb, o_ss, o_sh, s, h, group, window, scale, softcap};
-  return launch_d(q, k, v, o, g, batch, d, bf16 != 0,
+  return launch_d(q, k, v, o, g, batch, dqk, dv, bf16 != 0,
                   static_cast<cudaStream_t>(stream));
 }
 

@@ -2,10 +2,12 @@
 
 Replaces ``src/repro/kernels/local_attention.py::_attn_kernel`` (reached
 through ``local_attention``): token i attends to keys (i - window, i],
-scores ``q . k * D^-0.5`` with an optional ``tanh(s / cap) * cap``, an
+scores ``q . k * DQK^-0.5`` with an optional ``tanh(s / cap) * cap``, an
 online softmax in float32 with ``p`` rounded to v's type before
 ``p . v``, and the output in q's type.  A global (full causal) layer
-is the case ``window = S``.
+is the case ``window = S``.  q and k share a head dim DQK; v's, DV, may
+differ (MLA: DQK = 128 + 64 rope dims, DV = 128), and the output is DV
+wide.
 
 Two kernels, chosen by dtype (a dispatch, not a fallback: a failed
 build or launch of either raises):
@@ -23,10 +25,10 @@ Two entry points launch them:
 
 * :func:`local_attention` — q, k, v (BH, S, D), the reference wrapper's
   layout (the GQA repeat done by the caller);
-* :func:`grouped_local_attention` — q (B, S, H, D) with k, v
-  (B, S, KV, D) and H a multiple of KV, the model's layout: head h
-  reads kv head ``h // (H // KV)`` through strides, so no repeated or
-  transposed copy is made.  Output (B, S, H, D).
+* :func:`grouped_local_attention` — q (B, S, H, DQK) with k
+  (B, S, KV, DQK), v (B, S, KV, DV) and H a multiple of KV, the model's
+  layout: head h reads kv head ``h // (H // KV)`` through strides, so no
+  repeated or transposed copy is made.  Output (B, S, H, DV).
 
 The CUDA source is ``csrc/local_attention.cu`` (its header notes what
 bounds the kernels on the H100 and what each design does about it),
@@ -34,7 +36,9 @@ built with ``nvcc`` for ``sm_90a`` at first use
 (``kernels/_build.py``) and loaded with ``ctypes``.  On a CPU tensor
 the wrappers compute :func:`grouped_local_attention_plain`, a dense
 masked softmax in plain PyTorch; on a CUDA tensor they launch the
-kernel or raise.  :func:`tile_schedule` counts what a kernel visits,
+kernel or raise; a (DQK, DV) pair the source does not instantiate
+(``HEAD_DIM_PAIRS``) raises before any launch.  :func:`tile_schedule`
+counts what a kernel visits,
 skips and computes at a given (S, window): the bfloat16 kernel's tiles
 by default, the float32 kernel's with ``F32_TILES``.
 """
@@ -53,6 +57,9 @@ SOURCE = _build.CSRC / "local_attention.cu"
 #: head dims the kernel is instantiated for: the reduced configs' 16 and
 #: the served models' 64 (qwen2), 128 (gemma2, minitron), 256 (gemma3)
 HEAD_DIMS = (16, 64, 128, 256)
+#: the (q/k, v) head-dim pairs built: each of HEAD_DIMS with itself, and
+#: deepseek-v3's MLA, q and k 128 + 64 rope dims wide against v's 128
+HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 DTYPES = (torch.float32, torch.bfloat16)
 MASKED = -1e30
 #: kernel launches by kernel (bfloat16 tensor cores, float32 CUDA
@@ -87,10 +94,12 @@ class TileSchedule(NamedTuple):
     pv_pairs: int
     unmasked_pairs: int
 
-    def operations(self, d: int) -> int:
-        """Multiply-add operations (2 each) the two products run at head
-        dim ``d``."""
-        return 2 * d * (self.s_pairs + self.pv_pairs)
+    def operations(self, dqk: int, dv: Optional[int] = None) -> int:
+        """Multiply-add operations (2 each) the two products run at q/k
+        head dim ``dqk`` (Q K^T) and v head dim ``dv`` (P V; ``dqk`` when
+        not given)."""
+        return 2 * (dqk * self.s_pairs
+                    + (dqk if dv is None else dv) * self.pv_pairs)
 
 
 def tile_schedule(s: int, window: int, block_q: int = TC_BLOCK_Q,
@@ -142,7 +151,7 @@ def _launcher():
     ptr, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                           ctypes.c_float)
     fn.argtypes = ([ptr, i64, i64, i64] * 4
-                   + [i32, i32, i32, i32, i32, i32, f32, f32, i32, ptr])
+                   + [i32] * 7 + [f32, f32, i32, ptr])
     fn.restype = ctypes.c_int
     return fn
 
@@ -151,10 +160,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
            softcap: Optional[float]) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(
-            f"q (B, S, H, D), k and v (B, S, KV, D): {tuple(q.shape)}, "
-            f"{tuple(k.shape)}, {tuple(v.shape)}")
+            f"q (B, S, H, DQK), k (B, S, KV, DQK) and v (B, S, KV, DV): "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, s, h, d = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[1] != s \
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[1] != s \
             or k.shape[3] != d:
         raise ValueError(f"q {tuple(q.shape)} vs k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
@@ -176,11 +185,12 @@ def grouped_local_attention_plain(q: torch.Tensor, k: torch.Tensor,
                                   softcap: Optional[float] = None
                                   ) -> torch.Tensor:
     """The plain PyTorch version of :func:`grouped_local_attention`: a
-    dense (S, S) float32 score matrix per head, the window mask at
-    ``-1e30``, a softmax, the probabilities rounded to v's type, and
-    ``p . v`` in v's type."""
+    dense (S, S) float32 score matrix per head scaled by ``DQK^-0.5``,
+    the window mask at ``-1e30``, a softmax, the probabilities rounded to
+    v's type, and ``p . v`` in v's type at v's width."""
     _check(q, k, v, window, softcap)
     b, s, h, d = q.shape
+    dv = v.shape[3]
     kvh = k.shape[2]
     qg = q.float().reshape(b, s, kvh, h // kvh, d).permute(0, 2, 3, 1, 4)
     kg = k.float().permute(0, 2, 1, 3).unsqueeze(2)     # (B, KV, 1, S, D)
@@ -192,15 +202,15 @@ def grouped_local_attention_plain(q: torch.Tensor, k: torch.Tensor,
         pos[None, :] > pos[:, None] - window)
     scores = torch.where(keep, scores, torch.full_like(scores, MASKED))
     p = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.matmul(p, v.permute(0, 2, 1, 3).unsqueeze(2))  # (B,KV,G,S,D)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
+    out = torch.matmul(p, v.permute(0, 2, 1, 3).unsqueeze(2))  # (B,KV,G,S,DV)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dv).to(q.dtype)
 
 
 def grouped_local_attention(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, window: int,
                             softcap: Optional[float] = None) -> torch.Tensor:
-    """(B, S, H, D) attention output of q (B, S, H, D) over k, v
-    (B, S, KV, D), causal within ``window``.
+    """(B, S, H, DV) attention output of q (B, S, H, DQK) over k
+    (B, S, KV, DQK) and v (B, S, KV, DV), causal within ``window``.
 
     CPU tensors take :func:`grouped_local_attention_plain`.  CUDA
     tensors launch the bfloat16 or the float32 kernel, by dtype
@@ -214,15 +224,17 @@ def grouped_local_attention(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"local attention runs on cpu or cuda, not "
                          f"{q.device}")
     b, s, h, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in the kernel's {HEAD_DIMS}")
+    dv = v.shape[3]
+    if (d, dv) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"head dims (q/k {d}, v {dv}) not among the "
+                         f"kernel's {HEAD_DIM_PAIRS}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("q, k and v need unit stride along the head dim")
     bf16 = q.dtype == torch.bfloat16
     if -(-s // (TC_BLOCK_Q if bf16 else F32_BLOCK_Q)) > 65535:
         raise ValueError(f"(B, S, H) = ({b}, {s}, {h}) exceeds the kernel's "
                          f"grid")
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     # both kernels copy rows in 16-byte pieces (TMA, cp.async), so rows
@@ -238,7 +250,7 @@ def grouped_local_attention(q: torch.Tensor, k: torch.Tensor,
         operands += [t.data_ptr(), t.stride(0), t.stride(1), t.stride(2)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = launch(*operands, b, s, h, h // k.shape[2], d,
+        err = launch(*operands, b, s, h, h // k.shape[2], d, dv,
                      min(int(window), s), d ** -0.5,
                      0.0 if softcap is None else float(softcap),
                      int(bf16), stream)

@@ -7,8 +7,13 @@ CIM weights and an int8 KV cache, on one card.
 
 Any arch the port runs: the dense GQA stacks (gemma3-1b, gemma2-27b,
 qwen2-0.5b, minitron-8b), granite-moe-3b-a800m (MoE), falcon-mamba-7b
-(Mamba) and jamba-v0.1-52b (Mamba + attention + MoE; at ``--full`` its
-32 layers hold 104 GB in bfloat16, more than one 80 GB card).
+(Mamba), jamba-v0.1-52b (Mamba + attention + MoE; at ``--full`` its
+32 layers hold 104 GB in bfloat16, more than one 80 GB card) and
+deepseek-v3-671b (MLA + MoE; at ``--full`` its 61 layers hold 671 G
+parameters, 1.3 TB in bfloat16, far more than one card: ``chip_smoke.py``
+serves its first 4 layers at full width).  deepseek's multi-token
+prediction block is built with the weights but not run: serving never
+reads it.
 Weights are random, from the port's ``init_params`` with a generator
 seeded with 0; the prompt is random token ids from the same generator.
 Without ``--full`` the arch's reduced config runs.  ``--device cpu``

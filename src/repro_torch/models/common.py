@@ -61,10 +61,12 @@ class ShardingPlan:
 def resolve_w(w, like: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Weights may arrive as ``{"q": int8, "s": scale}`` (CIM-resident
     serving mode): dequantize on use, in float32 and then to ``like``'s
-    dtype (bfloat16 without ``like``, as the reference does)."""
+    dtype (bfloat16 without ``like``, as the reference does).  The scale
+    is applied in place: one float32 copy of the weight, not two (a
+    deepseek-v3 expert stack is 15 GB in float32)."""
     if is_quantized_leaf(w):
         dtype = like.dtype if like is not None else torch.bfloat16
-        return (w["q"].to(torch.float32) * w["s"]).to(dtype)
+        return w["q"].to(torch.float32).mul_(w["s"]).to(dtype)
     return w
 
 
@@ -149,11 +151,13 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: Optional[int] = None,
                     logit_softcap: Optional[float] = None) -> torch.Tensor:
-    """Causal self-attention of q (B, S, H, D) over k, v (B, S, KV, D),
-    H a multiple of KV, through the sliding-window kernel
-    (``kernels/local_attention.py``).  A local layer passes its window;
-    a global layer (``window=None``) runs it with ``window = S``, which
-    is full causal attention."""
+    """Causal self-attention of q (B, S, H, DQK) over k (B, S, KV, DQK)
+    and v (B, S, KV, DV), H a multiple of KV, through the sliding-window
+    kernel (``kernels/local_attention.py``); the output is
+    (B, S, H, DV), scaled by ``DQK^-0.5`` as the reference's (MLA's v
+    head dim differs from its q/k one).  A local layer passes its
+    window; a global layer (``window=None``) runs it with
+    ``window = S``, which is full causal attention."""
     return attention_kernel.grouped_local_attention(
         q, k, v, window=k.shape[1] if window is None else window,
         softcap=logit_softcap)
@@ -177,9 +181,11 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
 
 def dense_init(gen: torch.Generator, fan_in: int, shape, dtype
                ) -> torch.Tensor:
+    """Normal draws in float32 / sqrt(fan_in), cast to ``dtype``; the
+    division in place, so one float32 copy is made, not two."""
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
-    return (w / math.sqrt(fan_in)).to(dtype)
+    return w.div_(math.sqrt(fan_in)).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Decoder-only LM on torch — the tp = 1 subset of
 ``repro/models/transformer.py``: dense GQA stacks (gemma, qwen2,
 minitron), MoE stacks (granite-moe), attention-free Mamba stacks
-(falcon-mamba) and the Mamba + attention + MoE hybrid (jamba).
+(falcon-mamba), the Mamba + attention + MoE hybrid (jamba) and the MLA +
+MoE stack of deepseek-v3.
 
 The reference groups layers into segments (maximal runs of a repeating
 layer cycle), stacks each segment's parameters over its repeat count and
@@ -12,18 +13,24 @@ one dict per layer, in layer order, and the scan is a Python loop;
 int8-quantization decisions (``runtime/serve_loop.quantize_decisions``).
 
 Params: ``{"embed": (V, D), "final_norm": (D,), ["head": (D, V)],
-"layers": [{"norm1", "attn": {wq, wk, wv, wo, [bq, bk, bv]} | "mamba":
-{w_in_x, w_in_z, conv_w, conv_b, x_proj, dt_proj, dt_bias, A_log, D,
-w_out}, ["norm2"], ["mlp": {w_in, [w_gate], w_out}] | ["moe": {router,
-w_in, [w_gate], w_out} (experts stacked on axis 0)]}, ...]}``; any
-matmul weight may be a ``{"q", "s"}`` int8 leaf.  Caches: one dict per
-layer; attention ``k`` / ``v`` (B, S, KV, hd) (+ ``k_scale`` /
-``v_scale`` (B, S, KV, 1) when int8), mamba ``h`` (B, d_inner, d_state)
-float32 and ``conv`` (B, d_conv - 1, d_inner).
+"layers": [{"norm1", "attn": {wq, wk, wv, wo, [bq, bk, bv]} | {w_dq,
+q_norm, w_uq, w_dkv, kv_norm, w_uk, w_uv, wo} (MLA) | "mamba": {w_in_x,
+w_in_z, conv_w, conv_b, x_proj, dt_proj, dt_bias, A_log, D, w_out},
+["norm2"], ["mlp": {w_in, [w_gate], w_out}] | ["moe": {router, w_in,
+[w_gate], w_out, [shared_in, shared_gate, shared_out]} (experts stacked
+on axis 0)]}, ...], ["mtp": {"layer", "proj" (2 D, D)}]}``; any matmul
+weight may be a ``{"q", "s"}`` int8 leaf.  Caches: one dict per layer;
+GQA ``k`` / ``v`` (B, S, KV, hd) (+ ``k_scale`` / ``v_scale``
+(B, S, KV, 1) when int8), MLA ``c`` (B, S, kv_lora + rope) (+
+``c_scale`` (B, S, 1)), mamba ``h`` (B, d_inner, d_state) float32 and
+``conv`` (B, d_conv - 1, d_inner).
 
-MLA and multi-token prediction (deepseek-v3), the encoder-decoder
-(seamless-m4t) and the modality frontends (internvl2) are not ported
-(ROADMAP Queue 1 item 14); :func:`check_supported` says so.
+Multi-token prediction (deepseek-v3's ``mtp_depth``): its parameters
+are built, converted and quantized as the reference's, but serving never
+reads them; their forward belongs to the training loss (``lm_loss``,
+ROADMAP Queue 1 item 16).  The encoder-decoder (seamless-m4t) and the
+modality frontends (internvl2) are not ported (item 14);
+:func:`check_supported` says so.
 """
 from __future__ import annotations
 
@@ -113,21 +120,22 @@ def build_segments(cfg: ModelConfig) -> List[Segment]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet: MLA, multi-token
-    prediction, the encoder-decoder and the modality frontends."""
+    """Raise for what the port does not run yet: the encoder-decoder and
+    the modality frontends."""
     missing = []
-    if cfg.attention is not None and cfg.attention.kind != "gqa":
-        missing.append("MLA attention")
     if cfg.is_encdec:
         missing.append("encoder-decoder")
     if cfg.frontend is not None and cfg.frontend.kind != "none":
         missing.append(f"the {cfg.frontend.kind} frontend")
-    if cfg.mtp_depth:
-        missing.append("multi-token prediction")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported (ROADMAP Queue 1 "
-            "item 14); the port runs GQA, MoE and Mamba decoder stacks")
+            "item 14); the port runs GQA, MLA, MoE and Mamba decoder "
+            "stacks")
+
+
+def _is_mla(cfg: ModelConfig) -> bool:
+    return cfg.attention is not None and cfg.attention.kind == "mla"
 
 
 # ---------------------------------------------------------------------------
@@ -141,7 +149,8 @@ def init_layer(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig,
     p: Dict[str, Any] = {
         "norm1": torch.zeros((cfg.d_model,), dtype=dtype, device=dev)}
     if spec.kind == "attn":
-        p["attn"] = attn_mod.init_gqa(gen, cfg, plan, dtype)
+        init = attn_mod.init_mla if _is_mla(cfg) else attn_mod.init_gqa
+        p["attn"] = init(gen, cfg, plan, dtype)
     else:
         p["mamba"] = ssm_mod.init_mamba(gen, cfg, plan, dtype)
     if spec.mlp != "none":
@@ -187,10 +196,9 @@ def apply_layer(p, x: torch.Tensor, spec: LayerSpec, cfg: ModelConfig,
     """Pre-norm residual layer.  Returns (x, cache)."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if spec.kind == "attn":
-        o, cache = attn_mod.gqa_forward(p["attn"], h, cfg, spec.pattern_idx,
-                                        plan, positions,
-                                        want_cache=want_cache,
-                                        kv_dtype=kv_dtype)
+        fwd = attn_mod.mla_forward if _is_mla(cfg) else attn_mod.gqa_forward
+        o, cache = fwd(p["attn"], h, cfg, spec.pattern_idx, plan, positions,
+                       want_cache=want_cache, kv_dtype=kv_dtype)
     else:
         o, cache = ssm_mod.mamba_forward(p["mamba"], h, cfg, plan,
                                          want_cache=want_cache)
@@ -202,9 +210,9 @@ def decode_layer(p, x: torch.Tensor, cache, pos: int, spec: LayerSpec,
                  kv_dtype: str = "bfloat16"):
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if spec.kind == "attn":
-        o, cache = attn_mod.gqa_decode(p["attn"], h, cache, pos, cfg,
-                                       spec.pattern_idx, plan,
-                                       kv_dtype=kv_dtype)
+        dec = attn_mod.mla_decode if _is_mla(cfg) else attn_mod.gqa_decode
+        o, cache = dec(p["attn"], h, cache, pos, cfg, spec.pattern_idx,
+                       plan, kv_dtype=kv_dtype)
     else:
         o, cache = ssm_mod.mamba_decode(p["mamba"], h, cache, cfg, plan)
     return _mlp_block(p, x + o, spec, cfg, plan), cache
@@ -225,8 +233,11 @@ def init_params(cfg: ModelConfig, plan: ShardingPlan,
     """Random params on ``gen``'s device: normal draws from ``gen`` in
     float32 (``dense_init``: / sqrt(fan_in); embedding: * 0.02), norms
     zero, biases zero, cast to ``dtype`` (``cfg.dtype`` by default).
-    The draws differ from the reference's ``jax.random`` ones; parity
-    tests carry the reference's params across instead."""
+    With ``cfg.mtp_depth`` the multi-token-prediction block ``"mtp"``
+    (a copy of the last layer's kind and a (2 D, D) ``proj``) is built
+    as the reference builds it; serving does not read it.  The draws
+    differ from the reference's ``jax.random`` ones; parity tests carry
+    the reference's params across instead."""
     check_supported(cfg)
     dtype = dtype or getattr(torch, cfg.dtype)
     dev = gen.device
@@ -239,6 +250,13 @@ def init_params(cfg: ModelConfig, plan: ShardingPlan,
                                     (cfg.d_model, cfg.vocab_size), dtype)
     params["layers"] = [init_layer(gen, spec, cfg, plan, dtype)
                         for spec in layer_specs(cfg)]
+    if cfg.mtp_depth > 0:
+        d = cfg.d_model
+        params["mtp"] = {
+            "layer": init_layer(gen, layer_spec(cfg, cfg.num_layers - 1),
+                                cfg, plan, dtype),
+            "proj": dense_init(gen, 2 * d, (2 * d, d), dtype),
+        }
     return params
 
 
@@ -303,13 +321,15 @@ def _to_ring(arr: torch.Tensor, seq_axis: int, s: int, ring: int
 def prepare_decode_caches(caches, cfg: ModelConfig, plan: ShardingPlan,
                           s: int, s_max: int):
     """Grow prefill caches (length s) to decode capacity (s_max), turning
-    sliding-window layers into their ring-buffer layout."""
+    sliding-window layers into their ring-buffer layout (MLA has no
+    window: its ``c`` caches grow along the sequence)."""
     out = []
     for spec, c in zip(layer_specs(cfg), caches):
         if spec.kind == "mamba":  # O(1) state: nothing grows
             out.append(c)
             continue
-        window = cfg.attention.layer_window(spec.pattern_idx)
+        window = (None if _is_mla(cfg)
+                  else cfg.attention.layer_window(spec.pattern_idx))
         target = s_max if window is None else attn_mod._ring_len(window,
                                                                  s_max)
         out.append({name: _to_ring(arr, 1, s, target)
@@ -355,6 +375,9 @@ def init_cache(cfg: ModelConfig, plan: ShardingPlan, batch: int, s_max: int,
     for spec in layer_specs(cfg):
         if spec.kind == "mamba":
             shapes = ssm_mod.mamba_cache_shape(cfg, plan, batch)
+        elif _is_mla(cfg):
+            shapes = attn_mod.mla_cache_shape(cfg, plan, batch, s_max,
+                                              kv_dtype)
         else:
             shapes = attn_mod.gqa_cache_shape(cfg, plan, batch, s_max,
                                               spec.pattern_idx, kv_dtype)

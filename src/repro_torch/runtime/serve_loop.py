@@ -1,15 +1,17 @@
 """Serving on torch — ``repro/runtime/serve_loop.py`` on one card.
 
 LM half: :func:`build_serve_program` gives prefill and one-token decode
-functions for a GQA, MoE or Mamba decoder stack (``models/transformer.py``;
-prefill attention runs the sliding-window Hopper kernel, the Mamba
-prefill the selective-scan kernel), and :func:`greedy_generate` drives
-them.  With ``cim_weights`` the matmul weights are int8 ``{"q", "s"}``
-leaves (Domino: 8-bit weights resident in the arrays; stacked (E, d, f)
-expert weights get a scale per expert and column), dequantized on use;
-the router and the Mamba ``conv_w``, ``A_log``, ``D`` and ``dt_bias``
-stay float.  ``kv_dtype="int8"`` keeps the KV cache in int8 (Mamba
-state stays float32).  The reference's mesh, ``shard_map`` and cache
+functions for a GQA, MLA, MoE or Mamba decoder stack
+(``models/transformer.py``; prefill attention runs the sliding-window
+Hopper kernel, the Mamba prefill the selective-scan kernel), and
+:func:`greedy_generate` drives them.  With ``cim_weights`` the matmul
+weights are int8 ``{"q", "s"}`` leaves (Domino: 8-bit weights resident
+in the arrays; stacked (E, d, f) expert weights get a scale per expert
+and column; MLA's projections and the MTP ``proj`` as the reference
+decides), dequantized on use; the router, the norms and the Mamba
+``conv_w``, ``A_log``, ``D`` and ``dt_bias`` stay float.
+``kv_dtype="int8"`` keeps the KV cache (MLA's latent ``c``) in int8
+(Mamba state stays float32).  The reference's mesh, ``shard_map`` and cache
 PartitionSpecs have no counterpart on one card (tp > 1 is ROADMAP
 Queue 1 item 15).
 
@@ -94,7 +96,10 @@ def quantize_params_for_serving(params, cfg: ModelConfig,
     """Quantize the selected matmul weights to int8 + a float32 scale
     per output column (``core/cim.py::quantize_symmetric`` over the
     contraction axis); the layers dequantize on use
-    (``models/common.py::resolve_w``)."""
+    (``models/common.py::resolve_w``).  A stacked (E, d, f) expert
+    weight is quantized one expert at a time: the same codes and
+    scales (each column's scale is its own), without a float32 copy of
+    the whole stack (15 GB for one of deepseek-v3's)."""
     from repro_torch.core.cim import quantize_symmetric
 
     if decisions is None:
@@ -106,6 +111,11 @@ def quantize_params_for_serving(params, cfg: ModelConfig,
         if isinstance(tree, list):
             return [one(v, path + (str(i),)) for i, v in enumerate(tree)]
         if decisions.get("/".join(path), False):
+            if tree.dim() > 2:  # a stack of experts, one at a time
+                parts = [quantize_symmetric(w.float(), 8, axis=-2)
+                         for w in tree]
+                return {"q": torch.stack([q for q, _ in parts]),
+                        "s": torch.stack([s for _, s in parts])}
             q, s = quantize_symmetric(tree.float(), 8, axis=-2)
             return {"q": q, "s": s}
         return tree

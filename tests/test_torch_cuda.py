@@ -573,6 +573,78 @@ def test_cuda_local_attention_odd_groups(h, kv, d, dtype):
                                        atol=tol)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_local_attention_mla_head_dims(dtype):
+    """deepseek-v3's MLA pair, q / k 192 wide against v 128, in both
+    kernels: S ragged against the tiles (37, 777, 2049), windows 1, 63,
+    65, 100, 513 and S, groups 1 and 4 (128 heads on 128 kv heads in the
+    model), soft cap off and 50.0; the output is 128 wide, one launch a
+    call."""
+    _needs_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(192)
+    tol = ATTN_TOL[dtype]
+    name = ("local_attention" if dtype == torch.bfloat16
+            else "local_attention_f32")
+    for s in (37, 777, 2049):
+        for group in (1, 4):
+            q = _normal(rng, (1, s, 2 * group, 192), dtype)
+            k = _normal(rng, (1, s, 2, 192), dtype)
+            v = _normal(rng, (1, s, 2, 128), dtype)
+            for window in (1, 63, 65, 100, 513, s):
+                for cap in (None, 50.0):
+                    before = LA.LAUNCHES[name]
+                    a = LA.grouped_local_attention(q, k, v, window=window,
+                                                   softcap=cap)
+                    b = LA.grouped_local_attention_plain(
+                        q, k, v, window=window, softcap=cap)
+                    torch.cuda.synchronize()
+                    assert a.shape == (1, s, 2 * group, 128)
+                    assert LA.LAUNCHES[name] == before + 1
+                    torch.testing.assert_close(a.float(), b.float(),
+                                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_local_attention_mla_strided_v(dtype):
+    """v as a strided view (a slice of a wider per-head tensor, as the
+    c w_uv product could be cut), read in place; k's rope columns a
+    broadcast copy of one head's, as the model builds them."""
+    _needs_card()
+    rng = np.random.default_rng(193)
+    name = ("local_attention" if dtype == torch.bfloat16
+            else "local_attention_f32")
+    s, h = 300, 4
+    q = _normal(rng, (2, s, h, 192), dtype)
+    k_rope = _normal(rng, (2, s, 1, 64), dtype)
+    k = torch.cat([_normal(rng, (2, s, h, 128), dtype),
+                   k_rope.expand(2, s, h, 64)], dim=-1)
+    wide = _normal(rng, (2, s, h, 256), dtype)
+    v = wide[..., 64:192]
+    assert not v.is_contiguous()
+    before = LA.LAUNCHES[name]
+    a = LA.grouped_local_attention(q, k, v, window=s)
+    b = LA.grouped_local_attention_plain(q, k, v, window=s)
+    torch.cuda.synchronize()
+    assert LA.LAUNCHES[name] == before + 1
+    torch.testing.assert_close(a.float(), b.float(), rtol=ATTN_TOL[dtype],
+                               atol=ATTN_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dqk,dv", [(192, 192), (128, 192), (256, 128)])
+def test_cuda_local_attention_rejects_unbuilt_head_dim_pair(dqk, dv):
+    _needs_card()
+    q = torch.zeros((1, 8, 2, dqk), device="cuda", dtype=torch.bfloat16)
+    v = torch.zeros((1, 8, 2, dv), device="cuda", dtype=torch.bfloat16)
+    before = dict(LA.LAUNCHES)
+    with pytest.raises(ValueError, match="head dims"):
+        LA.grouped_local_attention(q, q, v, window=4)
+    assert LA.LAUNCHES == before
+
+
 #: the scan kernel against its plain version: both round each multiply
 #: and add of the state apart (the kernel is built with -fmad=false); y's
 #: sums over d_state run in other orders (the kernel's with fused

@@ -13,8 +13,11 @@ layers), gemma2-27b reduced (attention and final soft caps), qwen2-0.5b
 reduced (QKV bias, silu), minitron-8b reduced (squared ReLU without a
 gate; an untied head, which the reference dequantizes to bfloat16),
 granite-moe-3b-a800m reduced (2 MoE layers, stacked), falcon-mamba-7b
-reduced (2 Mamba layers, stacked, untied head) and jamba-v0.1-52b
-reduced (one 8-layer cycle: Mamba, attention, dense and MoE MLPs).
+reduced (2 Mamba layers, stacked, untied head), jamba-v0.1-52b
+reduced (one 8-layer cycle: Mamba, attention, dense and MoE MLPs) and
+deepseek-v3-671b reduced (MLA with q/k 16 + 8 rope dims against v 16, a
+dense layer then an MoE layer with a shared expert, MTP params carried
+and quantized, not run).
 The prompt (12) is longer than the local layers' ring (9), and the
 decode steps wrap the ring.  Dropping MoE pairs, granite's GQA group
 of 3 and the Mamba block at the published state size are held in
@@ -65,7 +68,7 @@ TOL_INT8_KV = 2e-3
 ARCHS = {"gemma3-1b": (14, 1 << 14), "gemma2-27b": (None, 1),
          "qwen2-0.5b": (None, 1), "minitron-8b": (None, 1),
          "granite-moe-3b-a800m": (None, 1), "falcon-mamba-7b": (None, 1),
-         "jamba-v0.1-52b": (None, 1)}
+         "jamba-v0.1-52b": (None, 1), "deepseek-v3-671b": (None, 1)}
 
 
 def _configs(arch):
@@ -279,8 +282,7 @@ def test_serving_params_quantize_only_with_cim_weights():
     assert torch.is_tensor(served["embed"])
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b",
-                                  "seamless-m4t-large-v2", "internvl2-2b"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "internvl2-2b"])
 def test_unported_families_raise(arch):
     cfg = get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
@@ -308,7 +310,8 @@ def test_init_cache_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "granite-moe-3b-a800m",
-                                  "falcon-mamba-7b", "jamba-v0.1-52b"])
+                                  "falcon-mamba-7b", "jamba-v0.1-52b",
+                                  "deepseek-v3-671b"])
 def test_serve_cli_runs_on_cpu(arch, capsys):
     from repro_torch.launch.serve import main
 
