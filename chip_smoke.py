@@ -128,7 +128,8 @@ T. telemetry and chiplets: vgg11 served over 4 floret chiplets with a
    64, 128 and 256; S 37, 777 and 2049 (not multiples of the 64-key tile
    or the 128-row block); windows 1, 63, 65, 100, 513 and S; GQA groups
    1, 2, 4 and 8; soft cap off and 50.0; and granite's 24 / 8 heads at
-   head dim 64 and jamba's 32 / 8 at 128 (windows 65 and S); and the
+   head dim 64, jamba's 32 / 8 at 128, seamless-m4t's 16 / 16 at 64 and
+   internvl2's 16 / 8 at 128 (windows 65 and S); and the
    float32 kernel at its own edges: every head dim, S 63, 64, 65 and 129,
    windows 3, 4, 5, 7, 8, 9, 63, 64, 65 and S (its 4-key P V groups,
    8-row warps and 64-key tiles), groups 1 and 4, soft cap off
@@ -173,12 +174,30 @@ F. the MoE, Mamba and MLA LM families: granite-moe-3b-a800m and
    S 1, 17, 37, 48, 2049, d_inner 256, 200, 130 and 5, d_state 4 and
    16, with and without an initial state; its device time per
    falcon-mamba prefill beside its bound and its plain version's; the
-   phase's seconds.
+   phase's seconds;
+E. the encoder-decoder and the vision-language model at full width and
+   depth: seamless-m4t-large-v2 (24 + 24 layers) with LM_PROMPT random
+   speech frames a row and internvl2-2b (24 layers) with its 256 patch
+   embeddings, both drawn in bfloat16 (the params' dtype), served as in
+   phase F in both flavors.  Each counted generation: 24 launches of the
+   bfloat16 attention kernel (the decoder's causal self-attention;
+   seamless's encoder and cross-attention are plain bidirectional
+   blocks, no kernel) and nothing else; tokens in range, logits finite,
+   two prefills bit-equal, the plain-kernel prefill within
+   TOL_FAMILY_LOGITS, every bf16 kernel call of one prefill held against
+   its plain version; prefill ms, decode ms/token, tokens/s, busy share,
+   peak memory, device time by kernel.  One decoder launch of each timed
+   as in phase 9 (device time, bound, plain, SDPA ``is_causal``);
+   seamless's plain bidirectional attention (encoder and cross) by
+   device time and as a share of its prefill, beside SDPA without a
+   mask; then seamless cut to 2 + 2 layers and internvl2 to 4 in
+   float32 on the card and on the CPU as in phase 7; the phase's
+   seconds.
 
 The line before the last is the ``kernels`` JSON (a CIM variant's
 ``launches`` summed over the counted runs of phases 2 and M, its
 times phase 4's, per vgg11 batch; the bfloat16 attention kernel's
-launches those of phases 5 and F, its times phase 9's; the scan's
+launches those of phases 5, F and E, its times phase 9's; the scan's
 launches those of phase F, its times per falcon-mamba prefill); the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -281,9 +300,11 @@ TOL_SMALL = {"bfloat16": 1e-3, "int8": 5e-3}
 #: kernel vs plain version, rtol = atol: float32 as the reference holds
 #: its kernel to its oracle; bfloat16 one ulp (2^-8) and then some
 TOL_ATTN = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
-#: phase 8's GQA shapes of the phase-F models, (query heads, kv heads,
-#: head dim): granite's group of 3 and jamba's group of 4
-ATTN_FAMILY_SHAPES = ((24, 8, 64), (32, 8, 128))
+#: phase 8's GQA shapes of the phase-F and phase-E models, (query heads,
+#: kv heads, head dim): granite's group of 3, jamba's group of 4,
+#: seamless-m4t's decoder (group 1 at 64) and internvl2 (group 2 at 128)
+ATTN_FAMILY_SHAPES = ((24, 8, 64), (32, 8, 128), (16, 16, 64),
+                      (16, 8, 128))
 #: phase 8's grid at the float32 kernel's own edges: S on each side of
 #: its 64-row blocks and 64-key tiles, windows on each side of its 4-key
 #: P V groups, 8-row warps and 64-key tiles
@@ -305,6 +326,10 @@ FAMILY_LAYERS = {"granite-moe-3b-a800m": None, "falcon-mamba-7b": None,
 #: launches of each kernel in one generation (the prefill; decode
 #: launches none)
 FAMILY_LAUNCHES = {
+    "seamless-m4t-large-v2": {"local_attention": 24,
+                              "local_attention_f32": 0, "selective_scan": 0},
+    "internvl2-2b": {"local_attention": 24, "local_attention_f32": 0,
+                     "selective_scan": 0},
     "granite-moe-3b-a800m": {"local_attention": 32,
                              "local_attention_f32": 0, "selective_scan": 0},
     "falcon-mamba-7b": {"local_attention": 0, "local_attention_f32": 0,
@@ -337,10 +362,34 @@ FAMILY_SMALL_LAYERS = {"granite-moe-3b-a800m": 4, "falcon-mamba-7b": 4,
 #: logits, and a near-tie in its top-8 of 256 can flip an expert of
 #: renormalized weight about 1/8, which moves the logits by a few
 #: hundredths of their spread: granite's bounds.
-TOL_FAMILY_LOGITS = {"granite-moe-3b-a800m": (0.5, 0.05),
+#: seamless-m4t and internvl2 (phase E; stated before their first run on
+#: the card): only the 24 causal self-attention layers go through the
+#: kernel (seamless's encoder and cross-attention are the same plain
+#: blocks in both runs), which rounds as gemma3's does (26 layers
+#: measured 0.082 max, 0.0126 mean); the bounds leave gemma3's margin
+#: for the other logit spread of a tied (seamless, embeddings scaled by
+#: 0.02) and an untied head (internvl2): falcon-mamba's bounds.
+TOL_FAMILY_LOGITS = {"seamless-m4t-large-v2": (0.25, 0.05),
+                     "internvl2-2b": (0.25, 0.05),
+                     "granite-moe-3b-a800m": (0.5, 0.05),
                      "falcon-mamba-7b": (0.25, 0.05),
                      "jamba-v0.1-52b": (2.0, 0.1),
                      "deepseek-v3-671b": (0.5, 0.05)}
+#: phase E: the encoder-decoder and the vision-language model at the
+#: published widths and depths, served as in phase F: seamless-m4t-large-
+#: v2 (24 + 24 layers, 1.77 G parameters, 3.5 GB in bfloat16) with
+#: LM_PROMPT random speech frames (1024 wide) a row, as the reference's
+#: serving CLI draws them, and internvl2-2b (24 layers, 1.89 G, 3.8 GB)
+#: with its 256 patch embeddings; the extras in the params' dtype (with
+#: bfloat16 params the reference's decoder refuses float32 frames, and
+#: float32 patch embeddings would run internvl2's stream in float32)
+E_ARCHS = ("seamless-m4t-large-v2", "internvl2-2b")
+#: phase E's card-against-CPU check in float32: seamless 2 + 2 layers,
+#: internvl2 4 (SMALL_PROMPT holds its 256 patch tokens)
+E_SMALL_LAYERS = {"seamless-m4t-large-v2": 2, "internvl2-2b": 4}
+#: phase E's encoder-decoder, whose plain bidirectional attention is
+#: timed beside SDPA without a mask
+ENCDEC_ARCH = "seamless-m4t-large-v2"
 #: phase F's MLA model: its prefill's attention calls, at the kernel's
 #: (192, 128) head dims, are held against the plain version over phase
 #: 8's grid and timed as in phase 9
@@ -1695,18 +1744,42 @@ def telemetry_phase(km, calls_per_batch, wall_flat, card):
 def lm_program(cfg, batch, prompt, gen, kv_dtype, cim, device, dtype):
     """(serve program, serving params, prompt batch): random weights and
     prompt from a generator on ``device`` seeded with SEED, so the two
-    flavors serve the same weights (the int8 one quantizes them)."""
-    from repro_torch.models import transformer as T
+    flavors serve the same weights (the int8 one quantizes them).  An
+    encoder-decoder's prompt also carries ``prompt`` random frames a
+    row, a ``vit_stub`` model's its patch embeddings, drawn after the
+    tokens in ``dtype``, the params' dtype."""
     from repro_torch.runtime.serve_loop import build_serve_program
 
     prog = build_serve_program(cfg, batch=batch, s_max=prompt + gen + 1,
                                kv_dtype=kv_dtype, cim_weights=cim,
                                device=device)
     gen_ = torch.Generator(device=prog.device).manual_seed(SEED)
-    params = prog.serving_params(T.init_params(cfg, prog.plan, gen_, dtype))
+    params = prog.serving_params(prog.init_params(gen_, dtype))
     tokens = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen_,
                            device=prog.device)
-    return prog, params, {"tokens": tokens}
+    out = {"tokens": tokens}
+    fe = cfg.frontend
+    if cfg.is_encdec or (fe is not None and fe.kind == "vit_stub"):
+        key, n = (("frames", prompt) if cfg.is_encdec
+                  else ("patch_embeds", fe.num_tokens))
+        out[key] = torch.randn((batch, n, fe.embed_dim), generator=gen_,
+                               device=prog.device).to(dtype)
+    return prog, params, out
+
+
+def warm_batch(batch, n: int = 128):
+    """A short prompt of ``batch`` for warming the card: the first ``n``
+    tokens (and frames) after the patch embeddings, which it keeps."""
+    n += batch["patch_embeds"].shape[1] if "patch_embeds" in batch else 0
+    return {k: (v if k == "patch_embeds" else v[:, :n])
+            for k, v in batch.items()}
+
+
+def depth(cfg) -> str:
+    """``cfg``'s layers, an encoder-decoder's as encoder + decoder."""
+    if cfg.is_encdec:
+        return f"{cfg.encoder_layers} + {cfg.num_layers}"
+    return f"{cfg.num_layers}"
 
 
 def to_device(tree, dev):
@@ -1757,7 +1830,7 @@ def lm_serving(la):
                                          kv_dtype, cim, "cuda",
                                          torch.bfloat16)
         # warm the card (cuBLAS handles, allocator, the kernel library)
-        greedy_generate(prog, params, {"tokens": batch["tokens"][:, :128]}, 2)
+        greedy_generate(prog, params, warm_batch(batch), 2)
         torch.cuda.synchronize()
         log(f"[lm] {cfg.name} {name}: {cfg.num_layers} layers, d_model "
             f"{cfg.d_model}, vocab {cfg.vocab_size}; set up in "
@@ -1941,7 +2014,7 @@ def lm_reduced_vs_cpu(cfg, label: str = "lm-small"):
                                        kv_dtype=kv_dtype, cim_weights=cim,
                                        device="cpu")
         tok_cpu, seen_cpu = logged(cpu_prog, to_device(params, "cpu"),
-                                   {"tokens": batch["tokens"].cpu()})
+                                   to_device(batch, "cpu"))
         errs = []
         for i, (a, b) in enumerate(zip(seen_card, seen_cpu)):
             tol = TOL_SMALL["bfloat16" if i == 0 else kv_dtype]
@@ -1953,7 +2026,7 @@ def lm_reduced_vs_cpu(cfg, label: str = "lm-small"):
         check(torch.equal(tok_card.cpu(), tok_cpu),
               f"{cfg.name} {name} reduced: tokens {tok_card.tolist()} on "
               f"the card, {tok_cpu.tolist()} on the CPU")
-        log(f"[{label}] {cfg.name} {name}: {cfg.num_layers} layers, "
+        log(f"[{label}] {cfg.name} {name}: {depth(cfg)} layers, "
             f"d_model {cfg.d_model}, prompt {SMALL_PROMPT}, {SMALL_GEN} "
             f"tokens, float32 (TF32 off): tokens equal "
             f"{tok_cpu[0].tolist()}; max |logit diff| per step "
@@ -2209,12 +2282,13 @@ def time_attention(la, calls, card, reps: int = 10):
 
 
 def family_config(arch: str, layers=None):
-    """Phase F's config of ``arch``: the published widths, cut in depth
-    to ``layers`` (``FAMILY_LAYERS[arch]`` by default, None: uncut), with
-    no multi-token-prediction block (serving never reads it)."""
+    """Phase F's (or E's) config of ``arch``: the published widths, cut in
+    depth to ``layers`` (``FAMILY_LAYERS[arch]`` by default; None or
+    absent: uncut), with no multi-token-prediction block (serving never
+    reads it)."""
     from repro_torch.configs import get_config
 
-    layers = FAMILY_LAYERS[arch] if layers is None else layers
+    layers = FAMILY_LAYERS.get(arch) if layers is None else layers
     cfg = dataclasses.replace(get_config(arch), mtp_depth=0)
     if layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=layers)
@@ -2344,10 +2418,11 @@ def scan_work(dt, x, b, c, a, d, h0=None):
     return ops, nbytes
 
 
-def family_serving(la, ss, arch: str, card):
-    """Phase F, one model: served at full width in both flavors.
-    Returns per-flavor results and the kernels' launches of the counted
-    runs."""
+def family_serving(la, ss, arch: str, card, label: str = "F"):
+    """Phase F (or E), one model: served at full width in both flavors.
+    Returns per-flavor results, the kernels' launches of the counted
+    runs, each kernel's largest |diff| from its plain version and the
+    first kernel calls of a bf16 prefill."""
     from repro_torch.runtime.serve_loop import greedy_generate
 
     cfg = family_config(arch)
@@ -2361,9 +2436,9 @@ def family_serving(la, ss, arch: str, card):
                                          kv_dtype, cim, "cuda",
                                          torch.bfloat16)
         # warm the card (cuBLAS handles, allocator, the kernel libraries)
-        greedy_generate(prog, params, {"tokens": batch["tokens"][:, :128]}, 2)
+        greedy_generate(prog, params, warm_batch(batch), 2)
         torch.cuda.synchronize()
-        log(f"[F] {arch} {name}: {cfg.num_layers} layers, d_model "
+        log(f"[{label}] {arch} {name}: {depth(cfg)} layers, d_model "
             f"{cfg.d_model}, vocab {cfg.vocab_size}, {n_params(params)} "
             f"served tensor elements; set up in "
             f"{time.perf_counter() - t0:.1f} s")
@@ -2399,9 +2474,10 @@ def family_serving(la, ss, arch: str, card):
             ref_logits, _ = prog.prefill_fn(params, batch)
         torch.cuda.synchronize()
         diff = (logits - ref_logits).abs()
-        log(f"[F] {arch} {name}: kernels vs plain versions, prefill logits "
-            f"max |diff| {diff.max().item():.6f} (tolerance {max_tol}), "
-            f"mean {diff.mean().item():.6f} (tolerance {mean_tol}); first "
+        log(f"[{label}] {arch} {name}: kernels vs plain versions, prefill "
+            f"logits max |diff| {diff.max().item():.6f} (tolerance "
+            f"{max_tol}), mean {diff.mean().item():.6f} (tolerance "
+            f"{mean_tol}); first "
             f"tokens {torch.argmax(logits, -1).tolist()} vs "
             f"{torch.argmax(ref_logits, -1).tolist()} (not checked in "
             f"bfloat16)")
@@ -2410,7 +2486,7 @@ def family_serving(la, ss, arch: str, card):
         if cfg.moe is not None:
             (cap_p, drop_p, n_p), (cap_d, drop_d, n_d) = moe_drops(
                 prog, params, batch)
-            log(f"[F] {arch} {name}: MoE capacity {sorted(cap_p)} per "
+            log(f"[{label}] {arch} {name}: MoE capacity {sorted(cap_p)} per "
                 f"expert in a prefill, {sorted(cap_d)} in a decode step; "
                 f"(token, k) pairs dropped: {drop_p} of {n_p} in one "
                 f"prefill, {drop_d} of {n_d} in one decode step")
@@ -2435,7 +2511,7 @@ def family_serving(la, ss, arch: str, card):
             tok_s=LM_BATCH / float(np.median(dec)),
             max_logit_diff=diff.max().item(),
             mean_logit_diff=diff.mean().item())
-        log(f"[F] {arch} {name}: launches {counts}; prefill ms "
+        log(f"[{label}] {arch} {name}: launches {counts}; prefill ms "
             f"{[round(v, 3) for v in results[name]['prefill_ms']]} (median "
             f"{np.median(results[name]['prefill_ms']):.3f}); decode "
             f"ms/token {[round(v, 4) for v in results[name]['decode_ms']]} "
@@ -2541,11 +2617,13 @@ def check_mla_attention(la, calls):
     return {name: max(worst_main[name], worst[name]) for name in names}
 
 
-def time_mla_attention(la, call, card, reps: int = 20):
-    """Phase 9 at deepseek-v3's MLA head dims: one prefill call of each
-    kernel (q (4, 2048, 128, 192), v (4, 2048, 128, 128), full causal) as
+def time_full_causal(la, call, what: str, card, reps: int = 20):
+    """Phase 9 at one full-causal prefill call of a phase-F or phase-E
+    model (deepseek-v3's q (4, 2048, 128, 192) against v (4, 2048, 128,
+    128); seamless-m4t's decoder and internvl2's layers): each kernel's
     device time, beside the plain version, SDPA with ``is_causal=True``
-    (exactly its function) and the bound.  Returns the rows by kernel."""
+    (exactly its function; k and v repeated over their query groups) and
+    the bound.  Returns the rows by kernel."""
     import torch.nn.functional as F
 
     def kernel(q, k, v, window, cap):
@@ -2579,7 +2657,10 @@ def time_mla_attention(la, call, card, reps: int = 20):
             # SDPA's device time, and CUDA events around back-to-back
             # calls: the profiler may not record every launch of a run,
             # and SDPA's kernels are not known by name beforehand
-            qkv = tuple(t.transpose(1, 2).contiguous() for t in args[:3])
+            group = q.shape[2] // k.shape[2]
+            qkv = tuple(t.repeat_interleave(r, dim=2).transpose(1, 2)
+                        .contiguous()
+                        for t, r in zip(args[:3], (1, group, group)))
             try:
                 row["library_causal_ms"] = device_ms(library_causal, [qkv],
                                                      reps)
@@ -2588,13 +2669,13 @@ def time_mla_attention(la, call, card, reps: int = 20):
                 profile_device(lambda: library_causal(*qkv),
                                f"SDPA is_causal, {dtype}", keys=())
             except RuntimeError as e:  # a yardstick; the kernel is timed
-                log(f"[time] SDPA is_causal at the MLA head dims: {e}")
+                log(f"[time] SDPA is_causal at {what}: {e}")
                 row["library_causal_ms"] = None
             del qkv
         row["tflops_unmasked"] = ops / row["ms"] / 1e9
         row["tflops_computed"] = computed / row["ms"] / 1e9
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
-        log(f"[time] {name} one MLA prefill launch, q {tuple(q.shape)} v "
+        log(f"[time] {name} one {what} prefill launch, q {tuple(q.shape)} v "
             f"{tuple(v.shape)} {dtype}, window {window}: {row} "
             f"({ops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB) on {card}")
         out[name] = row
@@ -2653,7 +2734,7 @@ def families_phase(la, ss, card):
     # phases 8 and 9 at the MLA head dims, on deepseek's prefill calls
     for key, v in check_mla_attention(la, mla_calls).items():
         worst[key] = max(worst.get(key, 0.0), v)
-    time_mla_attention(la, mla_calls[0], card)
+    time_full_causal(la, mla_calls[0], "MLA", card)
     del mla_calls
 
     # the scan's times: the first call of one falcon-mamba bf16 prefill,
@@ -2684,6 +2765,108 @@ def families_phase(la, ss, card):
         f"plain {plain_ms:.4f} ms on {card}")
     log(f"[F] phase F: {time.perf_counter() - t_phase:.1f} s on {card}")
     return row, launches["local_attention"], worst
+
+
+def bidirectional_times(card, reps: int = 10):
+    """Phase E on seamless-m4t's bf16 prefill: the plain bidirectional
+    attention's calls (24 in the encoder, 24 cross-attentions over the
+    memory) by device time, one of each timed ``reps`` times, beside the
+    whole prefill's device time, and SDPA without a mask on the
+    encoder's call (a yardstick only).  Returns the plain attention's
+    share of the prefill's device time."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import common
+
+    cfg = family_config(ENCDEC_ARCH)
+    prog, params, batch = lm_program(cfg, LM_BATCH, LM_PROMPT, LM_GEN,
+                                     "bfloat16", False, "cuda",
+                                     torch.bfloat16)
+    real, calls = common.bidirectional_attention, []
+
+    def recorder(q, k, v, *, logit_softcap=None):
+        calls.append((q, k, v))
+        return real(q, k, v, logit_softcap=logit_softcap)
+
+    with Swapped((common, "bidirectional_attention", recorder)):
+        prog.prefill_fn(params, batch)
+    torch.cuda.synchronize()
+    n_enc = cfg.encoder_layers
+    check(len(calls) == n_enc + cfg.num_layers,
+          f"{ENCDEC_ARCH}: {len(calls)} bidirectional attention calls in a "
+          f"prefill, want {n_enc} + {cfg.num_layers}")
+    enc, cross = calls[0], calls[n_enc]
+    del calls
+    prefill_ms = device_ms(lambda: prog.prefill_fn(params, batch), [()], 1)
+    enc_ms = device_ms(lambda *a: real(*a), [enc], reps)
+    cross_ms = device_ms(lambda *a: real(*a), [cross], reps)
+    plain_ms = n_enc * enc_ms + cfg.num_layers * cross_ms
+    qkv = tuple(t.transpose(1, 2).contiguous() for t in enc)
+    sdpa_ms = device_ms(lambda *a: F.scaled_dot_product_attention(*a), [qkv],
+                        reps)
+    sdpa_event_ms = event_ms(lambda *a: F.scaled_dot_product_attention(*a),
+                             [qkv], reps)
+    share = plain_ms / prefill_ms
+    log(f"[E] {ENCDEC_ARCH} bf16 prefill: {prefill_ms:.3f} ms of device "
+        f"time; plain bidirectional attention, encoder q "
+        f"{tuple(enc[0].shape)} against k {tuple(enc[1].shape)}: "
+        f"{enc_ms:.4f} ms a call; cross-attention q {tuple(cross[0].shape)} "
+        f"against the memory's k {tuple(cross[1].shape)}: {cross_ms:.4f} ms "
+        f"a call; {plain_ms:.3f} ms over the {n_enc} + {cfg.num_layers} "
+        f"calls, {100 * share:.1f}% of the prefill; SDPA without a mask at "
+        f"the encoder's call {sdpa_ms:.4f} ms ({sdpa_event_ms:.4f} by CUDA "
+        f"events; a yardstick, not used) on {card}")
+    del prog, params, batch, enc, cross, qkv
+    torch.cuda.empty_cache()
+    return share
+
+
+def encdec_vlm_phase(la, ss, card):
+    """Phase E: seamless-m4t-large-v2 and internvl2-2b at full width and
+    depth in both flavors, served as phase F serves its models; one
+    decoder launch of each timed as in phase 9; seamless's plain
+    bidirectional attention beside its prefill; the card against the CPU
+    in float32, cut in depth.  Returns the bfloat16 attention kernel's
+    launches in the counted runs and each kernel's largest |diff| from
+    its plain version."""
+    t_phase = time.perf_counter()
+    launches, worst = 0, {}
+    for arch in E_ARCHS:
+        res, counted, worst_a, first = family_serving(la, ss, arch, card, "E")
+        launches += counted["local_attention"]
+        for key, v in worst_a.items():
+            worst[key] = max(worst.get(key, 0.0), v)
+        n = FAMILY_LAUNCHES[arch]["local_attention"]
+        ops, nbytes = attn_work(*first["attn"])
+        found = res["profile"]["kernels"] or {}
+        dev = found.get("tc::attn_kernel", (None, None))
+        bound = n * max(ops / PEAK_BF16_OPS, nbytes / PEAK_BYTES)
+        log(f"[E] {arch}: bfloat16 attention, q "
+            f"{tuple(first['attn'][0].shape)}: {dev[0]} launches, {dev[1]} us "
+            f"of device time in one prefill; bound {bound * 1e3:.4f} ms for "
+            f"its {n} launches on {card}")
+        log(f"[E] {arch}: prefill ms / decode ms per token / tokens per s "
+            "(medians): " + "; ".join(
+                f"{k} {np.median(v['prefill_ms']):.3f} / "
+                f"{np.median(v['decode_ms']):.4f} / {v['tok_s']:.1f}"
+                for k, v in res.items() if k != "profile")
+            + f"; busy {res['profile']['busy']} in a bf16 prefill on {card}")
+        call = first["attn_calls"][0]
+        del first
+        time_full_causal(la, call, arch, card)
+        del call
+        torch.cuda.empty_cache()
+    bidirectional_times(card)
+    log(f"[E] main-path calls vs plain versions: max |diff| {worst}")
+    t0 = time.perf_counter()
+    for arch, n in E_SMALL_LAYERS.items():
+        cfg = family_config(arch, n)
+        if cfg.is_encdec:
+            cfg = dataclasses.replace(cfg, encoder_layers=n)
+        lm_reduced_vs_cpu(cfg, "E-small")
+    log(f"[E] card against CPU: {time.perf_counter() - t0:.1f} s")
+    log(f"[E] phase E: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches, worst
 
 
 def main() -> int:
@@ -2802,12 +2985,14 @@ def main() -> int:
                     f"{np.median(v['decode_ms']):.4f} / {v['tok_s']:.1f}"
                     for k, v in lm.items()) + f" on {card}")
     scan_row, family_attn, worst_family = families_phase(la, ss, card)
-    # phases 5 and 6 (gemma3) and phase F's counted runs
+    e_attn, worst_e = encdec_vlm_phase(la, ss, card)
+    # phases 5 and 6 (gemma3) and the counted runs of phases F and E
     launches_attn = {"local_attention": lm["bf16"]["launches"]
-                     + family_attn,
+                     + family_attn + e_attn,
                      "local_attention_f32": f32_launches}
     for name in worst_attn:
-        worst_attn[name] = max(worst_attn[name], worst_family.get(name, 0.0))
+        worst_attn[name] = max(worst_attn[name], worst_family.get(name, 0.0),
+                               worst_e.get(name, 0.0))
     for name, row in attn.items():
         kernels.append({
             "name": name, "route": "cuda", "source": ATTN_SOURCE,

@@ -5,7 +5,8 @@ The reference keeps CNN params as numpy / jax arrays (name -> HWIO conv
 kernel or (C_in, C_out) FC matrix, or a ``{"q", "s"}`` quantized leaf);
 the port keeps the same layout as tensors on a device.  LM params and
 caches are segment-stacked in the reference and a per-layer list in the
-port (``models/transformer.py``).  Nothing here imports the reference:
+port (``models/transformer.py``); an encoder-decoder's stacks and caches
+likewise (``models/encdec.py``).  Nothing here imports the reference:
 it reads plain arrays and duck-typed engines.
 """
 from __future__ import annotations
@@ -80,6 +81,36 @@ def lm_caches_from_reference(caches_np, cfg, device=None) -> List[Any]:
     """The reference's LM caches (per segment, per cycle position,
     stacked over the repeat count) as the port's per-layer list."""
     return _unstack(caches_np, cfg, resolve_device(device))
+
+
+def _layers(stacked, n: int, dev: torch.device) -> List[Any]:
+    """A tree whose leaves are stacked over ``n`` layers as ``n`` trees,
+    one per layer."""
+    return [_tensors(stacked, dev, i) for i in range(n)]
+
+
+def encdec_params_from_reference(params_np: Dict[str, Any], cfg,
+                                 device=None) -> Dict[str, Any]:
+    """The reference's encoder-decoder params (``models/encdec.py``,
+    numpy or ``{"q", "s"}`` leaves) in the port's layout on ``device``:
+    the stacked ``"encoder"`` and ``"decoder"`` become lists with one
+    dict per layer, same dtypes."""
+    dev = resolve_device(device)
+    out = {k: _tensors(v, dev) for k, v in params_np.items()
+           if k not in ("encoder", "decoder")}
+    out["encoder"] = _layers(params_np["encoder"], cfg.encoder_layers, dev)
+    out["decoder"] = _layers(params_np["decoder"], cfg.num_layers, dev)
+    return out
+
+
+def encdec_caches_from_reference(caches_np, cfg, device=None):
+    """The reference's ``(self, cross)`` encoder-decoder caches, each
+    stacked over the decoder layers, as the port's ``(self, cross)``
+    per-layer lists."""
+    dev = resolve_device(device)
+    self_c, cross_c = caches_np
+    return (_layers(self_c, cfg.num_layers, dev),
+            _layers(cross_c, cfg.num_layers, dev))
 
 
 def copy_calibration(ref_engine, engine):

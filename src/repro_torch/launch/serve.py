@@ -13,11 +13,17 @@ deepseek-v3-671b (MLA + MoE; at ``--full`` its 61 layers hold 671 G
 parameters, 1.3 TB in bfloat16, far more than one card: ``chip_smoke.py``
 serves its first 4 layers at full width).  deepseek's multi-token
 prediction block is built with the weights but not run: serving never
-reads it.
+reads it.  seamless-m4t-large-v2 (encoder-decoder) gets random speech
+frames (batch, prompt-len, 1024) and internvl2-2b (``vit_stub``) random
+patch embeddings (batch, 256, 1024), as the reference's CLI draws them,
+but in the params' dtype: with bfloat16 params the reference's decoder
+refuses float32 frames, and float32 patch embeddings would turn
+internvl2's whole stream float32.  internvl2's prompt must hold its
+patch tokens, so its ``--prompt-len`` defaults to their number + 32.
 Weights are random, from the port's ``init_params`` with a generator
-seeded with 0; the prompt is random token ids from the same generator.
-Without ``--full`` the arch's reduced config runs.  ``--device cpu``
-runs on the CPU (the kernels' plain versions).
+seeded with 0; the prompt and the extras are random draws from the same
+generator.  Without ``--full`` the arch's reduced config runs.
+``--device cpu`` runs on the CPU (the kernels' plain versions).
 """
 from __future__ import annotations
 
@@ -30,7 +36,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--prompt-len", type=int, default=None,
+                    help="prompt tokens (default 32, or a vit_stub "
+                    "frontend's patch tokens + 32 when more)")
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--kv-dtype", default="bfloat16",
                     choices=["bfloat16", "int8"])
@@ -43,7 +51,6 @@ def main(argv=None) -> int:
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.models import transformer as T
     from repro_torch.runtime.serve_loop import (
         build_serve_program,
         greedy_generate,
@@ -52,6 +59,11 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    fe = cfg.frontend if cfg.frontend and cfg.frontend.kind != "none" \
+        else None
+    if args.prompt_len is None:
+        n_img = fe.num_tokens if fe and fe.kind == "vit_stub" else 0
+        args.prompt_len = 32 if n_img < 32 else n_img + 32
     s_max = args.prompt_len + args.gen + 1
     prog = build_serve_program(cfg, batch=args.batch, s_max=s_max,
                                kv_dtype=args.kv_dtype,
@@ -59,10 +71,16 @@ def main(argv=None) -> int:
                                quant_min_size=1 if args.reduced else 1 << 14,
                                device=args.device)
     gen = torch.Generator(device=prog.device).manual_seed(0)
-    params = prog.serving_params(T.init_params(cfg, prog.plan, gen))
+    params = prog.serving_params(prog.init_params(gen))
     batch = {"tokens": torch.randint(
         0, cfg.vocab_size, (args.batch, args.prompt_len), generator=gen,
         device=prog.device)}
+    if fe is not None:
+        n = args.prompt_len if cfg.is_encdec else fe.num_tokens
+        key = "frames" if cfg.is_encdec else "patch_embeds"
+        batch[key] = torch.randn(
+            (args.batch, n, fe.embed_dim), generator=gen,
+            device=prog.device).to(params["embed"].dtype)
 
     def sync():
         if prog.device.type == "cuda":

@@ -78,10 +78,12 @@ def init_gqa(gen: torch.Generator, cfg: ModelConfig, plan: ShardingPlan,
 
 def gqa_forward(p, x: torch.Tensor, cfg: ModelConfig, layer_idx: int,
                 plan: ShardingPlan, positions: torch.Tensor,
-                want_cache: bool = False, kv_dtype: str = "bfloat16"):
+                want_cache: bool = False, kv_dtype: str = "bfloat16",
+                causal: bool = True):
     """x: (B, S, D) -> (out (B, S, D), cache | None).  ``layer_idx`` is
-    the layer's index into the attention pattern (window selection).
-    The reference's ``_gqa_core`` without its tp > 1 branches."""
+    the layer's index into the attention pattern (window selection);
+    ``causal=False`` is the encoder's bidirectional self-attention.  The
+    reference's ``_gqa_core`` without its tp > 1 branches."""
     a = cfg.attention
     hd = a.head_dim
     b, s = x.shape[:2]
@@ -91,7 +93,8 @@ def gqa_forward(p, x: torch.Tensor, cfg: ModelConfig, layer_idx: int,
     q = rope(q, positions, a.rope_theta)
     k = rope(k, positions, a.rope_theta)
 
-    o = flash_attention(q, k, v, window=a.layer_window(layer_idx),
+    o = flash_attention(q, k, v, causal=causal,
+                        window=a.layer_window(layer_idx),
                         logit_softcap=a.softcap)
     out = local_linear(o.reshape(b, s, a.num_heads * hd), p["wo"])
 
@@ -128,6 +131,14 @@ def gqa_decode(p, x: torch.Tensor, cache, pos: int, cfg: ModelConfig,
     window = a.layer_window(layer_idx)
     s_max = cache["k"].shape[1]
     slot = pos if window is None else pos % _ring_len(window, s_max)
+    if kv_dtype != "int8" and cache["k"].dtype != k_new.dtype:
+        # the reference's dynamic_update_slice refuses the mix (a float32
+        # cache from a prefill over float32 patch embeddings, and a
+        # bfloat16 decode stream); the port does not cast it away
+        raise ValueError(
+            f"a {cache['k'].dtype} KV cache cannot take a {k_new.dtype} "
+            "key: the prefill's stream and the decode stream differ in "
+            "dtype")
     if kv_dtype == "int8":
         kq, ks = quantize_kv(k_new)
         vq, vs = quantize_kv(v_new)

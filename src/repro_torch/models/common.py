@@ -73,10 +73,18 @@ def resolve_w(w, like: Optional[torch.Tensor] = None) -> torch.Tensor:
 def local_linear(x: torch.Tensor, w, bias=None) -> torch.Tensor:
     """``x @ w`` (+ bias) in x's dtype.  The reference accumulates in
     float32 and rounds once; in bfloat16 the product here is rounded once
-    before a float32 bias add."""
-    y = torch.matmul(x, resolve_w(w, x))
+    before a float32 bias add.  Operands of two dtypes multiply in the
+    promoted one, as the reference's einsum promotes them (a float32
+    frame against a bfloat16 weight), and the result is rounded to x's
+    dtype."""
+    w = resolve_w(w, x)
+    if w.dtype != x.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        y = torch.matmul(x.to(dt), w.to(dt))
+    else:
+        y = torch.matmul(x, w)
     if bias is None:
-        return y
+        return y.to(x.dtype)
     return (y.float() + bias).to(x.dtype)
 
 
@@ -144,23 +152,68 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Flash attention (the sliding-window kernel)
+# Flash attention (the sliding-window kernel; plain bidirectional blocks)
 # ---------------------------------------------------------------------------
+
+#: query rows per block of the bidirectional attention, as the
+#: reference's ``block_q``: one block's float32 scores are (B, H, 512,
+#: S_kv), 268 MB at batch 4, 16 heads and 2048 keys
+BLOCK_Q = 512
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: Optional[int] = None,
+                    causal: bool = True, window: Optional[int] = None,
                     logit_softcap: Optional[float] = None) -> torch.Tensor:
-    """Causal self-attention of q (B, S, H, DQK) over k (B, S, KV, DQK)
-    and v (B, S, KV, DV), H a multiple of KV, through the sliding-window
-    kernel (``kernels/local_attention.py``); the output is
-    (B, S, H, DV), scaled by ``DQK^-0.5`` as the reference's (MLA's v
-    head dim differs from its q/k one).  A local layer passes its
-    window; a global layer (``window=None``) runs it with
-    ``window = S``, which is full causal attention."""
+    """Attention of q (B, S, H, DQK) over k (B, S_kv, KV, DQK) and v
+    (B, S_kv, KV, DV), H a multiple of KV; the output is (B, S, H, DV),
+    scaled by ``DQK^-0.5`` as the reference's (MLA's v head dim differs
+    from its q/k one).
+
+    Causal self-attention goes through the sliding-window kernel
+    (``kernels/local_attention.py``): a local layer passes its window; a
+    global layer (``window=None``) runs it with ``window = S``, which is
+    full causal attention.  ``causal=False`` (the encoder's
+    self-attention and cross-attention over the encoder's memory) has no
+    TPU kernel (the Pallas kernel always masks ``k <= q``): it runs
+    :func:`bidirectional_attention`, the reference's plain blocks."""
+    if not causal:
+        if window is not None:
+            raise ValueError(
+                "bidirectional attention with a window: the reference "
+                "slices window + block_q keys per block, which no config "
+                "uses and the port does not mirror")
+        return bidirectional_attention(q, k, v, logit_softcap=logit_softcap)
     return attention_kernel.grouped_local_attention(
         q, k, v, window=k.shape[1] if window is None else window,
         softcap=logit_softcap)
+
+
+def bidirectional_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *,
+                            logit_softcap: Optional[float] = None
+                            ) -> torch.Tensor:
+    """The reference's ``flash_attention(causal=False)`` step by step, in
+    plain PyTorch: for each block of ``BLOCK_Q`` query rows, float32
+    logits of the upcast operands times ``DQK^-0.5``, the soft cap, no
+    mask, a float32 softmax, the probabilities cast to v's dtype and
+    ``p . v`` in v's dtype.  q, k and v may hold two dtypes (a bfloat16
+    decoder stream against a float32 memory); the output takes v's.
+    Query head h reads kv head ``h // (H / KV)``."""
+    b, s, h, d = q.shape
+    kvh, dv = k.shape[2], v.shape[3]
+    group = h // kvh
+    kt = k.float().permute(0, 2, 3, 1).unsqueeze(2)      # (B, KV, 1, D, T)
+    vg = v.permute(0, 2, 1, 3).unsqueeze(2)              # (B, KV, 1, T, DV)
+    outs = []
+    for start in range(0, s, BLOCK_Q):
+        qb = q[:, start:start + BLOCK_Q].float()
+        n = qb.shape[1]
+        qg = qb.reshape(b, n, kvh, group, d).permute(0, 2, 3, 1, 4)
+        logits = softcap(torch.matmul(qg, kt) * d ** -0.5, logit_softcap)
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)  # (B,KV,G,n,T)
+        o = torch.matmul(probs, vg)                         # (B,KV,G,n,DV)
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(b, n, h, dv))
+    return torch.cat(outs, dim=1)
 
 
 # ---------------------------------------------------------------------------

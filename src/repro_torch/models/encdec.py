@@ -1,0 +1,263 @@
+"""Encoder-decoder transformer on torch (seamless-m4t-large-v2's
+backbone) — the tp = 1 subset of ``repro/models/encdec.py``.
+
+The speech frontend is a stub: the caller hands in precomputed frame
+embeddings (B, T, embed_dim).  The model owns ``frontend_proj``, the
+bidirectional encoder and the decoder, whose layers run causal
+self-attention (the sliding-window kernel at ``window = S``), then
+cross-attention over the encoder's output (the "memory"), then the MLP.
+The memory is computed once per prompt; cross-attention's K / V are
+projected from it at prefill and cached (Domino's weight-stationary
+discipline).  Neither the encoder's self-attention nor cross-attention
+is causal, and no TPU kernel computes them: both run the reference's
+plain blocks (``models/common.py::bidirectional_attention``); decode's
+cross-attention is the reference's plain products.
+
+Params: ``{"embed": (V, D), "frontend_proj": (embed_dim, D), "enc_norm",
+"dec_norm": (D,), ["head": (D, V)], "encoder": [{"norm1", "attn",
+"norm2", "mlp"}, ...], "decoder": [{"norm1", "attn", "norm_cross",
+"cross": {wq, wk, wv, wo}, "norm2", "mlp"}, ...]}``: one dict per layer,
+where the reference stacks each stack's leaves.  Caches: ``(self,
+cross)``, each a list with one dict per decoder layer; self ``k`` / ``v``
+(B, s_max, KV, hd) (+ ``k_scale`` / ``v_scale`` when int8), cross ``k``
+/ ``v`` (B, T, KV, hd) in the memory's dtype, never int8.
+
+Dtypes follow the reference's promotion.  With bfloat16 params, float32
+frames make a float32 memory, which turns the decoder stream float32 at
+the first cross-attention; the reference's ``lax.scan`` then refuses the
+layer (its carry changes dtype), and so does the port, with a
+``ValueError``.  The training loss (``encdec_loss``) is ROADMAP Queue 1
+item 16.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import transformer as tfm
+from repro_torch.models.common import (
+    ShardingPlan,
+    dense_init,
+    embed_init,
+    embed_lookup,
+    flash_attention,
+    local_linear,
+    rms_norm,
+)
+
+# ---------------------------------------------------------------------------
+# Cross-attention
+# ---------------------------------------------------------------------------
+
+
+def init_cross_attn(gen: torch.Generator, cfg: ModelConfig,
+                    plan: ShardingPlan, dtype) -> Dict[str, torch.Tensor]:
+    return attn_mod.init_gqa(gen, cfg, plan, dtype)
+
+
+def cross_attn_forward(p, x: torch.Tensor, memory: torch.Tensor,
+                       cfg: ModelConfig, plan: ShardingPlan,
+                       want_cache: bool = False):
+    """x: (B, S, D) decoder stream; memory: (B, T, D) encoder output.
+    No positions (cross-attention carries none).  Returns (out, cache |
+    None); the cache is the projected memory in its own dtype."""
+    a = cfg.attention
+    hd = a.head_dim
+    b, s = x.shape[:2]
+    t = memory.shape[1]
+    q = local_linear(x, p["wq"]).reshape(b, s, a.num_heads, hd)
+    k = local_linear(memory, p["wk"]).reshape(b, t, a.num_kv_heads, hd)
+    v = local_linear(memory, p["wv"]).reshape(b, t, a.num_kv_heads, hd)
+    o = flash_attention(q, k, v, causal=False)
+    out = local_linear(o.reshape(b, s, a.num_heads * hd), p["wo"])
+    return out, ({"k": k, "v": v} if want_cache else None)
+
+
+def cross_attn_decode(p, x: torch.Tensor, cache, cfg: ModelConfig,
+                      plan: ShardingPlan) -> torch.Tensor:
+    """x: (B, 1, D) against the cached cross K / V (B, T, KV, hd): the
+    reference's products, float32 logits of the upcast operands times
+    ``hd^-0.5``, a float32 softmax, the probabilities in v's dtype."""
+    a = cfg.attention
+    hd = a.head_dim
+    b = x.shape[0]
+    h, kvh = a.num_heads, cache["k"].shape[2]
+    q = local_linear(x, p["wq"]).reshape(b, kvh, h // kvh, hd)
+    kt = cache["k"].float().permute(0, 2, 3, 1)          # (B, KV, hd, T)
+    logits = torch.matmul(q.float(), kt) * hd ** -0.5     # (B, KV, G, T)
+    probs = torch.softmax(logits, dim=-1).to(cache["v"].dtype)
+    o = torch.matmul(probs, cache["v"].permute(0, 2, 1, 3))  # (B,KV,G,hd)
+    return local_linear(o.reshape(b, 1, h * hd), p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: ModelConfig, plan: ShardingPlan, gen: torch.Generator,
+                dtype=None) -> Dict[str, Any]:
+    """Random params on ``gen``'s device, drawn as
+    ``transformer.init_params`` draws them (norms zero); the draws
+    differ from the reference's, and parity tests carry the reference's
+    params across (``convert.encdec_params_from_reference``)."""
+    dtype = dtype or getattr(torch, cfg.dtype)
+    dev = gen.device
+    spec = tfm.layer_spec(cfg, 0)
+    d, e = cfg.d_model, cfg.frontend.embed_dim
+
+    def dec_layer():
+        p = tfm.init_layer(gen, spec, cfg, plan, dtype)
+        p["cross"] = init_cross_attn(gen, cfg, plan, dtype)
+        p["norm_cross"] = torch.zeros((d,), dtype=dtype, device=dev)
+        return p
+
+    params: Dict[str, Any] = {
+        "embed": embed_init(gen, (cfg.vocab_size, d), dtype),
+        "frontend_proj": dense_init(gen, e, (e, d), dtype),
+        "enc_norm": torch.zeros((d,), dtype=dtype, device=dev),
+        "dec_norm": torch.zeros((d,), dtype=dtype, device=dev),
+        "encoder": [tfm.init_layer(gen, spec, cfg, plan, dtype)
+                    for _ in range(cfg.encoder_layers)],
+        "decoder": [dec_layer() for _ in range(cfg.num_layers)],
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = dense_init(gen, d, (d, cfg.vocab_size), dtype)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Encoder / decoder stacks
+# ---------------------------------------------------------------------------
+
+
+def _same_dtype(x_in: torch.Tensor, x_out: torch.Tensor, where: str
+                ) -> torch.Tensor:
+    """The reference scans each stack, and a scan's carry keeps its
+    dtype: a layer that changes the stream's dtype is refused there, and
+    here."""
+    if x_out.dtype != x_in.dtype:
+        raise ValueError(
+            f"the {where} stream enters a layer as {x_in.dtype} and leaves "
+            f"it as {x_out.dtype}; the reference's layer scan refuses this "
+            "(with bfloat16 params, pass the frames in bfloat16)")
+    return x_out
+
+
+def encode(params, frames: torch.Tensor, cfg: ModelConfig,
+           plan: ShardingPlan) -> torch.Tensor:
+    """frames: (B, T, embed_dim) -> memory (B, T, D), in the frames'
+    dtype: ``frontend_proj``, the bidirectional layers (rope on the
+    frames' positions), ``enc_norm``."""
+    x = local_linear(frames, params["frontend_proj"])
+    positions = torch.arange(frames.shape[1], device=frames.device)
+    for lp in params["encoder"]:
+        x_in = x
+        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+        o, _ = attn_mod.gqa_forward(lp["attn"], h, cfg, 0, plan, positions,
+                                    causal=False)
+        x = x + o
+        h = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        x = _same_dtype(x_in, x + tfm.mlp_forward(lp["mlp"], h, cfg, plan),
+                        "encoder")
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _decoder_stack(params, x: torch.Tensor, memory: torch.Tensor,
+                   cfg: ModelConfig, plan: ShardingPlan,
+                   positions: torch.Tensor, *, want_caches: bool = False,
+                   kv_dtype: str = "bfloat16"):
+    """-> (hidden after ``dec_norm``, (self caches, cross caches) | None)."""
+    self_c: List[Any] = []
+    cross_c: List[Any] = []
+    for lp in params["decoder"]:
+        x_in = x
+        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+        o, sc = attn_mod.gqa_forward(lp["attn"], h, cfg, 0, plan, positions,
+                                     want_cache=want_caches,
+                                     kv_dtype=kv_dtype)
+        x = x + o
+        h = rms_norm(x, lp["norm_cross"], cfg.norm_eps)
+        o, cc = cross_attn_forward(lp["cross"], h, memory, cfg, plan,
+                                   want_cache=want_caches)
+        x = x + o
+        h = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        x = _same_dtype(x_in, x + tfm.mlp_forward(lp["mlp"], h, cfg, plan),
+                        "decoder")
+        self_c.append(sc)
+        cross_c.append(cc)
+    x = rms_norm(x, params["dec_norm"], cfg.norm_eps)
+    return x, ((self_c, cross_c) if want_caches else None)
+
+
+def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            plan: ShardingPlan, kv_dtype: str = "bfloat16",
+            s_max: Optional[int] = None):
+    """batch: ``{"frames": (B, T, embed_dim), "tokens": (B, S)}`` ->
+    (last-token logits (B, V) float32, (self, cross) caches); the self
+    caches grown to ``s_max`` positions (the layers are global, so the
+    reference's ring layout is a zero pad)."""
+    memory = encode(params, batch["frames"], cfg, plan)
+    tokens = batch["tokens"]
+    s = tokens.shape[1]
+    x = embed_lookup(params["embed"], tokens, plan)
+    positions = torch.arange(s, device=tokens.device)
+    h, (self_c, cross_c) = _decoder_stack(
+        params, x, memory, cfg, plan, positions, want_caches=True,
+        kv_dtype=kv_dtype)
+    if s_max is not None and s_max != s:
+        self_c = [{name: tfm._to_ring(arr, 1, s, s_max)
+                   for name, arr in c.items()} for c in self_c]
+    logits = tfm.lm_logits_local(params, h[:, -1:], cfg, plan)[:, 0]
+    return logits, (self_c, cross_c)
+
+
+def init_cache(cfg: ModelConfig, plan: ShardingPlan, batch: int, s_max: int,
+               t_enc: int, kv_dtype: str = "bfloat16", device=None
+               ) -> Tuple[List[Dict[str, torch.Tensor]],
+                          List[Dict[str, torch.Tensor]]]:
+    """Zero (self, cross) caches on ``device`` (``None`` = the card),
+    with the shapes and dtypes the reference declares: the cross cache
+    in bfloat16 whatever ``kv_dtype`` (a prefill's holds the memory's
+    dtype)."""
+    a = cfg.attention
+    dev = resolve_device(device)
+    shapes = attn_mod.gqa_cache_shape(cfg, plan, batch, s_max, 0, kv_dtype)
+    cross_shape = (batch, t_enc, a.num_kv_heads, a.head_dim)
+    self_c = [{k: torch.zeros(sh, dtype=dt, device=dev)
+               for k, (sh, dt) in shapes.items()}
+              for _ in range(cfg.num_layers)]
+    cross_c = [{k: torch.zeros(cross_shape, dtype=torch.bfloat16,
+                               device=dev) for k in ("k", "v")}
+               for _ in range(cfg.num_layers)]
+    return self_c, cross_c
+
+
+def decode_step(params, token: torch.Tensor, caches, pos: int,
+                cfg: ModelConfig, plan: ShardingPlan,
+                kv_dtype: str = "bfloat16"):
+    """token: (B,) ids at absolute position ``pos`` -> (logits (B, V)
+    float32, caches).  The self caches are updated in place; the cross
+    caches are read."""
+    self_c, cross_c = caches
+    x = embed_lookup(params["embed"], token[:, None], plan)  # (B, 1, D)
+    new_self = []
+    for lp, sc, cc in zip(params["decoder"], self_c, cross_c):
+        x_in = x
+        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+        o, sc = attn_mod.gqa_decode(lp["attn"], h, sc, pos, cfg, 0, plan,
+                                    kv_dtype=kv_dtype)
+        x = x + o
+        h = rms_norm(x, lp["norm_cross"], cfg.norm_eps)
+        x = x + cross_attn_decode(lp["cross"], h, cc, cfg, plan)
+        h = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        x = _same_dtype(x_in, x + tfm.mlp_forward(lp["mlp"], h, cfg, plan),
+                        "decoder")
+        new_self.append(sc)
+    x = rms_norm(x, params["dec_norm"], cfg.norm_eps)
+    return (tfm.lm_logits_local(params, x, cfg, plan)[:, 0],
+            (new_self, cross_c))

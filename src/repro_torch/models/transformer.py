@@ -1,8 +1,11 @@
 """Decoder-only LM on torch — the tp = 1 subset of
 ``repro/models/transformer.py``: dense GQA stacks (gemma, qwen2,
 minitron), MoE stacks (granite-moe), attention-free Mamba stacks
-(falcon-mamba), the Mamba + attention + MoE hybrid (jamba) and the MLA +
-MoE stack of deepseek-v3.
+(falcon-mamba), the Mamba + attention + MoE hybrid (jamba), the MLA +
+MoE stack of deepseek-v3, and the vision-language internvl2, whose
+``vit_stub`` frontend hands in precomputed patch embeddings that
+``frontend_proj`` maps over the prompt's first positions.  The
+encoder-decoder (seamless-m4t) is ``models/encdec.py``.
 
 The reference groups layers into segments (maximal runs of a repeating
 layer cycle), stacks each segment's parameters over its repeat count and
@@ -13,6 +16,7 @@ one dict per layer, in layer order, and the scan is a Python loop;
 int8-quantization decisions (``runtime/serve_loop.quantize_decisions``).
 
 Params: ``{"embed": (V, D), "final_norm": (D,), ["head": (D, V)],
+["frontend_proj": (embed_dim, D)],
 "layers": [{"norm1", "attn": {wq, wk, wv, wo, [bq, bk, bv]} | {w_dq,
 q_norm, w_uq, w_dkv, kv_norm, w_uk, w_uv, wo} (MLA) | "mamba": {w_in_x,
 w_in_z, conv_w, conv_b, x_proj, dt_proj, dt_bias, A_log, D, w_out},
@@ -28,9 +32,7 @@ GQA ``k`` / ``v`` (B, S, KV, hd) (+ ``k_scale`` / ``v_scale``
 Multi-token prediction (deepseek-v3's ``mtp_depth``): its parameters
 are built, converted and quantized as the reference's, but serving never
 reads them; their forward belongs to the training loss (``lm_loss``,
-ROADMAP Queue 1 item 16).  The encoder-decoder (seamless-m4t) and the
-modality frontends (internvl2) are not ported (item 14);
-:func:`check_supported` says so.
+ROADMAP Queue 1 item 16).
 """
 from __future__ import annotations
 
@@ -119,19 +121,10 @@ def build_segments(cfg: ModelConfig) -> List[Segment]:
     return segments
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet: the encoder-decoder and
-    the modality frontends."""
-    missing = []
+def _decoder_only(cfg: ModelConfig) -> None:
     if cfg.is_encdec:
-        missing.append("encoder-decoder")
-    if cfg.frontend is not None and cfg.frontend.kind != "none":
-        missing.append(f"the {cfg.frontend.kind} frontend")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported (ROADMAP Queue 1 "
-            "item 14); the port runs GQA, MLA, MoE and Mamba decoder "
-            "stacks")
+        raise ValueError(f"{cfg.name} is an encoder-decoder: models/"
+                         "encdec.py builds and runs it")
 
 
 def _is_mla(cfg: ModelConfig) -> bool:
@@ -237,8 +230,9 @@ def init_params(cfg: ModelConfig, plan: ShardingPlan,
     (a copy of the last layer's kind and a (2 D, D) ``proj``) is built
     as the reference builds it; serving does not read it.  The draws
     differ from the reference's ``jax.random`` ones; parity tests carry
-    the reference's params across instead."""
-    check_supported(cfg)
+    the reference's params across instead.  A modality frontend gets its
+    ``frontend_proj``."""
+    _decoder_only(cfg)
     dtype = dtype or getattr(torch, cfg.dtype)
     dev = gen.device
     params: Dict[str, Any] = {
@@ -248,6 +242,9 @@ def init_params(cfg: ModelConfig, plan: ShardingPlan,
     if not cfg.tie_embeddings:
         params["head"] = dense_init(gen, cfg.d_model,
                                     (cfg.d_model, cfg.vocab_size), dtype)
+    if has_frontend(cfg):
+        e = cfg.frontend.embed_dim
+        params["frontend_proj"] = dense_init(gen, e, (e, cfg.d_model), dtype)
     params["layers"] = [init_layer(gen, spec, cfg, plan, dtype)
                         for spec in layer_specs(cfg)]
     if cfg.mtp_depth > 0:
@@ -260,20 +257,40 @@ def init_params(cfg: ModelConfig, plan: ShardingPlan,
     return params
 
 
+def has_frontend(cfg: ModelConfig) -> bool:
+    """Whether ``cfg`` has a modality frontend (a stub that hands in
+    precomputed embeddings)."""
+    return cfg.frontend is not None and cfg.frontend.kind != "none"
+
+
 def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig,
-                 plan: ShardingPlan) -> torch.Tensor:
-    """tokens: (B, S) ids -> (B, S, D)."""
-    return embed_lookup(params["embed"], tokens, plan)
+                 plan: ShardingPlan, extras=None) -> torch.Tensor:
+    """tokens: (B, S) ids -> (B, S, D).  ``extras["patch_embeds"]``
+    (B, N, embed_dim), with a ``frontend_proj``, replaces the first N
+    positions by their projection.  The result takes the dtype both
+    promote to, as the reference's ``jnp.where`` does: float32 patch
+    embeddings turn a bfloat16 model's stream into float32.  N > S
+    raises, as the reference's negative pad does."""
+    x = embed_lookup(params["embed"], tokens, plan)
+    if extras and "patch_embeds" in extras and "frontend_proj" in params:
+        img = local_linear(extras["patch_embeds"], params["frontend_proj"])
+        n_img, s = img.shape[1], x.shape[1]
+        if n_img > s:
+            raise ValueError(f"{n_img} patch embeddings for a prompt of "
+                             f"{s} tokens: the prompt must hold them")
+        dt = torch.promote_types(img.dtype, x.dtype)
+        x = torch.cat([img.to(dt), x[:, n_img:].to(dt)], dim=1)
+    return x
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
-            plan: ShardingPlan, *, want_caches: bool = False,
+            plan: ShardingPlan, extras=None, *, want_caches: bool = False,
             kv_dtype: str = "bfloat16"):
     """-> (hidden (B, S, D) after the final norm, per-layer caches |
-    None)."""
-    check_supported(cfg)
+    None).  ``extras``: the frontend's inputs (:func:`embed_tokens`)."""
+    _decoder_only(cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = embed_tokens(params, tokens, cfg, plan)
+    x = embed_tokens(params, tokens, cfg, plan, extras)
     caches = []
     for p, spec in zip(params["layers"], layer_specs(cfg)):
         x, cache = apply_layer(p, x, spec, cfg, plan, positions,
@@ -338,12 +355,12 @@ def prepare_decode_caches(caches, cfg: ModelConfig, plan: ShardingPlan,
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
-            plan: ShardingPlan, kv_dtype: str = "bfloat16",
+            plan: ShardingPlan, extras=None, kv_dtype: str = "bfloat16",
             s_max: Optional[int] = None):
     """-> (last-token logits (B, V) float32, caches ready for decode up
     to s_max positions)."""
-    h, caches = forward(params, tokens, cfg, plan, want_caches=True,
-                        kv_dtype=kv_dtype)
+    h, caches = forward(params, tokens, cfg, plan, extras,
+                        want_caches=True, kv_dtype=kv_dtype)
     if s_max is not None and s_max != tokens.shape[1]:
         caches = prepare_decode_caches(caches, cfg, plan, tokens.shape[1],
                                        s_max)
@@ -369,7 +386,7 @@ def init_cache(cfg: ModelConfig, plan: ShardingPlan, batch: int, s_max: int,
                ) -> List[Dict[str, torch.Tensor]]:
     """Zero decode caches, one dict per layer, on ``device`` (``None`` =
     the card)."""
-    check_supported(cfg)
+    _decoder_only(cfg)
     dev = resolve_device(device)
     out = []
     for spec in layer_specs(cfg):

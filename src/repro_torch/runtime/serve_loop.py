@@ -1,17 +1,20 @@
 """Serving on torch — ``repro/runtime/serve_loop.py`` on one card.
 
 LM half: :func:`build_serve_program` gives prefill and one-token decode
-functions for a GQA, MLA, MoE or Mamba decoder stack
-(``models/transformer.py``; prefill attention runs the sliding-window
-Hopper kernel, the Mamba prefill the selective-scan kernel), and
-:func:`greedy_generate` drives them.  With ``cim_weights`` the matmul
-weights are int8 ``{"q", "s"}`` leaves (Domino: 8-bit weights resident
-in the arrays; stacked (E, d, f) expert weights get a scale per expert
-and column; MLA's projections and the MTP ``proj`` as the reference
+functions for a GQA, MLA, MoE or Mamba decoder stack, with or without a
+``vit_stub`` frontend (``models/transformer.py``), or for the
+encoder-decoder (``models/encdec.py``); prefill's causal attention runs
+the sliding-window Hopper kernel, the Mamba prefill the selective-scan
+kernel, and :func:`greedy_generate` drives them.  With ``cim_weights``
+the matmul weights are int8 ``{"q", "s"}`` leaves (Domino: 8-bit
+weights resident in the arrays; stacked (E, d, f) expert weights get a
+scale per expert and column; MLA's projections, the MTP ``proj``,
+``frontend_proj`` and the cross-attention projections as the reference
 decides), dequantized on use; the router, the norms and the Mamba
 ``conv_w``, ``A_log``, ``D`` and ``dt_bias`` stay float.
 ``kv_dtype="int8"`` keeps the KV cache (MLA's latent ``c``) in int8
-(Mamba state stays float32).  The reference's mesh, ``shard_map`` and cache
+(Mamba state stays float32, and the encoder-decoder's cross-attention
+cache the memory's dtype).  The reference's mesh, ``shard_map`` and cache
 PartitionSpecs have no counterpart on one card (tp > 1 is ROADMAP
 Queue 1 item 15).
 
@@ -33,6 +36,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import is_quantized_leaf, quantize_weight
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ShardingPlan
 from repro_torch.runtime.fault import StragglerMonitor
@@ -60,15 +64,19 @@ def _leaves(tree, path=()):
         yield path, tree
 
 
-def _stack_counts(cfg: ModelConfig) -> Dict[int, int]:
-    """Layer index -> repeat count of the reference segment holding it
-    (the reference stacks a segment's leaves over that count)."""
+def _stack_counts(cfg: ModelConfig) -> Dict[str, Any]:
+    """How often the reference stacks a leaf under each per-layer list:
+    ``"layers"``, layer index -> repeat count of the reference segment
+    holding it; the encoder-decoder's ``"encoder"`` and ``"decoder"``,
+    its layer counts (the reference ``vmap``s each stack whole)."""
+    if cfg.is_encdec:
+        return {"encoder": cfg.encoder_layers, "decoder": cfg.num_layers}
     out, l = {}, 0
     for seg in T.build_segments(cfg):
         for _ in range(seg.count * len(seg.cycle)):
             out[l] = seg.count
             l += 1
-    return out
+    return {"layers": out}
 
 
 def quantize_decisions(params, cfg: ModelConfig, min_size: int = 1 << 14
@@ -77,12 +85,15 @@ def quantize_decisions(params, cfg: ModelConfig, min_size: int = 1 << 14
 
     The reference decides on scan-stacked leaves, so a layer's size
     counts ``count`` times, ``count`` being the repeat count of its
-    reference segment; the rule here does the same, so both packages
-    quantize the same leaves."""
+    reference segment (the layer count of an encoder-decoder's stack);
+    the rule here does the same, so both packages quantize the same
+    leaves."""
     counts = _stack_counts(cfg)
     out = {}
     for path, leaf in _leaves(params):
-        stack = counts[int(path[1])] if path[0] == "layers" else 1
+        stack = counts.get(path[0], 1)
+        if isinstance(stack, dict):
+            stack = stack[int(path[1])]
         out["/".join(path)] = bool(
             path[-1] in QUANTIZABLE and leaf.dim() >= 2
             and leaf.shape[-1] >= 16 and leaf.shape[-2] >= 16
@@ -127,10 +138,11 @@ def quantize_params_for_serving(params, cfg: ModelConfig,
 class ServeProgram:
     """Prefill and decode of one model on one device.
 
-    ``prefill_fn(params, {"tokens": (batch, S)})`` -> (last-token logits
-    (batch, V) float32, caches grown to ``s_max``);
-    ``decode_fn(params, token (batch,), caches, pos)`` -> (logits,
-    caches), the caches updated in place."""
+    ``prefill_fn(params, {"tokens": (batch, S)[, "patch_embeds" |
+    "frames": (batch, N, embed_dim)]})`` -> (last-token logits (batch, V)
+    float32, caches grown to ``s_max``); ``decode_fn(params, token
+    (batch,), caches, pos)`` -> (logits, caches), the caches updated in
+    place."""
 
     cfg: ModelConfig
     plan: ShardingPlan
@@ -142,6 +154,12 @@ class ServeProgram:
     device: torch.device
     prefill_fn: Callable
     decode_fn: Callable
+
+    def init_params(self, gen: torch.Generator, dtype=None):
+        """Random params for this program's model (``models/encdec.py``
+        for an encoder-decoder, ``models/transformer.py`` otherwise)."""
+        model = ED if self.cfg.is_encdec else T
+        return model.init_params(self.cfg, self.plan, gen, dtype)
 
     def serving_params(self, params):
         """``params`` as this program serves them: int8 ``{"q", "s"}``
@@ -158,12 +176,19 @@ def build_serve_program(cfg: ModelConfig, batch: int, s_max: int,
                         quant_min_size: int = 1 << 14,
                         device=None) -> ServeProgram:
     """Serving functions for ``cfg`` on ``device`` (``None`` = the card):
-    prompts of ``batch`` rows, caches for ``s_max`` positions."""
-    T.check_supported(cfg)
+    prompts of ``batch`` rows, caches for ``s_max`` positions.  An
+    encoder-decoder's prompt carries ``frames`` (batch, T, embed_dim), T
+    > 0; a ``vit_stub`` model's may carry ``patch_embeds`` (batch, N,
+    embed_dim), which the prompt's S >= N positions must hold.  Both
+    move to the device in their own dtype."""
     if kv_dtype not in ("bfloat16", "int8"):
         raise ValueError(f"kv_dtype must be bfloat16 or int8: {kv_dtype}")
     dev = resolve_device(device)
     plan = ShardingPlan.for_model(cfg, tp=1)
+
+    model = ED if cfg.is_encdec else T
+    extra = ("frames" if cfg.is_encdec
+             else "patch_embeds" if T.has_frontend(cfg) else None)
 
     @torch.no_grad()
     def prefill_fn(params, batch_in):
@@ -172,16 +197,34 @@ def build_serve_program(cfg: ModelConfig, batch: int, s_max: int,
                 or not 0 < tokens.shape[1] < s_max:
             raise ValueError(f"tokens {tuple(tokens.shape)}: want ({batch}, "
                              f"S) with 0 < S < s_max={s_max}")
+        unknown = set(batch_in) - {"tokens", extra}
+        if unknown:
+            raise ValueError(f"{cfg.name} takes no {sorted(unknown)}")
+        extras = {}
+        if extra in batch_in:
+            e = batch_in[extra]
+            width = cfg.frontend.embed_dim
+            if e.dim() != 3 or e.shape[0] != batch or e.shape[1] == 0 \
+                    or e.shape[2] != width:
+                raise ValueError(f"{extra} {tuple(e.shape)}: want ({batch}, "
+                                 f"N, {width}) with N > 0")
+            extras[extra] = e.to(dev)
+        elif cfg.is_encdec:
+            raise ValueError(f"{cfg.name} needs frames")
+        if cfg.is_encdec:
+            return ED.prefill(params, {"tokens": tokens.to(dev), **extras},
+                              cfg, plan, kv_dtype=kv_dtype, s_max=s_max)
         return T.prefill(params, tokens.to(dev), cfg, plan,
-                         kv_dtype=kv_dtype, s_max=s_max)
+                         extras=extras or None, kv_dtype=kv_dtype,
+                         s_max=s_max)
 
     @torch.no_grad()
     def decode_fn(params, token, caches, pos: int):
         if not 0 <= pos < s_max:
             raise ValueError(f"position {pos} outside the cache "
                              f"(s_max={s_max})")
-        return T.decode_step(params, token.to(dev), caches, int(pos), cfg,
-                             plan, kv_dtype=kv_dtype)
+        return model.decode_step(params, token.to(dev), caches, int(pos),
+                                 cfg, plan, kv_dtype=kv_dtype)
 
     return ServeProgram(cfg=cfg, plan=plan, batch=batch, s_max=s_max,
                         kv_dtype=kv_dtype, cim_weights=cim_weights,

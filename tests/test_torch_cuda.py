@@ -575,6 +575,33 @@ def test_cuda_local_attention_odd_groups(h, kv, d, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv,d", [(16, 16, 64), (16, 8, 128)])
+def test_cuda_local_attention_encdec_and_vlm_shapes(h, kv, d, dtype):
+    """seamless-m4t's decoder self-attention (16 heads of 64 on 16 kv
+    heads) and internvl2's layers (16 / 8 heads of 128) at their
+    published widths: full causal, as both models run it, and windowed,
+    S ragged against the tiles and at the prompt length past it."""
+    _needs_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(h * 1000 + kv * 10 + d)
+    tol = ATTN_TOL[dtype]
+    name = ("local_attention" if dtype == torch.bfloat16
+            else "local_attention_f32")
+    for s in (37, 777, 2049):
+        q = _normal(rng, (1, s, h, d), dtype)
+        k, v = (_normal(rng, (1, s, kv, d), dtype) for _ in range(2))
+        for window in (s, 65):
+            before = LA.LAUNCHES[name]
+            a = LA.grouped_local_attention(q, k, v, window=window)
+            b = LA.grouped_local_attention_plain(q, k, v, window=window)
+            torch.cuda.synchronize()
+            assert LA.LAUNCHES[name] == before + 1
+            torch.testing.assert_close(a.float(), b.float(), rtol=tol,
+                                       atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_local_attention_mla_head_dims(dtype):
     """deepseek-v3's MLA pair, q / k 192 wide against v 128, in both
     kernels: S ragged against the tiles (37, 777, 2049), windows 1, 63,

@@ -14,10 +14,13 @@ reduced (QKV bias, silu), minitron-8b reduced (squared ReLU without a
 gate; an untied head, which the reference dequantizes to bfloat16),
 granite-moe-3b-a800m reduced (2 MoE layers, stacked), falcon-mamba-7b
 reduced (2 Mamba layers, stacked, untied head), jamba-v0.1-52b
-reduced (one 8-layer cycle: Mamba, attention, dense and MoE MLPs) and
+reduced (one 8-layer cycle: Mamba, attention, dense and MoE MLPs),
 deepseek-v3-671b reduced (MLA with q/k 16 + 8 rope dims against v 16, a
 dense layer then an MoE layer with a shared expert, MTP params carried
-and quantized, not run).
+and quantized, not run) and internvl2-2b reduced (GQA group 2, an
+untied head, and its ``vit_stub`` frontend: 4 patch embeddings, 32 wide,
+passed to both sides, whose ``frontend_proj`` replaces the prompt's
+first 4 positions).  The encoder-decoder is ``test_torch_encdec.py``.
 The prompt (12) is longer than the local layers' ring (9), and the
 decode steps wrap the ring.  Dropping MoE pairs, granite's GQA group
 of 3 and the Mamba block at the published state size are held in
@@ -68,7 +71,8 @@ TOL_INT8_KV = 2e-3
 ARCHS = {"gemma3-1b": (14, 1 << 14), "gemma2-27b": (None, 1),
          "qwen2-0.5b": (None, 1), "minitron-8b": (None, 1),
          "granite-moe-3b-a800m": (None, 1), "falcon-mamba-7b": (None, 1),
-         "jamba-v0.1-52b": (None, 1), "deepseek-v3-671b": (None, 1)}
+         "jamba-v0.1-52b": (None, 1), "deepseek-v3-671b": (None, 1),
+         "internvl2-2b": (None, 1)}
 
 
 def _configs(arch):
@@ -82,9 +86,13 @@ def _configs(arch):
 
 def _ref_params(rcfg, seed):
     """Reference float32 params as numpy, norms and biases non-zero."""
+    return _ref_params_dtype(rcfg, seed, jnp.float32)
+
+
+def _ref_params_dtype(rcfg, seed, dtype):
     plan = RefPlan.for_model(rcfg, tp=1)
     params = RT.init_params(jax.random.PRNGKey(seed), rcfg, plan,
-                            dtype=jnp.float32)
+                            dtype=dtype)
     rng = np.random.default_rng(seed)
 
     def one(path, leaf):
@@ -95,6 +103,16 @@ def _ref_params(rcfg, seed):
         return a
 
     return jax.tree_util.tree_map_with_path(one, params)
+
+
+def _patch_embeds(rcfg, seed, dtype=np.float32):
+    """The frontend's patch embeddings (B, num_tokens, embed_dim), or
+    None for a model without one."""
+    fe = rcfg.frontend
+    if fe is None or fe.kind != "vit_stub":
+        return None
+    return np.random.default_rng(seed).standard_normal(
+        (B, fe.num_tokens, fe.embed_dim)).astype(dtype)
 
 
 def _t(a):
@@ -184,19 +202,26 @@ def test_prefill_and_greedy_decode_match_reference(arch, kv_dtype,
         params = jax.tree.map(np.asarray, ref_quantize(params, min_size))
     tokens = np.random.default_rng(2).integers(
         0, rcfg.vocab_size, (B, PROMPT)).astype(np.int32)
+    patches = _patch_embeds(rcfg, 3)
+    r_extras = None if patches is None else {
+        "patch_embeds": jnp.asarray(patches)}
+    batch = {"tokens": _t(tokens)}
+    if patches is not None:
+        batch["patch_embeds"] = _t(patches)
 
     r_prefill = jax.jit(functools.partial(
         RT.prefill, cfg=rcfg, plan=rplan, kv_dtype=kv_dtype, s_max=S_MAX))
     r_decode = jax.jit(functools.partial(
         RT.decode_step, cfg=rcfg, plan=rplan, kv_dtype=kv_dtype))
-    r_logits, r_caches = r_prefill(params, jnp.asarray(tokens))
+    r_logits, r_caches = r_prefill(params, jnp.asarray(tokens),
+                                   extras=r_extras)
     ref_logits = [np.asarray(r_logits)]
 
     prog = build_serve_program(pcfg, batch=B, s_max=S_MAX, kv_dtype=kv_dtype,
                                cim_weights=cim_weights,
                                quant_min_size=min_size, device="cpu")
     pparams = lm_params_from_reference(params, pcfg, device="cpu")
-    p_logits, p_caches = prog.prefill_fn(pparams, {"tokens": _t(tokens)})
+    p_logits, p_caches = prog.prefill_fn(pparams, batch)
     _close(p_logits, r_logits, TOL, "prefill logits")
     _compare_caches(p_caches, jax.tree.map(np.asarray, r_caches), pcfg,
                     kv_dtype, "prefill caches")
@@ -221,7 +246,7 @@ def test_prefill_and_greedy_decode_match_reference(arch, kv_dtype,
 
     # the entry point itself, its per-step logits seen through on_logits
     seen = []
-    got = greedy_generate(prog, pparams, {"tokens": _t(tokens)}, STEPS,
+    got = greedy_generate(prog, pparams, batch, STEPS,
                           on_logits=lambda i, logits: seen.append(
                               (i, logits.clone())))
     assert torch.equal(got, _t(np.stack(ref_tokens, axis=1)))
@@ -282,11 +307,63 @@ def test_serving_params_quantize_only_with_cim_weights():
     assert torch.is_tensor(served["embed"])
 
 
-@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "internvl2-2b"])
-def test_unported_families_raise(arch):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        build_serve_program(cfg, 1, 8, device="cpu")
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8"])
+def test_float32_patch_embeds_promote_the_stream(kv_dtype):
+    """bfloat16 params with float32 patch embeddings: the reference's
+    ``jnp.where`` promotes the whole stream to float32, so both sides
+    compute in float32 on bfloat16 weights and the bfloat16-flavor cache
+    holds float32.  Prefill logits and caches match the reference's.
+    Decoding over that cache is refused by the reference (a bfloat16 key
+    into a float32 cache) and by the port; over the int8 cache both
+    decode, in bfloat16: the logits agree within 0.05 (bfloat16
+    products rounded at other points, 2 layers)."""
+    rcfg, pcfg = _configs("internvl2-2b")
+    rplan = RefPlan.for_model(rcfg, tp=1)
+    params = _ref_params_dtype(rcfg, 4, jnp.bfloat16)
+    tokens = np.random.default_rng(5).integers(
+        0, rcfg.vocab_size, (B, PROMPT)).astype(np.int32)
+    patches = _patch_embeds(rcfg, 6)
+    r_logits, r_caches = RT.prefill(
+        params, jnp.asarray(tokens), rcfg, rplan,
+        extras={"patch_embeds": jnp.asarray(patches)}, kv_dtype=kv_dtype,
+        s_max=S_MAX)
+    prog = build_serve_program(pcfg, batch=B, s_max=S_MAX, kv_dtype=kv_dtype,
+                               device="cpu")
+    pparams = lm_params_from_reference(params, pcfg, device="cpu")
+    p_logits, p_caches = prog.prefill_fn(
+        pparams, {"tokens": _t(tokens), "patch_embeds": _t(patches)})
+    _close(p_logits, r_logits, TOL, "prefill logits")
+    _compare_caches(p_caches, jax.tree.map(np.asarray, r_caches), pcfg,
+                    kv_dtype, "prefill caches")
+    if kv_dtype == "bfloat16":
+        assert p_caches[0]["k"].dtype == torch.float32
+    token = jnp.argmax(r_logits, axis=-1).astype(jnp.int32)
+    if kv_dtype == "bfloat16":
+        with pytest.raises(TypeError, match="same dtypes"):
+            RT.decode_step(params, token, r_caches, PROMPT, rcfg, rplan,
+                           kv_dtype=kv_dtype)
+        with pytest.raises(ValueError, match="float32 KV cache"):
+            prog.decode_fn(pparams, _t(token), p_caches, PROMPT)
+        return
+    r_logits, _ = RT.decode_step(params, token, r_caches, PROMPT, rcfg,
+                                 rplan, kv_dtype=kv_dtype)
+    p_logits, _ = prog.decode_fn(pparams, _t(token), p_caches, PROMPT)
+    _close(p_logits, r_logits, 0.05, "decode logits in bfloat16")
+
+
+def test_patch_embeds_are_checked():
+    """Patch embeddings of another width are refused; more of them than
+    the prompt has positions raise, as the reference's negative pad
+    does."""
+    _, pcfg = _configs("internvl2-2b")
+    prog = build_serve_program(pcfg, batch=B, s_max=S_MAX, device="cpu")
+    params = prog.init_params(torch.Generator().manual_seed(0))
+    tokens = torch.zeros((B, 3), dtype=torch.int64)
+    for n, width, match in ((2, 31, "patch_embeds"), (4, 32, "prompt must")):
+        patches = torch.zeros((B, n, width), dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match=match):
+            prog.prefill_fn(params, {"tokens": tokens,
+                                     "patch_embeds": patches})
 
 
 def test_tp_above_one_raises():
@@ -311,7 +388,8 @@ def test_init_cache_defaults_to_the_card():
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "granite-moe-3b-a800m",
                                   "falcon-mamba-7b", "jamba-v0.1-52b",
-                                  "deepseek-v3-671b"])
+                                  "deepseek-v3-671b", "seamless-m4t-large-v2",
+                                  "internvl2-2b"])
 def test_serve_cli_runs_on_cpu(arch, capsys):
     from repro_torch.launch.serve import main
 
