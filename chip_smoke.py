@@ -194,12 +194,37 @@ E. the encoder-decoder and the vision-language model at full width and
    float32 on the card and on the CPU as in phase 7; the phase's
    seconds.
 
+G. the training path: gemma3-1b at full width and depth (26 layers),
+   random bfloat16 weights from a card generator seeded with SEED in the
+   reference's stacked layout, AdamW with float32 moments (lr 3e-3,
+   warmup 2), ``remat="full"``, batch 4 x 2048, 8 steps on one fixed
+   ``synthetic_batch`` (the reference's test_train_steps_decrease_loss),
+   through ``build_train_program``'s ``step_fn`` under the ``StepGuard``.
+   One step's gradients with the kernels, each of its 26 backward calls
+   held against the plain version, then with the plain versions swapped
+   in (loss and every gradient leaf within TOL_TRAIN_PLAIN_*).  Each
+   counted step resets the launch counts just before and reads them
+   just after: 26 + 24 recomputed launches of the bfloat16 forward
+   kernel and 26 of the backward one; the loss falls by TRAIN_LOSS_DROP;
+   the first step repeated from the same state is bit-equal; a
+   checkpoint saved at step 4 and restored gives steps 5 to 8 bit-equal
+   to the uninterrupted run.  Step ms, tokens/s, peak device memory, one
+   step's device time by kernel; the backward kernel's device time per
+   step beside its bound, the plain version and autograd through SDPA;
+   the backward kernel against its plain version over an edge grid (head
+   dims 16 to 256, S 37, 777, 2049, windows 1, 65, 513, S, groups 1, 4,
+   8, soft cap off and 50.0, both dtypes); then 12 layers in float32
+   (batch 1 x 640, TF32 off) on the card and on the CPU: loss, every
+   gradient leaf and one AdamW step's params within TOL_TRAIN_F32_*.
+
 The line before the last is the ``kernels`` JSON (a CIM variant's
 ``launches`` summed over the counted runs of phases 2 and M, its
 times phase 4's, per vgg11 batch; the bfloat16 attention kernel's
-launches those of phases 5, F and E, its times phase 9's; the scan's
-launches those of phase F, its times per falcon-mamba prefill); the
-last line is ``{"ok": true, "device": {...}}``.
+launches those of phases 5, F, E and G, its times phase 9's; the
+scan's launches those of phase F, its times per falcon-mamba prefill;
+the attention backward's launches those of phase G's counted steps,
+its times per training step); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -326,19 +351,14 @@ FAMILY_LAYERS = {"granite-moe-3b-a800m": None, "falcon-mamba-7b": None,
 #: launches of each kernel in one generation (the prefill; decode
 #: launches none)
 FAMILY_LAUNCHES = {
-    "seamless-m4t-large-v2": {"local_attention": 24,
-                              "local_attention_f32": 0, "selective_scan": 0},
-    "internvl2-2b": {"local_attention": 24, "local_attention_f32": 0,
-                     "selective_scan": 0},
-    "granite-moe-3b-a800m": {"local_attention": 32,
-                             "local_attention_f32": 0, "selective_scan": 0},
-    "falcon-mamba-7b": {"local_attention": 0, "local_attention_f32": 0,
-                        "selective_scan": 64},
-    "jamba-v0.1-52b": {"local_attention": 1, "local_attention_f32": 0,
-                       "selective_scan": 7},
-    "deepseek-v3-671b": {"local_attention": 4, "local_attention_f32": 0,
-                         "selective_scan": 0},
-}
+    arch: {"local_attention": attn, "local_attention_f32": 0,
+           "local_attention_bwd": 0, "selective_scan": scan}
+    for arch, attn, scan in (("seamless-m4t-large-v2", 24, 0),
+                             ("internvl2-2b", 24, 0),
+                             ("granite-moe-3b-a800m", 32, 0),
+                             ("falcon-mamba-7b", 0, 64),
+                             ("jamba-v0.1-52b", 1, 7),
+                             ("deepseek-v3-671b", 4, 0))}
 #: phase F's card-against-CPU check in float32: the published widths cut
 #: to 4 layers, deepseek's to its first 2 (both dense: 3.0 G parameters,
 #: 12 GB in float32, with all 128 heads through the float32 kernel at
@@ -1844,7 +1864,8 @@ def lm_serving(la):
         counts = dict(la.LAUNCHES)
         launches = counts["local_attention"]
         check(counts == {"local_attention": cfg.num_layers,
-                         "local_attention_f32": 0},
+                         "local_attention_f32": 0,
+                         "local_attention_bwd": 0},
               f"{name}: attention launches in one prefill {counts}, want "
               f"{cfg.num_layers} of the bfloat16 kernel and none of the "
               f"float32 one")
@@ -1975,7 +1996,8 @@ def lm_full_f32_first_tokens(la):
             f"{[round(v, 3) for v in walls]} (median "
             f"{np.median(walls):.3f}); {time.perf_counter() - t0:.1f} s")
         check(counts == {"local_attention": 0,
-                         "local_attention_f32": cfg.num_layers},
+                         "local_attention_f32": cfg.num_layers,
+                         "local_attention_bwd": 0},
               f"{name} float32: attention launches in one prefill {counts}, "
               f"want {cfg.num_layers} of the float32 kernel and none of "
               f"the bfloat16 one")
@@ -2137,13 +2159,15 @@ def device_ms(fn, arglist, n, kernel=None):
     launch time and the idle gaps between launches do not count.
 
     ``kernel``: a substring of the name of the one kernel each call
-    launches.  Only that kernel's records count, as their mean times the
-    calls of a pass: the profiler does not record every launch of a long
-    run of them (seen on the card: about half of 20 back-to-back float32
-    attention launches), and a sum over the records it kept, divided by
-    the launches made, would come out short."""
+    launches (or a tuple of them, one per kernel a call launches once
+    each).  Only those kernels' records count, each as their mean times
+    the calls of a pass: the profiler does not record every launch of a
+    long run of them (seen on the card: about half of 20 back-to-back
+    float32 attention launches), and a sum over the records it kept,
+    divided by the launches made, would come out short."""
     from torch.profiler import ProfilerActivity, profile
 
+    names = (kernel,) if isinstance(kernel, str) else kernel
     for args in arglist:  # warm-up
         fn(*args)
     torch.cuda.synchronize()
@@ -2155,24 +2179,32 @@ def device_ms(fn, arglist, n, kernel=None):
                 for args in arglist:
                     fn(*args)
             torch.cuda.synchronize()
-        total, count = 0.0, 0
+        total, count = {}, {}
         for ev in prof.key_averages():
             if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
                 continue
-            if kernel is not None and kernel not in ev.key:
+            hit = None if names is None else next(
+                (k for k in names if k in ev.key), False)
+            if hit is False:
                 continue
-            total += getattr(ev, "self_device_time_total",
-                             getattr(ev, "self_cuda_time_total", 0.0))
-            count += ev.count
-        if total > 0 and kernel is None:
-            return total / n / 1e3
-        if total > 0:
-            if count != n * len(arglist):
-                log(f"[profile] {count} of {n * len(arglist)} launches of "
-                    f"{kernel} recorded; their mean counts")
-            return total / count * len(arglist) / 1e3
+            total[hit] = total.get(hit, 0.0) + getattr(
+                ev, "self_device_time_total",
+                getattr(ev, "self_cuda_time_total", 0.0))
+            count[hit] = count.get(hit, 0) + ev.count
+        if names is None and total.get(None, 0.0) > 0:
+            return total[None] / n / 1e3
+        if names is not None and all(total.get(k, 0.0) > 0 for k in names):
+            ms = 0.0
+            for k in names:
+                if count[k] != n * len(arglist):
+                    log(f"[profile] {count[k]} of {n * len(arglist)} "
+                        f"launches of {k} recorded; their mean counts")
+                ms += total[k] / count[k] * len(arglist) / 1e3
+            return ms
         log(f"[profile] session {attempt + 1} saw no device time")
-    fail("the profiler saw no device time")
+    # a RuntimeError, so that a yardstick's caller can record "not
+    # measured"; uncaught, it fails the run as fail() does
+    raise RuntimeError("the profiler saw no device time")
 
 
 def event_ms(fn, arglist, n):
@@ -2869,6 +2901,524 @@ def encdec_vlm_phase(la, ss, card):
     return launches, worst
 
 
+# ---------------------------------------------------------------------------
+# Phase G: gemma3-1b trained at full width and depth
+# ---------------------------------------------------------------------------
+
+BWD_SOURCE = "src/repro_torch/csrc/local_attention_bwd.cu"
+#: no TPU kernel computes the gradient: the reference gets it by autodiff
+#: of its plain attention, ``flash_attention`` at this line
+BWD_REPLACES = "src/repro/models/common.py:232"
+#: the backward's three kernels, as the profiler names them
+BWD_KERNELS = ("stats_kernel", "dkdv_kernel", "dq_kernel")
+TRAIN_ARCH = "gemma3-1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_STEP = 4, 2048, 8, 4
+#: the reference's test_train_steps_decrease_loss: AdamW with float32
+#: moments, lr 3e-3, warmup 2, one fixed batch (seed 1, step 0)
+TRAIN_CFG = dict(optimizer="adamw", lr=3e-3, warmup_steps=2,
+                 total_steps=50)
+TRAIN_DATA_SEED = 1
+TRAIN_LOSS_DROP = 0.3
+#: the float32 check against the CPU: the published widths cut to 12
+#: layers (two 6-layer cycles: one segment of count 2, checkpointed),
+#: batch 1, 640 tokens, TF32 off
+TRAIN_SMALL_LAYERS, TRAIN_SMALL_SEQ = 12, 640
+#: card against CPU in float32: the loss relative; each gradient leaf's
+#: max |diff| against its max |value| (the sums run in other orders
+#: through 12 layers of K = 1152 and 6912); after one AdamW step a
+#: gradient within that noise of zero has the sign of the noise, and
+#: step 1 moves each param by lr times about +-1, so the params are held
+#: within 2 lr of the CPU's everywhere and within lr / 1000 on all but a
+#: share TOL_TRAIN_F32_SHARE of each leaf
+TOL_TRAIN_F32_LOSS = 1e-5
+TOL_TRAIN_F32_GRAD = 1e-3
+TOL_TRAIN_F32_SHARE = 1e-2
+#: kernels against the plain versions for one bfloat16 step (both round
+#: p, the attention outputs and every gradient to bfloat16 at other
+#: points, and 26 layers carry the difference on): the loss (about 12.5)
+#: absolute, each gradient leaf's relative L2 difference
+TOL_TRAIN_PLAIN_LOSS = 1e-2
+TOL_TRAIN_PLAIN_GRAD = 5e-2
+#: the backward kernel against its plain version: each of dq, dk, dv
+#: within TOL_BWD times the largest |value| of the three plain gradients
+#: (float32: other summation orders; bfloat16: both round p for dV and
+#: the outputs to bfloat16, and a p near a rounding edge rounds apart)
+TOL_BWD = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: the backward kernel's edge grid: S ragged against its 32-row tiles,
+#: windows, GQA groups over 2 kv heads, soft cap, in both dtypes
+BWD_GRID_S = (37, 777, 2049)
+BWD_GRID_WINDOWS = (1, 65, 513, None)  # None: S
+BWD_GRID_GROUPS = (1, 4, 8)
+
+
+def train_program(cfg, device):
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.runtime.train_loop import build_train_program
+
+    return build_train_program(cfg, ParallelConfig(remat="full"),
+                               TrainConfig(**TRAIN_CFG), device)
+
+
+def train_batch(cfg, batch, seq, device):
+    """The reference test's fixed batch: ``synthetic_batch`` seed
+    TRAIN_DATA_SEED, step 0, as tensors on ``device``."""
+    from repro_torch.data.pipeline import DataSpec, synthetic_batch
+    from repro_torch.data.pipeline import to_device as batch_to
+
+    return batch_to(synthetic_batch(
+        DataSpec(cfg.vocab_size, seq, batch, TRAIN_DATA_SEED), 0), device)
+
+
+def step_launches(cfg):
+    """(forward, backward) attention launches one training step makes, as
+    the code predicts: each attention layer once, again in the recompute
+    of each cycle of a segment whose count exceeds 1, and one backward
+    each."""
+    from repro_torch.models.transformer import build_segments
+
+    fwd = bwd = 0
+    for seg in build_segments(cfg):
+        n = seg.count * sum(spec.kind == "attn" for spec in seg.cycle)
+        bwd += n
+        fwd += n * (2 if seg.count > 1 else 1)
+    return fwd, bwd
+
+
+def trees_equal(a, b) -> bool:
+    from repro_torch.tree import leaves_with_paths
+
+    la_, lb = leaves_with_paths(a), leaves_with_paths(b)
+    return ([p for p, _ in la_] == [p for p, _ in lb]
+            and all(torch.equal(x, y) for (_, x), (_, y) in zip(la_, lb)))
+
+
+def bwd_close(got, want, dtype):
+    """(within TOL_BWD, max |diff|, the scale)."""
+    scale = max(w.float().abs().max().item() for w in want)
+    err = max((g.float() - w.float()).abs().max().item()
+              for g, w in zip(got, want))
+    return err <= TOL_BWD[dtype] * scale, err, scale
+
+
+def bwd_work(q, window):
+    """Operations of one backward call at q (B, S, H, D): 10 D per
+    unmasked pair for the five products and 2 D for the statistics'
+    Q K^T."""
+    b, s, h, d = q.shape
+    w = min(int(window), s)
+    pairs = w * (w + 1) // 2 + (s - w) * w
+    return 12 * d * pairs * b * h
+
+
+def bwd_case(la, q, k, v, do, window, cap, what, worst):
+    """One backward call against its plain version, on the forward's
+    output; one launch, none of the forward kernels."""
+    o = la.grouped_local_attention_plain(q, k, v, window=window, softcap=cap)
+    before = dict(la.LAUNCHES)
+    got = la.local_attention_bwd(q, k, v, o, do, window=window, softcap=cap)
+    launched = {key: la.LAUNCHES[key] - before[key] for key in before}
+    want = la.local_attention_bwd_plain(q, k, v, o, do, window=window,
+                                        softcap=cap)
+    torch.cuda.synchronize()
+    ok, err, scale = bwd_close(got, want, q.dtype)
+    worst[q.dtype] = max(worst[q.dtype], err)
+    check(launched == {key: int(key == "local_attention_bwd")
+                       for key in before},
+          f"{what}: launches {launched}, want one of local_attention_bwd")
+    check(ok, f"local_attention_bwd != plain at {what}: max |diff| {err}, "
+              f"scale {scale}")
+
+
+def check_bwd_grid(la):
+    """The backward kernel against its plain version over the edge grid.
+    Returns the largest |diff| per dtype."""
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    rng = np.random.default_rng(SEED + 22)
+    cases = 0
+    for d in la.BWD_HEAD_DIMS:
+        for s in BWD_GRID_S:
+            for group in BWD_GRID_GROUPS:
+                base = [torch.from_numpy(rng.standard_normal(
+                    shape).astype(np.float32)).cuda()
+                    for shape in ((1, s, 2 * group, d), (1, s, 2, d),
+                                  (1, s, 2, d), (1, s, 2 * group, d))]
+                for dtype in (torch.float32, torch.bfloat16):
+                    q, k, v, do = (t.to(dtype) for t in base)
+                    for window in BWD_GRID_WINDOWS:
+                        for cap in (None, 50.0):
+                            w = s if window is None else window
+                            bwd_case(la, q, k, v, do, w, cap,
+                                     f"d {d}, S {s}, group {group}, "
+                                     f"window {w}, cap {cap}, {dtype}",
+                                     worst)
+                            cases += 1
+                del base, q, k, v, do
+    torch.cuda.empty_cache()
+    return worst, cases
+
+
+def grad_diffs(got, want):
+    """Per leaf (path, max |diff|, max |want|, relative L2 difference),
+    in float32."""
+    from repro_torch.tree import leaves_with_paths
+
+    out = []
+    for (path, a), (_, b) in zip(leaves_with_paths(got),
+                                 leaves_with_paths(want)):
+        a, b = a.float(), b.float().to(a.device)
+        diff = a - b
+        out.append((path, diff.abs().max().item(), b.abs().max().item(),
+                    (torch.linalg.vector_norm(diff)
+                     / torch.clamp_min(torch.linalg.vector_norm(b),
+                                       1e-30)).item()))
+    return out
+
+
+def time_bwd(la, local_call, global_call, per_step, card, reps: int = 10):
+    """Device time of the backward calls of one step (per_step: window ->
+    calls a step), beside the plain version, autograd through SDPA (the
+    band mask on a local call, ``is_causal`` on a global one) and the
+    bound.  Returns the JSON row's numbers."""
+    import torch.nn.functional as F
+
+    out = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    ops_total = bytes_total = 0
+    for call in (local_call, global_call):
+        q, k, v, o, do, window, cap = call
+        b, s, h, d = q.shape
+        n = per_step[window]
+        kern = device_ms(lambda: la.local_attention_bwd(
+            q, k, v, o, do, window=window, softcap=cap), [()], reps,
+            kernel=BWD_KERNELS)
+        plain = device_ms(lambda: la.local_attention_bwd_plain(
+            q, k, v, o, do, window=window, softcap=cap), [()], 3)
+        qs, ks, vs = (t.detach().expand(-1, -1, h, -1).transpose(1, 2)
+                      .contiguous().requires_grad_() for t in (q, k, v))
+        if window >= s:
+            lib_out = F.scaled_dot_product_attention(qs, ks, vs,
+                                                     is_causal=True)
+        else:
+            pos = torch.arange(s, device=q.device)
+            mask = (pos[None, :] <= pos[:, None]) & (
+                pos[None, :] > pos[:, None] - window)
+            lib_out = F.scaled_dot_product_attention(qs, ks, vs,
+                                                     attn_mask=mask)
+        dos = do.transpose(1, 2).contiguous()
+        try:  # a yardstick; the kernel is timed
+            lib = device_ms(lambda: torch.autograd.grad(
+                lib_out, (qs, ks, vs), dos, retain_graph=True), [()], reps)
+        except RuntimeError as e:
+            log(f"[G] SDPA autograd at window {window}: {e}: not measured")
+            lib = float("nan")
+        ops = bwd_work(q, window)
+        nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel())
+        bound = max(ops / PEAK_BF16_OPS, nbytes / PEAK_BYTES) * 1e3
+        log(f"[G] local_attention_bwd, q {tuple(q.shape)} {q.dtype}, window "
+            f"{window}: kernel {kern:.4f} ms, plain {plain:.4f}, SDPA "
+            f"autograd ({'is_causal' if window >= s else 'band mask'}) "
+            f"{lib:.4f}, bound {bound:.4f} (operations {ops / 1e9:.2f} "
+            f"GFLOP; {n} such calls a step) on {card}")
+        out["ms"] += n * kern
+        out["plain_ms"] += n * plain
+        out["library_ms"] += n * lib
+        out["bound_ms"] += n * bound
+        ops_total += n * ops
+        bytes_total += n * nbytes
+        del lib_out, qs, ks, vs, dos
+    if out["library_ms"] != out["library_ms"]:  # a NaN: not measured
+        out["library_ms"] = None
+    out["bound_by"] = ("operations" if ops_total / PEAK_BF16_OPS
+                       >= bytes_total / PEAK_BYTES else "bytes")
+    out["tflops"] = ops_total / out["ms"] / 1e9
+    return out
+
+
+def profile_step(prog, params, state, batch, card):
+    """Device time by kernel of one training step under the profiler:
+    (total ms, backward kernels' ms, top kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = prog.step_fn(params, state, batch)
+        torch.cuda.synchronize()
+    del out
+    rows = []
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            rows.append((getattr(ev, "self_device_time_total",
+                                 getattr(ev, "self_cuda_time_total", 0.0))
+                         / 1e3, ev.count, ev.key))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    bwd = sum(r[0] for r in rows if any(k in r[2] for k in BWD_KERNELS))
+    return total, bwd, rows[:10]
+
+
+def train_f32_vs_cpu(la, cfg):
+    """The float32 run cut in depth on the card and on the CPU: loss,
+    every gradient leaf and one AdamW step's params."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.optim.optimizer import apply_updates
+    from repro_torch.runtime.train_loop import value_and_grad
+    from repro_torch.tree import leaves_with_paths, tree_map
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(cfg, num_layers=TRAIN_SMALL_LAYERS,
+                              dtype="float32")
+    tcfg = TrainConfig(**TRAIN_CFG)
+    prog = train_program(cfg, "cuda")
+    params, state = prog.init_fn(SEED)
+    batch = train_batch(cfg, 1, TRAIN_SMALL_SEQ, "cuda")
+    fwd_want, bwd_want = step_launches(cfg)
+    for key in la.LAUNCHES:
+        la.LAUNCHES[key] = 0
+    loss, grads = value_and_grad(prog.loss_fn, params, batch)
+    new_params, _, metrics = apply_updates(params, grads, state, tcfg)
+    torch.cuda.synchronize()
+    counts = dict(la.LAUNCHES)
+    check(counts == {"local_attention": 0, "local_attention_f32": fwd_want,
+                     "local_attention_bwd": bwd_want},
+          f"{TRAIN_ARCH} float32 {TRAIN_SMALL_LAYERS} layers: launches "
+          f"{counts}, want {fwd_want} of the float32 kernel and "
+          f"{bwd_want} backward")
+    card_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    cpu = train_program(cfg, "cpu")
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    cpu_state = tree_map(lambda t: t.cpu(), state)
+    loss_c, grads_c = value_and_grad(cpu.loss_fn, cpu_params,
+                                     train_batch(cfg, 1, TRAIN_SMALL_SEQ,
+                                                 "cpu"))
+    new_c, _, metrics_c = apply_updates(cpu_params, grads_c, cpu_state, tcfg)
+    cpu_s = time.perf_counter() - t1
+    loss_err = abs(loss.item() - loss_c.item()) / abs(loss_c.item())
+    check(loss_err <= TOL_TRAIN_F32_LOSS,
+          f"float32 loss {loss.item()} on the card, {loss_c.item()} on the "
+          f"CPU (relative {loss_err})")
+    worst_grad = 0.0
+    for path, err, ref, _ in grad_diffs(grads, grads_c):
+        worst_grad = max(worst_grad, err / max(ref, 1e-30))
+        check(err <= TOL_TRAIN_F32_GRAD * ref,
+              f"float32 gradient {path}: max |diff| {err} against max "
+              f"|value| {ref}")
+    lr1 = metrics_c["lr"].item()
+    worst_p, worst_share = 0.0, 0.0
+    for (path, a), (_, b) in zip(leaves_with_paths(new_params),
+                                 leaves_with_paths(new_c)):
+        diff = (a.cpu() - b).abs()
+        share = (diff > lr1 / 1000).float().mean().item()
+        worst_p, worst_share = max(worst_p, diff.max().item()), max(
+            worst_share, share)
+        check(diff.max().item() <= 2 * lr1 * (1 + 1e-3)
+              and share <= TOL_TRAIN_F32_SHARE,
+              f"float32 AdamW step {path}: max |diff| {diff.max().item()} "
+              f"(lr {lr1}), {share:.2e} of the leaf beyond lr / 1000")
+    log(f"[G] {TRAIN_ARCH} float32, {TRAIN_SMALL_LAYERS} layers at full "
+        f"width, batch 1, {TRAIN_SMALL_SEQ} tokens (TF32 off): loss "
+        f"{loss.item():.7f} on the card, {loss_c.item():.7f} on the CPU "
+        f"(relative {loss_err:.2e}); gradients within {worst_grad:.2e} of "
+        f"each leaf's max |value| (tolerance {TOL_TRAIN_F32_GRAD}); one "
+        f"AdamW step's params within {worst_p:.3e} (lr {lr1:.3e}), at most "
+        f"{worst_share:.2e} of a leaf beyond lr / 1000; launches {counts}; "
+        f"card {card_s:.1f} s, CPU {cpu_s:.1f} s")
+    del prog, params, state, grads, new_params, cpu_params, grads_c, new_c
+    torch.cuda.empty_cache()
+
+
+def training_phase(la, card):
+    """Phase G.  Returns (the backward kernel's JSON row, the forward
+    kernel's counted launches)."""
+    import shutil
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.fault import StepGuard, StragglerMonitor
+    from repro_torch.runtime.train_loop import value_and_grad
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    prog = train_program(cfg, "cuda")
+    params, state = prog.init_fn(SEED)
+    batch = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, "cuda")
+    fwd_want, bwd_want = step_launches(cfg)
+    want = {"local_attention": fwd_want, "local_attention_f32": 0,
+            "local_attention_bwd": bwd_want}
+    log(f"[G] {TRAIN_ARCH}: {depth(cfg)} layers at full width, "
+        f"{n_params(params)} parameters (bfloat16, stacked per segment), "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ}; set up in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # one step's gradients with the kernels (every backward call recorded
+    # and held against the plain version), then with the plain versions
+    t0 = time.perf_counter()
+    calls = []
+    kernel_bwd = la.local_attention_bwd
+
+    def recording_bwd(q, k, v, o, do, *, window, softcap=None):
+        calls.append((q, k, v, o, do, window, softcap))
+        return kernel_bwd(q, k, v, o, do, window=window, softcap=softcap)
+
+    with Swapped((la, "local_attention_bwd", recording_bwd)):
+        loss_k, grads_k = value_and_grad(prog.loss_fn, params, batch)
+    torch.cuda.synchronize()
+    check(len(calls) == bwd_want,
+          f"{len(calls)} backward calls in one step, want {bwd_want}")
+    worst = 0.0
+    for i, (q, k, v, o, do, window, cap) in enumerate(calls):
+        got = kernel_bwd(q, k, v, o, do, window=window, softcap=cap)
+        ref = la.local_attention_bwd_plain(q, k, v, o, do, window=window,
+                                           softcap=cap)
+        ok, err, scale = bwd_close(got, ref, q.dtype)
+        worst = max(worst, err)
+        check(ok, f"local_attention_bwd != plain at main-path call {i}, q "
+                  f"{tuple(q.shape)} window {window}: max |diff| {err}, "
+                  f"scale {scale}")
+    per_step = {}
+    for c in calls:
+        per_step[c[5]] = per_step.get(c[5], 0) + 1
+    local_call = next(c for c in calls if c[5] < TRAIN_SEQ)
+    global_call = next(c for c in calls if c[5] >= TRAIN_SEQ)
+    del calls, got, ref
+    with Swapped((la, "grouped_local_attention",
+                  la.grouped_local_attention_plain)):
+        loss_p, grads_p = value_and_grad(prog.loss_fn, params, batch)
+    diffs = grad_diffs(grads_k, grads_p)
+    del grads_k, grads_p
+    loss_err = abs(loss_k.item() - loss_p.item())
+    worst_rel = max(d[3] for d in diffs)
+    worst_path = max(diffs, key=lambda d: d[3])[0]
+    check(loss_err <= TOL_TRAIN_PLAIN_LOSS,
+          f"bf16 loss {loss_k.item()} with the kernels, {loss_p.item()} "
+          f"with the plain versions")
+    for path, err, refmax, rel in diffs:
+        check(rel <= TOL_TRAIN_PLAIN_GRAD,
+              f"bf16 gradient {path} with the kernels vs the plain "
+              f"versions: relative L2 {rel}, max |diff| {err} (max |value| "
+              f"{refmax})")
+    log(f"[G] bf16 step, kernels vs plain versions swapped in: loss "
+        f"{loss_k.item():.6f} / {loss_p.item():.6f} (|diff| {loss_err:.2e},"
+        f" tolerance {TOL_TRAIN_PLAIN_LOSS}); gradients' relative L2 "
+        f"difference at most {worst_rel:.3e} ({worst_path}; tolerance "
+        f"{TOL_TRAIN_PLAIN_GRAD}), max |diff| / max |value| at most "
+        f"{max(d[1] / max(d[2], 1e-30) for d in diffs):.3e}; the "
+        f"{bwd_want} backward calls within {worst:.3e} of the plain "
+        f"version; {time.perf_counter() - t0:.1f} s")
+
+    # the counted run: 8 steps on the fixed batch, a checkpoint at step 4
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "chip_smoke" \
+        / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    mgr = CheckpointManager(str(ckpt_dir), keep=1)
+
+    def lost(step):
+        fail(f"phase G: a training step failed and was retried at {step}")
+
+    guard, monitor = StepGuard(recover=lost, max_retries=0), \
+        StragglerMonitor()
+    losses, step_ms, fwd_launches, bwd_launches = [], [], 0, 0
+    first = (params, state)
+    save_s = None
+    for step in range(TRAIN_STEPS):
+        if step == 1:  # the first step warms the card and is not timed
+            torch.cuda.reset_peak_memory_stats()
+        for key in la.LAUNCHES:
+            la.LAUNCHES[key] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = guard.run(prog.step_fn, step, params, state,
+                                           batch)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = dict(la.LAUNCHES)
+        check(counts == want, f"step {step + 1}: launches {counts}, want "
+                              f"{want}")
+        fwd_launches += counts["local_attention"]
+        bwd_launches += counts["local_attention_bwd"]
+        losses.append(metrics["loss"].item())
+        monitor.observe(step, step_ms[-1] / 1e3)
+        if step == 0:  # the same step again from the same state
+            again = prog.step_fn(*first, batch)
+            check(trees_equal(again[0], params) and trees_equal(
+                again[1], state) and again[2]["loss"].item() == losses[0],
+                  "two steps from the same state differ")
+            del again, first
+        if step + 1 == TRAIN_CKPT_STEP:
+            t0 = time.perf_counter()
+            mgr.save(step + 1, {"params": params, "opt_state": state})
+            save_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    mgr.wait()
+    write_s = time.perf_counter() - t0
+    check(losses[-1] < losses[0] - TRAIN_LOSS_DROP,
+          f"loss fell from {losses[0]} to {losses[-1]} over {TRAIN_STEPS} "
+          f"steps, want a fall of {TRAIN_LOSS_DROP}")
+    med = float(np.median(step_ms[1:]))
+    log(f"[G] {TRAIN_STEPS} AdamW steps: losses "
+        f"{[round(x, 4) for x in losses]}; step ms {[round(x, 1) for x in step_ms]}"
+        f" (median of steps 2 to {TRAIN_STEPS}: {med:.1f} ms, "
+        f"{TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.1f} tokens/s); peak device "
+        f"memory {peak / 1e9:.2f} GB; launches a step {want}; straggler "
+        f"flags {monitor.flagged_steps}; two steps from one state "
+        f"bit-equal; on {card}")
+
+    # resume from the step-4 checkpoint: steps 5 to 8 again, bit-equal
+    t0 = time.perf_counter()
+    restored, at = mgr.restore({"params": params, "opt_state": state})
+    restore_s = time.perf_counter() - t0
+    rp, rs = restored["params"], restored["opt_state"]
+    del restored
+    resumed = []
+    for step in range(at, TRAIN_STEPS):
+        rp, rs, metrics = prog.step_fn(rp, rs, batch)
+        resumed.append(metrics["loss"].item())
+    check(at == TRAIN_CKPT_STEP and resumed == losses[TRAIN_CKPT_STEP:]
+          and trees_equal(rp, params) and trees_equal(rs, state),
+          f"resumed from step {at}: losses {resumed}, uninterrupted "
+          f"{losses[TRAIN_CKPT_STEP:]}; params and state equal "
+          f"{trees_equal(rp, params)} / {trees_equal(rs, state)}")
+    disk = sum(f.stat().st_size for f in ckpt_dir.rglob("*") if f.is_file())
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log(f"[G] checkpoint at step {TRAIN_CKPT_STEP}: {disk / 1e9:.2f} GB on "
+        f"disk, host snapshot {save_s:.1f} s, write {write_s:.1f} s more, "
+        f"restore {restore_s:.1f} s; steps {at + 1} to {TRAIN_STEPS} after "
+        f"the restore bit-equal to the uninterrupted run")
+    del rp, rs
+
+    total, bwd_dev, top = profile_step(prog, params, state, batch, card)
+    log(f"[G] one step under the profiler: {total:.2f} ms of device time "
+        f"({100 * total / med:.1f}% of the median step), the backward "
+        f"kernels {bwd_dev:.2f} ms; top kernels "
+        + "; ".join(f"{ms:.2f} ms x{n} {name[:60]}" for ms, n, name in top)
+        + f" on {card}")
+    del params, state, metrics, batch, prog
+    torch.cuda.empty_cache()
+
+    row = time_bwd(la, local_call, global_call, per_step, card)
+    log(f"[G] local_attention_bwd per step ({per_step} calls by window): "
+        f"{row['ms']:.4f} ms ({row['tflops']:.1f} TFLOP/s on unmasked "
+        f"work, {100 * row['bound_ms'] / row['ms']:.2f}% of the "
+        f"{row['bound_ms']:.4f} ms bound), plain {row['plain_ms']:.4f} ms, "
+        f"SDPA autograd {row['library_ms']} ms on {card}")
+    del local_call, global_call
+    grid_worst, cases = check_bwd_grid(la)
+    log(f"[G] local_attention_bwd vs plain over {cases} edge cases: max "
+        f"|diff| float32 {grid_worst[torch.float32]:.3e}, bfloat16 "
+        f"{grid_worst[torch.bfloat16]:.3e}")
+    train_f32_vs_cpu(la, cfg)
+    log(f"[G] phase G: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return {"name": "local_attention_bwd", "route": "cuda",
+            "source": BWD_SOURCE, "replaces": BWD_REPLACES,
+            "launches": bwd_launches,
+            "max_abs_err": max(worst, *grid_worst.values()),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]}, fwd_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2892,8 +3442,9 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
     # one nvcc per source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        builds = [pool.submit(m.build) for m in (km, la, ss)]
+    with ThreadPoolExecutor(4) as pool:
+        builds = [pool.submit(fn) for fn in (km.build, la.build, la.build_bwd,
+                                             ss.build)]
         for fut in builds:
             lib, build_log = fut.result()
             log(f"[build] {lib.name} after {time.perf_counter() - t0:.1f} s")
@@ -2986,9 +3537,10 @@ def main() -> int:
                     for k, v in lm.items()) + f" on {card}")
     scan_row, family_attn, worst_family = families_phase(la, ss, card)
     e_attn, worst_e = encdec_vlm_phase(la, ss, card)
-    # phases 5 and 6 (gemma3) and the counted runs of phases F and E
+    bwd_row, g_attn = training_phase(la, card)
+    # phases 5 and 6 (gemma3) and the counted runs of phases F, E and G
     launches_attn = {"local_attention": lm["bf16"]["launches"]
-                     + family_attn + e_attn,
+                     + family_attn + e_attn + g_attn,
                      "local_attention_f32": f32_launches}
     for name in worst_attn:
         worst_attn[name] = max(worst_attn[name], worst_family.get(name, 0.0),
@@ -3001,6 +3553,7 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     kernels.append(scan_row)
+    kernels.append(bwd_row)
     for name, label in (("local_attention", "bfloat16"),
                         ("local_attention_f32", "float32")):
         row = attn[name]

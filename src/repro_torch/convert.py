@@ -6,8 +6,9 @@ kernel or (C_in, C_out) FC matrix, or a ``{"q", "s"}`` quantized leaf);
 the port keeps the same layout as tensors on a device.  LM params and
 caches are segment-stacked in the reference and a per-layer list in the
 port (``models/transformer.py``); an encoder-decoder's stacks and caches
-likewise (``models/encdec.py``).  Nothing here imports the reference:
-it reads plain arrays and duck-typed engines.
+likewise (``models/encdec.py``).  Training keeps the reference's stacked
+layout, and the optimizer state crosses as it is.  Nothing here imports
+the reference: it reads plain arrays and duck-typed engines.
 """
 from __future__ import annotations
 
@@ -75,6 +76,51 @@ def lm_params_from_reference(params_np: Dict[str, Any], cfg, device=None
            if k != "segments"}
     out["layers"] = _unstack(params_np["segments"], cfg, dev)
     return out
+
+
+def lm_train_params_from_reference(params_np: Dict[str, Any], cfg,
+                                   device=None) -> Dict[str, Any]:
+    """The reference's LM params as tensors on ``device`` in the
+    reference's own layout, the training layout of
+    ``models/transformer.py``: ``"segments"`` kept, each leaf of a
+    repeated segment stacked over its count, same dtypes.  The optimizer
+    then sees the reference's leaves (it decays, factors, clips and
+    compresses per leaf)."""
+    from repro_torch.models.transformer import build_segments
+
+    out = _tensors(params_np, resolve_device(device))
+    n = len(build_segments(cfg))
+    if len(out["segments"]) != n:
+        raise ValueError(f"{len(out['segments'])} segments for {n}")
+    return out
+
+
+def opt_state_from_reference(state, device=None):
+    """The reference's ``OptState`` (step, m, v, err; ``()`` where an
+    optimizer keeps none) as the port's, tensors on ``device``."""
+    from repro_torch.optim.optimizer import OptState
+
+    dev = resolve_device(device)
+    return OptState(*(() if isinstance(t, tuple) and not t
+                      else _tensors(t, dev) for t in state))
+
+
+def to_reference(tree):
+    """A tree of tensors (params, an ``OptState``) as numpy arrays, same
+    structure; bfloat16 leaves as ``ml_dtypes.bfloat16`` arrays, which
+    jax reads as bfloat16 (the inverse of :func:`_tensors`)."""
+    from repro_torch.tree import tree_map
+
+    def one(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+
+            return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+        return t.numpy()
+
+    return tree_map(one, tree)
+
 
 
 def lm_caches_from_reference(caches_np, cfg, device=None) -> List[Any]:

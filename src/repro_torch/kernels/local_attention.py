@@ -35,12 +35,24 @@ bounds the kernels on the H100 and what each design does about it),
 built with ``nvcc`` for ``sm_90a`` at first use
 (``kernels/_build.py``) and loaded with ``ctypes``.  On a CPU tensor
 the wrappers compute :func:`grouped_local_attention_plain`, a dense
-masked softmax in plain PyTorch; on a CUDA tensor they launch the
-kernel or raise; a (DQK, DV) pair the source does not instantiate
-(``HEAD_DIM_PAIRS``) raises before any launch.  :func:`tile_schedule`
-counts what a kernel visits,
-skips and computes at a given (S, window): the bfloat16 kernel's tiles
-by default, the float32 kernel's with ``F32_TILES``.
+masked softmax in plain PyTorch that autograd differentiates; on a CUDA
+tensor they launch the kernel or raise; a (DQK, DV) pair the source
+does not instantiate (``HEAD_DIM_PAIRS``) raises before any launch.
+
+The gradient.  When grad is enabled and q, k or v requires it, a CUDA
+call goes through :class:`LocalAttentionFn`: its forward launches the
+same kernel, and its backward launches :func:`local_attention_bwd`
+(``csrc/local_attention_bwd.cu``, ``LAUNCHES["local_attention_bwd"]``
+once per backward), which recomputes each row's log-sum-exp and gives
+dq, dk and dv.  It is built for the (D, D) pairs of ``HEAD_DIMS``
+(``BWD_HEAD_DIMS``); a call that needs the gradient at another pair
+raises before any launch rather than return an output with no
+``grad_fn``.  :func:`local_attention_bwd_plain` and
+:func:`local_attention_row_stats_plain` are its plain versions.
+
+:func:`tile_schedule` counts what a kernel visits, skips and computes at
+a given (S, window): the bfloat16 kernel's tiles by default, the
+float32 kernel's with ``F32_TILES``.
 """
 from __future__ import annotations
 
@@ -64,7 +76,16 @@ DTYPES = (torch.float32, torch.bfloat16)
 MASKED = -1e30
 #: kernel launches by kernel (bfloat16 tensor cores, float32 CUDA
 #: cores); the wrapper adds one where it launches, and nowhere else
-LAUNCHES = {"local_attention": 0, "local_attention_f32": 0}
+LAUNCHES = {"local_attention": 0, "local_attention_f32": 0,
+            "local_attention_bwd": 0}
+BWD_SOURCE = _build.CSRC / "local_attention_bwd.cu"
+#: head dims the backward kernel is built for, each as (D, D); MLA's
+#: (192, 128) waits for the MLA training slice
+BWD_HEAD_DIMS = HEAD_DIMS
+#: what a call that needs a gradient the card cannot give raises with
+NO_BWD = ("the attention backward kernel is built for (D, D) with D in "
+          f"{BWD_HEAD_DIMS}; MLA's (192, 128) pair is ROADMAP Queue 1 "
+          "item 16(b)")
 #: the bfloat16 kernel's tiling (``tc::`` in the CUDA source): query rows
 #: per block, keys per tile, rows per warpgroup, keys per chunk of P V
 TC_BLOCK_Q, TC_BLOCK_K, TC_ROWS, TC_CHUNK = 128, 64, 64, 16
@@ -74,6 +95,8 @@ TC_BLOCK_Q, TC_BLOCK_K, TC_ROWS, TC_CHUNK = 128, 64, 64, 16
 #: rows' windows
 F32_BLOCK_Q, F32_BLOCK_K = 64, 64
 F32_TILES = dict(block_q=F32_BLOCK_Q, block_k=F32_BLOCK_K, rows=8, chunk=4)
+#: the backward kernel's query rows and keys per tile
+BWD_TILE = 32
 
 
 class TileSchedule(NamedTuple):
@@ -144,6 +167,12 @@ def build() -> Tuple[Path, str]:
     return _build.build(SOURCE)
 
 
+def build_bwd() -> Tuple[Path, str]:
+    """Compile the backward kernel's library if this source has not been
+    built yet.  Returns (library path, compiler log)."""
+    return _build.build(BWD_SOURCE)
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     lib = ctypes.CDLL(str(build()[0]))
@@ -152,6 +181,16 @@ def _launcher():
                           ctypes.c_float)
     fn.argtypes = ([ptr, i64, i64, i64] * 4
                    + [i32] * 7 + [f32, f32, i32, ptr])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_launcher():
+    lib = ctypes.CDLL(str(build_bwd()[0]))
+    fn = lib.local_attention_bwd_launch
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [ptr] * 10 + [i32] * 6 + [f32, f32, i32, ptr]
     fn.restype = ctypes.c_int
     return fn
 
@@ -215,7 +254,9 @@ def grouped_local_attention(q: torch.Tensor, k: torch.Tensor,
     CPU tensors take :func:`grouped_local_attention_plain`.  CUDA
     tensors launch the bfloat16 or the float32 kernel, by dtype
     (``LAUNCHES`` counts each); nothing falls back to the plain version
-    on the card."""
+    on the card.  With grad enabled and an input that requires it, the
+    launch goes through :class:`LocalAttentionFn`, whose backward is the
+    backward kernel."""
     _check(q, k, v, window, softcap)
     if q.device.type == "cpu":
         return grouped_local_attention_plain(q, k, v, window=window,
@@ -223,11 +264,24 @@ def grouped_local_attention(q: torch.Tensor, k: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"local attention runs on cpu or cuda, not "
                          f"{q.device}")
-    b, s, h, d = q.shape
-    dv = v.shape[3]
+    d, dv = q.shape[3], v.shape[3]
     if (d, dv) not in HEAD_DIM_PAIRS:
         raise ValueError(f"head dims (q/k {d}, v {dv}) not among the "
                          f"kernel's {HEAD_DIM_PAIRS}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if d != dv or d not in BWD_HEAD_DIMS:
+            raise RuntimeError(f"head dims (q/k {d}, v {dv}) need a "
+                               f"gradient: {NO_BWD}")
+        return LocalAttentionFn.apply(q, k, v, window, softcap)
+    return _launch(q, k, v, window, softcap)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
+            softcap: Optional[float]) -> torch.Tensor:
+    """One launch of the forward kernel of q's dtype on checked operands."""
+    b, s, h, d = q.shape
+    dv = v.shape[3]
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("q, k and v need unit stride along the head dim")
     bf16 = q.dtype == torch.bfloat16
@@ -259,6 +313,155 @@ def grouped_local_attention(q: torch.Tensor, k: torch.Tensor,
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
     return out
+
+
+class LocalAttentionFn(torch.autograd.Function):
+    """The sliding-window attention on the card with its gradient: the
+    forward kernel of q's dtype, then :func:`local_attention_bwd` from
+    q, k, v, the output and its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, softcap):
+        o = _launch(q, k, v, window, softcap)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.window, ctx.softcap = window, softcap
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = local_attention_bwd(q, k, v, o, do, window=ctx.window,
+                                         softcap=ctx.softcap)
+        return dq, dk, dv, None, None
+
+
+def _heads_first(t: torch.Tensor, kvh: int) -> torch.Tensor:
+    """(B, S, H, D) as float32 (B, KV, H / KV, S, D)."""
+    b, s, h, d = t.shape
+    return t.float().reshape(b, s, kvh, h // kvh, d).permute(0, 2, 3, 1, 4)
+
+
+def _scores_plain(q, k, window, softcap):
+    """(scores after the scale and the cap (B, KV, G, S, S), tanh's value
+    or None, the window's mask (S, S)) in float32."""
+    s = q.shape[1]
+    d = q.shape[3]
+    kvh = k.shape[2]
+    kg = k.float().permute(0, 2, 1, 3).unsqueeze(2)     # (B, KV, 1, S, D)
+    scores = torch.matmul(_heads_first(q, kvh), kg.transpose(-1, -2)) \
+        * d ** -0.5
+    t = None
+    if softcap is not None:
+        t = torch.tanh(scores / softcap)
+        scores = t * softcap
+    pos = torch.arange(s, device=q.device)
+    keep = (pos[None, :] <= pos[:, None]) & (
+        pos[None, :] > pos[:, None] - window)
+    return scores, t, keep
+
+
+def local_attention_row_stats_plain(q: torch.Tensor, k: torch.Tensor,
+                                    o: torch.Tensor, do: torch.Tensor, *,
+                                    window: int,
+                                    softcap: Optional[float] = None
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel's statistics in plain PyTorch: each row's
+    log-sum-exp over its window (masked scores at ``-1e30``) and
+    ``D = dO . o``, both float32 (B, H, S)."""
+    b, s, h, _ = q.shape
+    scores, _, keep = _scores_plain(q, k, window, softcap)
+    lse = torch.logsumexp(
+        torch.where(keep, scores, torch.full_like(scores, MASKED)), dim=-1)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1)   # (B, H, S)
+    return lse.reshape(b, h, s), delta
+
+
+def local_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              do: torch.Tensor, *, window: int,
+                              softcap: Optional[float] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The plain version of :func:`local_attention_bwd`: the closed-form
+    gradient, dense (S, S) per head in float32.  ``p = exp(s - lse)``,
+    rounded to v's type for ``dV = p^T dO``; ``dS = p (dO V^T - D)``,
+    times ``1 - tanh^2(s / cap)`` under a soft cap, then the scale; dQ
+    = dS K and dK = dS^T Q, a kv head's group summed.  Outputs in the
+    operands' types: dq (B, S, H, D), dk and dv (B, S, KV, D)."""
+    _check(q, k, v, window, softcap)
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    scores, t, keep = _scores_plain(q, k, window, softcap)
+    lse, delta = local_attention_row_stats_plain(q, k, o, do, window=window,
+                                                 softcap=softcap)
+    g = h // kvh
+    lse = lse.reshape(b, kvh, g, s, 1)
+    delta = delta.reshape(b, kvh, g, s, 1)
+    zero = torch.zeros((), device=q.device)
+    p = torch.where(keep, torch.exp(scores - lse), zero)
+    dog = _heads_first(do, kvh)                           # (B, KV, G, S, D)
+    vg = v.float().permute(0, 2, 1, 3).unsqueeze(2)       # (B, KV, 1, S, D)
+    ds = p * (torch.matmul(dog, vg.transpose(-1, -2)) - delta)
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    ds = torch.where(keep, ds * d ** -0.5, zero)
+    p = p.to(v.dtype).float()
+    dv = torch.matmul(p.transpose(-1, -2), dog).sum(2)    # (B, KV, S, D)
+    dk = torch.matmul(ds.transpose(-1, -2), _heads_first(q, kvh)).sum(2)
+    dq = torch.matmul(ds, k.float().permute(0, 2, 1, 3).unsqueeze(2))
+    return (dq.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype),
+            dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *, window: int,
+                        softcap: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`grouped_local_attention` at q (B, S, H, D),
+    k, v (B, S, KV, D), its output o and the output's gradient do.
+
+    CPU tensors take :func:`local_attention_bwd_plain`.  CUDA tensors
+    launch the backward kernel (``LAUNCHES["local_attention_bwd"]``
+    counts each call), at the (D, D) pairs of ``BWD_HEAD_DIMS``; another
+    pair raises before any launch."""
+    _check(q, k, v, window, softcap)
+    if o.shape != q.shape[:3] + v.shape[3:] or do.shape != o.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"be (B, S, H, DV) for q {tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return local_attention_bwd_plain(q, k, v, o, do, window=window,
+                                         softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"local attention runs on cpu or cuda, not "
+                         f"{q.device}")
+    b, s, h, d = q.shape
+    if d != v.shape[3] or d not in BWD_HEAD_DIMS:
+        raise RuntimeError(f"head dims (q/k {d}, v {v.shape[3]}): {NO_BWD}")
+    if b * h > 65535:
+        raise ValueError(f"(B, S, H) = ({b}, {s}, {h}) exceeds the backward "
+                         f"kernel's grid")
+    if o.dtype != q.dtype or do.dtype != q.dtype:
+        raise TypeError(f"o and do must be {q.dtype}: {o.dtype}, {do.dtype}")
+    q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk, dv
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    launch = _bwd_launcher()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = launch(*(t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv,
+                                              lse, delta)),
+                     b, s, h, h // k.shape[2], d, min(int(window), s),
+                     d ** -0.5, 0.0 if softcap is None else float(softcap),
+                     int(q.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"local_attention_bwd launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["local_attention_bwd"] += 1
+    return dq, dk, dv
 
 
 def local_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

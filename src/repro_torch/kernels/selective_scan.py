@@ -30,7 +30,9 @@ bounds the kernel on the H100 and what the design does about it), built
 with ``nvcc`` for ``sm_90a`` and ``-fmad=false`` at first use
 (``kernels/_build.py``) and loaded with ``ctypes``.  On a CPU tensor the
 wrapper computes :func:`selective_scan_plain`, the sequential recurrence
-in float32 PyTorch; on a CUDA tensor it launches the kernel or raises.
+in float32 PyTorch; on a CUDA tensor it launches the kernel or raises.  The kernel has no
+backward yet: a CUDA call whose operands require grad raises rather than
+return an output with no ``grad_fn``.
 """
 from __future__ import annotations
 
@@ -141,6 +143,12 @@ def selective_scan(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
         return selective_scan_plain(dt, x, b, c, a, d, h0)
     if dt.device.type != "cuda":
         raise ValueError(f"the scan runs on cpu or cuda, not {dt.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (dt, x, b, c, a, d,
+                                                        h0)):
+        raise RuntimeError(
+            "the selective scan kernel has no backward yet (ROADMAP Queue 1 "
+            "item 16(a)): its output would carry no gradient")
     bsz, s, dl = dt.shape
     n = a.shape[1]
     if n not in D_STATES:

@@ -1,7 +1,9 @@
 """LM model foundations on torch — the tp = 1 subset of
 ``repro/models/common.py``: the sharding plan, norms, activations, RoPE,
-soft caps, the embedding lookup, initializers, the quantized-weight
-leaf path and flash attention.
+soft caps, the embedding lookup, the cross-entropy over the head's
+logits, initializers, the quantized-weight leaf path and flash
+attention (with its gradient on the card: ``grouped_local_attention``
+takes ``LocalAttentionFn`` when an input requires grad).
 
 The reference writes these as per-device functions inside one
 ``shard_map``; on one card every collective is local math, so only
@@ -217,7 +219,7 @@ def bidirectional_attention(q: torch.Tensor, k: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Embedding
+# Embedding and cross-entropy
 # ---------------------------------------------------------------------------
 
 
@@ -225,6 +227,40 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
                  plan: ShardingPlan) -> torch.Tensor:
     """table: (V, D); ids: (B, S) -> (B, S, D)."""
     return table[ids]
+
+
+def sharded_softmax_xent(logits_local: torch.Tensor, labels: torch.Tensor,
+                         plan: ShardingPlan,
+                         valid: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Mean cross-entropy of logits (B, S, V) against label ids (B, S),
+    over the ``valid`` positions (all without it), in float32.  The
+    reference's at tp = 1: the max shift is detached (its
+    ``stop_gradient``), the log-sum-exp is ``m + log(sum(exp(x - m)))``,
+    and a label outside the vocabulary picks 0."""
+    v_local = logits_local.shape[-1]
+    x = logits_local.float()
+    m = torch.amax(x, dim=-1).detach()
+    lse = m + torch.log(torch.sum(torch.exp(x - m[..., None]), dim=-1))
+    hit = (labels >= 0) & (labels < v_local)
+    local = torch.clamp(labels, 0, v_local - 1).long()
+    picked = torch.gather(x, -1, local[..., None])[..., 0]
+    picked = torch.where(hit, picked, torch.zeros_like(picked))
+    nll = lse - picked
+    valid = torch.ones_like(nll) if valid is None else valid.float()
+    return torch.sum(nll * valid) / torch.clamp_min(torch.sum(valid), 1.0)
+
+
+def _mask_pad_vocab(logits_local: torch.Tensor, cfg: ModelConfig,
+                    plan: ShardingPlan, v_local: int) -> torch.Tensor:
+    """Columns past the vocabulary at ``-1e30``.  At tp = 1 every column
+    is a real id, and the logits come back as they are (the reference's
+    ``where`` with an all-true mask)."""
+    if v_local <= cfg.vocab_size:
+        return logits_local
+    col = torch.arange(v_local, device=logits_local.device)
+    return torch.where((col < cfg.vocab_size)[None, None, :], logits_local,
+                       torch.full_like(logits_local, -1e30))
 
 
 # ---------------------------------------------------------------------------

@@ -31,16 +31,35 @@ GQA ``k`` / ``v`` (B, S, KV, hd) (+ ``k_scale`` / ``v_scale``
 
 Multi-token prediction (deepseek-v3's ``mtp_depth``): its parameters
 are built, converted and quantized as the reference's, but serving never
-reads them; their forward belongs to the training loss (``lm_loss``,
-ROADMAP Queue 1 item 16).
+reads them; their forward belongs to the training loss (ROADMAP Queue 1
+item 16(b)).
+
+Training keeps the reference's layout: ``"segments"`` in place of
+``"layers"``, one list per segment with one dict per position of its
+layer cycle, each leaf stacked over the segment's repeat count when it
+exceeds 1 (:func:`stack_layers`).  :func:`forward` takes either layout;
+on the stacked one it hands each cycle ``torch.unbind`` views, whose
+backward stacks the gradients onto the reference's leaves, and with
+grad enabled it runs each cycle of a repeated segment under
+``torch.utils.checkpoint`` as the reference's ``remat`` policy says.
+:func:`lm_loss` is the reference's loss for the dense decoder family;
+the MoE aux loss, the Mamba scan's backward, MLA with MTP and the
+frontends raise (ROADMAP Queue 1 item 16(a) to (c)).
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -50,6 +69,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (
     ACT,
     ShardingPlan,
+    _mask_pad_vocab,
     dense_init,
     embed_init,
     embed_lookup,
@@ -57,6 +77,7 @@ from repro_torch.models.common import (
     local_linear,
     resolve_w,
     rms_norm,
+    sharded_softmax_xent,
     softcap,
 )
 
@@ -172,21 +193,22 @@ def mlp_forward(p, x: torch.Tensor, cfg: ModelConfig, plan: ShardingPlan
 
 
 def _mlp_block(p, x: torch.Tensor, spec: LayerSpec, cfg: ModelConfig,
-               plan: ShardingPlan) -> torch.Tensor:
-    """The residual's second half: norm2 and the dense MLP or the MoE
-    (whose aux loss serving drops)."""
+               plan: ShardingPlan):
+    """The residual's second half: norm2 and the dense MLP or the MoE.
+    Returns (x, the MoE's aux loss or None)."""
     if spec.mlp == "none":
-        return x
+        return x, None
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     if spec.mlp == "dense":
-        return x + mlp_forward(p["mlp"], h, cfg, plan)
-    return x + moe_mod.moe_forward(p["moe"], h, cfg, plan)[0]
+        return x + mlp_forward(p["mlp"], h, cfg, plan), None
+    out, aux = moe_mod.moe_forward(p["moe"], h, cfg, plan)
+    return x + out, aux
 
 
 def apply_layer(p, x: torch.Tensor, spec: LayerSpec, cfg: ModelConfig,
                 plan: ShardingPlan, positions: torch.Tensor, *,
                 want_cache: bool = False, kv_dtype: str = "bfloat16"):
-    """Pre-norm residual layer.  Returns (x, cache)."""
+    """Pre-norm residual layer.  Returns (x, cache, aux loss or None)."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if spec.kind == "attn":
         fwd = attn_mod.mla_forward if _is_mla(cfg) else attn_mod.gqa_forward
@@ -195,7 +217,8 @@ def apply_layer(p, x: torch.Tensor, spec: LayerSpec, cfg: ModelConfig,
     else:
         o, cache = ssm_mod.mamba_forward(p["mamba"], h, cfg, plan,
                                          want_cache=want_cache)
-    return _mlp_block(p, x + o, spec, cfg, plan), cache
+    x, aux = _mlp_block(p, x + o, spec, cfg, plan)
+    return x, cache, aux
 
 
 def decode_layer(p, x: torch.Tensor, cache, pos: int, spec: LayerSpec,
@@ -208,7 +231,7 @@ def decode_layer(p, x: torch.Tensor, cache, pos: int, spec: LayerSpec,
                        plan, kv_dtype=kv_dtype)
     else:
         o, cache = ssm_mod.mamba_decode(p["mamba"], h, cache, cfg, plan)
-    return _mlp_block(p, x + o, spec, cfg, plan), cache
+    return _mlp_block(p, x + o, spec, cfg, plan)[0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -283,21 +306,121 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig,
     return x
 
 
+def stack_layers(params, cfg: ModelConfig) -> Dict[str, Any]:
+    """Params with ``"layers"`` (one dict per layer) in the reference's
+    training layout: ``"segments"``, each leaf of a segment whose count
+    exceeds 1 stacked over that count (a copy)."""
+    layers = iter(params["layers"])
+    segments = []
+    for seg in build_segments(cfg):
+        cycles = [[next(layers) for _ in seg.cycle]
+                  for _ in range(seg.count)]
+        if seg.count == 1:
+            segments.append(cycles[0])
+        else:
+            segments.append([_stack([c[i] for c in cycles])
+                             for i in range(len(seg.cycle))])
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["segments"] = segments
+    return out
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _unbind(tree, n: int) -> List[Any]:
+    """A tree whose leaves are stacked over ``n`` as ``n`` trees of
+    ``torch.unbind`` views (one autograd node per leaf, whose backward
+    stacks the gradients)."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][r] for k in tree} for r in range(n)]
+    if isinstance(tree, list):
+        parts = [_unbind(v, n) for v in tree]
+        return [[p[r] for p in parts] for r in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def segment_cycles(params, cfg: ModelConfig):
+    """(segment, its cycles: per repeat a list of per-position layer
+    dicts) for either params layout (``"layers"`` or ``"segments"``)."""
+    segments = build_segments(cfg)
+    if "segments" not in params:
+        layers = iter(params["layers"])
+        return [(seg, [[next(layers) for _ in seg.cycle]
+                       for _ in range(seg.count)]) for seg in segments]
+    return [(seg, [seg_p] if seg.count == 1 else _unbind(seg_p, seg.count))
+            for seg, seg_p in zip(segments, params["segments"])]
+
+
+#: the products ``remat="dots"`` keeps (``checkpoint_dots``)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_context(remat: str):
+    """The ``context_fn`` of a checkpointed cycle for the reference's
+    policies: ``"full"`` saves nothing (``nothing_saveable``), ``"dots"``
+    the matmul outputs (``checkpoint_dots``); ``"none"`` checkpoints
+    nothing (None)."""
+    if remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat must be none, full or dots: {remat!r}")
+    if remat == "dots":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _save_dots)
+    return None if remat == "none" else noop_context_fn
+
+
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
             plan: ShardingPlan, extras=None, *, want_caches: bool = False,
-            kv_dtype: str = "bfloat16"):
+            kv_dtype: str = "bfloat16", remat: str = "full"):
     """-> (hidden (B, S, D) after the final norm, per-layer caches |
-    None).  ``extras``: the frontend's inputs (:func:`embed_tokens`)."""
+    None, aux loss (0 for a dense stack)).  ``extras``: the frontend's
+    inputs (:func:`embed_tokens`).  With grad enabled and no caches
+    asked for, each cycle of a segment repeated more than once runs
+    under ``torch.utils.checkpoint`` unless ``remat="none"``; a segment
+    of count 1 never does, as in the reference."""
     _decoder_only(cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = embed_tokens(params, tokens, cfg, plan, extras)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    context = _remat_context(remat)
     caches = []
-    for p, spec in zip(params["layers"], layer_specs(cfg)):
-        x, cache = apply_layer(p, x, spec, cfg, plan, positions,
-                               want_cache=want_caches, kv_dtype=kv_dtype)
-        caches.append(cache)
+
+    def cycle_fn(x, layer_params, specs):
+        aux_c, cs = None, []
+        for lp, spec in zip(layer_params, specs):
+            x, cache, a = apply_layer(lp, x, spec, cfg, plan, positions,
+                                      want_cache=want_caches,
+                                      kv_dtype=kv_dtype)
+            cs.append(cache)
+            if a is not None:
+                aux_c = a if aux_c is None else aux_c + a
+        return x, cs, aux_c
+
+    for seg, cycles in segment_cycles(params, cfg):
+        remat_seg = (context is not None and seg.count > 1
+                     and torch.is_grad_enabled() and not want_caches)
+        for layer_params in cycles:
+            if remat_seg:
+                x, cs, aux_c = checkpoint(cycle_fn, x, layer_params,
+                                          seg.cycle, use_reentrant=False,
+                                          context_fn=context)
+            else:
+                x, cs, aux_c = cycle_fn(x, layer_params, seg.cycle)
+            caches += cs
+            if aux_c is not None:
+                aux = aux + aux_c
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, (caches if want_caches else None)
+    return x, (caches if want_caches else None), aux
 
 
 # ---------------------------------------------------------------------------
@@ -316,6 +439,84 @@ def lm_logits_local(params, h: torch.Tensor, cfg: ModelConfig,
     """h: (B, n, D) -> (B, n, V) float32 logits."""
     logits = torch.matmul(h.float(), _head_weight(params, cfg).float())
     return softcap(logits, cfg.final_softcap)
+
+
+# ---------------------------------------------------------------------------
+# Training loss
+# ---------------------------------------------------------------------------
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise for what :func:`lm_loss` does not train yet, rather than
+    train it silently wrong."""
+    _decoder_only(cfg)
+    if _is_mla(cfg) or cfg.mtp_depth > 0:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA's (192, 128) backward pair and multi-token "
+            "prediction are ROADMAP Queue 1 item 16(b)")
+    if cfg.moe is not None or cfg.num_mamba_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE aux loss and the Mamba scan's backward "
+            "kernel are ROADMAP Queue 1 item 16(a)")
+    if has_frontend(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.frontend.kind} frontend's batch is "
+            "ROADMAP Queue 1 item 16(c)")
+
+
+def _chunk_loss(hc, lc, w, cfg: ModelConfig, plan: ShardingPlan):
+    """(loss x count (1,), count (1,)) of one sequence chunk."""
+    vm = lc >= 0
+    logits = torch.matmul(hc.float(), w.float())
+    logits = softcap(logits, cfg.final_softcap)
+    logits = _mask_pad_vocab(logits, cfg, plan, w.shape[1])
+    loss = sharded_softmax_xent(logits, torch.clamp_min(lc, 0), plan,
+                                valid=vm)
+    cnt = torch.sum(vm.float()).reshape(1)
+    return loss.reshape(1) * cnt, cnt
+
+
+def _chunked_xent(h: torch.Tensor, labels: torch.Tensor, w: torch.Tensor,
+                  cfg: ModelConfig, plan: ShardingPlan,
+                  xent_chunk: int) -> torch.Tensor:
+    """Sequence-chunked cross-entropy, the reference's: the chunk count
+    is ``S // min(xent_chunk, S)``, lowered until it divides S, and the
+    loss is the count-weighted sum over chunks over the valid positions.
+    With grad enabled each chunk runs under ``torch.utils.checkpoint``,
+    so only one chunk's (B, n, V) float32 logits live at a time, in the
+    forward and again in the backward."""
+    s = h.shape[1]
+    n_chunks = max(1, s // min(xent_chunk, s))
+    while s % n_chunks:
+        n_chunks -= 1
+    n = s // n_chunks
+    total = torch.zeros((1,), dtype=torch.float32, device=h.device)
+    count = torch.zeros((1,), dtype=torch.float32, device=h.device)
+    for i in range(n_chunks):
+        hc, lc = h[:, i * n:(i + 1) * n], labels[:, i * n:(i + 1) * n]
+        if torch.is_grad_enabled():
+            part, cnt = checkpoint(_chunk_loss, hc, lc, w, cfg, plan,
+                                   use_reentrant=False)
+        else:
+            part, cnt = _chunk_loss(hc, lc, w, cfg, plan)
+        total = total + part
+        count = count + cnt
+    return (total / torch.clamp_min(count, 1.0))[0]
+
+
+def lm_loss(params, batch, cfg: ModelConfig, plan: ShardingPlan,
+            remat: str = "full", xent_chunk: int = 1024) -> torch.Tensor:
+    """batch: {tokens (B, S), labels (B, S)} (a label < 0 is not counted)
+    -> the scalar mean cross-entropy plus the aux loss, float32.  The
+    reference's ``lm_loss`` at tp = 1 for the dense decoder family
+    (:func:`check_trainable`)."""
+    check_trainable(cfg)
+    tokens, labels = batch["tokens"], batch["labels"]
+    h, _, aux = forward(params, tokens, cfg, plan, extras=batch,
+                        remat=remat)
+    loss = _chunked_xent(h, labels, _head_weight(params, cfg), cfg, plan,
+                         xent_chunk)
+    return loss + aux
 
 
 # ---------------------------------------------------------------------------
@@ -359,8 +560,8 @@ def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
             s_max: Optional[int] = None):
     """-> (last-token logits (B, V) float32, caches ready for decode up
     to s_max positions)."""
-    h, caches = forward(params, tokens, cfg, plan, extras,
-                        want_caches=True, kv_dtype=kv_dtype)
+    h, caches, _ = forward(params, tokens, cfg, plan, extras,
+                           want_caches=True, kv_dtype=kv_dtype)
     if s_max is not None and s_max != tokens.shape[1]:
         caches = prepare_decode_caches(caches, cfg, plan, tokens.shape[1],
                                        s_max)

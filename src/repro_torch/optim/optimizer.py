@@ -1,0 +1,223 @@
+"""Optimizers from scratch, the reference's ``repro/optim/optimizer.py``
+on torch (tp = 1):
+
+* **AdamW** — float32 or bfloat16 moments (``moment_dtype``), decoupled
+  decay on leaves of two or more dimensions;
+* **Adafactor** — factored second moment (rows and columns of each
+  leaf of two or more dimensions), no momentum, relative update clip;
+* **SGD** with momentum 0.9;
+
+the warmup-cosine ``lr_schedule``, the global-norm clip and int8
+gradient compression with error feedback.
+
+The arithmetic is the reference's, op for op, in float32, leaf by leaf
+over the reference's leaves (the stacked segments of
+``models/transformer.py``'s training layout: a norm scale stacked as
+(count, D) has two dimensions, so it is decayed and factored, as there).
+Every division by a Python number goes through ``core/cim.py::divide``:
+the card turns a division by a Python number into a multiply by its
+reciprocal.  Updates are functional: new tensors, the old ones left as
+they are.  The ZeRO sharding specs (``zero_spec_for``, ``set_axis_sizes``)
+are sharding, ROADMAP Queue 1 item 15.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.configs.base import TrainConfig
+from repro_torch.core.cim import divide
+from repro_torch.tree import leaves, tree_map
+
+
+class OptState(NamedTuple):
+    step: torch.Tensor  # int32, 0-d
+    m: Any          # first moment (AdamW / SGD momentum; () for adafactor)
+    v: Any          # second moment (AdamW) / factored pair (adafactor)
+    err: Any        # error-feedback residual of gradient compression (())
+
+
+# ---------------------------------------------------------------------------
+# Schedules
+# ---------------------------------------------------------------------------
+
+
+def lr_schedule(cfg: TrainConfig) -> Callable[[torch.Tensor], torch.Tensor]:
+    """step (int tensor) -> float32 learning rate: linear warmup over
+    ``warmup_steps``, then a cosine from 1 to 0.1 of ``lr`` by
+    ``total_steps``."""
+    def fn(step: torch.Tensor) -> torch.Tensor:
+        warm = torch.clamp_max(
+            divide(step.float(), float(max(cfg.warmup_steps, 1))), 1.0)
+        prog = torch.clamp(
+            divide((step - cfg.warmup_steps).float(),
+                   float(max(cfg.total_steps - cfg.warmup_steps, 1))),
+            0.0, 1.0)
+        cos = 0.5 * (1 + torch.cos(math.pi * prog))
+        return cfg.lr * warm * (0.1 + 0.9 * cos)
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# Init / update
+# ---------------------------------------------------------------------------
+
+
+def init_opt_state(params, cfg: TrainConfig,
+                   compression: bool = False) -> OptState:
+    """Zero state for ``params`` on their device: moments in
+    ``cfg.moment_dtype``, adafactor's row and column sums in float32,
+    and the compression residual when ``compression``."""
+    mdt = getattr(torch, cfg.moment_dtype)
+
+    def zeros(p):
+        return torch.zeros_like(p, dtype=mdt)
+
+    if cfg.optimizer == "adamw":
+        m, v = tree_map(zeros, params), tree_map(zeros, params)
+    elif cfg.optimizer == "adafactor":
+        m, v = (), tree_map(_adafactor_init, params)
+    elif cfg.optimizer == "sgd":
+        m, v = tree_map(zeros, params), ()
+    else:
+        raise ValueError(cfg.optimizer)
+    err = tree_map(zeros, params) if compression else ()
+    dev = leaves(params)[0].device
+    return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                    m=m, v=v, err=err)
+
+
+def _adafactor_init(p: torch.Tensor):
+    f32 = dict(dtype=torch.float32, device=p.device)
+    if p.dim() >= 2:
+        return {"row": torch.zeros(p.shape[:-1], **f32),
+                "col": torch.zeros(p.shape[:-2] + p.shape[-1:], **f32)}
+    return {"full": torch.zeros(p.shape, **f32)}
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled by min(1, max_norm / |g|), |g|): the norm over every
+    leaf in float32, summed leaf after leaf in the reference's order."""
+    gl = leaves(grads)
+    gsq = torch.zeros((), dtype=torch.float32, device=gl[0].device)
+    for g in gl:
+        gsq = gsq + torch.sum(torch.square(g.float()))
+    gnorm = torch.sqrt(gsq)
+    scale = torch.clamp_max(
+        torch.full_like(gnorm, max_norm) / torch.clamp_min(gnorm, 1e-9), 1.0)
+    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gnorm
+
+
+def apply_updates(params, grads, state: OptState, cfg: TrainConfig
+                  ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
+    """One step of ``cfg.optimizer``: clip, then update each leaf.
+    Returns (new params, new state, {"lr", "grad_norm", "step"})."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    step = state.step + 1
+    lr = lr_schedule(cfg)(step)
+    mdt = getattr(torch, cfg.moment_dtype)
+
+    if cfg.optimizer == "adamw":
+        bc1 = 1 - torch.pow(cfg.b1, step.float())
+        bc2 = 1 - torch.pow(cfg.b2, step.float())
+
+        def upd(p, g, m, v):
+            g32 = g.float()
+            m_new = cfg.b1 * m.float() + (1 - cfg.b1) * g32
+            v_new = cfg.b2 * v.float() + (1 - cfg.b2) * (g32 * g32)
+            mhat = m_new / bc1
+            vhat = v_new / bc2
+            delta = mhat / (torch.sqrt(vhat) + 1e-8)
+            if p.dim() >= 2:  # decoupled decay on matrices only
+                delta = delta + cfg.weight_decay * p.float()
+            p_new = p.float() - lr * delta
+            return p_new.to(p.dtype), m_new.to(mdt), v_new.to(mdt)
+
+        out = tree_map(upd, params, grads, state.m, state.v)
+        new_params = _select(params, out, 0)
+        new_state = OptState(step, _select(params, out, 1),
+                             _select(params, out, 2), state.err)
+
+    elif cfg.optimizer == "adafactor":
+        decay = 1.0 - torch.pow(step.float(), -0.8)
+
+        def upd(p, g, vf):
+            g32 = g.float()
+            sq = g32 * g32 + 1e-30
+            if p.dim() >= 2:
+                row = decay * vf["row"] + (1 - decay) * torch.mean(sq, -1)
+                col = decay * vf["col"] + (1 - decay) * torch.mean(sq, -2)
+                vhat = (row[..., None] * col[..., None, :]
+                        / torch.clamp_min(torch.mean(
+                            row, -1, keepdim=True)[..., None], 1e-30))
+                new_vf = {"row": row, "col": col}
+            else:
+                full = decay * vf["full"] + (1 - decay) * sq
+                vhat = full
+                new_vf = {"full": full}
+            delta = g32 / torch.clamp_min(torch.sqrt(vhat), 1e-30)
+            # relative update clipping (Adafactor d = 1.0)
+            rms = torch.sqrt(torch.mean(delta * delta) + 1e-30)
+            delta = delta / torch.clamp_min(rms, 1.0)
+            if p.dim() >= 2:
+                delta = delta + cfg.weight_decay * p.float()
+            p_new = p.float() - lr * delta
+            return p_new.to(p.dtype), new_vf
+
+        # tree_map hands upd each param leaf's {"row", "col"} / {"full"}
+        out = tree_map(upd, params, grads, state.v)
+        new_params = _select(params, out, 0)
+        new_state = OptState(step, (), _select(params, out, 1), state.err)
+
+    elif cfg.optimizer == "sgd":
+        def upd(p, g, m):
+            m_new = 0.9 * m.float() + g.float()
+            p_new = p.float() - lr * m_new
+            return p_new.to(p.dtype), m_new.to(mdt)
+
+        out = tree_map(upd, params, grads, state.m)
+        new_params = _select(params, out, 0)
+        new_state = OptState(step, _select(params, out, 1), (), state.err)
+    else:
+        raise ValueError(cfg.optimizer)
+
+    return new_params, new_state, {"lr": lr, "grad_norm": gnorm,
+                                   "step": step}
+
+
+def _select(params, out, i):
+    """From a tree of tuples in ``params``' structure (one per param
+    leaf), the tree of each tuple's ``i``-th entry."""
+    if isinstance(params, dict):
+        return {k: _select(params[k], out[k], i) for k in params}
+    if isinstance(params, (list, tuple)):
+        return type(params)(_select(a, b, i) for a, b in zip(params, out))
+    return out[i]
+
+
+# ---------------------------------------------------------------------------
+# int8 gradient compression with error feedback
+# ---------------------------------------------------------------------------
+
+
+def compress_gradients(grads, err):
+    """(int8 grads, float32 scales, new residual): ``q = Q(g + err)``
+    with a per-leaf scale amax / 127, and ``err' = (g + err) - deQ(q)``,
+    so the compression error re-enters the next step."""
+    def comp(g, e):
+        g32 = g.float() + e.float()
+        amax = torch.amax(torch.abs(g32))
+        scale = divide(torch.clamp_min(amax, 1e-12), 127.0)
+        q = torch.clamp(torch.round(g32 / scale), -128, 127).to(torch.int8)
+        new_e = g32 - q.float() * scale
+        return q, scale, new_e.to(e.dtype)
+
+    out = tree_map(comp, grads, err)
+    return (_select(grads, out, 0), _select(grads, out, 1),
+            _select(grads, out, 2))
+
+
+def decompress_gradients(qs, scales, dtype=torch.float32):
+    return tree_map(lambda q, s: (q.float() * s).to(dtype), qs, scales)

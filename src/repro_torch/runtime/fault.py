@@ -1,9 +1,37 @@
-"""Straggler detection for the serving loop (the ``StragglerMonitor`` of
-``repro/runtime/fault.py``, copied: it is plain host code)."""
+"""Fault tolerance and straggler detection for long runs (the
+reference's ``repro/runtime/fault.py``, host code copied):
+
+* :class:`StepGuard` — wraps the training step; on a failure it waits
+  out the backoff, calls the recovery callback (restore the latest
+  checkpoint) and replays the step, whose batch is a pure function of
+  (seed, step).  The card runs asynchronously, so the guard
+  synchronizes the devices the step's outputs live on: a device fault
+  surfaces inside the guard, as ``jax.block_until_ready`` makes it
+  surface there in the reference.
+* :class:`StragglerMonitor` — EWMA of step (or request) durations;
+  flags those slower than ``threshold`` x the running mean.
+
+``elastic_remesh`` builds a mesh over the surviving devices: sharding,
+ROADMAP Queue 1 item 15.
+"""
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
-from typing import List
+from typing import Callable, List, Tuple
+
+import torch
+
+from repro_torch.tree import leaves
+
+#: fault types :class:`StepGuard` retries.  A CUDA fault surfaces as
+#: ``torch``'s ``RuntimeError`` (``torch.AcceleratorError`` is one),
+#: filesystem flakiness as ``OSError`` (``ConnectionError`` and
+#: ``TimeoutError`` are its subclasses).  Anything else propagates
+#: immediately: retrying a programming error (``ValueError``,
+#: ``TypeError``) just burns the backoff ladder, and ``KeyboardInterrupt``
+#: / ``SystemExit`` are not Exceptions at all.
+RETRYABLE_FAULTS: Tuple[type, ...] = (RuntimeError, OSError)
 
 
 @dataclass
@@ -33,3 +61,40 @@ class StragglerMonitor:
             # slow steps don't poison the baseline
             self.mean_s = (1 - self.alpha) * self.mean_s + self.alpha * duration_s
         return self.trips >= self.trip_limit
+
+
+def _synchronize(out) -> None:
+    """Wait for every CUDA device that holds a tensor of ``out``."""
+    devices = {t.device for t in leaves(out)
+               if isinstance(t, torch.Tensor) and t.is_cuda}
+    for dev in devices:
+        torch.cuda.synchronize(dev)
+
+
+@dataclass
+class StepGuard:
+    """Retry-with-recovery wrapper around the training step."""
+
+    recover: Callable[[int], None]      # callback(last_good_step)
+    max_retries: int = 3
+    backoff_s: float = 1.0
+    failures: int = 0
+    retryable: Tuple[type, ...] = RETRYABLE_FAULTS
+
+    def run(self, step_fn: Callable, step: int, *args):
+        for attempt in range(self.max_retries + 1):
+            try:
+                out = step_fn(*args)
+                # synchronize so device-side failures surface *inside*
+                # the guard
+                _synchronize(out)
+                return out
+            except self.retryable:
+                self.failures += 1
+                if attempt == self.max_retries:
+                    raise
+                time.sleep(self.backoff_s * (2 ** attempt))
+                self.recover(step - 1)
+            # everything else — including KeyboardInterrupt/SystemExit,
+            # which are not even Exceptions — propagates uncaught
+        raise RuntimeError("unreachable")

@@ -750,3 +750,115 @@ def test_cuda_selective_scan_rejects_unbuilt_state_size():
     with pytest.raises(ValueError, match="d_state"):
         SS.selective_scan(*ops)
     assert SS.LAUNCHES["selective_scan"] == before
+
+
+#: the backward kernel against its plain version: max |diff| of each of
+#: dq, dk, dv within TOL_BWD times the largest |value| of the three plain
+#: gradients.  float32: both sum in f32 in other orders, and the kernel's
+#: D = dO . o and lse are its own sums; bfloat16: both round p to
+#: bfloat16 for dV and their outputs to bfloat16 (one ulp is 2^-8
+#: relative), where a p near a rounding edge can round apart.
+TOL_BWD = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _bwd_close(got, want, dtype):
+    scale = max(w.float().abs().max().item() for w in want)
+    err = max((g.float() - w.float()).abs().max().item()
+              for g, w in zip(got, want))
+    return err <= TOL_BWD[dtype] * scale, err, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+def test_cuda_local_attention_bwd_matches_plain(d, dtype):
+    """The backward kernel against ``local_attention_bwd_plain`` where its
+    32-row tiles have edges: S 37 and 130, windows 1, 5, 33 and S, GQA
+    groups 1 and 4 over 2 kv heads, soft cap off and 50.0; one launch a
+    call, and none of either forward kernel."""
+    _needs_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(300 + d)
+    calls = 0
+    for s in (37, 130):
+        for group in (1, 4):
+            q = _normal(rng, (2, s, 2 * group, d), dtype)
+            k, v = (_normal(rng, (2, s, 2, d), dtype) for _ in range(2))
+            do = _normal(rng, (2, s, 2 * group, d), dtype)
+            for window in (1, 5, 33, s):
+                for cap in (None, 50.0):
+                    o = LA.grouped_local_attention_plain(
+                        q, k, v, window=window, softcap=cap)
+                    before = dict(LA.LAUNCHES)
+                    got = LA.local_attention_bwd(q, k, v, o, do,
+                                                 window=window, softcap=cap)
+                    torch.cuda.synchronize()
+                    launched = {n: LA.LAUNCHES[n] - before[n]
+                                for n in before}
+                    assert launched == {"local_attention": 0,
+                                        "local_attention_f32": 0,
+                                        "local_attention_bwd": 1}
+                    want = LA.local_attention_bwd_plain(
+                        q, k, v, o, do, window=window, softcap=cap)
+                    ok, err, scale = _bwd_close(got, want, dtype)
+                    assert ok, (s, group, window, cap, err, scale)
+                    calls += 1
+    assert calls == 2 * 2 * 4 * 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_local_attention_grad_through_kernels(dtype):
+    """With grad enabled, the wrapper's output has a ``grad_fn``: one
+    forward launch, and one backward launch whose dq, dk, dv equal the
+    backward kernel's on the forward's output; run twice, the gradients
+    are bit-equal (no atomics)."""
+    _needs_card()
+    rng = np.random.default_rng(11)
+    q = _normal(rng, (2, 100, 4, 64), dtype).requires_grad_()
+    k, v = (_normal(rng, (2, 100, 1, 64), dtype).requires_grad_()
+            for _ in range(2))
+    do = _normal(rng, (2, 100, 4, 64), dtype)
+    fwd = "local_attention" if dtype == torch.bfloat16 else \
+        "local_attention_f32"
+    grads = []
+    for _ in range(2):
+        before = dict(LA.LAUNCHES)
+        o = LA.grouped_local_attention(q, k, v, window=17, softcap=30.0)
+        assert o.grad_fn is not None
+        grads.append(torch.autograd.grad(o, (q, k, v), do))
+        torch.cuda.synchronize()
+        assert {n: LA.LAUNCHES[n] - before[n] for n in before} == {
+            fwd: 1, "local_attention_bwd": 1,
+            ("local_attention_f32" if fwd == "local_attention"
+             else "local_attention"): 0}
+    want = LA.local_attention_bwd(q.detach(), k.detach(), v.detach(),
+                                  o.detach(), do, window=17, softcap=30.0)
+    for a, b, c in zip(grads[0], grads[1], want):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    with torch.no_grad():
+        assert LA.grouped_local_attention(q, k, v, window=17).grad_fn is None
+
+
+@pytest.mark.cuda
+def test_cuda_attention_and_scan_raise_without_backward():
+    """A CUDA call that needs a gradient the card cannot give raises
+    before any launch: the attention at MLA's (192, 128) pair and the
+    selective scan."""
+    from repro_torch.kernels import selective_scan as SS
+
+    _needs_card()
+    q = torch.zeros((1, 8, 2, 192), device="cuda", requires_grad=True)
+    v = torch.zeros((1, 8, 2, 128), device="cuda")
+    before = dict(LA.LAUNCHES)
+    with pytest.raises(RuntimeError, match="item 16"):
+        LA.grouped_local_attention(q, q, v, window=4)
+    assert LA.LAUNCHES == before
+    ops = _scan_operands(np.random.default_rng(0), 1, 4, 8, 4, False)
+    ops[1].requires_grad_()
+    before = SS.LAUNCHES["selective_scan"]
+    with pytest.raises(RuntimeError, match="item 16"):
+        SS.selective_scan(*ops)
+    with torch.no_grad():
+        SS.selective_scan(*ops)
+    assert SS.LAUNCHES["selective_scan"] == before + 1

@@ -32,13 +32,17 @@ def _forbidden(name: str) -> bool:
             or name.startswith("repro."))
 
 
-#: modules of the robustness, DSE, telemetry and chiplet slice, and of
-#: the CNN simulator's CIM layer wrapper, that the walk must reach (the
-#: two CLIs are imported, not run)
+#: modules of the robustness, DSE, telemetry and chiplet slice, of the
+#: CNN simulator's CIM layer wrapper, and of the training path, that the
+#: walk must reach (the CLIs are imported, not run)
 SLICE_MODULES = ("repro_torch.dse", "repro_torch.dse.__main__",
                  "repro_torch.dse.report", "repro_torch.runtime.robustness",
                  "repro_torch.telemetry.heatmap",
-                 "repro_torch.telemetry.__main__", "repro_torch.kernels.ops")
+                 "repro_torch.telemetry.__main__", "repro_torch.kernels.ops",
+                 "repro_torch.tree", "repro_torch.optim.optimizer",
+                 "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
+                 "repro_torch.runtime.fault", "repro_torch.runtime.train_loop",
+                 "repro_torch.launch.train")
 
 
 def test_every_port_module_imports_without_jax_or_reference():
