@@ -209,13 +209,19 @@ G. the training path: gemma3-1b at full width and depth (26 layers),
    the first step repeated from the same state is bit-equal; a
    checkpoint saved at step 4 and restored gives steps 5 to 8 bit-equal
    to the uninterrupted run.  Step ms, tokens/s, peak device memory, one
-   step's device time by kernel; the backward kernel's device time per
-   step beside its bound, the plain version and autograd through SDPA;
-   the backward kernel against its plain version over an edge grid (head
-   dims 16 to 256, S 37, 777, 2049, windows 1, 65, 513, S, groups 1, 4,
-   8, soft cap off and 50.0, both dtypes); then 12 layers in float32
-   (batch 1 x 640, TF32 off) on the card and on the CPU: loss, every
-   gradient leaf and one AdamW step's params within TOL_TRAIN_F32_*.
+   step's device time by kernel; the backward's device time per step and
+   per kernel (its tensor-core route: statistics, dK / dV, dQ) beside
+   its bound, the plain version and autograd through SDPA; the backward
+   kernel against its plain version over an edge grid (head dims 16 to
+   256, S 37, 777, 2049, windows 1, 65, 513, S, groups 1, 4, 8, soft
+   cap off and 50.0, both dtypes: both routes at every built head dim);
+   then 12 layers in float32 (batch 1 x 640, TF32 off) on the card and
+   on the CPU: loss, every gradient leaf and one AdamW step's params
+   within TOL_TRAIN_F32_*, and the float32 route's device time at that
+   run's calls beside its bound (at float32's rate), the plain version
+   and SDPA's autograd.  After the builds, the backward library's SASS:
+   its tensor-core kernels hold HGMMA and UTMALDG and no global
+   atomic.
 
 The line before the last is the ``kernels`` JSON (a CIM variant's
 ``launches`` summed over the counted runs of phases 2 and M, its
@@ -518,6 +524,36 @@ def check_cim_sass(lib) -> None:
     if counts["IGMMA"] + counts["IMMA"] == 0 or counts["IDP4A"]:
         fail(f"the CIM kernel's SASS {counts}: want int8 tensor-core "
              "products and no IDP4A")
+
+
+def check_bwd_sass(lib) -> None:
+    """The backward's tensor-core route (its kernels are in namespace
+    tcb) runs its products on wgmma (HGMMA) and loads its tiles by TMA
+    (UTMALDG), and no kernel of it holds a global atomic (RED, ATOM,
+    ATOMG): every gradient is summed in one block or cluster in a fixed
+    order.  (ATOMS, on a shared-memory counter, picks which warpgroup
+    refills a ring stage.)"""
+    import os
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.isfile(tool):
+        log("[build] cuobjdump not found: SASS not checked")
+        return
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs = [f for f in sass.split("Function : ")[1:] if "3tcb" in
+             f.split("\n", 1)[0]]
+    ops = ("HGMMA", "UTMALDG", "RED.", "ATOM.", "ATOMG", "ATOMS")
+    counts = {op: sum(f.count(op) for f in funcs) for op in ops}
+    log(f"[build] {lib.name} SASS of the {len(funcs)} tensor-core backward "
+        f"kernels: {counts}")
+    if len(funcs) != 9 or not counts["HGMMA"] or not counts["UTMALDG"] or \
+            counts["RED."] + counts["ATOM."] + counts["ATOMG"]:
+        fail(f"the backward's tensor-core kernels' SASS {counts} in "
+             f"{len(funcs)} kernels: want 9 kernels, wgmma and TMA, no "
+             f"global atomics")
 
 
 def cnn_inputs(name: str = "vgg11-cifar10"):
@@ -2153,10 +2189,11 @@ def attn_work(q, k, v, window):
     return 2 * (d + dv) * pairs * b * h, nbytes
 
 
-def device_ms(fn, arglist, n, kernel=None):
+def device_ms(fn, arglist, n, kernel=None, split=False):
     """Device time (ms) of one pass of ``fn`` over ``arglist``: the sum of
     the device kernels' own times under ``torch.profiler``, so the host's
-    launch time and the idle gaps between launches do not count.
+    launch time and the idle gaps between launches do not count.  With
+    ``split`` (and ``kernel`` a tuple), a dict of each kernel's ms.
 
     ``kernel``: a substring of the name of the one kernel each call
     launches (or a tuple of them, one per kernel a call launches once
@@ -2194,13 +2231,13 @@ def device_ms(fn, arglist, n, kernel=None):
         if names is None and total.get(None, 0.0) > 0:
             return total[None] / n / 1e3
         if names is not None and all(total.get(k, 0.0) > 0 for k in names):
-            ms = 0.0
+            each = {}
             for k in names:
                 if count[k] != n * len(arglist):
                     log(f"[profile] {count[k]} of {n * len(arglist)} "
                         f"launches of {k} recorded; their mean counts")
-                ms += total[k] / count[k] * len(arglist) / 1e3
-            return ms
+                each[k] = total[k] / count[k] * len(arglist) / 1e3
+            return each if split else sum(each.values())
         log(f"[profile] session {attempt + 1} saw no device time")
     # a RuntimeError, so that a yardstick's caller can record "not
     # measured"; uncaught, it fails the run as fail() does
@@ -2909,8 +2946,12 @@ BWD_SOURCE = "src/repro_torch/csrc/local_attention_bwd.cu"
 #: no TPU kernel computes the gradient: the reference gets it by autodiff
 #: of its plain attention, ``flash_attention`` at this line
 BWD_REPLACES = "src/repro/models/common.py:232"
-#: the backward's three kernels, as the profiler names them
-BWD_KERNELS = ("stats_kernel", "dkdv_kernel", "dq_kernel")
+#: the backward's kernels, as the profiler names them: the tensor-core
+#: route's three (bf16 at D 64 to 256) beside the CUDA-core route's
+#: (float32, bf16 at D 16); a call launches one route's three
+#: (``la.BWD_KERNELS[la.bwd_route(dtype, d)]``)
+BWD_KERNELS = ("tc_stats", "tc_dkdv", "tc_dq",
+               "stats_kernel", "dkdv_kernel", "dq_kernel")
 TRAIN_ARCH = "gemma3-1b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_STEP = 4, 2048, 8, 4
 #: the reference's test_train_steps_decrease_loss: AdamW with float32
@@ -2944,8 +2985,9 @@ TOL_TRAIN_PLAIN_GRAD = 5e-2
 #: (float32: other summation orders; bfloat16: both round p for dV and
 #: the outputs to bfloat16, and a p near a rounding edge rounds apart)
 TOL_BWD = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-#: the backward kernel's edge grid: S ragged against its 32-row tiles,
-#: windows, GQA groups over 2 kv heads, soft cap, in both dtypes
+#: the backward kernel's edge grid: S ragged against its routes' 32- and
+#: 64-row tiles, windows, GQA groups over 2 kv heads, soft cap, in both
+#: dtypes
 BWD_GRID_S = (37, 777, 2049)
 BWD_GRID_WINDOWS = (1, 65, 513, None)  # None: S
 BWD_GRID_GROUPS = (1, 4, 8)
@@ -3021,7 +3063,8 @@ def bwd_case(la, q, k, v, do, window, cap, what, worst):
                                         softcap=cap)
     torch.cuda.synchronize()
     ok, err, scale = bwd_close(got, want, q.dtype)
-    worst[q.dtype] = max(worst[q.dtype], err)
+    key = (q.dtype, la.bwd_route(q.dtype, q.shape[3]))
+    worst[key] = max(worst.get(key, 0.0), err)
     check(launched == {key: int(key == "local_attention_bwd")
                        for key in before},
           f"{what}: launches {launched}, want one of local_attention_bwd")
@@ -3030,9 +3073,11 @@ def bwd_case(la, q, k, v, do, window, cap, what, worst):
 
 
 def check_bwd_grid(la):
-    """The backward kernel against its plain version over the edge grid.
-    Returns the largest |diff| per dtype."""
-    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    """The backward kernel against its plain version over the edge grid:
+    every built head dim in both dtypes, so the tensor-core route (bf16
+    at D 64 to 256) and the CUDA-core route (float32, bf16 at D 16).
+    Returns the largest |diff| per (dtype, route)."""
+    worst = {}
     rng = np.random.default_rng(SEED + 22)
     cases = 0
     for d in la.BWD_HEAD_DIMS:
@@ -3076,20 +3121,30 @@ def grad_diffs(got, want):
 
 def time_bwd(la, local_call, global_call, per_step, card, reps: int = 10):
     """Device time of the backward calls of one step (per_step: window ->
-    calls a step), beside the plain version, autograd through SDPA (the
-    band mask on a local call, ``is_causal`` on a global one) and the
-    bound.  Returns the JSON row's numbers."""
+    calls a step), each of the route's three kernels, beside the plain
+    version, autograd through SDPA (the band mask on a local call,
+    ``is_causal`` on a global one) and the bound at the operands' type's
+    peak.  Returns the JSON row's numbers, and per kernel its ms a step
+    (``by_kernel``)."""
     import torch.nn.functional as F
 
     out = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     ops_total = bytes_total = 0
+    peak = PEAK_BF16_OPS if local_call[0].dtype == torch.bfloat16 \
+        else PEAK_F32_OPS
+    route = la.bwd_route(local_call[0].dtype, local_call[0].shape[3])
+    names = la.BWD_KERNELS[route]
+    check(set(names) <= set(BWD_KERNELS),
+          f"the {route} route's kernels {names} are not in BWD_KERNELS")
+    by_kernel = dict.fromkeys(names, 0.0)
     for call in (local_call, global_call):
         q, k, v, o, do, window, cap = call
         b, s, h, d = q.shape
         n = per_step[window]
-        kern = device_ms(lambda: la.local_attention_bwd(
+        each = device_ms(lambda: la.local_attention_bwd(
             q, k, v, o, do, window=window, softcap=cap), [()], reps,
-            kernel=BWD_KERNELS)
+            kernel=names, split=True)
+        kern = sum(each.values())
         plain = device_ms(lambda: la.local_attention_bwd_plain(
             q, k, v, o, do, window=window, softcap=cap), [()], 3)
         qs, ks, vs = (t.detach().expand(-1, -1, h, -1).transpose(1, 2)
@@ -3112,12 +3167,17 @@ def time_bwd(la, local_call, global_call, per_step, card, reps: int = 10):
             lib = float("nan")
         ops = bwd_work(q, window)
         nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel())
-        bound = max(ops / PEAK_BF16_OPS, nbytes / PEAK_BYTES) * 1e3
-        log(f"[G] local_attention_bwd, q {tuple(q.shape)} {q.dtype}, window "
-            f"{window}: kernel {kern:.4f} ms, plain {plain:.4f}, SDPA "
-            f"autograd ({'is_causal' if window >= s else 'band mask'}) "
-            f"{lib:.4f}, bound {bound:.4f} (operations {ops / 1e9:.2f} "
+        bound = max(ops / peak, nbytes / PEAK_BYTES) * 1e3
+        log(f"[G] local_attention_bwd ({route}), q {tuple(q.shape)} "
+            f"{q.dtype}, window {window}: kernel {kern:.4f} ms ("
+            + ", ".join(f"{name} {ms:.4f}" for name, ms in each.items())
+            + f"; {ops / kern / 1e9:.1f} TFLOP/s on unmasked work, "
+            f"{100 * bound / kern:.2f}% of the bound), plain {plain:.4f}, "
+            f"SDPA autograd ({'is_causal' if window >= s else 'band mask'})"
+            f" {lib:.4f}, bound {bound:.4f} (operations {ops / 1e9:.2f} "
             f"GFLOP; {n} such calls a step) on {card}")
+        for name, ms in each.items():
+            by_kernel[name] += n * ms
         out["ms"] += n * kern
         out["plain_ms"] += n * plain
         out["library_ms"] += n * lib
@@ -3127,9 +3187,10 @@ def time_bwd(la, local_call, global_call, per_step, card, reps: int = 10):
         del lib_out, qs, ks, vs, dos
     if out["library_ms"] != out["library_ms"]:  # a NaN: not measured
         out["library_ms"] = None
-    out["bound_by"] = ("operations" if ops_total / PEAK_BF16_OPS
+    out["bound_by"] = ("operations" if ops_total / peak
                        >= bytes_total / PEAK_BYTES else "bytes")
     out["tflops"] = ops_total / out["ms"] / 1e9
+    out["by_kernel"] = by_kernel
     return out
 
 
@@ -3155,9 +3216,10 @@ def profile_step(prog, params, state, batch, card):
     return total, bwd, rows[:10]
 
 
-def train_f32_vs_cpu(la, cfg):
+def train_f32_vs_cpu(la, cfg, card):
     """The float32 run cut in depth on the card and on the CPU: loss,
-    every gradient leaf and one AdamW step's params."""
+    every gradient leaf and one AdamW step's params; then the float32
+    backward route's device time at this run's calls."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.optim.optimizer import apply_updates
     from repro_torch.runtime.train_loop import value_and_grad
@@ -3175,7 +3237,15 @@ def train_f32_vs_cpu(la, cfg):
     fwd_want, bwd_want = step_launches(cfg)
     for key in la.LAUNCHES:
         la.LAUNCHES[key] = 0
-    loss, grads = value_and_grad(prog.loss_fn, params, batch)
+    calls = []
+    kernel_bwd = la.local_attention_bwd
+
+    def recording_bwd(q, k, v, o, do, *, window, softcap=None):
+        calls.append((q, k, v, o, do, window, softcap))
+        return kernel_bwd(q, k, v, o, do, window=window, softcap=softcap)
+
+    with Swapped((la, "local_attention_bwd", recording_bwd)):
+        loss, grads = value_and_grad(prog.loss_fn, params, batch)
     new_params, _, metrics = apply_updates(params, grads, state, tcfg)
     torch.cuda.synchronize()
     counts = dict(la.LAUNCHES)
@@ -3227,6 +3297,24 @@ def train_f32_vs_cpu(la, cfg):
         f"card {card_s:.1f} s, CPU {cpu_s:.1f} s")
     del prog, params, state, grads, new_params, cpu_params, grads_c, new_c
     torch.cuda.empty_cache()
+
+    # the float32 route's own row: its calls in this run, per step
+    per_step = {}
+    for c in calls:
+        per_step[c[5]] = per_step.get(c[5], 0) + 1
+    seq = TRAIN_SMALL_SEQ
+    row = time_bwd(la, next(c for c in calls if c[5] < seq),
+                   next(c for c in calls if c[5] >= seq), per_step, card)
+    log(f"[G] local_attention_bwd float32 ({TRAIN_SMALL_LAYERS} layers, "
+        f"{per_step} calls by window): {row['ms']:.4f} ms a step ("
+        + ", ".join(f"{name} {ms:.4f}"
+                    for name, ms in row["by_kernel"].items())
+        + f"; {row['tflops']:.1f} TFLOP/s on unmasked work, "
+        f"{100 * row['bound_ms'] / row['ms']:.2f}% of the "
+        f"{row['bound_ms']:.4f} ms bound at float32's rate), plain "
+        f"{row['plain_ms']:.4f} ms, SDPA autograd {row['library_ms']} ms "
+        f"on {card}")
+    del calls
 
 
 def training_phase(la, card):
@@ -3399,16 +3487,20 @@ def training_phase(la, card):
 
     row = time_bwd(la, local_call, global_call, per_step, card)
     log(f"[G] local_attention_bwd per step ({per_step} calls by window): "
-        f"{row['ms']:.4f} ms ({row['tflops']:.1f} TFLOP/s on unmasked "
+        f"{row['ms']:.4f} ms ("
+        + ", ".join(f"{name} {ms:.4f}"
+                    for name, ms in row["by_kernel"].items())
+        + f"; {row['tflops']:.1f} TFLOP/s on unmasked "
         f"work, {100 * row['bound_ms'] / row['ms']:.2f}% of the "
         f"{row['bound_ms']:.4f} ms bound), plain {row['plain_ms']:.4f} ms, "
         f"SDPA autograd {row['library_ms']} ms on {card}")
     del local_call, global_call
     grid_worst, cases = check_bwd_grid(la)
     log(f"[G] local_attention_bwd vs plain over {cases} edge cases: max "
-        f"|diff| float32 {grid_worst[torch.float32]:.3e}, bfloat16 "
-        f"{grid_worst[torch.bfloat16]:.3e}")
-    train_f32_vs_cpu(la, cfg)
+        f"|diff| " + ", ".join(f"{str(dt).split('.')[-1]} on {route} "
+                               f"{err:.3e}" for (dt, route), err
+                               in sorted(grid_worst.items(), key=str)))
+    train_f32_vs_cpu(la, cfg, card)
     log(f"[G] phase G: {time.perf_counter() - t_phase:.1f} s on {card}")
     return {"name": "local_attention_bwd", "route": "cuda",
             "source": BWD_SOURCE, "replaces": BWD_REPLACES,
@@ -3452,6 +3544,7 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log(f"[build] {line.strip()}")
     check_cim_sass(km.build()[0])
+    check_bwd_sass(la.build_bwd()[0])
 
     sim, frames, launches, wall, calls, reps = main_path(km)
     # nominal again, after the variation run: separates the flavor from

@@ -1,0 +1,321 @@
+// Hopper (sm_90a) building blocks shared by the port's tensor-core
+// kernels: mbarriers, TMA loads and tensor maps, cluster barriers and
+// loads, wgmma descriptors and products, and the register packing that
+// feeds them.  They are the
+// forward attention kernel's (csrc/local_attention.cu, namespace tc),
+// which keeps its own copies for now; csrc/local_attention_bwd.cu
+// includes this header.
+//
+// Conventions.  Tiles live in shared memory as bf16 in 64-column atoms
+// with the 128-byte swizzle: a (ROWS, W) tile is W / 64 atoms of (ROWS,
+// 64), rows of 128 bytes whose 16-byte chunks are XOR-swizzled by row %
+// 8, atoms on 1024-byte boundaries.  TMA writes that layout (tensor maps
+// made by tensor_map_4d with CU_TENSOR_MAP_SWIZZLE_128B), and wgmma reads
+// it both as a K-major operand (rows are M or N, columns K) and as an
+// MN-major one (rows are K, columns N).
+#pragma once
+
+#include <cuda.h>
+#include <cudaTypedefs.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sm90 {
+
+constexpr int ATOM = 64;  // bf16 columns of one 128-byte swizzle atom
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+// makes the barriers' initialisation visible to the async proxy
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// the arrival of the thread that issues the copies, and the bytes they
+// will bring
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// waits for the completion of the barrier's phase of this parity
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+
+// TMA: the box at coordinates (c0 .. c3) of a 4-d tensor map into shared
+// memory, completing on `bar`
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile."
+      "mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+// a bulk copy of `bytes` contiguous bytes (a multiple of 16; both
+// addresses on 16 bytes) into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// named barriers (0 is __syncthreads): sync waits for N threads,
+// arrive counts this thread among them and goes on
+template <int ID, int N>
+__device__ __forceinline__ void bar_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(N) : "memory");
+}
+template <int ID, int N>
+__device__ __forceinline__ void bar_arrive() {
+  asm volatile("bar.arrive %0, %1;\n" ::"n"(ID), "n"(N) : "memory");
+}
+
+// every thread of every block of the cluster arrives, then waits for
+// all: shared-memory writes before it are visible to the cluster after
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the address of `p`'s counterpart in the shared memory of the
+// cluster's block `rank`, and a load from such an address
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// wgmma matrix descriptor: start address, leading and stride byte
+// offsets (16-byte units), 128-byte swizzle
+__device__ __forceinline__ uint64_t desc(const void* p, int lbo, int sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+// the k16 step ks of a K-major (ROWS, W) tile: 8-row groups 1024 bytes
+// apart, steps 32 bytes apart inside an atom
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_k(const unsigned char* tile,
+                                           int ks) {
+  return desc(tile + (ks / 4) * ROWS * 128 + (ks % 4) * 32, 0, 1024);
+}
+// rows 16 j ... of an MN-major (ROWS, W) tile from atom `atom` on: 8-row
+// groups (K) 1024 bytes apart, atoms (N) ROWS * 128 apart
+template <int ROWS>
+__device__ __forceinline__ uint64_t desc_mn(const unsigned char* tile, int j,
+                                            int atom) {
+  return desc(tile + atom * ROWS * 128 + j * 16 * 128, ROWS * 128, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// pins an accumulator register after wgmma_wait: no read of it moves
+// above the wait
+__device__ __forceinline__ void keep(float& x) {
+  asm volatile("" : "+f"(x)::"memory");
+}
+template <int N>
+__device__ __forceinline__ void keep_all(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) keep(d[i]);
+}
+
+// the accumulator operands d[i] .. d[i + 31] of a wgmma asm statement
+#define SM90_ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define SM90_ACC16(i) \
+  SM90_ACC4(i), SM90_ACC4(i + 4), SM90_ACC4(i + 8), SM90_ACC4(i + 12)
+#define SM90_ACC32(i) SM90_ACC16(i), SM90_ACC16(i + 16)
+
+// d (64 x 64, f32) (+)= a (64 x 16, K-major, shared) b (16 x 64, K-major,
+// shared); the first product of a sum passes accumulate = 0
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      " %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : SM90_ACC32(0)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x N, f32) += a (64 x 16, registers) b (16 x N, MN-major, shared)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      " %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : SM90_ACC32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      " %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      " %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : SM90_ACC32(0), SM90_ACC32(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      " %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      " %60, %61, %62, %63, %64, %65, %66, %67, %68, %69,"
+      " %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89,"
+      " %90, %91, %92, %93, %94, %95, %96, %97, %98, %99,"
+      " %100, %101, %102, %103, %104, %105, %106, %107, %108, %109,"
+      " %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : SM90_ACC32(0), SM90_ACC32(32), SM90_ACC32(64), SM90_ACC32(96)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef SM90_ACC32
+#undef SM90_ACC16
+#undef SM90_ACC4
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The A fragments of a 64 x 64 accumulator's four k16 chunks, rounded
+// to bf16: in wgmma's m64nN layout the registers 8 j .. 8 j + 7 of an
+// m64n64 sum are exactly chunk j's A fragment of an m64nNk16 product.
+__device__ __forceinline__ void pack_frags(const float (&x)[32],
+                                           uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[j][i] = pack_bf16(x[8 * j + 2 * i], x[8 * j + 2 * i + 1]);
+}
+
+// 2^x (MUFU.EX2; a result below 2^-126 flushes to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// cuTensorMapEncodeTiled from the driver, looked up once
+inline PFN_cuTensorMapEncodeTiled_v12000 encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      fn = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }();
+  return encode;
+}
+
+// A 4-d tensor map over a (B, S, heads, D) bf16 tensor with element
+// strides (sb, ss, sh, 1), dimensions ordered (D, heads, S, B) from the
+// fastest; boxes of 64 columns x `rows` rows of one head, 128-byte
+// swizzle, zeros past the tensor's edges.  Strides of extent-1
+// dimensions are not read, so they are made up to keep the order.
+inline int tensor_map_4d(CUtensorMap* map, const void* base, long long sb,
+                         long long ss, long long sh, int batch, int s,
+                         int heads, int d, int rows) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const long long esh = heads > 1 ? sh : d;
+  const long long ess = s > 1 ? ss : esh * heads;
+  const long long esb = batch > 1 ? sb : ess * s;
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                        static_cast<cuuint64_t>(heads),
+                        static_cast<cuuint64_t>(s),
+                        static_cast<cuuint64_t>(batch)};
+  cuuint64_t strides[3] = {static_cast<cuuint64_t>(2 * esh),
+                           static_cast<cuuint64_t>(2 * ess),
+                           static_cast<cuuint64_t>(2 * esb)};
+  cuuint32_t box[4] = {ATOM, 1, static_cast<cuuint32_t>(rows), 1};
+  cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+      dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace sm90

@@ -3,7 +3,8 @@
 Each kernel module compiles its own source with ``nvcc`` for ``sm_90a``
 into ``build/kernels/`` at the repository root (listed in .gitignore)
 and loads it with ``ctypes``.  The file name carries a hash of the
-source and the flags, so an edited source never loads a stale build.
+source, the headers of ``csrc/`` and the flags, so an edited source or
+header never loads a stale build.
 """
 from __future__ import annotations
 
@@ -39,6 +40,8 @@ def build(source: Path, flags: Sequence[str] = ()) -> Tuple[Path, str]:
     kernel's registers, shared memory and spills)."""
     flags = (*BASE_FLAGS, *flags)
     digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(flags).encode())
     lib = BUILD_DIR / f"lib{source.stem}_{digest.hexdigest()[:16]}.so"
     log = lib.with_suffix(".log")

@@ -45,14 +45,18 @@ same kernel, and its backward launches :func:`local_attention_bwd`
 (``csrc/local_attention_bwd.cu``, ``LAUNCHES["local_attention_bwd"]``
 once per backward), which recomputes each row's log-sum-exp and gives
 dq, dk and dv.  It is built for the (D, D) pairs of ``HEAD_DIMS``
-(``BWD_HEAD_DIMS``); a call that needs the gradient at another pair
-raises before any launch rather than return an output with no
-``grad_fn``.  :func:`local_attention_bwd_plain` and
+(``BWD_HEAD_DIMS``) on one of two routes, which :func:`bwd_route`
+chooses by (dtype, D): bfloat16 at D = 64, 128 and 256 on the tensor
+cores (``wgmma``, TMA), float32 and bfloat16 at D = 16 on the CUDA
+cores.  A call that needs the gradient at another pair raises before
+any launch rather than return an output with no ``grad_fn``.
+:func:`local_attention_bwd_plain` and
 :func:`local_attention_row_stats_plain` are its plain versions.
 
 :func:`tile_schedule` counts what a kernel visits, skips and computes at
 a given (S, window): the bfloat16 kernel's tiles by default, the
-float32 kernel's with ``F32_TILES``.
+float32 kernel's with ``F32_TILES``; :func:`bwd_tile_schedule` lists the
+tensor-core backward's tile walks.
 """
 from __future__ import annotations
 
@@ -95,8 +99,15 @@ TC_BLOCK_Q, TC_BLOCK_K, TC_ROWS, TC_CHUNK = 128, 64, 64, 16
 #: rows' windows
 F32_BLOCK_Q, F32_BLOCK_K = 64, 64
 F32_TILES = dict(block_q=F32_BLOCK_Q, block_k=F32_BLOCK_K, rows=8, chunk=4)
-#: the backward kernel's query rows and keys per tile
-BWD_TILE = 32
+#: the tensor-core backward's query rows and keys per tile (``tcb`` in
+#: the CUDA source)
+BWD_TC_TILE = 64
+#: head dims at which a bfloat16 backward runs on the tensor cores
+BWD_TC_HEAD_DIMS = (64, 128, 256)
+#: each backward route's three kernels, as the profiler names them
+#: (statistics, dk / dv, dq)
+BWD_KERNELS = {"tensor_cores": ("tc_stats", "tc_dkdv", "tc_dq"),
+               "cuda_cores": ("stats_kernel", "dkdv_kernel", "dq_kernel")}
 
 
 class TileSchedule(NamedTuple):
@@ -158,6 +169,78 @@ def tile_schedule(s: int, window: int, block_q: int = TC_BLOCK_Q,
     unmasked = window * (window + 1) // 2 + (s - window) * window
     return TileSchedule(visited, full, partial, skipped, s_pairs, pv_pairs,
                         unmasked)
+
+
+def bwd_route(dtype: torch.dtype, d: int, dv: Optional[int] = None) -> str:
+    """The backward kernels a CUDA call at (dtype, q/k head dim ``d``, v
+    head dim ``dv``, ``d`` when not given) launches: ``"tensor_cores"``
+    for bfloat16 at D in ``BWD_TC_HEAD_DIMS``, ``"cuda_cores"`` for
+    float32 and for bfloat16 at D = 16 (reduced configs only).  The C
+    entry point dispatches by the same rule; this is the one place the
+    wrappers ask, before any launch.  Raises RuntimeError (``NO_BWD``)
+    at a pair with no backward: any (DQK, DV) but the (D, D) of
+    ``BWD_HEAD_DIMS``, MLA's (192, 128) among them."""
+    dv = d if dv is None else dv
+    if d != dv or d not in BWD_HEAD_DIMS:
+        raise RuntimeError(f"head dims (q/k {d}, v {dv}) need a gradient: "
+                           f"{NO_BWD}")
+    if dtype == torch.bfloat16 and d in BWD_TC_HEAD_DIMS:
+        return "tensor_cores"
+    return "cuda_cores"
+
+
+def dkdv_parts(blocks: int, sms: int, s: int, window: int) -> int:
+    """Blocks per key tile of ``tc_dkdv``, as the CUDA source picks them:
+    2 (a cluster that splits the key tile's walk) when the grid of
+    ``blocks`` (batch x kv heads x key tiles) fits the card's ``sms`` in
+    one wave and the window covers more than half of S, else 1."""
+    return 2 if blocks <= sms and 2 * min(int(window), s) > s else 1
+
+
+class BwdTileSchedule(NamedTuple):
+    """The tensor-core backward's tile walks for one (batch, kv head) at
+    (S, window, group), tiles of ``BWD_TC_TILE``.  ``rows``: the (query
+    tile, key tile) pairs that ``tc_stats`` and ``tc_dq`` visit, a block
+    per query tile, in launch order (query tiles in reverse) and each
+    block's key tiles in order; per query head.  ``keys``: the (key tile,
+    block, head of the group, query tile) steps of ``tc_dkdv``: per key
+    tile a cluster of ``parts`` blocks (:func:`dkdv_parts`) shares the
+    walk over the group's heads, each over its query tiles in order, in
+    consecutive shares, and block 0 adds block 1's partial sums to its
+    own.  ``full``: the (query tile, key tile) pairs of ``rows`` that
+    hold no masked pair (the kernels skip the mask there); ``partial``:
+    the others."""
+    rows: list
+    keys: list
+    full: int
+    partial: int
+
+
+def bwd_tile_schedule(s: int, window: int, group: int = 1, parts: int = 1,
+                      tile: int = BWD_TC_TILE) -> BwdTileSchedule:
+    """The walks of ``tc_stats`` / ``tc_dq`` and ``tc_dkdv``, made as the
+    CUDA source makes them (see :class:`BwdTileSchedule`)."""
+    window = min(int(window), s)
+    n = -(-s // tile)
+    rows, keys = [], []
+    full = 0
+    for qt in reversed(range(n)):
+        q0 = qt * tile
+        for kt in range(max(0, q0 - window + 1) // tile,
+                        min(q0 + tile - 1, s - 1) // tile + 1):
+            rows.append((qt, kt))
+            k0 = kt * tile
+            full += (k0 + tile - 1 <= q0 and q0 + tile - 1 - k0 < window
+                     and q0 + tile - 1 < s)
+    for kt in range(n):
+        last = min(s - 1, kt * tile + tile - 2 + window) // tile
+        nq = last - kt + 1
+        steps = group * nq
+        for part in range(parts):
+            keys += [(kt, part, i // nq, kt + i % nq)
+                     for i in range(steps * part // parts,
+                                    steps * (part + 1) // parts)]
+    return BwdTileSchedule(rows, keys, full, len(rows) - full)
 
 
 def build() -> Tuple[Path, str]:
@@ -270,9 +353,7 @@ def grouped_local_attention(q: torch.Tensor, k: torch.Tensor,
                          f"kernel's {HEAD_DIM_PAIRS}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if d != dv or d not in BWD_HEAD_DIMS:
-            raise RuntimeError(f"head dims (q/k {d}, v {dv}) need a "
-                               f"gradient: {NO_BWD}")
+        bwd_route(q.dtype, d, dv)  # raises where there is no backward
         return LocalAttentionFn.apply(q, k, v, window, softcap)
     return _launch(q, k, v, window, softcap)
 
@@ -422,9 +503,10 @@ def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k, v (B, S, KV, D), its output o and the output's gradient do.
 
     CPU tensors take :func:`local_attention_bwd_plain`.  CUDA tensors
-    launch the backward kernel (``LAUNCHES["local_attention_bwd"]``
-    counts each call), at the (D, D) pairs of ``BWD_HEAD_DIMS``; another
-    pair raises before any launch."""
+    launch the three kernels of the route :func:`bwd_route` names for
+    (dtype, D) (``LAUNCHES["local_attention_bwd"]`` counts each call), at
+    the (D, D) pairs of ``BWD_HEAD_DIMS``; another pair raises before any
+    launch."""
     _check(q, k, v, window, softcap)
     if o.shape != q.shape[:3] + v.shape[3:] or do.shape != o.shape:
         raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
@@ -436,8 +518,7 @@ def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"local attention runs on cpu or cuda, not "
                          f"{q.device}")
     b, s, h, d = q.shape
-    if d != v.shape[3] or d not in BWD_HEAD_DIMS:
-        raise RuntimeError(f"head dims (q/k {d}, v {v.shape[3]}): {NO_BWD}")
+    bwd_route(q.dtype, d, v.shape[3])  # raises where there is no backward
     if b * h > 65535:
         raise ValueError(f"(B, S, H) = ({b}, {s}, {h}) exceeds the backward "
                          f"kernel's grid")
@@ -447,7 +528,10 @@ def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk, dv
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    # scratch rows padded to a tensor-core tile (the CUDA-core route
+    # reads the first b * h * s of each)
+    sp = -(-s // BWD_TC_TILE) * BWD_TC_TILE
+    lse = torch.empty((b, h, sp), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
     launch = _bwd_launcher()
     with torch.cuda.device(q.device):

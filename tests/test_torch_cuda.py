@@ -772,15 +772,18 @@ def _bwd_close(got, want, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [16, 64, 128, 256])
 def test_cuda_local_attention_bwd_matches_plain(d, dtype):
-    """The backward kernel against ``local_attention_bwd_plain`` where its
-    32-row tiles have edges: S 37 and 130, windows 1, 5, 33 and S, GQA
-    groups 1 and 4 over 2 kv heads, soft cap off and 50.0; one launch a
-    call, and none of either forward kernel."""
+    """The backward kernels of the route ``bwd_route`` names (tensor
+    cores for bf16 at D 64 to 256, CUDA cores otherwise) against
+    ``local_attention_bwd_plain`` where their tiles have edges: S 37,
+    130, 200 and 513 (the CUDA cores' 32-row tiles, the tensor cores'
+    64), windows 1, 5, 33 and S, GQA groups 1 and 4 over 2 kv heads, soft
+    cap off and 50.0; one launch a call, and none of either forward
+    kernel."""
     _needs_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(300 + d)
     calls = 0
-    for s in (37, 130):
+    for s in (37, 130, 200, 513):
         for group in (1, 4):
             q = _normal(rng, (2, s, 2 * group, d), dtype)
             k, v = (_normal(rng, (2, s, 2, d), dtype) for _ in range(2))
@@ -803,7 +806,54 @@ def test_cuda_local_attention_bwd_matches_plain(d, dtype):
                     ok, err, scale = _bwd_close(got, want, dtype)
                     assert ok, (s, group, window, cap, err, scale)
                     calls += 1
-    assert calls == 2 * 2 * 4 * 2
+    assert calls == 4 * 2 * 4 * 2
+
+
+@pytest.mark.cuda
+def test_cuda_local_attention_bwd_repeats_bitwise():
+    """Two backward calls at a reduced gemma3-1b global layer (B 1, S
+    2048, 4 heads on 1 kv head, D 256, bf16, window S): bit-equal dq, dk
+    and dv (no atomics), each call one launch, within TOL_BWD of the
+    plain version."""
+    _needs_card()
+    rng = np.random.default_rng(23)
+    q, do = (_normal(rng, (1, 2048, 4, 256), torch.bfloat16)
+             for _ in range(2))
+    k, v = (_normal(rng, (1, 2048, 1, 256), torch.bfloat16)
+            for _ in range(2))
+    assert LA.bwd_route(q.dtype, 256) == "tensor_cores"
+    o = LA.grouped_local_attention(q, k, v, window=2048)
+    runs = []
+    for _ in range(2):
+        before = LA.LAUNCHES["local_attention_bwd"]
+        runs.append(LA.local_attention_bwd(q, k, v, o, do, window=2048))
+        torch.cuda.synchronize()
+        assert LA.LAUNCHES["local_attention_bwd"] == before + 1
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    want = LA.local_attention_bwd_plain(q, k, v, o, do, window=2048)
+    ok, err, scale = _bwd_close(runs[0], want, torch.bfloat16)
+    assert ok, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_local_attention_bwd_one_launch_a_call(dtype):
+    """Every built head dim, on either route: each call adds exactly one
+    to ``LAUNCHES["local_attention_bwd"]`` and nothing else."""
+    _needs_card()
+    rng = np.random.default_rng(41)
+    for d in LA.BWD_HEAD_DIMS:
+        q, do = (_normal(rng, (1, 96, 2, d), dtype) for _ in range(2))
+        k, v = (_normal(rng, (1, 96, 1, d), dtype) for _ in range(2))
+        o = LA.grouped_local_attention_plain(q, k, v, window=40)
+        for _ in range(2):
+            before = dict(LA.LAUNCHES)
+            LA.local_attention_bwd(q, k, v, o, do, window=40)
+            torch.cuda.synchronize()
+            assert {n: LA.LAUNCHES[n] - before[n] for n in before} == {
+                "local_attention": 0, "local_attention_f32": 0,
+                "local_attention_bwd": 1}, (d, dtype)
 
 
 @pytest.mark.cuda
