@@ -219,9 +219,11 @@ G. the training path: gemma3-1b at full width and depth (26 layers),
    on the CPU: loss, every gradient leaf and one AdamW step's params
    within TOL_TRAIN_F32_*, and the float32 route's device time at that
    run's calls beside its bound (at float32's rate), the plain version
-   and SDPA's autograd.  After the builds, the backward library's SASS:
-   its tensor-core kernels hold HGMMA and UTMALDG and no global
-   atomic.
+   and SDPA's autograd, and again at gemma3-1b's full-width call shapes
+   (batch 4 x 2048, windows 512 and 2048), each call first held against
+   the plain version.  After the builds, the backward library's SASS:
+   its tensor-core kernels hold HGMMA and UTMALDG, its CUDA-core kernels
+   LDS.128, and none a global atomic.
 
 The line before the last is the ``kernels`` JSON (a CIM variant's
 ``launches`` summed over the counted runs of phases 2 and M, its
@@ -529,10 +531,12 @@ def check_cim_sass(lib) -> None:
 def check_bwd_sass(lib) -> None:
     """The backward's tensor-core route (its kernels are in namespace
     tcb) runs its products on wgmma (HGMMA) and loads its tiles by TMA
-    (UTMALDG), and no kernel of it holds a global atomic (RED, ATOM,
-    ATOMG): every gradient is summed in one block or cluster in a fixed
-    order.  (ATOMS, on a shared-memory counter, picks which warpgroup
-    refills a ring stage.)"""
+    (UTMALDG); its CUDA-core route (cc_stats, cc_dkdv, cc_dq) reads its
+    tiles 16 bytes at a time (LDS.128) in every kernel; and no kernel of
+    either holds a global atomic (RED, ATOM, ATOMG): every gradient is
+    summed in one block or cluster in a fixed order.  (ATOMS, on a
+    shared-memory counter, picks which tensor-core warpgroup refills a
+    ring stage.)"""
     import os
     import shutil
 
@@ -543,8 +547,8 @@ def check_bwd_sass(lib) -> None:
         return
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
-    funcs = [f for f in sass.split("Function : ")[1:] if "3tcb" in
-             f.split("\n", 1)[0]]
+    every = sass.split("Function : ")[1:]
+    funcs = [f for f in every if "3tcb" in f.split("\n", 1)[0]]
     ops = ("HGMMA", "UTMALDG", "RED.", "ATOM.", "ATOMG", "ATOMS")
     counts = {op: sum(f.count(op) for f in funcs) for op in ops}
     log(f"[build] {lib.name} SASS of the {len(funcs)} tensor-core backward "
@@ -554,6 +558,19 @@ def check_bwd_sass(lib) -> None:
         fail(f"the backward's tensor-core kernels' SASS {counts} in "
              f"{len(funcs)} kernels: want 9 kernels, wgmma and TMA, no "
              f"global atomics")
+    # the CUDA-core kernels: float32 at 4 head dims and bfloat16 at 16
+    cc = [f for f in every if any(name in f.split("\n", 1)[0]
+                                  for name in BWD_KERNELS[3:])]
+    ops = ("LDS.128", "RED.", "ATOM.", "ATOMG")
+    counts = {op: sum(f.count(op) for f in cc) for op in ops}
+    wide = sum(1 for f in cc if "LDS.128" in f)
+    log(f"[build] {lib.name} SASS of the {len(cc)} CUDA-core backward "
+        f"kernels: {counts}, LDS.128 in {wide}")
+    if len(cc) != 15 or wide != len(cc) or \
+            counts["RED."] + counts["ATOM."] + counts["ATOMG"]:
+        fail(f"the backward's CUDA-core kernels' SASS {counts} in {len(cc)} "
+             f"kernels, LDS.128 in {wide}: want 15 kernels, each with "
+             f"LDS.128, no global atomics")
 
 
 def cnn_inputs(name: str = "vgg11-cifar10"):
@@ -2951,7 +2968,7 @@ BWD_REPLACES = "src/repro/models/common.py:232"
 #: (float32, bf16 at D 16); a call launches one route's three
 #: (``la.BWD_KERNELS[la.bwd_route(dtype, d)]``)
 BWD_KERNELS = ("tc_stats", "tc_dkdv", "tc_dq",
-               "stats_kernel", "dkdv_kernel", "dq_kernel")
+               "cc_stats", "cc_dkdv", "cc_dq")
 TRAIN_ARCH = "gemma3-1b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_STEP = 4, 2048, 8, 4
 #: the reference's test_train_steps_decrease_loss: AdamW with float32
@@ -2964,6 +2981,10 @@ TRAIN_LOSS_DROP = 0.3
 #: layers (two 6-layer cycles: one segment of count 2, checkpointed),
 #: batch 1, 640 tokens, TF32 off
 TRAIN_SMALL_LAYERS, TRAIN_SMALL_SEQ = 12, 640
+#: gemma3-1b's full-width backward calls in float32: q, dO (batch, S,
+#: heads, D), k, v on its one kv head, a local window and a global one
+BWD_F32_FULL = dict(batch=4, seq=2048, heads=4, kv_heads=1, d=256,
+                    windows=(512, 2048))
 #: card against CPU in float32: the loss relative; each gradient leaf's
 #: max |diff| against its max |value| (the sums run in other orders
 #: through 12 layers of K = 1152 and 6912); after one AdamW step a
@@ -3317,6 +3338,49 @@ def train_f32_vs_cpu(la, cfg, card):
     del calls
 
 
+def bwd_f32_full_width(la, card):
+    """The float32 backward route at gemma3-1b's full-width call shapes
+    (operands drawn from SEED on the card): each call within TOL_BWD of
+    the plain version, then its device time per kernel beside the plain
+    version, SDPA's float32 autograd and the bound (``time_bwd``, one
+    call of each window)."""
+    c = BWD_F32_FULL
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+
+    def normal(heads):
+        return torch.randn((c["batch"], c["seq"], heads, c["d"]),
+                           generator=gen, device="cuda")
+
+    q, do, k, v = (normal(n) for n in (c["heads"], c["heads"],
+                                         c["kv_heads"], c["kv_heads"]))
+    calls = []
+    for window in c["windows"]:
+        with torch.no_grad():
+            o = la.grouped_local_attention(q, k, v, window=window)
+        got = la.local_attention_bwd(q, k, v, o, do, window=window)
+        want = la.local_attention_bwd_plain(q, k, v, o, do, window=window)
+        ok, err, scale = bwd_close(got, want, torch.float32)
+        check(ok, f"float32 local_attention_bwd != plain at q "
+                  f"{tuple(q.shape)}, window {window}: max |diff| {err}, "
+                  f"scale {scale}")
+        log(f"[G] float32 local_attention_bwd at q {tuple(q.shape)}, window "
+            f"{window}: within {err:.3e} of the plain version (scale "
+            f"{scale:.3e}, tolerance {TOL_BWD[torch.float32]})")
+        calls.append((q, k, v, o, do, window, None))
+        del got, want
+    row = time_bwd(la, calls[0], calls[1], {w: 1 for w in c["windows"]},
+                   card)
+    log(f"[G] local_attention_bwd float32 at full width, one call of each "
+        f"window: {row['ms']:.4f} ms ("
+        + ", ".join(f"{name} {ms:.4f}"
+                    for name, ms in row["by_kernel"].items())
+        + f"; {100 * row['bound_ms'] / row['ms']:.2f}% of the "
+        f"{row['bound_ms']:.4f} ms bound), plain {row['plain_ms']:.4f} ms, "
+        f"SDPA autograd {row['library_ms']} ms on {card}")
+    del calls, q, k, v, o, do
+    torch.cuda.empty_cache()
+
+
 def training_phase(la, card):
     """Phase G.  Returns (the backward kernel's JSON row, the forward
     kernel's counted launches)."""
@@ -3501,6 +3565,7 @@ def training_phase(la, card):
                                f"{err:.3e}" for (dt, route), err
                                in sorted(grid_worst.items(), key=str)))
     train_f32_vs_cpu(la, cfg, card)
+    bwd_f32_full_width(la, card)
     log(f"[G] phase G: {time.perf_counter() - t_phase:.1f} s on {card}")
     return {"name": "local_attention_bwd", "route": "cuda",
             "source": BWD_SOURCE, "replaces": BWD_REPLACES,

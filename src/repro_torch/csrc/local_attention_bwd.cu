@@ -31,14 +31,14 @@
 // Two routes, one dispatch (local_attention_bwd_launch, at the end):
 // bfloat16 at D = 64, 128 and 256 runs the tensor-core kernels
 // (namespace tcb); float32, and bfloat16 at D = 16 (reduced configs
-// only), run the CUDA-core kernels.
+// only), run the CUDA-core kernels (namespace simt).
 // Each route is three kernels on one stream, launched by one call, with
-// no atomics: every gradient is summed in one block in a fixed order,
-// so a backward is bitwise repeatable.
+// no atomics: every gradient is summed in one block or one cluster in a
+// fixed order, so a backward is bitwise repeatable.
 //
-// Tensor cores (tcb), the design against what held the CUDA-core route
-// back (no tensor cores, operands staged through f32 shared memory, a
-// small and unbalanced grid):
+// Tensor cores (tcb), the design against what held the first CUDA-core
+// kernels back (no tensor cores, operands staged through f32 shared
+// memory, a small and unbalanced grid):
 //  1. Every product on wgmma, bf16 operands, f32 accumulators: the
 //     64 x 64 score-like products (S = Q K^T, dP = dO V^T and their
 //     transposes) read both operands from shared memory (m64n64k16);
@@ -92,25 +92,70 @@
 //     n - 1 - j in one block would halve the grid instead, no gain while
 //     it fits one wave.
 //
-// CUDA cores (float32; bfloat16 at D = 16), the first version, kept for
-// the float32 checks:
-//  1. stats: one block per (batch, head, 32 query rows) recomputes each
-//     row's scores over its window and keeps a running max and sum
-//     (masked scores skipped) -> lse (B, H, S); and D = dO . o per row.
-//  2. dkdv: one block per (batch, kv head, 32 keys).  It walks every
-//     query head of the kv head's group and every 32-row query tile
-//     whose rows reach the key tile (i in [j, j + window)), and sums the
-//     group's contributions to dk and dv in registers.
-//  3. dq: one block per (batch, head, 32 query rows) walks the key tiles
-//     of its rows' windows.
-// All in f32 FMAs: the three kernels recompute Q K^T three times and dO
-// V^T twice (16 D per pair), tiles are converted to f32 in shared
-// memory with rows padded by one float (so that the rows a warp reads at
-// one column sit in separate banks), S and dP run as 2 x 2 register
-// tiles (one shared load per FMA), and the accumulations keep a (4 keys
-// x D / 32 columns) tile a thread (12 loads per 32 FMAs at D = 256).
-// dkdv launches the key tiles in order and dq its query tiles in
-// reverse, so the longest blocks of a causal layer go first.
+// CUDA cores (simt: float32 at every head dim, bfloat16 at D = 16).  The
+// float32 gradient must hold the plain version to 1e-4 of its scale,
+// which TF32 tensor cores would not, so every product is f32 FMAs and
+// the bound is 67 TFLOP/s.  As in the float32 forward
+// (csrc/local_attention.cu, simt::attn_kernel), what bounds such a
+// kernel is feeding those FMAs: an SM's shared memory gives 128 bytes a
+// clock and its schedulers issue 128 FMAs, so each 16-byte load has to
+// feed 16 FMAs.  The first version read one scalar from shared memory
+// per FMA in S and dP (2 x 2 register tiles, rows padded by a float),
+// copied tiles synchronously between two barriers, and gave dk / dv one
+// block per (kv head, 32 keys): 20 blocks on 132 SMs at batch 1, S 640
+// and a group of 4 on one kv head.  The design now: tiles of 32 query
+// rows and 32 keys, blocks of 256 threads in two teams of four warps,
+// one block an SM at D = 256.
+//  1. 8 x 8 register tiles read as float4s.  S and dP (score_tile): a
+//     team's lane e + 8 (rg + 2 kg) of warp w sums 8 rows against 8
+//     keys over the head dim's 16-byte chunks e, e + 8, ... (16 loads
+//     per 256 FMAs; the 8 lanes of a quarter-warp read 8 bank groups of
+//     any row, so no row is padded or swizzled), and three rounds of
+//     shuffles (lane ^ 4, ^ 2, ^ 1) leave each lane one row's 8 scores,
+//     its chunks summed in one fixed order.  The gradient products
+//     (grad_tile: dV += P^T dO, dK += dS^T Q, dQ += dS K) give a thread
+//     8 rows x 8 columns at D = 256 in dk / dv (8 x 4 in dq, and at D =
+//     128) and read a row of P or dS 4 at a time and dO, Q or K 4
+//     columns at a time: 4 loads per 64 FMAs, a warp's P reads one
+//     broadcast and its dO reads one 128-byte row piece.
+//  2. Teams.  In dkdv team 0 computes S and team 1 dP at the same time;
+//     team 1 hands dP over through shared memory, team 0 forms P and
+//     dS (the first version's arithmetic, op for op), and then team 0
+//     runs dV += P^T dO while team 1 runs dK += dS^T Q: each team keeps
+//     one (32, D) accumulator.  In dq the teams compute S and dP, team
+//     0 forms dS (stored transposed) and all 256 threads run dQ += dS K.
+//     In stats each team takes every other key tile of the block's share.
+//     Each product is one call for both teams, on operands chosen by
+//     team: a copy of the unrolled loop a team cost 7% of dk / dv in
+//     instruction fetch.
+//  3. cp.async copies, 16 bytes each, into a 2-stage ring of the
+//     streamed tiles (Q, dO, lse and delta in dkdv; K and V in dq; two
+//     K tiles at a time in stats), the next step's copies issued as a
+//     step starts and awaited at the next; a tile whose rows all lie
+//     below S is copied with no test per row.  bfloat16 (D = 16 only)
+//     is loaded and widened to f32 by the threads instead.
+//  4. The grid fills the card with a fixed-order sum.  Each kernel walks
+//     tiles (a query tile of a head in stats and dq, a key tile of a kv
+//     head in dkdv) in steps: key tiles, or (head of the group, query
+//     tile) pairs.  While one block a tile would leave SMs idle, a
+//     cluster of walk_parts blocks (the fewest that fill the card, a
+//     power of two up to 8) takes each tile, its blocks walking
+//     consecutive shares of the steps; they add up their partial sums
+//     through distributed shared memory in block order, each block one
+//     slice of them (stats: block 0 merges each row's running max and
+//     sum), and store: no atomics, no buffer in device memory.  The grid
+//     is as many clusters as the card holds at once; the tiles, heaviest
+//     first, are dealt to them in a snake (dealt), and which block takes
+//     which share turns from tile to tile, so that the blocks' walks stay
+//     near the mean.  At batch 1, S 640, 4 heads on 1 kv head: stats and
+//     dq in clusters of 2, dk / dv in clusters of 8.
+//     kernels/local_attention.py::bwd_cc_parts, bwd_cc_deal and
+//     bwd_cc_schedule mirror the rule, the deal and the walks.
+//  5. Every visited tile holds an unmasked pair, and the mask is applied
+//     only on a tile that holds a masked pair (tile_full).  Key tiles go
+//     in order and query tiles in reverse, the longest walks first.
+// p and dS are the first version's, op for op: expf and tanhf without
+// fast math, p rounded to the input type before dV, lse = m + log(l).
 
 #include "sm90.cuh"
 
@@ -119,16 +164,27 @@
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include <mutex>
 
-constexpr int TILE = 32;      // query rows and keys per tile
-constexpr int THREADS = 256;  // 8 warps
-constexpr int LDS = TILE + 1;  // row stride of the (32, 32) score tiles
+namespace {
 
 struct Geometry {
   int s, h, group, window;
   float scale, softcap;  // softcap <= 0: none
 };
+
+namespace simt {
+
+constexpr int TILE = 32;       // query rows and keys per tile
+constexpr int THREADS = 256;   // two teams of 4 warps
+constexpr int TEAM = 128;
+constexpr int LDT = TILE + 4;  // row stride of the (32, 32) p, dP, dS tiles
+constexpr int MAX_PARTS = 8;   // blocks of a cluster (the portable limit)
+
+// the row stride of the lse and delta scratch: S rounded up to 64
+__host__ __device__ constexpr int stat_stride(int s) {
+  return (s + 63) / 64 * 64;
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -147,45 +203,85 @@ template <typename T>
 __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
 }
+// four values, rounded to the output type, at p (on 16 or 8 bytes)
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
 
-// Rows [lo, lo + 32) of one head of a (B, S, heads, D) tensor, as f32,
-// into a (32, D + 1) shared tile; rows at or past s are zero.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   sm90::smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// Rows [lo, lo + 32) of one head of a (B, S, heads, D) tensor (`src` at
+// the head's first column of row 0, rows `stride` elements apart) into a
+// (32, D) f32 tile, by the whole block; rows at or past s are zeros.
+// float32 goes by cp.async, 16 bytes a copy (awaited by
+// cp_async_wait_all); bfloat16 (D = 16 only) is loaded and widened here.
 template <typename T, int D>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, int lo,
-                                          int s, long long row_stride) {
-  for (int idx = threadIdx.x; idx < TILE * D; idx += THREADS) {
-    const int r = idx / D, d = idx % D;
-    const int row = lo + r;
-    dst[r * (D + 1) + d] =
-        row < s ? to_f32(src[static_cast<long long>(row) * row_stride + d])
-                : 0.f;
+__device__ __forceinline__ void load_rows(float* dst, const T* src,
+                                          long long stride, int lo, int s) {
+  constexpr int PER = 16 / static_cast<int>(sizeof(T));  // a copy's values
+  constexpr int CH = D / PER;                            // copies a row
+  constexpr int N = TILE * CH;
+  const bool whole = lo + TILE <= s;  // every row in range: no test
+#pragma unroll
+  for (int u = 0; u < (N + THREADS - 1) / THREADS; ++u) {
+    const int i = threadIdx.x + THREADS * u;
+    if (N % THREADS != 0 && i >= N) break;
+    const int r = i / CH, c = i % CH;
+    const bool in = whole || lo + r < s;
+    const T* from =
+        src + static_cast<long long>(in ? lo + r : s - 1) * stride + c * PER;
+    float* to = dst + r * D + c * PER;
+    if constexpr (sizeof(T) == 4) {
+      cp_async16(to, from, in ? 16 : 0);
+    } else {
+      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+      if (in) raw = *reinterpret_cast<const uint4*>(from);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+      const float2 c2 = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
+      reinterpret_cast<float4*>(to)[0] = make_float4(a.x, a.y, b.x, b.y);
+      reinterpret_cast<float4*>(to)[1] = make_float4(c2.x, c2.y, d.x, d.y);
+    }
   }
 }
 
 __device__ __forceinline__ bool in_window(int i, int j, int s, int window) {
   return i < s && j < s && j <= i && j > i - window;
 }
-
-// The 2 x 2 register tiles of a 32 x 32 product A B^T over D: thread
-// (ty, tx) = (tid / 16, tid % 16) sums rows ty, ty + 16 of A against
-// rows tx, tx + 16 of B.
-template <int D>
-__device__ __forceinline__ void dot_tile(const float* a, const float* b,
-                                         float acc[2][2]) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  acc[0][0] = acc[0][1] = acc[1][0] = acc[1][1] = 0.f;
-  const float* a0 = a + ty * (D + 1);
-  const float* a1 = a + (ty + 16) * (D + 1);
-  const float* b0 = b + tx * (D + 1);
-  const float* b1 = b + (tx + 16) * (D + 1);
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    const float x0 = a0[d], x1 = a1[d], y0 = b0[d], y1 = b1[d];
-    acc[0][0] = fmaf(x0, y0, acc[0][0]);
-    acc[0][1] = fmaf(x0, y1, acc[0][1]);
-    acc[1][0] = fmaf(x1, y0, acc[1][0]);
-    acc[1][1] = fmaf(x1, y1, acc[1][1]);
-  }
+// a (32 rows, 32 keys) tile with no masked pair: every key at or before
+// the first row, the last row inside the first key's window, every row
+// below S
+__device__ __forceinline__ bool tile_full(int q0, int k0, const Geometry& g) {
+  return k0 + TILE - 1 <= q0 && q0 + TILE - 1 - k0 < g.window &&
+         q0 + TILE - 1 < g.s;
 }
 
 // The score of a pair after the scale and the soft cap; *t is tanh's
@@ -200,333 +296,704 @@ __device__ __forceinline__ float score(float dot, const Geometry& g,
   return s;
 }
 
-// The accumulators' layout: a thread owns rows (of dq) or keys (of dk,
-// dv) tid / TD + NJ rr and head-dim columns tid % TD + TD cc.
+// The row of A and the first row of B of this lane's 8 scores after
+// score_tile (rows and keys of a (32, 32) tile)
+__device__ __forceinline__ int lane_row() {
+  const int t = threadIdx.x % TEAM, lane = t % 32;
+  return 16 * (t / 32 % 2) + 8 * (lane / 8 % 2) + lane % 8;
+}
+__device__ __forceinline__ int lane_key() {
+  const int t = threadIdx.x % TEAM;
+  return 16 * (t / 64) + 8 * (t % 32 / 16);
+}
+
+// A B^T of two (32, D) f32 tiles in shared memory, by one team of 128
+// threads.  Warp w of the team covers rows 16 (w % 2) ... + 15 and keys
+// 16 (w / 2) ... + 15: its lane e + 8 (rg + 2 kg) sums rows 8 rg + i of
+// those against keys 8 kg + j (i, j < 8) over the head dim's 16-byte
+// chunks e, e + 8, ..., an 8 x 8 register tile (at D = 16 lanes e >= 4
+// have no chunk).  Slot i of the tile holds row i ^ e, so that shuffles
+// with lane ^ 4, ^ 2 and ^ 1, each keeping the low half of the slots and
+// sending the high half, leave slot 0 with row e: out[j] = A[lane_row()]
+// . B[lane_key() + j].
 template <int D>
-struct Acc {
-  static constexpr int TD = D < 32 ? D : 32;
-  static constexpr int NJ = THREADS / TD;   // row groups: 8, or 16 at D 16
-  static constexpr int JR = TILE / NJ;      // rows a thread: 4, or 2
-  static constexpr int DC = D / TD;         // columns a thread
+__device__ __forceinline__ void score_tile(const float* a, const float* b,
+                                           float (&out)[8]) {
+  constexpr int C4 = D / 4;  // 16-byte chunks of a row
+  const int t = threadIdx.x % TEAM, w = t / 32, lane = t % 32;
+  const int e = lane % 8;
+  const float4* a4 = reinterpret_cast<const float4*>(a) +
+                     (16 * (w % 2) + 8 * (lane / 8 % 2)) * C4;
+  const float4* b4 =
+      reinterpret_cast<const float4*>(b) + (16 * (w / 2) + 8 * (lane / 16)) * C4;
+  float part[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) part[i][j] = 0.f;
+#pragma unroll 2
+  for (int u = 0; u < (C4 + 7) / 8; ++u) {
+    const int c = e + 8 * u;
+    if (C4 % 8 != 0 && c >= C4) break;
+    float4 av[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) av[i] = a4[(i ^ e) * C4 + c];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 bv = b4[j * C4 + c];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        part[i][j] = fmaf(av[i].x, bv.x, part[i][j]);
+        part[i][j] = fmaf(av[i].y, bv.y, part[i][j]);
+        part[i][j] = fmaf(av[i].z, bv.z, part[i][j]);
+        part[i][j] = fmaf(av[i].w, bv.w, part[i][j]);
+      }
+    }
+  }
+  // slot i of lane e and slot i ^ m of lane e ^ m hold the same row
+#pragma unroll
+  for (int m = 4; m > 0; m /= 2)
+#pragma unroll
+    for (int i = 0; i < m; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        part[i][j] += __shfl_xor_sync(0xffffffffu, part[i + m][j], m);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) out[j] = part[0][j];
+}
+
+// The layout of a gradient product's accumulators over NT threads: a
+// (32, D) result, thread t < ACTIVE holding rows KR (t % KG) ... + KR - 1
+// and columns 4 (t / KG) + 4 TC m ... + 3 (m < RN / 4)
+template <int D, int NT>
+struct Grad {
+  static constexpr int RN = NT == TEAM && D >= 256 ? 8 : 4;
+  static constexpr int TC = D / RN;  // column groups
+  static constexpr int KG = NT / TC < TILE ? NT / TC : TILE;  // row groups
+  static constexpr int KR = TILE / KG;  // rows a thread
+  static constexpr int ACTIVE = TC * KG;
+  static constexpr int N = KR * RN;  // accumulators a thread
 };
 
-// The per-tile work of dkdv and dq: scores and dO V^T of q rows [q0, +32)
-// against keys [k0, +32) into p (rounded) and ds tiles.
-template <typename T, int D>
-__device__ __forceinline__ void p_ds_tile(const float* qs, const float* ks,
-                                          const float* dos, const float* vs,
-                                          const float* lse, const float* del,
-                                          float* ps, float* dss, int q0,
-                                          int k0, const Geometry& g) {
-  float sa[2][2], pa[2][2];
-  dot_tile<D>(qs, ks, sa);
-  dot_tile<D>(dos, vs, pa);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+// acc += A^T B over the 32 rows r of a (32, 32) tile A (row stride LDT,
+// its columns the result's rows) and a (32, D) tile B, r in order
+template <int D, int NT>
+__device__ __forceinline__ void grad_tile(const float* a, const float* b,
+                                          float (&acc)[Grad<D, NT>::N],
+                                          int t) {
+  using G = Grad<D, NT>;
+  if (t >= G::ACTIVE) return;
+  const int g0 = G::KR * (t % G::KG), c0 = 4 * (t / G::KG);
+#pragma unroll 8
+  for (int r = 0; r < TILE; ++r) {
+    float av[G::KR];
+    if constexpr (G::KR % 4 == 0) {
 #pragma unroll
-  for (int a = 0; a < 2; ++a) {
-#pragma unroll
-    for (int b = 0; b < 2; ++b) {
-      const int r = ty + 16 * a, c = tx + 16 * b;
-      float p = 0.f, ds = 0.f;
-      if (in_window(q0 + r, k0 + c, g.s, g.window)) {
-        float t = 0.f;
-        const float s = score(sa[a][b], g, &t);
-        p = expf(s - lse[r]);
-        ds = p * (pa[a][b] - del[r]);
-        if (g.softcap > 0.f) ds *= 1.f - t * t;
-        ds *= g.scale;
+      for (int x = 0; x < G::KR / 4; ++x) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(a + r * LDT + g0 + 4 * x);
+        av[4 * x] = v.x;
+        av[4 * x + 1] = v.y;
+        av[4 * x + 2] = v.z;
+        av[4 * x + 3] = v.w;
       }
-      if (ps != nullptr) ps[r * LDS + c] = round_to<T>(p);
-      dss[r * LDS + c] = ds;
+    } else {
+#pragma unroll
+      for (int x = 0; x < G::KR; ++x) av[x] = a[r * LDT + g0 + x];
     }
+    float4 bv[G::RN / 4];
+#pragma unroll
+    for (int m = 0; m < G::RN / 4; ++m)
+      bv[m] = *reinterpret_cast<const float4*>(b + r * D + c0 + 4 * G::TC * m);
+#pragma unroll
+    for (int x = 0; x < G::KR; ++x)
+#pragma unroll
+      for (int m = 0; m < G::RN / 4; ++m) {
+        float* o = acc + x * G::RN + 4 * m;
+        o[0] = fmaf(av[x], bv[m].x, o[0]);
+        o[1] = fmaf(av[x], bv[m].y, o[1]);
+        o[2] = fmaf(av[x], bv[m].z, o[2]);
+        o[3] = fmaf(av[x], bv[m].w, o[3]);
+      }
   }
 }
 
-// 1. lse and D per query row
+// A gradient product's (32, D) result, summed over the cluster's blocks
+// in block order, into rows r0 ... of one head of a (B, S, heads, D)
+// tensor (`base` at the head's first column of row 0; rows past S are
+// not stored).  A block alone stores its accumulators.  In a cluster,
+// each block leaves them in `part` (NT * N floats of its shared memory),
+// and block z adds up, in block order, and stores the float4s x = z, z +
+// parts, ... of every thread's: a reduce-scatter through distributed
+// shared memory, each block reading one share of the partial sums.
+template <typename T, int D, int NT>
+__device__ __forceinline__ void store_sum(const float (&acc)[Grad<D, NT>::N],
+                                          float* part, T* base,
+                                          long long row_stride, int r0, int s,
+                                          int t) {
+  using G = Grad<D, NT>;
+  constexpr int X = G::N / 4, XR = G::RN / 4;  // float4s: all, of a row
+  const bool active = t < G::ACTIVE;
+  const int g0 = G::KR * (t % G::KG), c0 = 4 * (t / G::KG);
+  auto put = [&](int x, float4 v) {  // float4 x: row x / XR, columns x % XR
+    const int row = r0 + g0 + x / XR;
+    if (row < s)
+      store4(base + row * row_stride + c0 + 4 * G::TC * (x % XR), v);
+  };
+  const int parts = static_cast<int>(gridDim.z);
+  if (parts == 1) {
+    if (active) {
+#pragma unroll
+      for (int x = 0; x < X; ++x)
+        put(x, make_float4(acc[4 * x], acc[4 * x + 1], acc[4 * x + 2],
+                           acc[4 * x + 3]));
+    }
+    return;
+  }
+  float4* p4 = reinterpret_cast<float4*>(part);
+  if (active) {
+#pragma unroll
+    for (int x = 0; x < X; ++x)
+      p4[x * NT + t] = make_float4(acc[4 * x], acc[4 * x + 1],
+                                   acc[4 * x + 2], acc[4 * x + 3]);
+  }
+  sm90::cluster_sync();  // every thread of the cluster
+  for (int x = blockIdx.z; active && x < X; x += parts) {
+    const void* at = p4 + x * NT + t;
+    float4 sum = ld_cluster4(sm90::cluster_addr(at, 0));
+    for (int r = 1; r < parts; ++r) {
+      const float4 v = ld_cluster4(sm90::cluster_addr(at, r));
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    put(x, sum);
+  }
+}
+
+// The walk of tile `tile` split over the gridDim.z blocks of its
+// cluster in consecutive shares, the blocks taking them in turn from
+// tile to tile (block z takes share (z + tile) % gridDim.z, so that the
+// shares one longer than the others spread over the blocks): this
+// block's steps [*first, *first + *n)
+__device__ __forceinline__ void share(int steps, int tile, int* first,
+                                      int* n) {
+  const int parts = static_cast<int>(gridDim.z);
+  const int i = (static_cast<int>(blockIdx.z) + tile) % parts;
+  *first = steps * i / parts;
+  *n = steps * (i + 1) / parts - *first;
+}
+
+// The tiles a cluster walks: the grid is gridDim.x clusters, and tile
+// r * gridDim.x + c of the heaviest-first order goes to cluster c on
+// even rounds r and to cluster gridDim.x - 1 - c on odd ones (a snake),
+// so that each cluster's sum of walks is near the mean.  -1 past the end.
+__device__ __forceinline__ int dealt(int c, int r, int clusters, int tiles) {
+  const int tile = r * clusters + (r % 2 == 0 ? c : clusters - 1 - c);
+  return tile < tiles ? tile : -1;
+}
+
+// a running max and sum of exponentials merged with another (the same
+// result either way round)
+__device__ __forceinline__ void merge(float& m, float& l, float m2, float l2) {
+  const float mx = fmaxf(m, m2);
+  if (mx == -INFINITY) return;  // both empty: l = l2 = 0
+  l = l * expf(m - mx) + l2 * expf(m2 - mx);
+  m = mx;
+}
+
+// 1. lse and D per query row.  A tile is (batch, head, 32 query rows),
+// dealt heaviest first (query tiles in reverse); a cluster's blocks walk
+// consecutive shares of its key tiles, each team every other key tile of
+// the share, two K tiles a ring stage
+template <int D>
+struct StatsTiles {
+  static constexpr int TD = TILE * D;
+  static constexpr int STAGE = 2 * TD;
+  // Q, the ring, each (team, key half, key group)'s max and sum per row,
+  // the block's max and sum per row for the cluster
+  static constexpr int FLOATS = TD + 2 * STAGE + 8 * 2 * TILE + 2 * TILE;
+  static constexpr int BYTES = 4 * FLOATS;
+};
+
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-    stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ o, const T* __restrict__ dout,
-                 float* __restrict__ lse, float* __restrict__ delta,
-                 Geometry g) {
-  extern __shared__ float smem[];
-  float* qs = smem;                      // (32, D + 1)
-  float* ks = qs + TILE * (D + 1);       // (32, D + 1)
-  float* ss = ks + TILE * (D + 1);       // (32, 33)
-  const int nq = gridDim.x;
-  const int q0 = (nq - 1 - blockIdx.x) * TILE;
-  const int bh = blockIdx.y, b = bh / g.h, h = bh % g.h;
-  const int kvh = h / g.group, kv_heads = g.h / g.group;
+__global__ void __launch_bounds__(THREADS, 1)
+    cc_stats(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ o, const T* __restrict__ dout,
+             float* __restrict__ lse, float* __restrict__ delta, Geometry g,
+             int tiles) {
+  using L = StatsTiles<D>;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);
+  float* ring = qs + L::TD;
+  float* mrg = ring + 2 * L::STAGE;  // (8, 2, 32)
+  float* blk = mrg + 8 * 2 * TILE;   // (2, 32)
+  const int nq = (g.s + TILE - 1) / TILE, heads = tiles / nq;
+  const int kv_heads = g.h / g.group;
   const long long q_row = static_cast<long long>(g.h) * D;
   const long long k_row = static_cast<long long>(kv_heads) * D;
-  const long long q_off = static_cast<long long>(b) * g.s * q_row + h * D;
-  const T* kb = k + static_cast<long long>(b) * g.s * k_row + kvh * D;
-  load_rows<T, D>(qs, q + q_off, q0, g.s, q_row);
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  float m = -INFINITY, l = 0.f;  // warp 0: row `lane`'s running max, sum
-  const int q_hi = min(g.s - 1, q0 + TILE - 1);
-  const int k_lo = max(0, q0 - g.window + 1);
-  for (int k0 = (k_lo / TILE) * TILE; k0 <= q_hi; k0 += TILE) {
-    __syncthreads();
-    load_rows<T, D>(ks, kb, k0, g.s, k_row);
-    __syncthreads();
-    float sa[2][2];
-    dot_tile<D>(qs, ks, sa);
-    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int team = threadIdx.x / TEAM;
+  const int row = lane_row(), key = lane_key();
+  for (int r = 0;; ++r) {
+    const int tile = dealt(blockIdx.x, r, gridDim.x, tiles);
+    if (tile < 0) break;
+    const int bh = tile % heads, b = bh / g.h, h = bh % g.h;
+    const int q0 = (nq - 1 - tile / heads) * TILE;
+    const long long q_off = static_cast<long long>(b) * g.s * q_row + h * D;
+    const T* kb =
+        k + static_cast<long long>(b) * g.s * k_row + (h / g.group) * D;
+    const int t0 = max(0, q0 - g.window + 1) / TILE;
+    int first, n;
+    share(min(q0 + TILE - 1, g.s - 1) / TILE - t0 + 1, tile, &first, &n);
+    auto load_stage = [&](int i) {  // key tiles 2 i and 2 i + 1 of the share
+      float* st = ring + (i % 2) * L::STAGE;
+      load_rows<T, D>(st, kb, k_row, (t0 + first + 2 * i) * TILE, g.s);
+      if (2 * i + 1 < n)
+        load_rows<T, D>(st + L::TD, kb, k_row,
+                        (t0 + first + 2 * i + 1) * TILE, g.s);
+    };
+    __syncthreads();  // the last tile is done with the shared memory
+    load_rows<T, D>(qs, q + q_off, q_row, q0, g.s);
+    if (n > 0) load_stage(0);
+    cp_async_commit();
+
+    // D_i = dO_i . o_i while the tiles land: the cluster's warps take
+    // the rows in turn; lanes split d.  Rows past S (below the next 32)
+    // get 0, as their lse does: the other kernels read them, and mask them.
+    const long long st_row = static_cast<long long>(bh) * stat_stride(g.s);
+    for (int rr = warp + 8 * blockIdx.z; rr < TILE; rr += 8 * gridDim.z) {
+      const int i = q0 + rr;
+      float acc = 0.f;
+      if (i < g.s) {
+        const T* orow = o + q_off + static_cast<long long>(i) * q_row;
+        const T* drow = dout + q_off + static_cast<long long>(i) * q_row;
+        for (int d = lane; d < D; d += 32)
+          acc = fmaf(to_f32(drow[d]), to_f32(orow[d]), acc);
 #pragma unroll
-    for (int a = 0; a < 2; ++a) {
-#pragma unroll
-      for (int c2 = 0; c2 < 2; ++c2) {
-        const int r = ty + 16 * a, c = tx + 16 * c2;
-        float t;
-        ss[r * LDS + c] = in_window(q0 + r, k0 + c, g.s, g.window)
-                              ? score(sa[a][c2], g, &t)
-                              : -INFINITY;
+        for (int off = 16; off > 0; off >>= 1)
+          acc += __shfl_xor_sync(0xffffffffu, acc, off);
       }
+      if (lane == 0) delta[st_row + i] = acc;
     }
-    __syncthreads();
-    if (warp == 0) {
+
+    float m = -INFINITY, l = 0.f;  // over this lane's keys of `row`
+    for (int i = 0; 2 * i < n; ++i) {
+      cp_async_wait_all();
+      __syncthreads();  // this stage landed; the other one is read
+      if (2 * i + 2 < n) {
+        load_stage(i + 1);
+        cp_async_commit();
+      }
+      if (2 * i + team >= n) continue;  // team 1 past the share's end
+      const int k0 = (t0 + first + 2 * i + team) * TILE;
+      float sc[8];
+      score_tile<D>(qs, ring + (i % 2) * L::STAGE + team * L::TD, sc);
+      const bool full = tile_full(q0, k0, g);
       float tm = m;
-      for (int c = 0; c < TILE; ++c) tm = fmaxf(tm, ss[lane * LDS + c]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float t = 0.f;
+        float s = score(sc[j], g, &t);
+        if (!full && !in_window(q0 + row, k0 + key + j, g.s, g.window))
+          s = -INFINITY;
+        sc[j] = s;
+        tm = fmaxf(tm, s);
+      }
       if (tm > -INFINITY) {
         l *= expf(m - tm);  // m = -inf before the first key: l is 0
-        for (int c = 0; c < TILE; ++c) {
-          const float s = ss[lane * LDS + c];
-          if (s > -INFINITY) l += expf(s - tm);
-        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (sc[j] > -INFINITY) l += expf(sc[j] - tm);
         m = tm;
       }
     }
-  }
-  const long long st = static_cast<long long>(bh) * g.s;
-  if (warp == 0 && q0 + lane < g.s) lse[st + q0 + lane] = m + logf(l);
-  // D_i = dO_i . o_i: warp w takes rows w, w + 8, ...; lanes split d
-  for (int r = warp; r < TILE; r += THREADS / 32) {
-    const int i = q0 + r;
-    if (i >= g.s) break;
-    const T* orow = o + q_off + static_cast<long long>(i) * q_row;
-    const T* drow = dout + q_off + static_cast<long long>(i) * q_row;
-    float acc = 0.f;
-    for (int d = lane; d < D; d += 32)
-      acc = fmaf(to_f32(drow[d]), to_f32(orow[d]), acc);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) delta[st + i] = acc;
+    cp_async_wait_all();
+    // each row's 8 partial (max, sum): (team, key half, key group) in order
+    const int pidx = 4 * team + 2 * (threadIdx.x % TEAM / 64) + lane / 16;
+    mrg[pidx * 2 * TILE + row] = m;
+    mrg[pidx * 2 * TILE + TILE + row] = l;
+    __syncthreads();
+    if (threadIdx.x < TILE) {
+      m = mrg[threadIdx.x];
+      l = mrg[TILE + threadIdx.x];
+      for (int p = 1; p < 8; ++p)
+        merge(m, l, mrg[p * 2 * TILE + threadIdx.x],
+              mrg[p * 2 * TILE + TILE + threadIdx.x]);
+    }
+    if (gridDim.z > 1) {  // the cluster's blocks, in order
+      if (blockIdx.z > 0 && threadIdx.x < TILE) {
+        blk[threadIdx.x] = m;
+        blk[TILE + threadIdx.x] = l;
+      }
+      sm90::cluster_sync();
+      if (blockIdx.z == 0 && threadIdx.x < TILE) {
+        for (int p = 1; p < static_cast<int>(gridDim.z); ++p) {
+          const uint32_t other = sm90::cluster_addr(blk, p);
+          merge(m, l, sm90::ld_cluster(other + 4 * threadIdx.x),
+                sm90::ld_cluster(other + 4 * (TILE + threadIdx.x)));
+        }
+      }
+      sm90::cluster_sync();
+    }
+    if (blockIdx.z == 0 && threadIdx.x < TILE)
+      lse[st_row + q0 + threadIdx.x] =
+          q0 + static_cast<int>(threadIdx.x) < g.s ? m + logf(l) : 0.f;
   }
 }
 
-// 2. dk and dv of 32 keys of one kv head, summed over the group's heads
+// The per-step work shared by dkdv and dq, in team 0 after the teams'
+// S (sc) and dP (in dps) of query rows q0 ... against keys k0 ...: this
+// lane's p (masked, unrounded) and dS, the first version's arithmetic
+__device__ __forceinline__ void p_ds(const float (&sc)[8], const float* dps,
+                                     float lse_r, float del_r, int q0, int k0,
+                                     bool full, const Geometry& g,
+                                     float (&p)[8], float (&ds)[8]) {
+  const int row = lane_row(), key = lane_key();
+  const float4 d0 = *reinterpret_cast<const float4*>(dps + row * LDT + key);
+  const float4 d1 = *reinterpret_cast<const float4*>(dps + row * LDT + key + 4);
+  const float dp[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float t = 0.f;
+    const float s = score(sc[j], g, &t);
+    float pj = expf(s - lse_r);
+    float dj = pj * (dp[j] - del_r);
+    if (g.softcap > 0.f) dj *= 1.f - t * t;
+    dj *= g.scale;
+    if (!full && !in_window(q0 + row, k0 + key + j, g.s, g.window))
+      pj = dj = 0.f;
+    p[j] = pj;
+    ds[j] = dj;
+  }
+}
+
+// team 1's dP of its lane into the (32, 32) hand-over tile
+__device__ __forceinline__ void put_row(float* tile, const float (&x)[8]) {
+  float* at = tile + lane_row() * LDT + lane_key();
+  *reinterpret_cast<float4*>(at) = make_float4(x[0], x[1], x[2], x[3]);
+  *reinterpret_cast<float4*>(at + 4) = make_float4(x[4], x[5], x[6], x[7]);
+}
+
+// 2. dk and dv of 32 keys of one (batch, kv head), summed over the
+// group's query heads.  A tile is (batch, kv head, 32 keys), dealt
+// heaviest first (key tiles in order); a cluster's blocks walk
+// consecutive shares of its (head, query tile) steps, the query tiles
+// whose rows reach the keys; team 0 keeps dV, team 1 dK
+template <int D>
+struct DkdvTiles {
+  static constexpr int TD = TILE * D;
+  static constexpr int STAGE = 2 * TD + 2 * TILE;  // Q, dO, lse, delta
+  // K, V, the ring, and the (32, 32) tiles of p (rounded), dS and dP
+  static constexpr int FLOATS = 2 * TD + 2 * STAGE + 3 * TILE * LDT;
+  static constexpr int BYTES = 4 * FLOATS;
+};
+
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-    dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dk,
-                T* __restrict__ dv, Geometry g) {
-  using A = Acc<D>;
-  extern __shared__ float smem[];
-  float* ks = smem;                      // (32, D + 1) each
-  float* vs = ks + TILE * (D + 1);
-  float* qs = vs + TILE * (D + 1);
-  float* dos = qs + TILE * (D + 1);
-  float* ps = dos + TILE * (D + 1);      // (32, 33) each
-  float* dss = ps + TILE * LDS;
-  float* lse_s = dss + TILE * LDS;       // (32,) each
-  float* del_s = lse_s + TILE;
-  const int k0 = blockIdx.x * TILE;
-  const int bk = blockIdx.y, kv_heads = g.h / g.group;
-  const int b = bk / kv_heads, kvh = bk % kv_heads;
+__global__ void __launch_bounds__(THREADS, 1)
+    cc_dkdv(const T* __restrict__ q, const T* __restrict__ k,
+            const T* __restrict__ v, const T* __restrict__ dout,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            T* __restrict__ dk, T* __restrict__ dv, Geometry g, int tiles) {
+  using L = DkdvTiles<D>;
+  using G = Grad<D, TEAM>;
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);
+  float* vs = ks + L::TD;
+  float* ring = vs + L::TD;
+  float* ps = ring + 2 * L::STAGE;
+  float* dss = ps + TILE * LDT;
+  float* dps = dss + TILE * LDT;
+  const int nk = (g.s + TILE - 1) / TILE, kvs = tiles / nk;
+  const int kv_heads = g.h / g.group;
   const long long q_row = static_cast<long long>(g.h) * D;
   const long long k_row = static_cast<long long>(kv_heads) * D;
-  const long long k_off = static_cast<long long>(b) * g.s * k_row + kvh * D;
-  load_rows<T, D>(ks, k + k_off, k0, g.s, k_row);
-  load_rows<T, D>(vs, v + k_off, k0, g.s, k_row);
-  float dk_acc[A::JR][A::DC], dv_acc[A::JR][A::DC];
+  const int team = threadIdx.x / TEAM, t = threadIdx.x % TEAM;
+  const int row = lane_row(), key = lane_key();
+  for (int r = 0;; ++r) {
+    const int tile = dealt(blockIdx.x, r, gridDim.x, tiles);
+    if (tile < 0) break;
+    const int bk = tile % kvs, b = bk / kv_heads, kvh = bk % kv_heads;
+    const int k0 = tile / kvs * TILE;
+    // query tiles whose rows reach the keys: i in [k0, k0 + 31 + window)
+    const int qt0 = k0 / TILE;
+    const int nq = min(g.s - 1, k0 + TILE - 2 + g.window) / TILE - qt0 + 1;
+    int first, n;
+    share(g.group * nq, tile, &first, &n);
+    const long long k_off = static_cast<long long>(b) * g.s * k_row + kvh * D;
+    auto load_step = [&](int i) {
+      float* st = ring + (i % 2) * L::STAGE;
+      const int head = kvh * g.group + (first + i) / nq;
+      const int q0 = (qt0 + (first + i) % nq) * TILE;
+      const long long q_off =
+          static_cast<long long>(b) * g.s * q_row + head * D;
+      load_rows<T, D>(st, q + q_off, q_row, q0, g.s);
+      load_rows<T, D>(st + L::TD, dout + q_off, q_row, q0, g.s);
+      // lse then delta of the 32 rows (the scratch holds rows up to S
+      // rounded up to 64; stats zeroed those past S)
+      if (threadIdx.x < 16) {
+        const long long at =
+            static_cast<long long>(b * g.h + head) * stat_stride(g.s) + q0;
+        const float* from = threadIdx.x < 8 ? lse + at : delta + at - TILE;
+        cp_async16(st + 2 * L::TD + 4 * threadIdx.x, from + 4 * threadIdx.x,
+                   16);
+      }
+    };
+    __syncthreads();  // the last tile is done with the shared memory
+    load_rows<T, D>(ks, k + k_off, k_row, k0, g.s);
+    load_rows<T, D>(vs, v + k_off, k_row, k0, g.s);
+    if (n > 0) load_step(0);
+    cp_async_commit();
+
+    float acc[G::N];  // team 0: dV, team 1: dK
 #pragma unroll
-  for (int rr = 0; rr < A::JR; ++rr)
+    for (int x = 0; x < G::N; ++x) acc[x] = 0.f;
+    for (int i = 0; i < n; ++i) {
+      cp_async_wait_all();
+      __syncthreads();  // this step's tiles landed; the last step is done
+      if (i + 1 < n) {
+        load_step(i + 1);
+        cp_async_commit();
+      }
+      const float* qs = ring + (i % 2) * L::STAGE;
+      const float* dos = qs + L::TD;
+      const float* stat = dos + L::TD;  // lse, then delta
+      const int q0 = (qt0 + (first + i) % nq) * TILE;
+      // team 0: S = Q K^T, team 1: dP = dO V^T, through one call (two
+      // copies of the unrolled loop side by side cost instruction fetch)
+      float sc[8];
+      score_tile<D>(team == 0 ? qs : dos, team == 0 ? ks : vs, sc);
+      if (team == 1) put_row(dps, sc);
+      __syncthreads();  // dP is in dps
+      if (team == 0) {
+        float p[8], ds[8];
+        p_ds(sc, dps, stat[row], stat[TILE + row], q0, k0,
+             tile_full(q0, k0, g), g, p, ds);
 #pragma unroll
-    for (int cc = 0; cc < A::DC; ++cc) dk_acc[rr][cc] = dv_acc[rr][cc] = 0.f;
-  const int jt = threadIdx.x / A::TD, dt = threadIdx.x % A::TD;
-  // rows i in [k0, k0 + 31 + window), below s
-  const int i_end = min(g.s, k0 + TILE - 1 + g.window);
-  for (int gi = 0; gi < g.group; ++gi) {
-    const int h = kvh * g.group + gi;
+        for (int j = 0; j < 8; ++j) p[j] = round_to<T>(p[j]);
+        put_row(ps, p);
+        put_row(dss, ds);
+      }
+      __syncthreads();  // p and dS are in ps, dss
+      // team 0: dV += P^T dO, team 1: dK += dS^T Q
+      grad_tile<D, TEAM>(team == 0 ? ps : dss, team == 0 ? dos : qs, acc, t);
+    }
+    cp_async_wait_all();
+    __syncthreads();  // the ring is free: the cluster's partials go there
+    store_sum<T, D, TEAM>(acc, ring + team * TEAM * G::N,
+                          (team == 0 ? dv : dk) + k_off, k_row, k0, g.s, t);
+    if (gridDim.z > 1) sm90::cluster_sync();  // the partials are read
+  }
+}
+
+// 3. dq of 32 query rows of one (batch, head).  A tile is (batch, head,
+// 32 query rows), dealt heaviest first; a cluster's blocks walk
+// consecutive shares of the key tiles of its rows' windows, K and V
+// through the ring
+template <int D>
+struct DqTiles {
+  static constexpr int TD = TILE * D;
+  static constexpr int STAGE = 2 * TD;  // K, V
+  // Q, dO, the ring, the dP and dS^T tiles, lse and delta
+  static constexpr int FLOATS = 2 * TD + 2 * STAGE + 2 * TILE * LDT + 2 * TILE;
+  static constexpr int BYTES = 4 * FLOATS;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    cc_dq(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, const T* __restrict__ dout,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          T* __restrict__ dq, Geometry g, int tiles) {
+  using L = DqTiles<D>;
+  using G = Grad<D, THREADS>;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);
+  float* dos = qs + L::TD;
+  float* ring = dos + L::TD;
+  float* dps = ring + 2 * L::STAGE;
+  float* dst = dps + TILE * LDT;   // dS^T: keys x rows
+  float* stat = dst + TILE * LDT;  // lse, then delta
+  const int nq = (g.s + TILE - 1) / TILE, heads = tiles / nq;
+  const int kv_heads = g.h / g.group;
+  const long long q_row = static_cast<long long>(g.h) * D;
+  const long long k_row = static_cast<long long>(kv_heads) * D;
+  const int team = threadIdx.x / TEAM;
+  const int row = lane_row(), key = lane_key();
+  for (int r = 0;; ++r) {
+    const int tile = dealt(blockIdx.x, r, gridDim.x, tiles);
+    if (tile < 0) break;
+    const int bh = tile % heads, b = bh / g.h, h = bh % g.h;
+    const int q0 = (nq - 1 - tile / heads) * TILE;
     const long long q_off = static_cast<long long>(b) * g.s * q_row + h * D;
-    const long long st = (static_cast<long long>(b) * g.h + h) * g.s;
-    for (int q0 = k0; q0 < i_end; q0 += TILE) {
-      __syncthreads();
-      load_rows<T, D>(qs, q + q_off, q0, g.s, q_row);
-      load_rows<T, D>(dos, dout + q_off, q0, g.s, q_row);
-      if (threadIdx.x < TILE) {
-        const int i = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = i < g.s ? lse[st + i] : 0.f;
-        del_s[threadIdx.x] = i < g.s ? delta[st + i] : 0.f;
+    const long long k_off =
+        static_cast<long long>(b) * g.s * k_row + (h / g.group) * D;
+    const int t0 = max(0, q0 - g.window + 1) / TILE;
+    int first, n;
+    share(min(q0 + TILE - 1, g.s - 1) / TILE - t0 + 1, tile, &first, &n);
+    auto load_step = [&](int i) {
+      float* st = ring + (i % 2) * L::STAGE;
+      const int k0 = (t0 + first + i) * TILE;
+      load_rows<T, D>(st, k + k_off, k_row, k0, g.s);
+      load_rows<T, D>(st + L::TD, v + k_off, k_row, k0, g.s);
+    };
+    __syncthreads();  // the last tile is done with the shared memory
+    load_rows<T, D>(qs, q + q_off, q_row, q0, g.s);
+    load_rows<T, D>(dos, dout + q_off, q_row, q0, g.s);
+    if (threadIdx.x < 16) {
+      const long long at = static_cast<long long>(bh) * stat_stride(g.s) + q0;
+      const float* from = threadIdx.x < 8 ? lse + at : delta + at - TILE;
+      cp_async16(stat + 4 * threadIdx.x, from + 4 * threadIdx.x, 16);
+    }
+    if (n > 0) load_step(0);
+    cp_async_commit();
+
+    float acc[G::N];
+#pragma unroll
+    for (int x = 0; x < G::N; ++x) acc[x] = 0.f;
+    for (int i = 0; i < n; ++i) {
+      cp_async_wait_all();
+      __syncthreads();  // this step's tiles landed; the last step is done
+      if (i + 1 < n) {
+        load_step(i + 1);
+        cp_async_commit();
       }
-      __syncthreads();
-      p_ds_tile<T, D>(qs, ks, dos, vs, lse_s, del_s, ps, dss, q0, k0, g);
-      __syncthreads();
-#pragma unroll 4
-      for (int r = 0; r < TILE; ++r) {
-        float pj[A::JR], sj[A::JR], od[A::DC], qd[A::DC];
+      const float* ks = ring + (i % 2) * L::STAGE;
+      const float* vs = ks + L::TD;
+      const int k0 = (t0 + first + i) * TILE;
+      // team 0: S = Q K^T, team 1: dP = dO V^T, through one call (two
+      // copies of the unrolled loop side by side cost instruction fetch)
+      float sc[8];
+      score_tile<D>(team == 0 ? qs : dos, team == 0 ? ks : vs, sc);
+      if (team == 1) put_row(dps, sc);
+      __syncthreads();  // dP is in dps
+      if (team == 0) {
+        float p[8], ds[8];
+        p_ds(sc, dps, stat[row], stat[TILE + row], q0, k0,
+             tile_full(q0, k0, g), g, p, ds);
 #pragma unroll
-        for (int rr = 0; rr < A::JR; ++rr) {
-          pj[rr] = ps[r * LDS + jt + A::NJ * rr];
-          sj[rr] = dss[r * LDS + jt + A::NJ * rr];
-        }
-#pragma unroll
-        for (int cc = 0; cc < A::DC; ++cc) {
-          od[cc] = dos[r * (D + 1) + dt + A::TD * cc];
-          qd[cc] = qs[r * (D + 1) + dt + A::TD * cc];
-        }
-#pragma unroll
-        for (int rr = 0; rr < A::JR; ++rr)
-#pragma unroll
-          for (int cc = 0; cc < A::DC; ++cc) {
-            dv_acc[rr][cc] = fmaf(pj[rr], od[cc], dv_acc[rr][cc]);
-            dk_acc[rr][cc] = fmaf(sj[rr], qd[cc], dk_acc[rr][cc]);
-          }
+        for (int j = 0; j < 8; ++j) dst[(key + j) * LDT + row] = ds[j];
       }
+      __syncthreads();  // dS^T is in dst
+      grad_tile<D, THREADS>(dst, ks, acc, threadIdx.x);  // dQ += dS K
     }
-  }
-#pragma unroll
-  for (int rr = 0; rr < A::JR; ++rr) {
-    const int j = k0 + jt + A::NJ * rr;
-    if (j >= g.s) continue;
-    const long long row = k_off + static_cast<long long>(j) * k_row;
-#pragma unroll
-    for (int cc = 0; cc < A::DC; ++cc) {
-      dk[row + dt + A::TD * cc] = from_f32<T>(dk_acc[rr][cc]);
-      dv[row + dt + A::TD * cc] = from_f32<T>(dv_acc[rr][cc]);
-    }
+    cp_async_wait_all();
+    __syncthreads();  // the ring is free: the cluster's partials go there
+    store_sum<T, D, THREADS>(acc, ring, dq + q_off, q_row, q0, g.s,
+                             threadIdx.x);
+    if (gridDim.z > 1) sm90::cluster_sync();  // the partials are read
   }
 }
 
-// 3. dq of 32 query rows of one head
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-    dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              T* __restrict__ dq, Geometry g) {
-  using A = Acc<D>;
-  extern __shared__ float smem[];
-  float* qs = smem;                      // (32, D + 1) each
-  float* dos = qs + TILE * (D + 1);
-  float* ks = dos + TILE * (D + 1);
-  float* vs = ks + TILE * (D + 1);
-  float* dss = vs + TILE * (D + 1);      // (32, 33)
-  float* lse_s = dss + TILE * LDS;       // (32,) each
-  float* del_s = lse_s + TILE;
-  const int nq = gridDim.x;
-  const int q0 = (nq - 1 - blockIdx.x) * TILE;
-  const int bh = blockIdx.y, b = bh / g.h, h = bh % g.h;
-  const int kv_heads = g.h / g.group, kvh = h / g.group;
-  const long long q_row = static_cast<long long>(g.h) * D;
-  const long long k_row = static_cast<long long>(kv_heads) * D;
-  const long long q_off = static_cast<long long>(b) * g.s * q_row + h * D;
-  const long long k_off = static_cast<long long>(b) * g.s * k_row + kvh * D;
-  const long long st = static_cast<long long>(bh) * g.s;
-  load_rows<T, D>(qs, q + q_off, q0, g.s, q_row);
-  load_rows<T, D>(dos, dout + q_off, q0, g.s, q_row);
-  if (threadIdx.x < TILE) {
-    const int i = q0 + threadIdx.x;
-    lse_s[threadIdx.x] = i < g.s ? lse[st + i] : 0.f;
-    del_s[threadIdx.x] = i < g.s ? delta[st + i] : 0.f;
-  }
-  float dq_acc[A::JR][A::DC];
-#pragma unroll
-  for (int rr = 0; rr < A::JR; ++rr)
-#pragma unroll
-    for (int cc = 0; cc < A::DC; ++cc) dq_acc[rr][cc] = 0.f;
-  const int it = threadIdx.x / A::TD, dt = threadIdx.x % A::TD;
-  const int q_hi = min(g.s - 1, q0 + TILE - 1);
-  const int k_lo = max(0, q0 - g.window + 1);
-  for (int k0 = (k_lo / TILE) * TILE; k0 <= q_hi; k0 += TILE) {
-    __syncthreads();
-    load_rows<T, D>(ks, k + k_off, k0, g.s, k_row);
-    load_rows<T, D>(vs, v + k_off, k0, g.s, k_row);
-    __syncthreads();
-    p_ds_tile<T, D>(qs, ks, dos, vs, lse_s, del_s, nullptr, dss, q0, k0, g);
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < TILE; ++c) {
-      float si[A::JR], kd[A::DC];
-#pragma unroll
-      for (int rr = 0; rr < A::JR; ++rr)
-        si[rr] = dss[(it + A::NJ * rr) * LDS + c];
-#pragma unroll
-      for (int cc = 0; cc < A::DC; ++cc)
-        kd[cc] = ks[c * (D + 1) + dt + A::TD * cc];
-#pragma unroll
-      for (int rr = 0; rr < A::JR; ++rr)
-#pragma unroll
-        for (int cc = 0; cc < A::DC; ++cc)
-          dq_acc[rr][cc] = fmaf(si[rr], kd[cc], dq_acc[rr][cc]);
+// Blocks a tile's walk is split over (a cluster summed in block order):
+// while `tiles`, one block each, leave SMs of the card idle, the fewest
+// that fill them, rounded up to a power of two, up to 8; else 1.
+inline int walk_parts(int tiles, int sms) {
+  int parts = 1;
+  while (parts < MAX_PARTS && parts * tiles < sms) parts *= 2;
+  return parts;
+}
+
+// One launch of `kernel` over `tiles` tiles in clusters of `parts`
+// blocks, as many clusters as the card holds at once (at most one a
+// tile); each cluster walks the tiles `dealt` to it.
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), int tiles, int parts,
+                            int smem, cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = parts;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  cfg.gridDim = dim3(tiles, 1, parts);
+  // the clusters the card holds at once, asked once per (device, kernel,
+  // parts)
+  static std::mutex lock;
+  static struct {
+    int dev, parts, clusters;
+    const void* kernel;
+  } seen[64];
+  static int n_seen = 0;
+  int dev = 0, clusters = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  {
+    std::lock_guard<std::mutex> hold(lock);
+    for (int i = 0; i < n_seen && !clusters; ++i)
+      if (seen[i].dev == dev && seen[i].kernel == fn && seen[i].parts == parts)
+        clusters = seen[i].clusters;
+    if (!clusters) {
+      e = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
+      if (e != cudaSuccess) return e;
+      if (clusters < 1) return cudaErrorInvalidConfiguration;
+      if (n_seen < 64) seen[n_seen++] = {dev, parts, clusters, fn};
     }
   }
-#pragma unroll
-  for (int rr = 0; rr < A::JR; ++rr) {
-    const int i = q0 + it + A::NJ * rr;
-    if (i >= g.s) continue;
-    const long long row = q_off + static_cast<long long>(i) * q_row;
-#pragma unroll
-    for (int cc = 0; cc < A::DC; ++cc)
-      dq[row + dt + A::TD * cc] = from_f32<T>(dq_acc[rr][cc]);
-  }
+  cfg.gridDim.x = clusters < tiles ? clusters : tiles;
+  e = cudaLaunchKernelEx(&cfg, kernel, args..., tiles);
+  return e == cudaSuccess ? cudaGetLastError() : e;
 }
 
-template <int D>
-constexpr int stats_smem() { return (2 * TILE * (D + 1) + TILE * LDS) * 4; }
-template <int D>
-constexpr int dkdv_smem() {
-  return (4 * TILE * (D + 1) + 2 * TILE * LDS + 2 * TILE) * 4;
-}
-template <int D>
-constexpr int dq_smem() {
-  return (4 * TILE * (D + 1) + TILE * LDS + 2 * TILE) * 4;
-}
+}  // namespace simt
 
+// the CUDA-core route's three kernels at (T, D)
 template <typename T, int D>
 int launch_t(const void* q, const void* k, const void* v, const void* o,
              const void* dout, void* dq, void* dk, void* dv, float* lse,
              float* delta, int batch, const Geometry& g,
              cudaStream_t stream) {
+  using namespace simt;
   static const cudaError_t attr = [] {  // once per instantiation
     cudaError_t e = cudaFuncSetAttribute(
-        stats_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        stats_smem<D>());
+        cc_stats<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        StatsTiles<D>::BYTES);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(dkdv_kernel<T, D>,
+      e = cudaFuncSetAttribute(cc_dkdv<T, D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               dkdv_smem<D>());
+                               DkdvTiles<D>::BYTES);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(dq_kernel<T, D>,
+      e = cudaFuncSetAttribute(cc_dq<T, D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               dq_smem<D>());
+                               DqTiles<D>::BYTES);
     return e;
   }();
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const int tiles = (g.s + TILE - 1) / TILE;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int nt = (g.s + TILE - 1) / TILE, kv = g.h / g.group;
+  const int rows = walk_parts(batch * g.h * nt, sms);
+  const int keys = walk_parts(batch * kv * nt, sms);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
-  const T* ot = static_cast<const T*>(o);
   const T* dot = static_cast<const T*>(dout);
-  stats_kernel<T, D><<<dim3(tiles, batch * g.h), THREADS, stats_smem<D>(),
-                       stream>>>(qt, kt, ot, dot, lse, delta, g);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dkdv_kernel<T, D><<<dim3(tiles, batch * (g.h / g.group)), THREADS,
-                      dkdv_smem<D>(), stream>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      g);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dq_kernel<T, D><<<dim3(tiles, batch * g.h), THREADS, dq_smem<D>(),
-                    stream>>>(qt, kt, vt, dot, lse, delta,
-                              static_cast<T*>(dq), g);
-  return static_cast<int>(cudaGetLastError());
+  e = launch_clusters(cc_stats<T, D>, batch * g.h * nt, rows,
+                      StatsTiles<D>::BYTES, stream, qt, kt,
+                      static_cast<const T*>(o), dot, lse, delta, g);
+  if (e == cudaSuccess)
+    e = launch_clusters(cc_dkdv<T, D>, batch * kv * nt, keys,
+                        DkdvTiles<D>::BYTES, stream, qt, kt, vt, dot,
+                        static_cast<const float*>(lse),
+                        static_cast<const float*>(delta), static_cast<T*>(dk),
+                        static_cast<T*>(dv), g);
+  if (e == cudaSuccess)
+    e = launch_clusters(cc_dq<T, D>, batch * g.h * nt, rows,
+                        DqTiles<D>::BYTES, stream, qt, kt, vt, dot,
+                        static_cast<const float*>(lse),
+                        static_cast<const float*>(delta), static_cast<T*>(dq),
+                        g);
+  return static_cast<int>(e);
 }
 
 // ---------------------------------------------------------------------

@@ -56,7 +56,9 @@ any launch rather than return an output with no ``grad_fn``.
 :func:`tile_schedule` counts what a kernel visits, skips and computes at
 a given (S, window): the bfloat16 kernel's tiles by default, the
 float32 kernel's with ``F32_TILES``; :func:`bwd_tile_schedule` lists the
-tensor-core backward's tile walks.
+tensor-core backward's tile walks, :func:`bwd_cc_schedule` the CUDA-core
+backward's, which :func:`bwd_cc_parts` splits over clusters and
+:func:`bwd_cc_deal` deals to them.
 """
 from __future__ import annotations
 
@@ -104,10 +106,13 @@ F32_TILES = dict(block_q=F32_BLOCK_Q, block_k=F32_BLOCK_K, rows=8, chunk=4)
 BWD_TC_TILE = 64
 #: head dims at which a bfloat16 backward runs on the tensor cores
 BWD_TC_HEAD_DIMS = (64, 128, 256)
+#: the CUDA-core backward's query rows and keys per tile (``simt`` in the
+#: CUDA source), and the most blocks a cluster splits a tile's walk over
+BWD_CC_TILE, BWD_CC_MAX_PARTS = 32, 8
 #: each backward route's three kernels, as the profiler names them
 #: (statistics, dk / dv, dq)
 BWD_KERNELS = {"tensor_cores": ("tc_stats", "tc_dkdv", "tc_dq"),
-               "cuda_cores": ("stats_kernel", "dkdv_kernel", "dq_kernel")}
+               "cuda_cores": ("cc_stats", "cc_dkdv", "cc_dq")}
 
 
 class TileSchedule(NamedTuple):
@@ -241,6 +246,106 @@ def bwd_tile_schedule(s: int, window: int, group: int = 1, parts: int = 1,
                      for i in range(steps * part // parts,
                                     steps * (part + 1) // parts)]
     return BwdTileSchedule(rows, keys, full, len(rows) - full)
+
+
+def bwd_cc_parts(tiles: int, sms: int) -> int:
+    """Blocks a tile's walk is split over in the CUDA-core backward, as
+    ``walk_parts`` in the CUDA source picks them: while ``tiles``, one
+    block each (batch x heads x query tiles for ``cc_stats`` and
+    ``cc_dq``, batch x kv heads x key tiles for ``cc_dkdv``), leave some
+    of the card's ``sms`` idle, the fewest that fill them rounded up to a
+    power of two, up to ``BWD_CC_MAX_PARTS``; else 1."""
+    parts = 1
+    while parts < BWD_CC_MAX_PARTS and parts * tiles < sms:
+        parts *= 2
+    return parts
+
+
+def bwd_cc_deal(tiles: int, clusters: int) -> list:
+    """The tiles each cluster of a CUDA-core backward launch walks, as
+    ``dealt`` in the CUDA source deals them: the grid holds ``clusters``
+    (as many as the card holds at once, at most one a tile), and tile r
+    x clusters + c of the heaviest-first order goes to cluster c on even
+    rounds r and to cluster clusters - 1 - c on odd ones.  The kernels'
+    heaviest-first order: query tiles in reverse, each over every
+    (batch, head), for ``cc_stats`` and ``cc_dq``; key tiles in order,
+    each over every (batch, kv head), for ``cc_dkdv``."""
+    clusters = min(clusters, tiles)
+    out = [[] for _ in range(clusters)]
+    for tile in range(tiles):
+        r, c = divmod(tile, clusters)
+        out[c if r % 2 == 0 else clusters - 1 - c].append(tile)
+    return out
+
+
+class BwdCcSchedule(NamedTuple):
+    """The CUDA-core backward's walks for one (batch, kv head) at (S,
+    window, group), tiles of ``BWD_CC_TILE``, per query head where a
+    walk is per head.  ``stats``: the (query tile, block, team, key tile)
+    steps of ``cc_stats``; ``dq``: the (query tile, block, key tile)
+    steps of ``cc_dq``: a block (or a cluster of ``row_parts``) per query
+    tile, query tiles in reverse, the cluster's blocks walking
+    consecutive shares of the tile's key tiles, in order, and in
+    ``cc_stats`` the block's two teams taking every other key tile of its
+    share.  ``keys``: the (key tile, block, head of the group, query
+    tile) steps of ``cc_dkdv``: a cluster of ``key_parts`` blocks per key
+    tile shares the walk over the group's heads, each over its query
+    tiles in order.  A cluster's partial sums are added in block order
+    (block 0's first).  ``full``: the (query tile, key tile)
+    pairs of the row walk that hold no masked pair (the kernels skip the
+    mask there); ``partial``: the others."""
+    stats: list
+    dq: list
+    keys: list
+    full: int
+    partial: int
+
+
+def _shares(steps: int, parts: int, tile: int):
+    """Each block's consecutive share of the walk of ``steps`` of the
+    tile at ``tile`` in the heaviest-first order, in block order, as the
+    CUDA source's ``share`` deals them: block p takes share (p + tile) %
+    parts."""
+    return [range(steps * ((p + tile) % parts) // parts,
+                  steps * ((p + tile) % parts + 1) // parts)
+            for p in range(parts)]
+
+
+def bwd_cc_schedule(s: int, window: int, group: int = 1, row_parts: int = 1,
+                    key_parts: int = 1, seq: int = 0, seqs: int = 1,
+                    tile: int = BWD_CC_TILE) -> BwdCcSchedule:
+    """The walks of ``cc_stats``, ``cc_dkdv`` and ``cc_dq``, made as the
+    CUDA source makes them (see :class:`BwdCcSchedule`), for sequence
+    ``seq`` of ``seqs`` (the (batch, head) of the row walks and the
+    (batch, kv head) of the key walk, in the kernels' order: which block
+    of a cluster takes which share turns with the tile's place in the
+    heaviest-first order of all sequences' tiles)."""
+    window = min(int(window), s)
+    n = -(-s // tile)
+    stats, dq, keys = [], [], []
+    full = partial = 0
+    for qt in reversed(range(n)):
+        q0 = qt * tile
+        t0 = max(0, q0 - window + 1) // tile
+        nk = min(q0 + tile - 1, s - 1) // tile - t0 + 1
+        for kt in range(t0, t0 + nk):
+            k0 = kt * tile
+            if (k0 + tile - 1 <= q0 and q0 + tile - 1 - k0 < window
+                    and q0 + tile - 1 < s):
+                full += 1
+            else:
+                partial += 1
+        for part, steps in enumerate(
+                _shares(nk, row_parts, (n - 1 - qt) * seqs + seq)):
+            dq += [(qt, part, t0 + i) for i in steps]
+            stats += [(qt, part, j % 2, t0 + i)
+                      for j, i in enumerate(steps)]
+    for kt in range(n):
+        nq = min(s - 1, kt * tile + tile - 2 + window) // tile - kt + 1
+        for part, steps in enumerate(
+                _shares(group * nq, key_parts, kt * seqs + seq)):
+            keys += [(kt, part, i // nq, kt + i % nq) for i in steps]
+    return BwdCcSchedule(stats, dq, keys, full, partial)
 
 
 def build() -> Tuple[Path, str]:
@@ -524,12 +629,16 @@ def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"kernel's grid")
     if o.dtype != q.dtype or do.dtype != q.dtype:
         raise TypeError(f"o and do must be {q.dtype}: {o.dtype}, {do.dtype}")
-    q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    # both routes copy rows in 16-byte pieces (TMA, cp.async), so rows
+    # must start on 16 bytes: a view whose rows do not is copied once
+    q, k, v, o, do = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+                      else t.clone(memory_format=torch.contiguous_format)
+                      for t in (q, k, v, o, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk, dv
-    # scratch rows padded to a tensor-core tile (the CUDA-core route
-    # reads the first b * h * s of each)
+    # scratch rows padded to 64 (the tensor-core tile; both routes read
+    # the statistics of whole tiles)
     sp = -(-s // BWD_TC_TILE) * BWD_TC_TILE
     lse = torch.empty((b, h, sp), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)

@@ -810,29 +810,39 @@ def test_cuda_local_attention_bwd_matches_plain(d, dtype):
 
 
 @pytest.mark.cuda
-def test_cuda_local_attention_bwd_repeats_bitwise():
-    """Two backward calls at a reduced gemma3-1b global layer (B 1, S
-    2048, 4 heads on 1 kv head, D 256, bf16, window S): bit-equal dq, dk
-    and dv (no atomics), each call one launch, within TOL_BWD of the
-    plain version."""
+@pytest.mark.parametrize("dtype, s, window", [
+    (torch.bfloat16, 2048, 2048), (torch.float32, 640, 512),
+    (torch.float32, 640, 640)])
+def test_cuda_local_attention_bwd_repeats_bitwise(dtype, s, window):
+    """Two backward calls at a reduced gemma3-1b layer (B 1, 4 heads on 1
+    kv head, D 256): bf16 at S 2048, window S (the tensor cores' cluster
+    of two), and float32 at S 640, windows 512 and S (the 12-layer
+    run's calls, where the CUDA cores split every tile's walk over a
+    cluster): bit-equal dq, dk and dv (no atomics), each call one
+    launch, within TOL_BWD of the plain version."""
     _needs_card()
     rng = np.random.default_rng(23)
-    q, do = (_normal(rng, (1, 2048, 4, 256), torch.bfloat16)
-             for _ in range(2))
-    k, v = (_normal(rng, (1, 2048, 1, 256), torch.bfloat16)
-            for _ in range(2))
-    assert LA.bwd_route(q.dtype, 256) == "tensor_cores"
-    o = LA.grouped_local_attention(q, k, v, window=2048)
+    q, do = (_normal(rng, (1, s, 4, 256), dtype) for _ in range(2))
+    k, v = (_normal(rng, (1, s, 1, 256), dtype) for _ in range(2))
+    if dtype == torch.bfloat16:
+        assert LA.bwd_route(q.dtype, 256) == "tensor_cores"
+    else:
+        assert LA.bwd_route(q.dtype, 256) == "cuda_cores"
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        tiles = -(-s // LA.BWD_CC_TILE)
+        assert LA.bwd_cc_parts(tiles, sms) > 1  # dk / dv: one kv head
+        assert LA.bwd_cc_parts(4 * tiles, sms) > 1  # stats, dq: 4 heads
+    o = LA.grouped_local_attention(q, k, v, window=window)
     runs = []
     for _ in range(2):
         before = LA.LAUNCHES["local_attention_bwd"]
-        runs.append(LA.local_attention_bwd(q, k, v, o, do, window=2048))
+        runs.append(LA.local_attention_bwd(q, k, v, o, do, window=window))
         torch.cuda.synchronize()
         assert LA.LAUNCHES["local_attention_bwd"] == before + 1
     for a, b in zip(*runs):
         assert torch.equal(a, b)
-    want = LA.local_attention_bwd_plain(q, k, v, o, do, window=2048)
-    ok, err, scale = _bwd_close(runs[0], want, torch.bfloat16)
+    want = LA.local_attention_bwd_plain(q, k, v, o, do, window=window)
+    ok, err, scale = _bwd_close(runs[0], want, dtype)
     assert ok, (err, scale)
 
 
