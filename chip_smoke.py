@@ -224,14 +224,48 @@ G. the training path: gemma3-1b at full width and depth (26 layers),
    the plain version.  After the builds, the backward library's SASS:
    its tensor-core kernels hold HGMMA and UTMALDG, its CUDA-core kernels
    LDS.128, and none a global atomic.
+H. the MoE, Mamba and hybrid families trained: granite-moe-3b-a800m at
+   full width and depth (32 layers, 3.30 G parameters) and
+   falcon-mamba-7b at full width cut to ``H_LAYERS`` layers, random
+   bfloat16 weights from a card generator seeded with SEED, AdamW as
+   phase G (falcon-mamba at ``H_LR``), ``remat="full"``, batch 4 x 2048,
+   8 steps on phase G's fixed batch, each step donating its params and
+   optimizer state (one copy of the state on the card), under the
+   ``StepGuard``. One step's gradients with the kernels, every
+   scan-backward call held against ``selective_scan_bwd_plain`` (each
+   gradient within TOL_SCAN_BWD of its largest |value|) and every
+   attention-backward call against its plain version; the same gradients
+   again, bit-equal; then with the plain versions of both kernels
+   swapped in (TOL_TRAIN_PLAIN_*; for falcon-mamba also the plain
+   versions against a plain scan whose y is summed in float64, the
+   gate's noise floor). Each counted step resets every count just before
+   and reads them just after: the launches ``step_launches`` predicts
+   for attention and Mamba layers (granite 64 + 32 of the attention
+   kernels; falcon-mamba 2 forward scans and one backward a layer); the
+   loss falls by TRAIN_LOSS_DROP; the first step repeated from a new
+   init of the same seed gives the same loss and the same params and
+   moments (every leaf's ``fingerprint``: a difference in any one
+   element changes it). Step ms, tokens/s, peak device memory, one
+   step's device time by kernel; the scan backward's device time per
+   call and per step (its two kernels) beside its bound and its plain
+   version (no library call computes the scan). Then the float32 cuts
+   (granite and falcon-mamba at 4 layers of full width, jamba at its
+   reduced config; batch 1 x 640, TF32 off) on the card and on the CPU:
+   the MoE slot tables equal, then phase G's float32 gates; the scan
+   backward against its plain version over an edge grid (S 1, 15, 16,
+   17, 2049, d_inner 256, 130, 5, d_state 4 and 16, with and without h0
+   and dh_last). After the builds, the scan backward library's SASS
+   holds no global atomic.
 
 The line before the last is the ``kernels`` JSON (a CIM variant's
 ``launches`` summed over the counted runs of phases 2 and M, its
 times phase 4's, per vgg11 batch; the bfloat16 attention kernel's
-launches those of phases 5, F, E and G, its times phase 9's; the
-scan's launches those of phase F, its times per falcon-mamba prefill;
-the attention backward's launches those of phase G's counted steps,
-its times per training step); the last line is ``{"ok": true,
+launches those of phases 5, F, E, G and H, its times phase 9's; the
+scan's launches those of phases F and H, its times per falcon-mamba
+prefill; the attention backward's launches those of the counted steps
+of phases G and H, its times per gemma3 training step; the scan
+backward's launches those of phase H's counted steps, its times per
+falcon-mamba training step); the last line is ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -360,7 +394,8 @@ FAMILY_LAYERS = {"granite-moe-3b-a800m": None, "falcon-mamba-7b": None,
 #: launches none)
 FAMILY_LAUNCHES = {
     arch: {"local_attention": attn, "local_attention_f32": 0,
-           "local_attention_bwd": 0, "selective_scan": scan}
+           "local_attention_bwd": 0, "selective_scan": scan,
+           "selective_scan_bwd": 0}
     for arch, attn, scan in (("seamless-m4t-large-v2", 24, 0),
                              ("internvl2-2b", 24, 0),
                              ("granite-moe-3b-a800m", 32, 0),
@@ -2888,10 +2923,15 @@ def bidirectional_times(card, reps: int = 10):
     cross_ms = device_ms(lambda *a: real(*a), [cross], reps)
     plain_ms = n_enc * enc_ms + cfg.num_layers * cross_ms
     qkv = tuple(t.transpose(1, 2).contiguous() for t in enc)
-    sdpa_ms = device_ms(lambda *a: F.scaled_dot_product_attention(*a), [qkv],
-                        reps)
-    sdpa_event_ms = event_ms(lambda *a: F.scaled_dot_product_attention(*a),
-                             [qkv], reps)
+
+    def sdpa(*a):
+        F.scaled_dot_product_attention(*a)
+
+    try:  # a yardstick: the profiler at times records none of its kernels
+        sdpa_ms = f"{device_ms(sdpa, [qkv], reps):.4f}"
+    except RuntimeError as e:
+        sdpa_ms = f"not measured ({e})"
+    sdpa_event_ms = event_ms(sdpa, [qkv], reps)
     share = plain_ms / prefill_ms
     log(f"[E] {ENCDEC_ARCH} bf16 prefill: {prefill_ms:.3f} ms of device "
         f"time; plain bidirectional attention, encoder q "
@@ -2900,7 +2940,7 @@ def bidirectional_times(card, reps: int = 10):
         f"against the memory's k {tuple(cross[1].shape)}: {cross_ms:.4f} ms "
         f"a call; {plain_ms:.3f} ms over the {n_enc} + {cfg.num_layers} "
         f"calls, {100 * share:.1f}% of the prefill; SDPA without a mask at "
-        f"the encoder's call {sdpa_ms:.4f} ms ({sdpa_event_ms:.4f} by CUDA "
+        f"the encoder's call {sdpa_ms} ms ({sdpa_event_ms:.4f} by CUDA "
         f"events; a yardstick, not used) on {card}")
     del prog, params, batch, enc, cross, qkv
     torch.cuda.empty_cache()
@@ -3032,16 +3072,17 @@ def train_batch(cfg, batch, seq, device):
         DataSpec(cfg.vocab_size, seq, batch, TRAIN_DATA_SEED), 0), device)
 
 
-def step_launches(cfg):
-    """(forward, backward) attention launches one training step makes, as
-    the code predicts: each attention layer once, again in the recompute
-    of each cycle of a segment whose count exceeds 1, and one backward
-    each."""
+def step_launches(cfg, kind: str = "attn"):
+    """(forward, backward) launches of the ``kind`` layers' kernel
+    ("attn": the attention; "mamba": the selective scan) one training
+    step makes, as the code predicts: each such layer once, again in the
+    recompute of each cycle of a segment whose count exceeds 1, and one
+    backward call each."""
     from repro_torch.models.transformer import build_segments
 
     fwd = bwd = 0
     for seg in build_segments(cfg):
-        n = seg.count * sum(spec.kind == "attn" for spec in seg.cycle)
+        n = seg.count * sum(spec.kind == kind for spec in seg.cycle)
         bwd += n
         fwd += n * (2 if seg.count > 1 else 1)
     return fwd, bwd
@@ -3215,9 +3256,9 @@ def time_bwd(la, local_call, global_call, per_step, card, reps: int = 10):
     return out
 
 
-def profile_step(prog, params, state, batch, card):
+def profile_step(prog, params, state, batch, card, keys=BWD_KERNELS):
     """Device time by kernel of one training step under the profiler:
-    (total ms, backward kernels' ms, top kernels)."""
+    (total ms, ms of the kernels named by ``keys``, top kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3233,7 +3274,7 @@ def profile_step(prog, params, state, batch, card):
                          / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
-    bwd = sum(r[0] for r in rows if any(k in r[2] for k in BWD_KERNELS))
+    bwd = sum(r[0] for r in rows if any(k in r[2] for k in keys))
     return total, bwd, rows[:10]
 
 
@@ -3576,6 +3617,597 @@ def training_phase(la, card):
             "library_ms": row["library_ms"]}, fwd_launches
 
 
+# ---------------------------------------------------------------------------
+# Phase H: the MoE, Mamba and hybrid families trained
+# ---------------------------------------------------------------------------
+
+SCAN_BWD_SOURCE = "src/repro_torch/csrc/selective_scan_bwd.cu"
+#: no TPU kernel computes the scan's gradient: the reference takes it by
+#: autodiff of its associative scan, at this line
+SCAN_BWD_REPLACES = "src/repro/models/ssm.py:107"
+#: the scan backward's kernels as the profiler names them: the walk and
+#: the cross-block sums, both launched by one call
+SCAN_BWD_KERNELS = ("scan_bwd_kernel", "scan_bwd_sums")
+#: phase H's bfloat16 runs at the published widths: granite-moe-3b-a800m
+#: at its full 32 layers (3.30 G parameters: 40 GB of params, gradients
+#: and AdamW moments at 12 bytes a parameter), falcon-mamba-7b cut in
+#: depth (None: uncut).  Its 64 layers are 7.27 G parameters, 87 GB of
+#: training state.  40 layers (4.85 G, 58 GB) are the deepest cut whose
+#: step stays under about 70 GB; 32 layers (3.9 G, 47 GB) run here.  The
+#: bf16 step's gradients are not determined much below the plain-version
+#: gate's 5e-2 at either depth: two plain versions that differ only in
+#: y's last float32 bits disagree by about 5e-2 (``h_train`` logs that
+#: floor beside the gate).  At 40 layers both that floor and the kernels'
+#: distance from the plain versions exceeded 5e-2 in a probe; at 32 the
+#: kernels stay under it.  The per-call checks and the float32 cut
+#: against the CPU are what hold the kernels to the plain versions
+#: there.  Both steps donate their params and optimizer state, so one
+#: copy of the state lives on the card.
+H_LAYERS = {"granite-moe-3b-a800m": None, "falcon-mamba-7b": 32}
+#: phase H's learning rate where it is not TRAIN_CFG's: falcon-mamba's
+#: random 40-layer stack diverged at 3e-3 in a probe and fell at 1e-3
+#: and 5e-4, most steadily at 5e-4
+H_LR = {"falcon-mamba-7b": 5e-4}
+#: the float32 cuts held against the CPU: 4 layers at the published
+#: widths (batch 1 x TRAIN_SMALL_SEQ), jamba at its reduced config (one
+#: 8-layer cycle at d_model 64: a full-width cycle is 13.3 G parameters,
+#: 160 GB of training state; any cut that keeps its attention layer at 4
+#: keeps two 2.8 G-parameter MoE layers)
+H_SMALL_LAYERS = {"granite-moe-3b-a800m": 4, "falcon-mamba-7b": 4,
+                  "jamba-v0.1-52b": None}
+#: the scan backward against its plain version at each call of a step:
+#: each of the seven gradients (ddt, dx, dB, dC, dA, dD, dh0) within
+#: TOL_SCAN_BWD times its largest |plain value|.  Stated before the
+#: first run on the card: both recompute the states with the forward's
+#: bits (the same roundings, -fmad=false); the adjoint, a recurrence whose
+#: decay is below 1, and the sums (16 states; dB and dC over 8192
+#: channels, the kernel's in blocks of 64; dA and dD over 8192 (b, t)
+#: terms) run in other orders, the kernel's with fused multiply-adds, so
+#: each result differs by a few float32 roundings of terms no larger than
+#: the scale (6e-8 each), far inside 1e-5.
+TOL_SCAN_BWD = 1e-5
+
+
+def h_counts(cfg, dtype):
+    """The launches of every kernel one training step of ``cfg`` makes in
+    ``dtype``, as ``step_launches`` predicts them."""
+    afwd, abwd = step_launches(cfg, "attn")
+    sfwd, sbwd = step_launches(cfg, "mamba")
+    bf16 = dtype == torch.bfloat16
+    return {"local_attention": afwd if bf16 else 0,
+            "local_attention_f32": 0 if bf16 else afwd,
+            "local_attention_bwd": abwd, "selective_scan": sfwd,
+            "selective_scan_bwd": sbwd}
+
+
+def scan_bwd_err(got, want):
+    """The largest of the seven gradients' max |diff| / max |plain|."""
+    return max((g - w).abs().max().item()
+               / max(w.abs().max().item(), 1e-30)
+               for g, w in zip(got, want))
+
+
+def scan_bwd_work(dt, b, h0=None):
+    """(operations, bytes) one scan-backward call must do: per (b, t, c,
+    n) the states again (6: dt * A, exp, dt * B, * x, decay * h, +) and
+    the adjoint (18: g, its decay, the ddt, dA, dx, dB and dC terms and
+    their sums), per (b, t, c) 4 (D * dy, +, dy * x, +); dt, x, dy, B,
+    C, A, D (and h0, dh_last) read once, ddt, dx, dB, dC, dA, dD, dh0
+    written once."""
+    bsz, s, dl = dt.shape
+    n = b.shape[2]
+    ops = 24 * bsz * s * dl * n + 4 * bsz * s * dl
+    elems = (3 * bsz * s * dl + 2 * bsz * s * n + dl * n + dl) \
+        + (2 * bsz * s * dl + 2 * bsz * s * n + dl * n + dl + bsz * dl * n) \
+        + (bsz * dl * n if h0 is not None else 0)
+    return ops, 4 * elems
+
+
+class Checked:
+    """Wrappers of the backward kernels that hold each call against its
+    plain version on the same inputs (scan: TOL_SCAN_BWD; attention:
+    TOL_BWD), keep the largest error and the first call's operands."""
+
+    def __init__(self, la, ss):
+        self.la, self.ss = la, ss
+        self.scan_worst = self.attn_worst = self.scan_abs = 0.0
+        self.scan_calls = self.attn_calls = 0
+        self.scan_first = None
+        kernel_scan = ss.selective_scan_bwd
+        kernel_attn = la.local_attention_bwd
+
+        def scan(dt, x, b, c, a, d, dy, dh_last=None, h0=None):
+            got = kernel_scan(dt, x, b, c, a, d, dy, dh_last, h0)
+            want = ss.selective_scan_bwd_plain(dt, x, b, c, a, d, dy,
+                                               dh_last, h0)
+            err = scan_bwd_err(got, want)
+            self.scan_worst = max(self.scan_worst, err)
+            self.scan_abs = max(self.scan_abs, max(
+                (g - w).abs().max().item() for g, w in zip(got, want)))
+            self.scan_calls += 1
+            check(err <= TOL_SCAN_BWD,
+                  f"selective_scan_bwd != plain at main-path call "
+                  f"{self.scan_calls}, dt {tuple(dt.shape)}: {err} of the "
+                  f"largest |value|")
+            if self.scan_first is None:
+                self.scan_first = (dt, x, b, c, a, d, dy, dh_last, h0)
+            return got
+
+        def attn(q, k, v, o, do, *, window, softcap=None):
+            got = kernel_attn(q, k, v, o, do, window=window, softcap=softcap)
+            want = la.local_attention_bwd_plain(q, k, v, o, do,
+                                                window=window,
+                                                softcap=softcap)
+            ok, err, scale = bwd_close(got, want, q.dtype)
+            self.attn_worst = max(self.attn_worst, err / scale)
+            self.attn_calls += 1
+            check(ok, f"local_attention_bwd != plain at main-path call "
+                      f"{self.attn_calls}, q {tuple(q.shape)} window "
+                      f"{window}: max |diff| {err}, scale {scale}")
+            return got
+
+        self.swaps = Swapped((ss, "selective_scan_bwd", scan),
+                             (la, "local_attention_bwd", attn))
+
+    def __enter__(self):
+        self.swaps.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.swaps.__exit__(*exc)
+
+
+def plain_scan_f64_y(ss):
+    """The scan's plain version with y summed over the states in float64
+    and rounded once: an equally valid plain version, whose gradients
+    against ``selective_scan_plain``'s measure how far the bf16 step
+    carries a last-bit difference in y (the gate's noise floor)."""
+    def scan(dt, x, b, c, a, d, h0=None):
+        bsz, s, dl = dt.shape
+        h = (torch.zeros((bsz, dl, a.shape[1]), dtype=torch.float32,
+                         device=dt.device) if h0 is None else h0.clone())
+        y = torch.empty_like(x)
+        for t0 in range(0, s, ss.PLAIN_CHUNK):
+            t1 = min(s, t0 + ss.PLAIN_CHUNK)
+            dtc = dt[:, t0:t1, :, None]
+            decay = torch.exp(dtc * a)
+            drive = (dtc * b[:, t0:t1, None, :]) * x[:, t0:t1, :, None]
+            hs = torch.empty_like(decay)
+            for t in range(t1 - t0):
+                torch.mul(decay[:, t], h, out=hs[:, t])
+                hs[:, t] += drive[:, t]
+                h = hs[:, t]
+            y[:, t0:t1] = ((hs.double() * c[:, t0:t1, None, :].double())
+                           .sum(-1) + (d * x[:, t0:t1]).double()).float()
+        return y, h.clone()
+
+    return scan
+
+
+def plain_training(la, ss):
+    """Every kernel's plain version swapped in for a training step: the
+    attention's (autograd differentiates it) and the scan's forward and
+    backward."""
+    return Swapped((la, "grouped_local_attention",
+                    la.grouped_local_attention_plain),
+                   (ss, "_scan", ss.selective_scan_plain),
+                   (ss, "selective_scan_bwd", ss.selective_scan_bwd_plain))
+
+
+def route_recorder(tables):
+    """The MoE router, recording each call's slot table into ``tables``."""
+    from repro_torch.models import moe as moe_mod
+
+    real = moe_mod.route
+
+    def route(p, xt, cfg, plan):
+        out = real(p, xt, cfg, plan)
+        tables.append(out[1].cpu())
+        return out
+
+    return Swapped((moe_mod, "route", route))
+
+
+def h_f32_vs_cpu(la, ss, cfg, what, card):
+    """A float32 training step cut in depth (or reduced) on the card and
+    on the CPU: the launches, the MoE slot tables (a routing flip shows
+    as a flip), the loss, every gradient leaf and one AdamW step's
+    params, with phase G's float32 tolerances."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.optim.optimizer import apply_updates
+    from repro_torch.runtime.train_loop import value_and_grad
+    from repro_torch.tree import leaves_with_paths, tree_map
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    tcfg = TrainConfig(**TRAIN_CFG)
+    prog = train_program(cfg, "cuda")
+    params, state = prog.init_fn(SEED)
+    want = h_counts(cfg, torch.float32)
+    tables = []
+    reset_lm_counts(la, ss)
+    with route_recorder(tables):
+        loss, grads = value_and_grad(prog.loss_fn, params,
+                                     train_batch(cfg, 1, TRAIN_SMALL_SEQ,
+                                                 "cuda"))
+    new_params, _, _ = apply_updates(params, grads, state, tcfg)
+    torch.cuda.synchronize()
+    counts = all_launches(la, ss)
+    check(counts == want, f"[H] {what} float32: launches {counts}, want "
+                          f"{want}")
+    card_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    cpu = train_program(cfg, "cpu")
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    cpu_state = tree_map(lambda t: t.cpu(), state)
+    cpu_tables = []
+    with route_recorder(cpu_tables):
+        loss_c, grads_c = value_and_grad(
+            cpu.loss_fn, cpu_params,
+            train_batch(cfg, 1, TRAIN_SMALL_SEQ, "cpu"))
+    new_c, _, metrics_c = apply_updates(cpu_params, grads_c, cpu_state, tcfg)
+    cpu_s = time.perf_counter() - t1
+    flips = sum(int((a != b).sum()) for a, b in zip(tables, cpu_tables))
+    check(len(tables) == len(cpu_tables) and flips == 0,
+          f"[H] {what} float32: {flips} (token, k) slots routed otherwise "
+          f"on the card than on the CPU over {len(tables)} router calls")
+    loss_err = abs(loss.item() - loss_c.item()) / abs(loss_c.item())
+    check(loss_err <= TOL_TRAIN_F32_LOSS,
+          f"[H] {what} float32 loss {loss.item()} on the card, "
+          f"{loss_c.item()} on the CPU (relative {loss_err})")
+    worst_grad = 0.0
+    for path, err, ref, _ in grad_diffs(grads, grads_c):
+        worst_grad = max(worst_grad, err / max(ref, 1e-30))
+        check(err <= TOL_TRAIN_F32_GRAD * ref,
+              f"[H] {what} float32 gradient {path}: max |diff| {err} "
+              f"against max |value| {ref}")
+    lr1 = metrics_c["lr"].item()
+    worst_p, worst_share = 0.0, 0.0
+    for (path, a), (_, b) in zip(leaves_with_paths(new_params),
+                                 leaves_with_paths(new_c)):
+        diff = (a.cpu() - b).abs()
+        share = (diff > lr1 / 1000).float().mean().item()
+        worst_p = max(worst_p, diff.max().item())
+        worst_share = max(worst_share, share)
+        check(diff.max().item() <= 2 * lr1 * (1 + 1e-3)
+              and share <= TOL_TRAIN_F32_SHARE,
+              f"[H] {what} float32 AdamW step {path}: max |diff| "
+              f"{diff.max().item()} (lr {lr1}), {share:.2e} of the leaf "
+              f"beyond lr / 1000")
+    log(f"[H] {what} float32 ({depth(cfg)} layers, d_model {cfg.d_model}, "
+        f"batch 1 x {TRAIN_SMALL_SEQ}, TF32 off): loss {loss.item():.7f} on "
+        f"the card, {loss_c.item():.7f} on the CPU (relative "
+        f"{loss_err:.2e}); gradients within {worst_grad:.2e} of each leaf's "
+        f"max |value| (tolerance {TOL_TRAIN_F32_GRAD}); one AdamW step's "
+        f"params within {worst_p:.3e} (lr {lr1:.3e}), at most "
+        f"{worst_share:.2e} of a leaf beyond lr / 1000; {len(tables)} router "
+        f"calls with equal slot tables; launches {counts}; card "
+        f"{card_s:.1f} s, CPU {cpu_s:.1f} s on {card}")
+    del prog, params, state, grads, new_params, cpu_params, grads_c, new_c
+    torch.cuda.empty_cache()
+
+
+def fingerprint(tree):
+    """Per leaf of a tree of tensors, the sum of its raw bits (as
+    integers) weighted by odd 64-bit numbers drawn from each element's
+    index, modulo 2^64: a difference in any one element always changes
+    it (an odd weight times a nonzero difference below 2^32 is nonzero
+    modulo 2^64), several differences collide with probability about
+    2^-64.  Read in slices of 2^26 elements."""
+    from repro_torch.tree import leaves
+
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = []
+    for leaf in leaves(tree):
+        bits = leaf.detach().reshape(-1).view(ints[leaf.element_size()])
+        total = torch.zeros((), dtype=torch.int64, device=leaf.device)
+        for i in range(0, bits.numel(), 1 << 26):
+            part = bits[i:i + (1 << 26)].to(torch.int64)
+            idx = torch.arange(i, i + part.numel(), dtype=torch.int64,
+                               device=leaf.device)
+            weight = (idx * -7046029254386353131 + 1442695040888963407) | 1
+            total += torch.sum(part * weight)
+        out.append(int(total))
+    return out
+
+
+def h_train(la, ss, arch, card):
+    """Phase H, one model trained in bfloat16 at full width (granite at
+    full depth).  Returns its counted launches by kernel, the scan
+    backward's row numbers (or None without Mamba layers) and the
+    largest errors of the backward kernels against their plain
+    versions."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.optim.optimizer import init_opt_state
+    from repro_torch.runtime.fault import StepGuard, StragglerMonitor
+    from repro_torch.runtime.train_loop import (
+        build_train_program,
+        value_and_grad,
+    )
+
+    t_model = time.perf_counter()
+    cfg = get_config(arch)
+    if H_LAYERS[arch] is not None:
+        cfg = dataclasses.replace(cfg, num_layers=H_LAYERS[arch])
+    tcfg = TrainConfig(**{**TRAIN_CFG, "lr": H_LR.get(arch,
+                                                     TRAIN_CFG["lr"])})
+    prog = build_train_program(cfg, ParallelConfig(remat="full"), tcfg,
+                               "cuda", donate=True)
+    params, state = prog.init_fn(SEED)
+    del state  # the gradient checks run without the moments
+    batch = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, "cuda")
+    want = h_counts(cfg, torch.bfloat16)
+    log(f"[H] {arch}: {depth(cfg)} layers at full width (d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}), {n_params(params)} "
+        f"parameters (bfloat16, stacked per segment), batch {TRAIN_BATCH} "
+        f"x {TRAIN_SEQ}, AdamW at lr {tcfg.lr}, remat full, donated steps; "
+        f"launches a step "
+        f"{want}; set up in {time.perf_counter() - t_model:.1f} s")
+
+    # one step's gradients with the kernels, every backward call held
+    # against its plain version; again, bit-equal; then with the plain
+    # versions swapped in
+    t0 = time.perf_counter()
+    with Checked(la, ss) as chk:
+        loss_k, grads_k = value_and_grad(prog.loss_fn, params, batch)
+    torch.cuda.synchronize()
+    check(chk.scan_calls == want["selective_scan_bwd"]
+          and chk.attn_calls == want["local_attention_bwd"],
+          f"[H] {arch}: {chk.scan_calls} scan and {chk.attn_calls} "
+          f"attention backward calls in one step, want {want}")
+    loss_a, grads_a = value_and_grad(prog.loss_fn, params, batch)
+    check(loss_a.item() == loss_k.item() and trees_equal(grads_a, grads_k),
+          f"[H] {arch}: two gradients of one step differ")
+    del grads_a
+    with plain_training(la, ss):
+        loss_p, grads_p = value_and_grad(prog.loss_fn, params, batch)
+    diffs = grad_diffs(grads_k, grads_p)
+    del grads_k
+    floor = ""
+    if cfg.num_mamba_layers:
+        with plain_training(la, ss), Swapped((ss, "_scan",
+                                              plain_scan_f64_y(ss))):
+            _, grads_f = value_and_grad(prog.loss_fn, params, batch)
+        floor = (f"; the plain versions against the plain scan with y "
+                 f"summed in float64 (the noise floor): relative L2 at most "
+                 f"{max(d[3] for d in grad_diffs(grads_f, grads_p)):.3e}")
+        del grads_f
+    del grads_p
+    loss_err = abs(loss_k.item() - loss_p.item())
+    worst_rel = max(d[3] for d in diffs)
+    worst_path = max(diffs, key=lambda d: d[3])[0]
+    check(loss_err <= TOL_TRAIN_PLAIN_LOSS,
+          f"[H] {arch} bf16 loss {loss_k.item()} with the kernels, "
+          f"{loss_p.item()} with the plain versions")
+    for path, err, refmax, rel in diffs:
+        check(rel <= TOL_TRAIN_PLAIN_GRAD,
+              f"[H] {arch} bf16 gradient {path} with the kernels vs the "
+              f"plain versions: relative L2 {rel}, max |diff| {err} (max "
+              f"|value| {refmax})")
+    log(f"[H] {arch} bf16 step, kernels vs plain versions swapped in: loss "
+        f"{loss_k.item():.6f} / {loss_p.item():.6f} (|diff| {loss_err:.2e}, "
+        f"tolerance {TOL_TRAIN_PLAIN_LOSS}); gradients' relative L2 "
+        f"difference at most {worst_rel:.3e} ({worst_path}; tolerance "
+        f"{TOL_TRAIN_PLAIN_GRAD}){floor}; the {chk.scan_calls} scan "
+        f"backward calls "
+        f"within {chk.scan_worst:.3e} of the largest |plain value| "
+        f"(tolerance {TOL_SCAN_BWD}), the {chk.attn_calls} attention "
+        f"backward calls within {chk.attn_worst:.3e} of the scale "
+        f"(tolerance {TOL_BWD[torch.bfloat16]}); two gradients of the step "
+        f"bit-equal; {time.perf_counter() - t0:.1f} s")
+    scan_call = chk.scan_first
+    worst = {"selective_scan_bwd": chk.scan_abs}
+    del chk
+
+    # the counted run: 8 donated steps on the fixed batch; the state after
+    # the first kept on the host for the repeat
+    state = init_opt_state(params, tcfg)
+    guard, monitor = StepGuard(
+        recover=lambda step: fail(f"phase H: a step failed and was retried "
+                                  f"at {step}"), max_retries=0), \
+        StragglerMonitor()
+    losses, step_ms, launches = [], [], dict.fromkeys(want, 0)
+    for step in range(TRAIN_STEPS):
+        if step == 1:
+            torch.cuda.reset_peak_memory_stats()
+        reset_lm_counts(la, ss)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = guard.run(prog.step_fn, step, params, state,
+                                           batch)
+        losses.append(metrics["loss"].item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = all_launches(la, ss)
+        check(counts == want, f"[H] {arch} step {step + 1}: launches "
+                              f"{counts}, want {want}")
+        for key, v in counts.items():
+            launches[key] += v
+        monitor.observe(step, step_ms[-1] / 1e3)
+        if step == 0:
+            t1 = time.perf_counter()
+            first = fingerprint((params, state.m, state.v))
+            print_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    check(losses[-1] < losses[0] - TRAIN_LOSS_DROP
+          and all(np.isfinite(losses)),
+          f"[H] {arch}: loss fell from {losses[0]} to {losses[-1]} over "
+          f"{TRAIN_STEPS} steps, want a fall of {TRAIN_LOSS_DROP}")
+    med = float(np.median(step_ms[1:]))
+    log(f"[H] {arch} {TRAIN_STEPS} AdamW steps: losses "
+        f"{[round(x, 4) for x in losses]}; step ms "
+        f"{[round(x, 1) for x in step_ms]} (median of steps 2 to "
+        f"{TRAIN_STEPS}: {med:.1f} ms, "
+        f"{TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.1f} tokens/s); peak device "
+        f"memory {peak / 1e9:.2f} GB; straggler "
+        f"flags {monitor.flagged_steps}; on {card}")
+
+    total, scan_dev, top = profile_step(prog, params, state, batch, card,
+                                        keys=SCAN_BWD_KERNELS)
+    log(f"[H] {arch} one step under the profiler: {total:.2f} ms of device "
+        f"time ({100 * total / med:.1f}% of the median step), the scan "
+        f"backward's kernels {scan_dev:.2f} ms; top kernels "
+        + "; ".join(f"{ms:.2f} ms x{n} {name[:60]}" for ms, n, name in top)
+        + f" on {card}")
+
+    # the first step again from the same initial state: bit-equal
+    del params, state, metrics
+    torch.cuda.empty_cache()
+    params, state = prog.init_fn(SEED)
+    again = prog.step_fn(params, state, batch)
+    same = fingerprint((again[0], again[1].m, again[1].v)) == first
+    check(again[2]["loss"].item() == losses[0] and same,
+          f"[H] {arch}: the first step repeated from the same state differs "
+          f"(loss {again[2]['loss'].item()} / {losses[0]}, fingerprints "
+          f"equal {same})")
+    log(f"[H] {arch}: the first step repeated from a new init of the same "
+        f"seed: the same loss, and the same fingerprint of every leaf of "
+        f"its params and moments ({len(first)} leaves, {print_s:.2f} s a "
+        f"fingerprint)")
+    del params, state, again, first, batch, prog
+    torch.cuda.empty_cache()
+
+    row = None
+    if scan_call is not None:
+        per_step = want["selective_scan_bwd"]
+        dt, x, b, c, a, d, dy, dh_last, h0 = scan_call
+        ops, nbytes = scan_bwd_work(dt, b, h0)
+        t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_BYTES
+        each = device_ms(lambda: ss.selective_scan_bwd(*scan_call), [()], 5,
+                         kernel=SCAN_BWD_KERNELS, split=True)
+        ms = sum(each.values())
+        plain = device_ms(lambda: ss.selective_scan_bwd_plain(*scan_call),
+                          [()], 1)
+        bound = max(t_ops, t_bytes) * 1e3
+        row = dict(ms=per_step * ms, plain_ms=per_step * plain,
+                   bound_ms=per_step * bound,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   per_call=ms, calls=per_step)
+        log(f"[time] selective_scan_bwd at {arch}'s call (dt "
+            f"{tuple(dt.shape)}, d_state {b.shape[2]}): {ms:.4f} ms a call ("
+            + ", ".join(f"{k} {v:.4f}" for k, v in each.items())
+            + f"), {per_step * ms:.4f} ms for the {per_step} calls of a "
+            f"step; bound {bound:.4f} ms a call ({row['bound_by']}; "
+            f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e9:.3f} GB), "
+            f"{100 * bound / ms:.1f}% of it; plain {plain:.4f} ms a call; "
+            f"no library call computes the scan; on {card}")
+        del scan_call, dt, x, b, c, a, d, dy
+        torch.cuda.empty_cache()
+    log(f"[H] {arch}: {time.perf_counter() - t_model:.1f} s on {card}")
+    return launches, row, worst
+
+
+#: the scan backward's edge grid: S below, at and past its 8-step runs
+#: and the plain version's 128-step chunks, d_inner a multiple of the
+#: 64-channel blocks, not one, and not a multiple of 4 (4-byte copies),
+#: with and without h0 and dh_last
+EDGE_SCAN_BWD_S = (1, 15, 16, 17, 2049)
+EDGE_SCAN_BWD_D = (256, 130, 5)
+
+
+def check_scan_bwd_grid(ss):
+    """The scan backward against its plain version over the edge grid;
+    one launch a call.  Returns the largest |diff|."""
+    rng = np.random.default_rng(SEED + 25)
+    worst, n_checks = 0.0, 0
+    for n in EDGE_SCAN_N:
+        for s in EDGE_SCAN_BWD_S:
+            for dl in EDGE_SCAN_BWD_D:
+                dt = np.log1p(np.exp(rng.standard_normal((2, s, dl)) - 2.0))
+                a = -np.tile(np.arange(1, n + 1, dtype=np.float64), (dl, 1))
+                base = [dt, rng.standard_normal((2, s, dl)),
+                        rng.standard_normal((2, s, n)),
+                        rng.standard_normal((2, s, n)), a,
+                        rng.standard_normal(dl),
+                        rng.standard_normal((2, s, dl)),
+                        rng.standard_normal((2, dl, n)),
+                        rng.standard_normal((2, dl, n))]
+                ops = [torch.from_numpy(v.astype(np.float32)).cuda()
+                       for v in base]
+                for extra in ((None, None), (ops[7], ops[8])):
+                    before = ss.LAUNCHES["selective_scan_bwd"]
+                    got = ss.selective_scan_bwd(*ops[:7], *extra)
+                    launched = ss.LAUNCHES["selective_scan_bwd"] - before
+                    want = ss.selective_scan_bwd_plain(*ops[:7], *extra)
+                    torch.cuda.synchronize()
+                    err = scan_bwd_err(got, want)
+                    worst = max(worst, max((g - w).abs().max().item()
+                                           for g, w in zip(got, want)))
+                    what = (f"S {s} d_inner {dl} d_state {n} h0 and dh_last "
+                            f"{extra[0] is not None}")
+                    check(launched == 1, f"selective_scan_bwd at {what}: "
+                                         f"{launched} launches")
+                    check(err <= TOL_SCAN_BWD,
+                          f"selective_scan_bwd != plain at {what}: {err} of "
+                          f"the largest |value|")
+                    n_checks += 1
+    log(f"[scan] backward: {n_checks} edge comparisons (each gradient "
+        f"within {TOL_SCAN_BWD} of its largest |value|): max |diff| "
+        f"{worst:.3e}")
+    return worst
+
+
+def check_scan_bwd_sass(lib) -> None:
+    """The scan backward's kernels hold no global atomic (RED, ATOM,
+    ATOMG): dB, dC, dA and dD are summed across blocks in a fixed
+    order."""
+    import os
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.isfile(tool):
+        log("[build] cuobjdump not found: SASS not checked")
+        return
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs = sass.split("Function : ")[1:]
+    ops = ("RED.", "ATOM.", "ATOMG")
+    counts = {op: sum(f.count(op) for f in funcs) for op in ops}
+    log(f"[build] {lib.name} SASS of the {len(funcs)} scan backward "
+        f"kernels: {counts}")
+    if len(funcs) != 3 or sum(counts.values()):
+        fail(f"the scan backward's SASS {counts} in {len(funcs)} kernels: "
+             f"want 3 kernels (the walk at d_state 4 and 16, the sums), no "
+             f"global atomics")
+
+
+def families_training_phase(la, ss, card):
+    """Phase H: granite-moe-3b-a800m and falcon-mamba-7b trained at full
+    width (granite at full depth), then the float32 cuts of both and
+    jamba's reduced config against the CPU.  Returns the scan backward's
+    JSON row, and the counted launches of the forward kernels."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    launches, worst, row = {}, {}, None
+    for arch in H_LAYERS:
+        counted, r, w = h_train(la, ss, arch, card)
+        for key, v in counted.items():
+            launches[key] = launches.get(key, 0) + v
+        for key, v in w.items():
+            worst[key] = max(worst.get(key, 0.0), v)
+        row = row or r
+    for arch, layers in H_SMALL_LAYERS.items():
+        cfg = get_config(arch)
+        cfg = cfg.reduced() if layers is None else dataclasses.replace(
+            cfg, num_layers=layers)
+        h_f32_vs_cpu(la, ss, cfg, arch, card)
+    worst_edge = check_scan_bwd_grid(ss)
+    log(f"[H] phase H: {time.perf_counter() - t_phase:.1f} s on {card}; "
+        f"counted launches {launches}")
+    return {"name": "selective_scan_bwd", "route": "cuda",
+            "source": SCAN_BWD_SOURCE, "replaces": SCAN_BWD_REPLACES,
+            "launches": launches["selective_scan_bwd"],
+            "max_abs_err": max(worst["selective_scan_bwd"], worst_edge),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None}, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3599,9 +4231,9 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
     # one nvcc per source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         builds = [pool.submit(fn) for fn in (km.build, la.build, la.build_bwd,
-                                             ss.build)]
+                                             ss.build, ss.build_bwd)]
         for fut in builds:
             lib, build_log = fut.result()
             log(f"[build] {lib.name} after {time.perf_counter() - t0:.1f} s")
@@ -3610,6 +4242,7 @@ def main() -> int:
                     log(f"[build] {line.strip()}")
     check_cim_sass(km.build()[0])
     check_bwd_sass(la.build_bwd()[0])
+    check_scan_bwd_sass(ss.build_bwd()[0])
 
     sim, frames, launches, wall, calls, reps = main_path(km)
     # nominal again, after the variation run: separates the flavor from
@@ -3696,10 +4329,14 @@ def main() -> int:
     scan_row, family_attn, worst_family = families_phase(la, ss, card)
     e_attn, worst_e = encdec_vlm_phase(la, ss, card)
     bwd_row, g_attn = training_phase(la, card)
-    # phases 5 and 6 (gemma3) and the counted runs of phases F, E and G
+    scan_bwd_row, h_launches = families_training_phase(la, ss, card)
+    # phases 5 and 6 (gemma3) and the counted runs of phases F, E, G and H
     launches_attn = {"local_attention": lm["bf16"]["launches"]
-                     + family_attn + e_attn + g_attn,
+                     + family_attn + e_attn + g_attn
+                     + h_launches["local_attention"],
                      "local_attention_f32": f32_launches}
+    scan_row["launches"] += h_launches["selective_scan"]
+    bwd_row["launches"] += h_launches["local_attention_bwd"]
     for name in worst_attn:
         worst_attn[name] = max(worst_attn[name], worst_family.get(name, 0.0),
                                worst_e.get(name, 0.0))
@@ -3712,6 +4349,7 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     kernels.append(scan_row)
     kernels.append(bwd_row)
+    kernels.append(scan_bwd_row)
     for name, label in (("local_attention", "bfloat16"),
                         ("local_attention_f32", "float32")):
         row = attn[name]

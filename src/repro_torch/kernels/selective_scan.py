@@ -30,9 +30,26 @@ bounds the kernel on the H100 and what the design does about it), built
 with ``nvcc`` for ``sm_90a`` and ``-fmad=false`` at first use
 (``kernels/_build.py``) and loaded with ``ctypes``.  On a CPU tensor the
 wrapper computes :func:`selective_scan_plain`, the sequential recurrence
-in float32 PyTorch; on a CUDA tensor it launches the kernel or raises.  The kernel has no
-backward yet: a CUDA call whose operands require grad raises rather than
-return an output with no ``grad_fn``.
+in float32 PyTorch; on a CUDA tensor it launches the kernel or raises.
+
+The gradient.  With grad enabled and an operand that requires it, the
+scan goes through :class:`SelectiveScanFn`: its forward is the call
+above under no grad, its backward :func:`selective_scan_bwd`, the
+reverse-time recurrence of the state's adjoint g (``dh_last`` or zero
+after the last step):
+
+    g = g * decay_{t+1} + C_t * dy_t
+    dC_t = sum_c h_t * dy_t;   dB_t = sum_c g * dt_t * x_t
+    ddt_t = sum_n g * (A * decay_t * h_{t-1} + B_t * x_t)
+    dx_t = sum_n g * dt_t * B_t + D * dy_t
+    dA = sum_{b,t} g * dt_t * decay_t * h_{t-1};  dD = sum_{b,t} dy_t * x_t
+    dh0 = decay_0 * g
+
+on a CUDA tensor the kernel of ``csrc/selective_scan_bwd.cu``
+(port-only, as the forward: the reference differentiates
+``lax.associative_scan``), on a CPU tensor
+:func:`selective_scan_bwd_plain`.  Both recompute the states from
+boundary states rather than keep (B, S, d_inner, d_state) of them.
 """
 from __future__ import annotations
 
@@ -46,6 +63,7 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = _build.CSRC / "selective_scan.cu"
+BWD_SOURCE = _build.CSRC / "selective_scan_bwd.cu"
 #: multiplies and adds round apart, as the plain version's operations do
 NVCC_FLAGS = ("-fmad=false",)
 #: state sizes the kernel is instantiated for: the reduced configs' 4 and
@@ -56,10 +74,15 @@ D_STATES = (4, 16)
 STATE_GROUPS = {4: 1, 16: 2}
 BLOCK_CHANNELS = 64
 RUN_STEPS = 16
-#: kernel launches; the wrapper adds one where it launches, and nowhere
-#: else
-LAUNCHES = {"selective_scan": 0}
-#: time steps the plain version discretises at once on the card
+#: the backward's time steps between stored states (a run it recomputes
+#: into registers and walks back)
+BWD_RUN_STEPS = 8
+#: kernel launches; each wrapper adds one where it launches, and nowhere
+#: else (a backward call launches the walk and the cross-block sums: one
+#: count)
+LAUNCHES = {"selective_scan": 0, "selective_scan_bwd": 0}
+#: time steps the plain versions discretise at once (the backward keeps
+#: the state only at these boundaries)
 PLAIN_CHUNK = 128
 
 
@@ -70,12 +93,28 @@ def build() -> Tuple[Path, str]:
     return _build.build(SOURCE, NVCC_FLAGS)
 
 
+def build_bwd() -> Tuple[Path, str]:
+    """Compile the backward's library (same flags: its recomputed states
+    are the forward's bits).  Returns (library path, compiler log)."""
+    return _build.build(BWD_SOURCE, NVCC_FLAGS)
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     lib = ctypes.CDLL(str(build()[0]))
     fn = lib.selective_scan_launch
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [ptr] * 9 + [i32] * 4 + [ptr]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_launcher():
+    lib = ctypes.CDLL(str(build_bwd()[0]))
+    fn = lib.selective_scan_bwd_launch
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [ptr] * 20 + [i32] * 4 + [ptr]
     fn.restype = ctypes.c_int
     return fn
 
@@ -128,27 +167,95 @@ def selective_scan_plain(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
     return y, h.clone()
 
 
-def selective_scan(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
-                   c: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
-                   h0: Optional[torch.Tensor] = None
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(y (B, S, d_inner), last state (B, d_inner, d_state)) of the
-    selective scan, all float32.
+def _check_bwd(dt, dy, dh_last, a) -> None:
+    if tuple(dy.shape) != tuple(dt.shape):
+        raise ValueError(f"dy {tuple(dy.shape)}, want {tuple(dt.shape)}")
+    want = (dt.shape[0], dt.shape[2], a.shape[1])
+    if dh_last is not None and tuple(dh_last.shape) != want:
+        raise ValueError(f"dh_last {tuple(dh_last.shape)}, want {want}")
+    for t in (dy, dh_last):
+        if t is not None and (t.dtype != torch.float32
+                              or t.device != dt.device):
+            raise TypeError(f"dy and dh_last must be float32 on "
+                            f"{dt.device}: {t.dtype} on {t.device}")
 
-    CPU tensors take :func:`selective_scan_plain`.  CUDA tensors launch
-    the kernel (``LAUNCHES["selective_scan"]`` counts it); nothing falls
-    back to the plain version on the card."""
+
+def selective_scan_bwd_plain(dt: torch.Tensor, x: torch.Tensor,
+                             b: torch.Tensor, c: torch.Tensor,
+                             a: torch.Tensor, d: torch.Tensor,
+                             dy: torch.Tensor,
+                             dh_last: Optional[torch.Tensor] = None,
+                             h0: Optional[torch.Tensor] = None):
+    """The plain PyTorch version of :func:`selective_scan_bwd`: the
+    gradients (ddt, dx, dB, dC, dA, dD, dh0) of the scan, given dy
+    (B, S, d_inner) and the last state's gradient ``dh_last`` (None:
+    zero), in float32.
+
+    A first walk keeps the state at each ``PLAIN_CHUNK`` boundary; then,
+    from the last chunk to the first, the chunk's states are recomputed
+    from its boundary (op for op as :func:`selective_scan_plain` forms
+    them), the adjoint walks the chunk backward, and the chunk's
+    gradients are formed at once."""
     _check(dt, x, b, c, a, d, h0)
+    _check_bwd(dt, dy, dh_last, a)
+    bsz, s, dl = dt.shape
+    n = a.shape[1]
+    f32 = dict(dtype=torch.float32, device=dt.device)
+    with torch.no_grad():
+        h = torch.zeros((bsz, dl, n), **f32) if h0 is None else h0
+        starts = list(range(0, s, PLAIN_CHUNK))
+        bounds = []
+
+        def discretise(t0, t1):
+            dtc = dt[:, t0:t1, :, None]
+            decay = torch.exp(dtc * a)
+            return dtc, decay, (dtc * b[:, t0:t1, None, :]) \
+                * x[:, t0:t1, :, None]
+
+        for t0 in starts:
+            bounds.append(h)
+            _, decay, drive = discretise(t0, min(s, t0 + PLAIN_CHUNK))
+            for t in range(decay.shape[1]):
+                h = decay[:, t] * h + drive[:, t]
+        g = (torch.zeros((bsz, dl, n), **f32) if dh_last is None
+             else dh_last.clone())
+        ddt, dx = torch.empty_like(dt), torch.empty_like(x)
+        db, dc = (torch.empty((bsz, s, n), **f32) for _ in range(2))
+        da = torch.zeros((dl, n), **f32)
+        dd = torch.zeros((dl,), **f32)
+        for t0, h_start in zip(reversed(starts), reversed(bounds)):
+            t1 = min(s, t0 + PLAIN_CHUNK)
+            dtc, decay, drive = discretise(t0, t1)
+            hs = torch.empty((bsz, t1 - t0 + 1, dl, n), **f32)
+            hs[:, 0] = h_start
+            for t in range(t1 - t0):
+                hs[:, t + 1] = decay[:, t] * hs[:, t] + drive[:, t]
+            dyc, xc = dy[:, t0:t1], x[:, t0:t1]
+            cdy = c[:, t0:t1, None, :] * dyc[..., None]
+            gs = torch.empty_like(decay)
+            for t in reversed(range(t1 - t0)):
+                g = g + cdy[:, t]
+                gs[:, t] = g
+                g = decay[:, t] * g
+            ah = decay * hs[:, :-1]                       # decay_t h_{t-1}
+            bc = b[:, t0:t1, None, :]
+            ddt[:, t0:t1] = (gs * (a * ah + bc * xc[..., None])).sum(-1)
+            gdt = gs * dtc
+            da += (gdt * ah).sum((0, 1))
+            dx[:, t0:t1] = (gdt * bc).sum(-1) + d * dyc
+            db[:, t0:t1] = (gdt * xc[..., None]).sum(2)
+            dc[:, t0:t1] = (hs[:, 1:] * dyc[..., None]).sum(2)
+            dd += (dyc * xc).sum((0, 1))
+    return ddt, dx, db, dc, da, dd, g
+
+
+def _scan(dt, x, b, c, a, d, h0):
+    """The forward on the operands' device: the plain version on the CPU,
+    the kernel on the card."""
     if dt.device.type == "cpu":
         return selective_scan_plain(dt, x, b, c, a, d, h0)
     if dt.device.type != "cuda":
         raise ValueError(f"the scan runs on cpu or cuda, not {dt.device}")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (dt, x, b, c, a, d,
-                                                        h0)):
-        raise RuntimeError(
-            "the selective scan kernel has no backward yet (ROADMAP Queue 1 "
-            "item 16(a)): its output would carry no gradient")
     bsz, s, dl = dt.shape
     n = a.shape[1]
     if n not in D_STATES:
@@ -172,3 +279,106 @@ def selective_scan(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
         raise RuntimeError(f"selective_scan launch failed: CUDA error {err}")
     LAUNCHES["selective_scan"] += 1
     return y, h_last
+
+
+def selective_scan_bwd(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
+                       dy: torch.Tensor,
+                       dh_last: Optional[torch.Tensor] = None,
+                       h0: Optional[torch.Tensor] = None):
+    """(ddt, dx, dB, dC, dA, dD, dh0) of the scan, all float32.
+
+    CPU tensors take :func:`selective_scan_bwd_plain`.  CUDA tensors
+    launch the backward kernel (``LAUNCHES["selective_scan_bwd"]`` counts
+    each call): one block per (batch row, ``BLOCK_CHANNELS`` channels)
+    walks the states forward, keeping one every ``BWD_RUN_STEPS`` steps
+    in a scratch buffer, then walks back run by run; dB, dC, dA and dD
+    are summed across blocks by a second kernel of the same launch in a
+    fixed order, so two calls on the same inputs give the same bits."""
+    _check(dt, x, b, c, a, d, h0)
+    _check_bwd(dt, dy, dh_last, a)
+    if dt.device.type == "cpu":
+        return selective_scan_bwd_plain(dt, x, b, c, a, d, dy, dh_last, h0)
+    if dt.device.type != "cuda":
+        raise ValueError(f"the scan runs on cpu or cuda, not {dt.device}")
+    bsz, s, dl = dt.shape
+    n = a.shape[1]
+    if n not in D_STATES:
+        raise ValueError(f"d_state {n} not in the kernel's {D_STATES}")
+    if bsz > 65535:
+        raise ValueError(f"batch {bsz} exceeds the kernel's grid")
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dt.device)
+
+    ddt, dx = empty(bsz, s, dl), empty(bsz, s, dl)
+    db, dc = empty(bsz, s, n), empty(bsz, s, n)
+    da, dd, dh0 = empty(dl, n), empty(dl), empty(bsz, dl, n)
+    if s == 0 or dl == 0:
+        for t in (db, dc, da, dd):
+            t.zero_()
+        dh0.copy_(torch.zeros_like(dh0) if dh_last is None else dh_last)
+        return ddt, dx, db, dc, da, dd, dh0
+    blocks = -(-dl // BLOCK_CHANNELS)
+    runs = -(-s // BWD_RUN_STEPS)
+    ckpt = empty(bsz, runs, dl, n)
+    part_bc = empty(bsz, s, blocks, 2 * n)
+    part_a, part_d = empty(bsz, dl, n), empty(bsz, dl)
+    ops = [t.contiguous() for t in (dt, x, b, c, a, d)]
+    opt = [None if t is None else t.contiguous() for t in (h0, dy, dh_last)]
+    launch = _bwd_launcher()
+    with torch.cuda.device(dt.device):
+        stream = torch.cuda.current_stream(dt.device).cuda_stream
+        err = launch(*(t.data_ptr() for t in ops),
+                     *(None if t is None else t.data_ptr() for t in opt),
+                     *(t.data_ptr() for t in (ckpt, part_bc, part_a, part_d,
+                                              ddt, dx, db, dc, da, dd, dh0)),
+                     bsz, s, dl, n, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"selective_scan_bwd launch failed: CUDA error {err}")
+    LAUNCHES["selective_scan_bwd"] += 1
+    return ddt, dx, db, dc, da, dd, dh0
+
+
+class SelectiveScanFn(torch.autograd.Function):
+    """The scan with its gradient: the forward (kernel or plain version,
+    by device) under no grad, then :func:`selective_scan_bwd`.  Under
+    ``torch.utils.checkpoint`` the recompute runs the forward again."""
+
+    @staticmethod
+    def forward(ctx, dt, x, b, c, a, d, h0):
+        y, h_last = _scan(dt, x, b, c, a, d, h0)
+        ctx.save_for_backward(dt, x, b, c, a, d, h0)
+        ctx.set_materialize_grads(False)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        dt, x, b, c, a, d, h0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        grads = selective_scan_bwd(dt, x, b, c, a, d, dy.contiguous(),
+                                   dh_last, h0)
+        return (*grads[:6], None if h0 is None else grads[6])
+
+
+def selective_scan(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+                   c: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y (B, S, d_inner), last state (B, d_inner, d_state)) of the
+    selective scan, all float32.
+
+    CPU tensors take :func:`selective_scan_plain`.  CUDA tensors launch
+    the kernel (``LAUNCHES["selective_scan"]`` counts it); nothing falls
+    back to the plain version on the card.  With grad enabled and an
+    operand that requires it, the call goes through
+    :class:`SelectiveScanFn`, whose backward is
+    :func:`selective_scan_bwd`."""
+    _check(dt, x, b, c, a, d, h0)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (dt, x, b, c, a, d,
+                                                        h0)):
+        return SelectiveScanFn.apply(dt, x, b, c, a, d, h0)
+    return _scan(dt, x, b, c, a, d, h0)

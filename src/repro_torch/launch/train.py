@@ -15,9 +15,12 @@ deterministic ``synthetic_batch(spec, step)``, each step runs under the
 ``--ckpt-dir`` every ``--ckpt-every`` steps and at the end.  The port
 checkpoints the optimizer state beside the params (the reference saves
 the params alone), so ``--resume`` continues where the run stopped and
-gives the uninterrupted run's params.  The dense decoder family trains
-(gemma3-1b, gemma2-27b, qwen2-0.5b, minitron-8b); the other families
-raise (ROADMAP Queue 1 item 16(a) to (c)).
+gives the uninterrupted run's params.  The dense decoder family
+(gemma3-1b, gemma2-27b, qwen2-0.5b, minitron-8b), the MoE stack
+(granite-moe-3b-a800m), the Mamba stack (falcon-mamba-7b) and the hybrid
+(jamba-v0.1-52b) train; MLA with multi-token prediction (deepseek-v3),
+the vit_stub frontend (internvl2) and the encoder-decoder (seamless-m4t)
+raise (ROADMAP Queue 1 items 16(b), 16(c)).
 """
 from __future__ import annotations
 

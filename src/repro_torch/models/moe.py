@@ -16,7 +16,10 @@ through atomics in no fixed order, which moves the last bits from run to
 run (and with them a bfloat16 rounding, and a greedy token).  Here each
 token's K contributions are gathered into (T, K, D), dropped pairs zero,
 and summed over k by one fixed-order reduction: two runs on the same
-inputs give the same bits.
+inputs give the same bits.  The backward of the dispatch and of the
+combine gathers too (:class:`_GatherRows`): a token's gradient is its K
+slots' gradients summed over k, and a slot's is its one pair's, where
+autograd's scatter-add would sum through atomics.
 """
 from __future__ import annotations
 
@@ -96,6 +99,27 @@ def route(p, xt: torch.Tensor, cfg: ModelConfig, plan: ShardingPlan):
     return gate_w, slot.reshape(t, m.top_k), cap, aux
 
 
+class _GatherRows(torch.autograd.Function):
+    """``cat([src, zero row])[index]`` whose backward gathers as well:
+    ``inverse`` maps each row of ``src`` to the output rows it went to
+    (the output's row count where none), one per row or K per row (then
+    summed over k, in k order)."""
+
+    @staticmethod
+    def forward(ctx, src, index, inverse):
+        ctx.save_for_backward(inverse)
+        return torch.cat([src, src.new_zeros((1, src.shape[1]))])[index]
+
+    @staticmethod
+    def backward(ctx, grad):
+        inverse, = ctx.saved_tensors
+        flat = grad.reshape(-1, grad.shape[-1])
+        back = torch.cat([flat, flat.new_zeros((1, flat.shape[1]))])[inverse]
+        if inverse.dim() == 2:
+            back = back.float().sum(dim=1).to(grad.dtype)
+        return back, None, None
+
+
 def moe_forward(p, x: torch.Tensor, cfg: ModelConfig, plan: ShardingPlan
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (same shape, aux loss scalar)."""
@@ -107,14 +131,22 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig, plan: ShardingPlan
     act = ACT[cfg.activation]
 
     gate_w, slot, cap, aux = route(p, xt, cfg, plan)
-    # slot table: (E, cap) of token indices, t = the empty slot's zero row
-    kept = slot.reshape(-1) >= 0
-    slot_tok = torch.full((e_total * cap,), t, dtype=torch.long,
-                          device=x.device)
-    tok = torch.arange(t, device=x.device).repeat_interleave(m.top_k)
-    slot_tok[slot.reshape(-1)[kept]] = tok[kept]
-    xt_pad = torch.cat([xt, xt.new_zeros((1, d))], dim=0)
-    dispatched = xt_pad[slot_tok].reshape(e_total, cap, d)
+    n_pairs, n_slots = t * m.top_k, e_total * cap
+    # slot table: each slot's (token, k) pair (n_pairs where empty) and
+    # token (t, the zero row, where empty); each pair's slot (n_slots,
+    # the zero row, where dropped)
+    flat = slot.reshape(-1)
+    kept = flat >= 0
+    slot_pair = torch.full((n_slots,), n_pairs, dtype=torch.long,
+                           device=x.device)
+    slot_pair[flat[kept]] = torch.arange(n_pairs, device=x.device)[kept]
+    slot_tok = torch.where(slot_pair < n_pairs,
+                           torch.div(slot_pair, m.top_k,
+                                     rounding_mode="floor"),
+                           torch.full_like(slot_pair, t))
+    rows = torch.where(slot >= 0, slot, torch.full_like(slot, n_slots))
+    dispatched = _GatherRows.apply(xt, slot_tok, rows).reshape(
+        e_total, cap, d)
 
     # expert FFN, batched over the experts, in x's dtype
     h = torch.bmm(dispatched, resolve_w(p["w_in"], x))
@@ -123,13 +155,11 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig, plan: ShardingPlan
         h = (act(g.float()) * h.float()).to(x.dtype)
     else:
         h = act(h.float()).to(x.dtype)
-    y = torch.bmm(h, resolve_w(p["w_out"], x)).reshape(e_total * cap, d)
+    y = torch.bmm(h, resolve_w(p["w_out"], x)).reshape(n_slots, d)
 
     # combine: each token's K contributions (dropped pairs zero), summed
     # over k in one fixed-order reduction
-    y_pad = torch.cat([y, y.new_zeros((1, d))], dim=0)
-    rows = torch.where(slot >= 0, slot, torch.full_like(slot, e_total * cap))
-    contrib = y_pad[rows].float() * torch.where(
+    contrib = _GatherRows.apply(y, rows, slot_pair).float() * torch.where(
         slot >= 0, gate_w, torch.zeros_like(gate_w))[..., None]  # (T, K, D)
     out = contrib.sum(dim=1).to(x.dtype)
 

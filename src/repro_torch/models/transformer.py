@@ -42,9 +42,12 @@ on the stacked one it hands each cycle ``torch.unbind`` views, whose
 backward stacks the gradients onto the reference's leaves, and with
 grad enabled it runs each cycle of a repeated segment under
 ``torch.utils.checkpoint`` as the reference's ``remat`` policy says.
-:func:`lm_loss` is the reference's loss for the dense decoder family;
-the MoE aux loss, the Mamba scan's backward, MLA with MTP and the
-frontends raise (ROADMAP Queue 1 item 16(a) to (c)).
+:func:`lm_loss` is the reference's loss (the cross-entropy plus the MoE
+aux loss) for the dense decoder family and for the MoE (granite-moe),
+Mamba (falcon-mamba) and hybrid (jamba) stacks, whose scan differentiates
+through its own backward kernel (``kernels/selective_scan.py``); MLA
+with MTP, the frontends and the encoder-decoder raise (ROADMAP Queue 1
+items 16(b), 16(c)).
 """
 from __future__ import annotations
 
@@ -449,15 +452,14 @@ def lm_logits_local(params, h: torch.Tensor, cfg: ModelConfig,
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise for what :func:`lm_loss` does not train yet, rather than
     train it silently wrong."""
-    _decoder_only(cfg)
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder's training batch is ROADMAP "
+            "Queue 1 item 16(c)")
     if _is_mla(cfg) or cfg.mtp_depth > 0:
         raise NotImplementedError(
             f"{cfg.name}: MLA's (192, 128) backward pair and multi-token "
             "prediction are ROADMAP Queue 1 item 16(b)")
-    if cfg.moe is not None or cfg.num_mamba_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE aux loss and the Mamba scan's backward "
-            "kernel are ROADMAP Queue 1 item 16(a)")
     if has_frontend(cfg):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend.kind} frontend's batch is "
@@ -508,8 +510,8 @@ def lm_loss(params, batch, cfg: ModelConfig, plan: ShardingPlan,
             remat: str = "full", xent_chunk: int = 1024) -> torch.Tensor:
     """batch: {tokens (B, S), labels (B, S)} (a label < 0 is not counted)
     -> the scalar mean cross-entropy plus the aux loss, float32.  The
-    reference's ``lm_loss`` at tp = 1 for the dense decoder family
-    (:func:`check_trainable`)."""
+    reference's ``lm_loss`` at tp = 1 for the dense, MoE, Mamba and
+    hybrid decoder stacks (:func:`check_trainable`)."""
     check_trainable(cfg)
     tokens, labels = batch["tokens"], batch["labels"]
     h, _, aux = forward(params, tokens, cfg, plan, extras=batch,

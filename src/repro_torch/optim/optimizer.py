@@ -17,8 +17,13 @@ over the reference's leaves (the stacked segments of
 Every division by a Python number goes through ``core/cim.py::divide``:
 the card turns a division by a Python number into a multiply by its
 reciprocal.  Updates are functional: new tensors, the old ones left as
-they are.  The ZeRO sharding specs (``zero_spec_for``, ``set_axis_sizes``)
-are sharding, ROADMAP Queue 1 item 15.
+they are; or, with ``donate=True`` (the reference's jitted step donates
+its params and optimizer state), written into the old tensors leaf by
+leaf and, for the elementwise optimizers, ``DONATE_CHUNK`` elements at a
+time along each leaf's first axis, so that a step holds one copy of the
+params and moments (the same arithmetic, the same bits).  The ZeRO
+sharding specs (``zero_spec_for``, ``set_axis_sizes``) are sharding,
+ROADMAP Queue 1 item 15.
 """
 from __future__ import annotations
 
@@ -30,6 +35,10 @@ import torch
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.cim import divide
 from repro_torch.tree import leaves, tree_map
+
+
+#: elements of a leaf updated at once by a donated AdamW or SGD step
+DONATE_CHUNK = 1 << 25
 
 
 class OptState(NamedTuple):
@@ -97,9 +106,9 @@ def _adafactor_init(p: torch.Tensor):
     return {"full": torch.zeros(p.shape, **f32)}
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """(grads scaled by min(1, max_norm / |g|), |g|): the norm over every
-    leaf in float32, summed leaf after leaf in the reference's order."""
+def _clip_scale(grads, max_norm: float):
+    """(min(1, max_norm / |g|), |g|): the norm over every leaf in float32,
+    summed leaf after leaf in the reference's order."""
     gl = leaves(grads)
     gsq = torch.zeros((), dtype=torch.float32, device=gl[0].device)
     for g in gl:
@@ -107,14 +116,61 @@ def clip_by_global_norm(grads, max_norm: float):
     gnorm = torch.sqrt(gsq)
     scale = torch.clamp_max(
         torch.full_like(gnorm, max_norm) / torch.clamp_min(gnorm, 1e-9), 1.0)
-    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gnorm
+    return scale, gnorm
 
 
-def apply_updates(params, grads, state: OptState, cfg: TrainConfig
+def _clipped(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return (g.float() * scale).to(g.dtype)
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled by min(1, max_norm / |g|), |g|): the norm over every
+    leaf in float32, summed leaf after leaf in the reference's order."""
+    scale, gnorm = _clip_scale(grads, max_norm)
+    return tree_map(lambda g: _clipped(g, scale), grads), gnorm
+
+
+def _donated(upd, params, grads, slots, scale, chunked: bool) -> None:
+    """``upd(p, g, *slot entries)`` written in place into each param
+    leaf and its entries of the ``slots`` trees (a tensor, or adafactor's
+    ``{"row", "col"}`` / ``{"full"}``), each gradient clipped by
+    ``scale`` as it is read; ``chunked``: in pieces of about
+    ``DONATE_CHUNK`` elements along the leaf's first axis (elementwise
+    updates only)."""
+    per_leaf = []
+    tree_map(lambda *xs: per_leaf.append(xs), params, grads, *slots)
+
+    def part(x, i, n):
+        if isinstance(x, dict):
+            return {k: v[i:i + n] for k, v in x.items()}
+        return x[i:i + n]
+
+    with torch.no_grad():
+        for p, g, *st in per_leaf:
+            split = chunked and p.dim() > 0
+            rows = p.shape[0] if split else 1
+            n = max(1, DONATE_CHUNK // max(1, p.numel() // rows))
+            for i in range(0, rows, n):
+                targets = [part(x, i, n) if split else x for x in (p, *st)]
+                out = upd(targets[0], _clipped(
+                    part(g, i, n) if split else g, scale), *targets[1:])
+                for dst, src in zip(targets, out):
+                    for k in (dst if isinstance(dst, dict) else [None]):
+                        (dst if k is None else dst[k]).copy_(
+                            src if k is None else src[k])
+
+
+def apply_updates(params, grads, state: OptState, cfg: TrainConfig,
+                  donate: bool = False
                   ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One step of ``cfg.optimizer``: clip, then update each leaf.
-    Returns (new params, new state, {"lr", "grad_norm", "step"})."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    Returns (new params, new state, {"lr", "grad_norm", "step"}).  With
+    ``donate`` the new values are written into ``params`` and
+    ``state``'s moments, which are returned (the old values are gone)."""
+    if donate:
+        scale, gnorm = _clip_scale(grads, cfg.grad_clip)
+    else:
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
     step = state.step + 1
     lr = lr_schedule(cfg)(step)
     mdt = getattr(torch, cfg.moment_dtype)
@@ -135,10 +191,10 @@ def apply_updates(params, grads, state: OptState, cfg: TrainConfig
             p_new = p.float() - lr * delta
             return p_new.to(p.dtype), m_new.to(mdt), v_new.to(mdt)
 
-        out = tree_map(upd, params, grads, state.m, state.v)
-        new_params = _select(params, out, 0)
-        new_state = OptState(step, _select(params, out, 1),
-                             _select(params, out, 2), state.err)
+        slots, elementwise = (state.m, state.v), True
+
+        def new_state(m, v):
+            return OptState(step, m, v, state.err)
 
     elif cfg.optimizer == "adafactor":
         decay = 1.0 - torch.pow(step.float(), -0.8)
@@ -167,9 +223,10 @@ def apply_updates(params, grads, state: OptState, cfg: TrainConfig
             return p_new.to(p.dtype), new_vf
 
         # tree_map hands upd each param leaf's {"row", "col"} / {"full"}
-        out = tree_map(upd, params, grads, state.v)
-        new_params = _select(params, out, 0)
-        new_state = OptState(step, (), _select(params, out, 1), state.err)
+        slots, elementwise = (state.v,), False
+
+        def new_state(v):
+            return OptState(step, (), v, state.err)
 
     elif cfg.optimizer == "sgd":
         def upd(p, g, m):
@@ -177,14 +234,22 @@ def apply_updates(params, grads, state: OptState, cfg: TrainConfig
             p_new = p.float() - lr * m_new
             return p_new.to(p.dtype), m_new.to(mdt)
 
-        out = tree_map(upd, params, grads, state.m)
-        new_params = _select(params, out, 0)
-        new_state = OptState(step, _select(params, out, 1), (), state.err)
+        slots, elementwise = (state.m,), True
+
+        def new_state(m):
+            return OptState(step, m, (), state.err)
     else:
         raise ValueError(cfg.optimizer)
 
-    return new_params, new_state, {"lr": lr, "grad_norm": gnorm,
-                                   "step": step}
+    if donate:
+        _donated(upd, params, grads, slots, scale, elementwise)
+        new_params, new_slots = params, slots
+    else:
+        out = tree_map(upd, params, grads, *slots)
+        new_params = _select(params, out, 0)
+        new_slots = [_select(params, out, i + 1) for i in range(len(slots))]
+    return new_params, new_state(*new_slots), {"lr": lr, "grad_norm": gnorm,
+                                               "step": step}
 
 
 def _select(params, out, i):

@@ -2,14 +2,21 @@
 ``repro/runtime/train_loop.py::build_train_program`` on one device.
 
 ``step_fn`` follows the reference's ``step_fn_py``: the gradient of
-``lm_loss`` by autograd (every attention call on the card runs the
-forward kernel, and its backward the backward kernel), microbatches
+``lm_loss`` by autograd (every attention and selective-scan call on the
+card runs its forward kernel, and its backward its backward kernel),
+for the dense, MoE, Mamba and hybrid decoder stacks
+(``models/transformer.py::check_trainable``), microbatches
 accumulated in float32 and divided by their count, the loss the mean of
 the microbatch losses, optional int8 gradient compression with error
 feedback, then ``apply_updates``.  Params and optimizer state are the
 reference's trees (``"segments"`` stacked over each segment's count),
 and a step is functional: it returns new trees and leaves its inputs as
-they are, so two steps from one state are bit-equal.
+they are, so two steps from one state are bit-equal.  With
+``donate=True`` a step writes its new params and moments into the trees
+it was given and returns them, as the reference's jitted step donates
+its arguments: one copy of the training state lives on the device
+(granite-moe-3b-a800m's 3.3 G parameters take 40 GB of params and AdamW
+moments, and a functional step would hold two).
 
 The ``ParallelConfig`` fields that only move data between devices have
 no effect on one device, as in the reference's tp = 1 plan:
@@ -59,8 +66,11 @@ def value_and_grad(loss_fn: Callable, params, *args):
 
 
 def build_train_program(cfg: ModelConfig, pcfg: ParallelConfig,
-                        tcfg: TrainConfig, device=None) -> TrainProgram:
-    """The train program of ``cfg`` on ``device`` (``None`` = the card)."""
+                        tcfg: TrainConfig, device=None,
+                        donate: bool = False) -> TrainProgram:
+    """The train program of ``cfg`` on ``device`` (``None`` = the card);
+    ``donate``: each step updates the params and optimizer state it is
+    given in place."""
     if pcfg.zero3 or pcfg.dp_only:
         raise NotImplementedError(
             "zero3 and dp_only shard params over a mesh: ROADMAP Queue 1 "
@@ -100,7 +110,7 @@ def build_train_program(cfg: ModelConfig, pcfg: ParallelConfig,
             grads = opt.decompress_gradients(qs, scales)
             opt_state = opt_state._replace(err=new_err)
         new_params, new_state, metrics = opt.apply_updates(
-            params, grads, opt_state, tcfg)
+            params, grads, opt_state, tcfg, donate=donate)
         metrics["loss"] = loss
         return new_params, new_state, metrics
 

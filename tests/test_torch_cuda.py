@@ -903,8 +903,8 @@ def test_cuda_local_attention_grad_through_kernels(dtype):
 @pytest.mark.cuda
 def test_cuda_attention_and_scan_raise_without_backward():
     """A CUDA call that needs a gradient the card cannot give raises
-    before any launch: the attention at MLA's (192, 128) pair and the
-    selective scan."""
+    before any launch: the attention at MLA's (192, 128) pair, and the
+    selective scan at a d_state its kernels are not built for."""
     from repro_torch.kernels import selective_scan as SS
 
     _needs_card()
@@ -914,11 +914,135 @@ def test_cuda_attention_and_scan_raise_without_backward():
     with pytest.raises(RuntimeError, match="item 16"):
         LA.grouped_local_attention(q, q, v, window=4)
     assert LA.LAUNCHES == before
-    ops = _scan_operands(np.random.default_rng(0), 1, 4, 8, 4, False)
+    ops = _scan_operands(np.random.default_rng(0), 1, 4, 8, 8, False)
     ops[1].requires_grad_()
-    before = SS.LAUNCHES["selective_scan"]
-    with pytest.raises(RuntimeError, match="item 16"):
+    before = dict(SS.LAUNCHES)
+    with pytest.raises(ValueError, match="d_state"):
         SS.selective_scan(*ops)
+    dy = torch.zeros_like(ops[1])
+    with pytest.raises(ValueError, match="d_state"):
+        SS.selective_scan_bwd(*(t.detach() if t is not None else None
+                                for t in ops[:6]), dy)
+    assert SS.LAUNCHES == before
+
+
+#: the scan's backward kernel against its plain version: each of the
+#: seven gradients within SCAN_BWD_TOL times its largest |plain value|.
+#: Both recompute the states op for op as the forward (the same bits);
+#: the adjoint's and the gradients' sums run in other orders (the
+#: kernel's with fused multiply-adds, dB and dC over blocks of 64
+#: channels, dA and dD over batch rows), and exp may differ by an ulp.
+SCAN_BWD_TOL = 1e-5
+
+
+def _scan_bwd_case(SS, rng, bsz, s, dl, n, h0, dh_last):
+    ops = _scan_operands(rng, bsz, s, dl, n, h0)
+    dy = torch.from_numpy(rng.standard_normal((bsz, s, dl)).astype(
+        np.float32)).cuda()
+    dhl = (torch.from_numpy(rng.standard_normal((bsz, dl, n)).astype(
+        np.float32)).cuda() if dh_last else None)
+    before = SS.LAUNCHES["selective_scan_bwd"]
+    got = SS.selective_scan_bwd(*ops[:6], dy, dhl, ops[6])
+    torch.cuda.synchronize()
+    assert SS.LAUNCHES["selective_scan_bwd"] == before + 1
+    want = SS.selective_scan_bwd_plain(*ops[:6], dy, dhl, ops[6])
+    for name, g, w in zip(("ddt", "dx", "dB", "dC", "dA", "dD", "dh0"), got,
+                          want):
+        assert g.shape == w.shape, name
+        err = (g - w).abs().max().item()
+        scale = w.abs().max().item()
+        assert err <= SCAN_BWD_TOL * scale, (name, bsz, s, dl, n, err, scale)
+    return ops, dy, dhl, got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 16])
+@pytest.mark.parametrize("bsz", [1, 3])
+def test_cuda_selective_scan_bwd_matches_plain(n, bsz):
+    """S below, at and past the kernel's 8-step runs and the plain
+    version's 128-step chunks (1, 15, 16, 17, 2049), d_inner a multiple
+    and a non-multiple of the 64-channel blocks and of 4 (4-byte copies),
+    with and without h0 and dh_last; one launch a call."""
+    from repro_torch.kernels import selective_scan as SS
+
+    _needs_card()
+    rng = np.random.default_rng(10 * n + bsz)
+    for s, dl in ((1, 128), (15, 200), (16, 64), (17, 130), (2049, 256),
+                  (37, 5)):
+        for h0, dh_last in ((False, False), (True, True), (False, True)):
+            _scan_bwd_case(SS, rng, bsz, s, dl, n, h0, dh_last)
+
+
+@pytest.mark.cuda
+def test_cuda_selective_scan_bwd_repeats_bitwise():
+    """Two calls on the same inputs give the same bits (no atomics: the
+    cross-channel and cross-row sums run in a fixed order)."""
+    from repro_torch.kernels import selective_scan as SS
+
+    _needs_card()
+    ops, dy, dhl, first = _scan_bwd_case(SS, np.random.default_rng(3), 3,
+                                         300, 8192, 16, True, True)
+    again = SS.selective_scan_bwd(*ops[:6], dy, dhl, ops[6])
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 16])
+def test_cuda_selective_scan_grad_through_kernels(n):
+    """Autograd through the scan on the card: one forward launch, one
+    backward launch, the kernel's gradients; no plain version runs.
+    Under no grad the call launches the forward alone and carries no
+    gradient."""
+    from repro_torch.kernels import selective_scan as SS
+
+    _needs_card()
+    ops = _scan_operands(np.random.default_rng(n), 2, 70, 96, n, False)
+    leaves = [t.clone().requires_grad_() for t in ops[:6]]
+    dy = torch.randn((2, 70, 96), device="cuda")
+    before = dict(SS.LAUNCHES)
+    y, h = SS.selective_scan(*leaves)
+    grads = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert SS.LAUNCHES == {"selective_scan": before["selective_scan"] + 1,
+                           "selective_scan_bwd":
+                               before["selective_scan_bwd"] + 1}
+    want = SS.selective_scan_bwd(*ops[:6], dy)
+    for a, b in zip(grads, want):
+        assert torch.equal(a, b)
     with torch.no_grad():
-        SS.selective_scan(*ops)
-    assert SS.LAUNCHES["selective_scan"] == before + 1
+        assert SS.selective_scan(*leaves)[0].grad_fn is None
+
+
+@pytest.mark.cuda
+def test_cuda_moe_backward_repeats_bitwise():
+    """The MoE block's backward at granite's published width (1536, 40
+    experts top-8 of 512, bfloat16) on 4 x 512 tokens, twice on the same
+    inputs: every gradient the same bits (the dispatch and the combine
+    go back through gathers, not atomic scatter-adds)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    from repro_torch.models.common import ShardingPlan
+
+    _needs_card()
+    cfg = get_config("granite-moe-3b-a800m")
+    plan = ShardingPlan.for_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = M.init_moe(gen, cfg, plan, torch.bfloat16)
+    x = torch.randn((4, 512, cfg.d_model), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    dout = torch.randn(x.shape, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+
+    def grads():
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        xs = x.detach().requires_grad_()
+        out, aux = M.moe_forward(leaves, xs, cfg, plan)
+        return torch.autograd.grad((out.float() * dout.float()).sum()
+                                   + aux, [xs, *leaves.values()])
+
+    first, again = grads(), grads()
+    assert M.dropped_pairs(params, x, cfg, plan)[1] == M.capacity(
+        x.shape[0] * x.shape[1], cfg, plan)
+    for a, b in zip(first, again):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
