@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--plain-curve]
+
+``--plain-curve`` adds phase H's diagnostic of ROADMAP's fault F2 (about
+100 to 160 s of plain training steps, which the default run leaves out to
+stay inside its time limit).
 
 Phases (any failure exits non-zero before the result line):
 
@@ -248,14 +252,22 @@ H. the MoE, Mamba and hybrid families trained: granite-moe-3b-a800m at
    element changes it). Step ms, tokens/s, peak device memory, one
    step's device time by kernel; the scan backward's device time per
    call and per step (its two kernels) beside its bound and its plain
-   version (no library call computes the scan). Then the float32 cuts
-   (granite and falcon-mamba at 4 layers of full width, jamba at its
-   reduced config; batch 1 x 640, TF32 off) on the card and on the CPU:
-   the MoE slot tables equal, then phase G's float32 gates; the scan
-   backward against its plain version over an edge grid (S 1, 15, 16,
-   17, 2049, d_inner 256, 130, 5, d_state 4 and 16, with and without h0
-   and dh_last). After the builds, the scan backward library's SASS
-   holds no global atomic.
+   version (no library call computes the scan), with each kernel's
+   registers a thread, the walk's resident blocks an SM and its waves at
+   the call; with ``--plain-curve``, for falcon-mamba, the counted steps
+   again from a new init of the same seed with every plain version
+   swapped in (ROADMAP's fault F2: both loss curves side by side, and
+   whether they part by more than the first step's kernel-vs-plain loss
+   difference; no gate). Then the
+   float32 cuts (granite and falcon-mamba at 4 layers of full width,
+   jamba at its reduced config; batch 1 x 640, TF32 off) on the card
+   and on the CPU: the MoE slot tables equal, then phase G's float32
+   gates;
+   the scan backward against its plain version over an edge grid (S 1,
+   3, 4, 5, 9, 15, 16, 17, 2049, d_inner 256, 130, 5, d_state 4 and 16,
+   with and without h0 and dh_last). After the builds, the scan backward
+   library's SASS holds no global atomic, and each walk kernel's
+   MUFU.EX2 count is its two forward walks' (no expf in the walk back).
 
 The line before the last is the ``kernels`` JSON (a CIM variant's
 ``launches`` summed over the counted runs of phases 2 and M, its
@@ -272,6 +284,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -405,8 +418,8 @@ FAMILY_LAUNCHES = {
 #: phase F's card-against-CPU check in float32: the published widths cut
 #: to 4 layers, deepseek's to its first 2 (both dense: 3.0 G parameters,
 #: 12 GB in float32, with all 128 heads through the float32 kernel at
-#: (192, 128)), jamba at its reduced config (None: a full-width MoE
-#: cycle in float32 is too large for the host)
+#: (192, 128)), jamba at its reduced config (None: a full-width MoE cycle
+#: in float32 is too large for the host)
 FAMILY_SMALL_LAYERS = {"granite-moe-3b-a800m": 4, "falcon-mamba-7b": 4,
                        "jamba-v0.1-52b": None, "deepseek-v3-671b": 2}
 #: prefill logits of the kernels' run vs the plain versions' run, both in
@@ -4067,7 +4080,11 @@ def h_train(la, ss, arch, card):
         f"seed: the same loss, and the same fingerprint of every leaf of "
         f"its params and moments ({len(first)} leaves, {print_s:.2f} s a "
         f"fingerprint)")
-    del params, state, again, first, batch, prog
+    del params, state, again, first
+    torch.cuda.empty_cache()
+    if cfg.num_mamba_layers and "--plain-curve" in sys.argv[1:]:
+        plain_curve(la, ss, prog, batch, arch, losses, loss_err, card)
+    del batch, prog
     torch.cuda.empty_cache()
 
     row = None
@@ -4093,18 +4110,62 @@ def h_train(la, ss, arch, card):
             f"step; bound {bound:.4f} ms a call ({row['bound_by']}; "
             f"{ops / 1e9:.3f} GFLOP, {nbytes / 1e9:.3f} GB), "
             f"{100 * bound / ms:.1f}% of it; plain {plain:.4f} ms a call; "
-            f"no library call computes the scan; on {card}")
+            f"no library call computes the scan; "
+            + scan_bwd_geometry(ss, dt.shape, b.shape[2]) + f"; on {card}")
         del scan_call, dt, x, b, c, a, d, dy
         torch.cuda.empty_cache()
     log(f"[H] {arch}: {time.perf_counter() - t_model:.1f} s on {card}")
     return launches, row, worst
 
 
-#: the scan backward's edge grid: S below, at and past its 8-step runs
-#: and the plain version's 128-step chunks, d_inner a multiple of the
-#: 64-channel blocks, not one, and not a multiple of 4 (4-byte copies),
-#: with and without h0 and dh_last
-EDGE_SCAN_BWD_S = (1, 15, 16, 17, 2049)
+def scan_bwd_geometry(ss, shape, n) -> str:
+    """The scan backward's launch at a call of ``shape`` (B, S, d_inner)
+    as the card reports it: registers a thread of each kernel (spills),
+    resident blocks an SM of the walk, its blocks and waves; beside the
+    design's register budget and blocks an SM (``bwd_geometry``)."""
+    occ = ss.bwd_occupancy(n)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    geo = ss.bwd_geometry(shape[0], shape[2], n, sms=sms)
+    waves = geo["blocks"] / (occ["per_sm"] * sms)
+    return (f"walk {occ['regs']} registers a thread (the design's budget "
+            f"{geo['regs']}; {occ['spill_bytes']} bytes of spills), "
+            f"{occ['threads']} threads and {occ['smem']} bytes of shared "
+            f"memory a block, {occ['per_sm']} blocks an SM (the design's "
+            f"{geo['per_sm']}), {geo['blocks']} blocks on {sms} SMs: "
+            f"{waves:.4f} waves; sums {occ['sums_regs']} registers a "
+            f"thread, {occ['sums_threads']} threads a block")
+
+
+def plain_curve(la, ss, prog, batch, arch, losses, first_diff, card):
+    """ROADMAP's fault F2 (``--plain-curve``): the counted steps again
+    from a new init of the same seed with every kernel's plain version
+    swapped in.  Logs both loss curves side by side and whether they part
+    by more than the first step's kernel-vs-plain loss difference; gates
+    nothing."""
+    t0 = time.perf_counter()
+    params, state = prog.init_fn(SEED)
+    plain = []
+    with plain_training(la, ss):
+        for step in range(TRAIN_STEPS):
+            params, state, metrics = prog.step_fn(params, state, batch)
+            plain.append(metrics["loss"].item())
+    del params, state, metrics
+    torch.cuda.empty_cache()
+    part = max(abs(k - p) for k, p in zip(losses, plain))
+    log(f"[H] {arch} F2, {TRAIN_STEPS} steps from the same init, losses "
+        f"with the kernels / with the plain versions: "
+        + "; ".join(f"{k:.4f} / {p:.4f}" for k, p in zip(losses, plain))
+        + f"; they part by at most {part:.4e} against the first step's "
+        f"kernel-vs-plain loss difference {first_diff:.4e}: "
+        + ("they part" if part > first_diff else "they agree")
+        + f"; plain steps {time.perf_counter() - t0:.1f} s on {card}")
+
+
+#: the scan backward's edge grid: S below, at and past its 4-step runs,
+#: two runs, and the plain version's 128-step chunks, d_inner a multiple
+#: of the 64-channel blocks, not one, and not a multiple of 4 (4-byte
+#: copies), with and without h0 and dh_last
+EDGE_SCAN_BWD_S = (1, 3, 4, 5, 9, 15, 16, 17, 2049)
 EDGE_SCAN_BWD_D = (256, 130, 5)
 
 
@@ -4150,10 +4211,13 @@ def check_scan_bwd_grid(ss):
     return worst
 
 
-def check_scan_bwd_sass(lib) -> None:
+def check_scan_bwd_sass(ss, lib) -> None:
     """The scan backward's kernels hold no global atomic (RED, ATOM,
-    ATOMG): dB, dC, dA and dD are summed across blocks in a fixed
-    order."""
+    ATOMG): dB, dC, dA and dD are summed across blocks in a fixed order.
+    Each walk kernel's MUFU.EX2 (one a precise expf) are its two forward
+    walks' (the stored states, the recompute: ``BWD_RUN_STEPS`` steps of
+    a lane's pairs each), none in the walk back, which reads the
+    recompute's decays."""
     import os
     import shutil
 
@@ -4167,12 +4231,22 @@ def check_scan_bwd_sass(lib) -> None:
     funcs = sass.split("Function : ")[1:]
     ops = ("RED.", "ATOM.", "ATOMG")
     counts = {op: sum(f.count(op) for f in funcs) for op in ops}
+    want_ex2 = 2 * ss.BWD_RUN_STEPS * ss.BWD_LANE_CHANNELS \
+        * ss.BWD_LANE_STATES
+    ex2 = {re.search(r"scan_bwd_kernelILi(\d+)", f.splitlines()[0]).group(1):
+           f.count("MUFU.EX2") for f in funcs
+           if "scan_bwd_kernel" in f.splitlines()[0]}
     log(f"[build] {lib.name} SASS of the {len(funcs)} scan backward "
-        f"kernels: {counts}")
+        f"kernels: {counts}; MUFU.EX2 of the walk by d_state {ex2}, the "
+        f"design's {want_ex2} (two forward walks of a run, none in the walk "
+        f"back)")
     if len(funcs) != 3 or sum(counts.values()):
         fail(f"the scan backward's SASS {counts} in {len(funcs)} kernels: "
              f"want 3 kernels (the walk at d_state 4 and 16, the sums), no "
              f"global atomics")
+    if any(v > want_ex2 for v in ex2.values()):
+        fail(f"the scan backward's walk runs {ex2} MUFU.EX2, more than its "
+             f"two forward walks' {want_ex2}: an expf in the walk back")
 
 
 def families_training_phase(la, ss, card):
@@ -4242,7 +4316,7 @@ def main() -> int:
                     log(f"[build] {line.strip()}")
     check_cim_sass(km.build()[0])
     check_bwd_sass(la.build_bwd()[0])
-    check_scan_bwd_sass(ss.build_bwd()[0])
+    check_scan_bwd_sass(ss, ss.build_bwd()[0])
 
     sim, frames, launches, wall, calls, reps = main_path(km)
     # nominal again, after the variation run: separates the flavor from

@@ -74,9 +74,15 @@ D_STATES = (4, 16)
 STATE_GROUPS = {4: 1, 16: 2}
 BLOCK_CHANNELS = 64
 RUN_STEPS = 16
-#: the backward's time steps between stored states (a run it recomputes
-#: into registers and walks back)
-BWD_RUN_STEPS = 8
+#: the backward's tiling (``csrc/selective_scan_bwd.cu``): time steps
+#: between stored states (a run it recomputes into shared memory and walks
+#: back); a lane's channels and states (so a channel's d_state states span
+#: d_state / BWD_LANE_STATES lanes); the blocks an SM its walk is built
+#: for (``__launch_bounds__``)
+BWD_RUN_STEPS = 4
+BWD_LANE_CHANNELS = 2
+BWD_LANE_STATES = 4
+BWD_MIN_BLOCKS = 4
 #: kernel launches; each wrapper adds one where it launches, and nowhere
 #: else (a backward call launches the walk and the cross-block sums: one
 #: count)
@@ -110,13 +116,46 @@ def _launcher():
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_launcher():
+def _bwd_lib():
     lib = ctypes.CDLL(str(build_bwd()[0]))
-    fn = lib.selective_scan_bwd_launch
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr] * 20 + [i32] * 4 + [ptr]
-    fn.restype = ctypes.c_int
-    return fn
+    lib.selective_scan_bwd_launch.argtypes = [ptr] * 20 + [i32] * 4 + [ptr]
+    lib.selective_scan_bwd_launch.restype = ctypes.c_int
+    lib.selective_scan_bwd_occupancy.argtypes = [i32, ptr]
+    lib.selective_scan_bwd_occupancy.restype = ctypes.c_int
+    return lib
+
+
+def bwd_geometry(batch: int, d_inner: int, d_state: int, *,
+                 sms: int = 132) -> dict:
+    """The backward walk's launch at (batch, d_inner, d_state) as designed:
+    lanes a channel's states span, threads a block, blocks, the register
+    budget a thread that ``__launch_bounds__(threads, BWD_MIN_BLOCKS)``
+    sets on the H100's 65,536 registers an SM, and the waves of
+    ``BWD_MIN_BLOCKS`` blocks an SM on ``sms`` SMs (:func:`bwd_occupancy`
+    reads what the card grants)."""
+    lanes_n = d_state // BWD_LANE_STATES
+    threads = BLOCK_CHANNELS // BWD_LANE_CHANNELS * lanes_n
+    blocks = -(-d_inner // BLOCK_CHANNELS) * batch
+    return dict(lanes_per_channel=lanes_n, threads=threads, blocks=blocks,
+                regs=min(255, 65536 // (threads * BWD_MIN_BLOCKS)),
+                per_sm=BWD_MIN_BLOCKS,
+                waves=blocks / (BWD_MIN_BLOCKS * sms))
+
+
+def bwd_occupancy(d_state: int) -> dict:
+    """The backward's launch geometry as the card reports it (builds the
+    library): the walk's registers a thread, spill bytes, resident blocks
+    an SM, threads and shared memory a block; the sums kernel's registers
+    and threads."""
+    out = (ctypes.c_int * 7)()
+    err = _bwd_lib().selective_scan_bwd_occupancy(d_state, out)
+    if err != 0:
+        raise RuntimeError(f"selective_scan_bwd occupancy at d_state "
+                           f"{d_state}: error {err}")
+    keys = ("regs", "spill_bytes", "per_sm", "threads", "smem", "sums_regs",
+            "sums_threads")
+    return dict(zip(keys, out))
 
 
 def _check(dt, x, b, c, a, d, h0) -> None:
@@ -290,11 +329,14 @@ def selective_scan_bwd(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
 
     CPU tensors take :func:`selective_scan_bwd_plain`.  CUDA tensors
     launch the backward kernel (``LAUNCHES["selective_scan_bwd"]`` counts
-    each call): one block per (batch row, ``BLOCK_CHANNELS`` channels)
-    walks the states forward, keeping one every ``BWD_RUN_STEPS`` steps
-    in a scratch buffer, then walks back run by run; dB, dC, dA and dD
-    are summed across blocks by a second kernel of the same launch in a
-    fixed order, so two calls on the same inputs give the same bits."""
+    each call): one block per (batch row, ``BLOCK_CHANNELS`` channels),
+    each lane ``BWD_LANE_CHANNELS`` channels x ``BWD_LANE_STATES``
+    states, walks the states forward, keeping one every
+    ``BWD_RUN_STEPS`` steps in a scratch buffer, then walks back run by
+    run on the decays its recompute kept (:func:`bwd_geometry` reckons
+    its waves); dB, dC, dA and dD are summed across blocks by a second
+    kernel of the same launch in a fixed order, so two calls on the same
+    inputs give the same bits."""
     _check(dt, x, b, c, a, d, h0)
     _check_bwd(dt, dy, dh_last, a)
     if dt.device.type == "cpu":
@@ -326,7 +368,7 @@ def selective_scan_bwd(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
     part_a, part_d = empty(bsz, dl, n), empty(bsz, dl)
     ops = [t.contiguous() for t in (dt, x, b, c, a, d)]
     opt = [None if t is None else t.contiguous() for t in (h0, dy, dh_last)]
-    launch = _bwd_launcher()
+    launch = _bwd_lib().selective_scan_bwd_launch
     with torch.cuda.device(dt.device):
         stream = torch.cuda.current_stream(dt.device).cuda_stream
         err = launch(*(t.data_ptr() for t in ops),

@@ -959,10 +959,10 @@ def _scan_bwd_case(SS, rng, bsz, s, dl, n, h0, dh_last):
 @pytest.mark.parametrize("n", [4, 16])
 @pytest.mark.parametrize("bsz", [1, 3])
 def test_cuda_selective_scan_bwd_matches_plain(n, bsz):
-    """S below, at and past the kernel's 8-step runs and the plain
-    version's 128-step chunks (1, 15, 16, 17, 2049), d_inner a multiple
-    and a non-multiple of the 64-channel blocks and of 4 (4-byte copies),
-    with and without h0 and dh_last; one launch a call."""
+    """S across the kernel's 4-step runs and the plain version's 128-step
+    chunks (1, 15, 16, 17, 2049), d_inner a multiple and a non-multiple
+    of the 64-channel blocks and of 4 (4-byte copies), with and without
+    h0 and dh_last; one launch a call."""
     from repro_torch.kernels import selective_scan as SS
 
     _needs_card()
@@ -971,6 +971,51 @@ def test_cuda_selective_scan_bwd_matches_plain(n, bsz):
                   (37, 5)):
         for h0, dh_last in ((False, False), (True, True), (False, True)):
             _scan_bwd_case(SS, rng, bsz, s, dl, n, h0, dh_last)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 16])
+def test_cuda_selective_scan_bwd_design_edges(n):
+    """The walk's boundaries: S at its run length and one either side
+    (3, 4, 5) and one past two runs (9); d_inner not a multiple of its
+    64-channel blocks (100, 130) nor of its 2-channel lanes (5); and a
+    grid of more blocks than the card holds at once (more than one wave,
+    d_inner 8192), with and without h0 and dh_last."""
+    from repro_torch.kernels import selective_scan as SS
+
+    _needs_card()
+    rng = np.random.default_rng(20 + n)
+    for s in (SS.BWD_RUN_STEPS - 1, SS.BWD_RUN_STEPS, SS.BWD_RUN_STEPS + 1,
+              2 * SS.BWD_RUN_STEPS + 1):
+        for dl in (100, 130, 5):
+            for h0, dh_last in ((False, False), (True, True)):
+                _scan_bwd_case(SS, rng, 2, s, dl, n, h0, dh_last)
+    occ = SS.bwd_occupancy(n)
+    slots = occ["per_sm"] * torch.cuda.get_device_properties(
+        0).multi_processor_count
+    bsz = slots // (8192 // SS.BLOCK_CHANNELS) + 1
+    assert bsz * 8192 // SS.BLOCK_CHANNELS > slots
+    _scan_bwd_case(SS, rng, bsz, 2 * SS.BWD_RUN_STEPS + 1, 8192, n, True,
+                   True)
+
+
+@pytest.mark.cuda
+def test_cuda_selective_scan_bwd_geometry_matches_card():
+    """The walk's launch as the card reports it is the design's: at
+    d_state 16 no spills within the register budget, 128 threads and 4
+    resident blocks an SM, and falcon-mamba-7b's call (batch 4, d_inner
+    8192) in one wave to within 10%."""
+    from repro_torch.kernels import selective_scan as SS
+
+    _needs_card()
+    occ = SS.bwd_occupancy(16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    geo = SS.bwd_geometry(4, 8192, 16, sms=sms)
+    assert occ["spill_bytes"] == 0
+    assert occ["regs"] <= geo["regs"]
+    assert (occ["threads"], occ["per_sm"]) == (geo["threads"], geo["per_sm"])
+    waves = geo["blocks"] / (occ["per_sm"] * sms)
+    assert abs(waves - round(waves)) <= 0.1 * max(round(waves), 1)
 
 
 @pytest.mark.cuda
