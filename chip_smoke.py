@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py [--plain-curve]
 
-``--plain-curve`` adds phase H's diagnostic of ROADMAP's fault F2 (about
-100 to 160 s of plain training steps, which the default run leaves out to
-stay inside its time limit).
+``--plain-curve`` adds phase H's diagnostics of ROADMAP's fault F2 and
+check C2 (about 100 to 160 s of plain training steps, and the plain
+versions' gradient against a plain scan whose y is summed in float64,
+which the default run leaves out to stay inside its time limit).
 
 Phases (any failure exits non-zero before the result line):
 
@@ -114,14 +115,14 @@ T. telemetry and chiplets: vgg11 served over 4 floret chiplets with a
    resets both attention kernels' launch counts just before and reads
    them just after: one launch of the bfloat16 (tensor-core) kernel per
    layer, 26, and none of the float32 one.  Prefill ms, decode ms/token
-   and tokens/s (median of LM_REPS timed ``greedy_generate`` runs); the
+   and tokens/s (LM_REPS timed ``greedy_generate`` runs); the
    same prefill with the kernel's plain version swapped in must give
    logits within TOL_FULL_LOGITS;
 6. the same full-width prefill of both flavors in float32 on the card
    (TF32 off), with the kernel and with its plain version swapped in:
    26 launches of the float32 (CUDA-core) kernel and none of the
    bfloat16 one, and every first token equal; the float32 prefill's ms
-   (median of LM_REPS);
+   (LM_REPS runs);
 7. the same two flavors cut only in depth (6 layers: 5 local + 1
    global; batch 1, prompt 640, 4 tokens), in float32 on the card
    (TF32 off) and on the CPU (the kernel's plain version): logits within
@@ -192,9 +193,7 @@ E. the encoder-decoder and the vision-language model at full width and
    its plain version; prefill ms, decode ms/token, tokens/s, busy share,
    peak memory, device time by kernel.  One decoder launch of each timed
    as in phase 9 (device time, bound, plain, SDPA ``is_causal``);
-   seamless's plain bidirectional attention (encoder and cross) by
-   device time and as a share of its prefill, beside SDPA without a
-   mask; then seamless cut to 2 + 2 layers and internvl2 to 4 in
+   then seamless cut to 2 + 2 layers and internvl2 to 4 in
    float32 on the card and on the CPU as in phase 7; the phase's
    seconds.
 
@@ -215,10 +214,13 @@ G. the training path: gemma3-1b at full width and depth (26 layers),
    to the uninterrupted run.  Step ms, tokens/s, peak device memory, one
    step's device time by kernel; the backward's device time per step and
    per kernel (its tensor-core route: statistics, dK / dV, dQ) beside
-   its bound, the plain version and autograd through SDPA; the backward
+   its bound, the plain version and autograd through SDPA (timed by
+   CUDA events, each backend forced in turn at the full-causal call to
+   name the one SDPA takes: ``sdpa_bwd``); the backward
    kernel against its plain version over an edge grid (head dims 16 to
    256, S 37, 777, 2049, windows 1, 65, 513, S, groups 1, 4, 8, soft
-   cap off and 50.0, both dtypes: both routes at every built head dim);
+   cap off and 50.0, both dtypes: both routes at every built head dim;
+   MLA's (192, 128) pair at group 1);
    then 12 layers in float32 (batch 1 x 640, TF32 off) on the card and
    on the CPU: loss, every gradient leaf and one AdamW step's params
    within TOL_TRAIN_F32_*, and the float32 route's device time at that
@@ -240,9 +242,10 @@ H. the MoE, Mamba and hybrid families trained: granite-moe-3b-a800m at
    gradient within TOL_SCAN_BWD of its largest |value|) and every
    attention-backward call against its plain version; the same gradients
    again, bit-equal; then with the plain versions of both kernels
-   swapped in (TOL_TRAIN_PLAIN_*; for falcon-mamba also the plain
-   versions against a plain scan whose y is summed in float64, the
-   gate's noise floor). Each counted step resets every count just before
+   swapped in (TOL_TRAIN_PLAIN_*; for falcon-mamba with
+   ``--plain-curve`` also the plain versions against a plain scan whose
+   y is summed in float64, the gate's noise floor). Each counted step
+   resets every count just before
    and reads them just after: the launches ``step_launches`` predicts
    for attention and Mamba layers (granite 64 + 32 of the attention
    kernels; falcon-mamba 2 forward scans and one backward a layer); the
@@ -268,14 +271,42 @@ H. the MoE, Mamba and hybrid families trained: granite-moe-3b-a800m at
    with and without h0 and dh_last). After the builds, the scan backward
    library's SASS holds no global atomic, and each walk kernel's
    MUFU.EX2 count is its two forward walks' (no expf in the walk back).
+I. MLA with multi-token prediction, the encoder-decoder and the vit_stub
+   frontend trained: deepseek-v3-671b at full width cut to its first 3
+   layers (all dense) with its MTP block (``I_LAYERS``),
+   seamless-m4t-large-v2 (24 + 24 layers, frames drawn in bfloat16) and
+   internvl2-2b (24 layers, 256 patch embeddings in bfloat16) at full
+   width and depth; random bfloat16 weights from a card generator seeded
+   with SEED, AdamW as phase G, ``remat="full"``, batch 4 x 2048, each
+   step donating its params and optimizer state, under the
+   ``StepGuard``.  One step's gradients with the kernels, every
+   attention-backward call held against the plain version within TOL_BWD
+   (deepseek's (192, 128) calls head slice by head slice:
+   ``bwd_plain_sliced``), the same gradients again, bit-equal; then
+   ``I_STEPS`` counted steps, each resetting the counts just before and
+   reading them just after: the launches ``step_launches`` predicts
+   (deepseek: the 3 layers, again in their recompute, and the MTP layer
+   once, 7 forward and 4 backward launches; each encoder-decoder
+   decoder layer twice and once), finite losses, the first step repeated
+   from a new init of the same seed with the same fingerprint.  Step ms,
+   tokens/s and peak device memory.  The backward kernel at deepseek's
+   call (q, k (4, 2048, 128, 192), v (4, 2048, 128, 128), full causal):
+   device time by kernel and by events beside its bound, the plain
+   version and SDPA's autograd by events with each backend forced.  Then
+   float32 cuts on the card and on the CPU with phase G's gates: an MLA
+   + MTP cut (``mla_small``: MLA's head dims, so the CUDA-core (192,
+   128) instantiation runs, and an MoE MTP layer), seamless 2 + 2 and
+   internvl2 4 layers at full width (batch 1 x 640, TF32 off).
 
 The line before the last is the ``kernels`` JSON (a CIM variant's
 ``launches`` summed over the counted runs of phases 2 and M, its
 times phase 4's, per vgg11 batch; the bfloat16 attention kernel's
-launches those of phases 5, F, E, G and H, its times phase 9's; the
+launches those of phases 5, F, E, G, H and I, its times phase 9's; the
 scan's launches those of phases F and H, its times per falcon-mamba
 prefill; the attention backward's launches those of the counted steps
-of phases G and H, its times per gemma3 training step; the scan
+of phases G, H and I, its times a call at deepseek's (192, 128)
+training call (phase I; gemma3's per step are in phase G's log); the
+scan
 backward's launches those of phase H's counted steps, its times per
 falcon-mamba training step); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -283,6 +314,7 @@ falcon-mamba training step); the last line is ``{"ok": true,
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import re
 import subprocess
@@ -357,7 +389,9 @@ ATTN_KERNEL = {torch.bfloat16: "local_attention",
 
 LM_ARCH = "gemma3-1b"
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
-LM_REPS = 3
+#: timed generations per flavor: one since phase I joined (the script's
+#: time limit; the medians of 3 cost about 77 s on a slow host)
+LM_REPS = 1
 #: (name, kv_dtype, cim_weights): bfloat16 weights and cache, and the
 #: Domino flavor of examples/serve_lm.py (int8 CIM weights, int8 cache)
 LM_FLAVORS = (("bf16", "bfloat16", False), ("cim_int8", "int8", True))
@@ -463,9 +497,6 @@ E_ARCHS = ("seamless-m4t-large-v2", "internvl2-2b")
 #: phase E's card-against-CPU check in float32: seamless 2 + 2 layers,
 #: internvl2 4 (SMALL_PROMPT holds its 256 patch tokens)
 E_SMALL_LAYERS = {"seamless-m4t-large-v2": 2, "internvl2-2b": 4}
-#: phase E's encoder-decoder, whose plain bidirectional attention is
-#: timed beside SDPA without a mask
-ENCDEC_ARCH = "seamless-m4t-large-v2"
 #: phase F's MLA model: its prefill's attention calls, at the kernel's
 #: (192, 128) head dims, are held against the plain version over phase
 #: 8's grid and timed as in phase 9
@@ -601,12 +632,17 @@ def check_bwd_sass(lib) -> None:
     counts = {op: sum(f.count(op) for f in funcs) for op in ops}
     log(f"[build] {lib.name} SASS of the {len(funcs)} tensor-core backward "
         f"kernels: {counts}")
-    if len(funcs) != 9 or not counts["HGMMA"] or not counts["UTMALDG"] or \
+    mla = [f for f in funcs if "ILi192ELi128E" in f.split("\n", 1)[0]]
+    if len(funcs) != 12 or len(mla) != 3 or not counts["HGMMA"] or \
+            not counts["UTMALDG"] or \
+            not all("HGMMA" in f and "UTMALDG" in f for f in mla) or \
             counts["RED."] + counts["ATOM."] + counts["ATOMG"]:
         fail(f"the backward's tensor-core kernels' SASS {counts} in "
-             f"{len(funcs)} kernels: want 9 kernels, wgmma and TMA, no "
-             f"global atomics")
-    # the CUDA-core kernels: float32 at 4 head dims and bfloat16 at 16
+             f"{len(funcs)} kernels ({len(mla)} at (192, 128)): want 12 "
+             f"kernels (3 at each of 4 pairs), wgmma and TMA in each of "
+             f"MLA's, no global atomics")
+    # the CUDA-core kernels: float32 at 5 head-dim pairs and bfloat16 at
+    # (16, 16)
     cc = [f for f in every if any(name in f.split("\n", 1)[0]
                                   for name in BWD_KERNELS[3:])]
     ops = ("LDS.128", "RED.", "ATOM.", "ATOMG")
@@ -614,10 +650,10 @@ def check_bwd_sass(lib) -> None:
     wide = sum(1 for f in cc if "LDS.128" in f)
     log(f"[build] {lib.name} SASS of the {len(cc)} CUDA-core backward "
         f"kernels: {counts}, LDS.128 in {wide}")
-    if len(cc) != 15 or wide != len(cc) or \
+    if len(cc) != 18 or wide != len(cc) or \
             counts["RED."] + counts["ATOM."] + counts["ATOMG"]:
         fail(f"the backward's CUDA-core kernels' SASS {counts} in {len(cc)} "
-             f"kernels, LDS.128 in {wide}: want 15 kernels, each with "
+             f"kernels, LDS.128 in {wide}: want 18 kernels, each with "
              f"LDS.128, no global atomics")
 
 
@@ -2901,65 +2937,6 @@ def families_phase(la, ss, card):
     return row, launches["local_attention"], worst
 
 
-def bidirectional_times(card, reps: int = 10):
-    """Phase E on seamless-m4t's bf16 prefill: the plain bidirectional
-    attention's calls (24 in the encoder, 24 cross-attentions over the
-    memory) by device time, one of each timed ``reps`` times, beside the
-    whole prefill's device time, and SDPA without a mask on the
-    encoder's call (a yardstick only).  Returns the plain attention's
-    share of the prefill's device time."""
-    import torch.nn.functional as F
-
-    from repro_torch.models import common
-
-    cfg = family_config(ENCDEC_ARCH)
-    prog, params, batch = lm_program(cfg, LM_BATCH, LM_PROMPT, LM_GEN,
-                                     "bfloat16", False, "cuda",
-                                     torch.bfloat16)
-    real, calls = common.bidirectional_attention, []
-
-    def recorder(q, k, v, *, logit_softcap=None):
-        calls.append((q, k, v))
-        return real(q, k, v, logit_softcap=logit_softcap)
-
-    with Swapped((common, "bidirectional_attention", recorder)):
-        prog.prefill_fn(params, batch)
-    torch.cuda.synchronize()
-    n_enc = cfg.encoder_layers
-    check(len(calls) == n_enc + cfg.num_layers,
-          f"{ENCDEC_ARCH}: {len(calls)} bidirectional attention calls in a "
-          f"prefill, want {n_enc} + {cfg.num_layers}")
-    enc, cross = calls[0], calls[n_enc]
-    del calls
-    prefill_ms = device_ms(lambda: prog.prefill_fn(params, batch), [()], 1)
-    enc_ms = device_ms(lambda *a: real(*a), [enc], reps)
-    cross_ms = device_ms(lambda *a: real(*a), [cross], reps)
-    plain_ms = n_enc * enc_ms + cfg.num_layers * cross_ms
-    qkv = tuple(t.transpose(1, 2).contiguous() for t in enc)
-
-    def sdpa(*a):
-        F.scaled_dot_product_attention(*a)
-
-    try:  # a yardstick: the profiler at times records none of its kernels
-        sdpa_ms = f"{device_ms(sdpa, [qkv], reps):.4f}"
-    except RuntimeError as e:
-        sdpa_ms = f"not measured ({e})"
-    sdpa_event_ms = event_ms(sdpa, [qkv], reps)
-    share = plain_ms / prefill_ms
-    log(f"[E] {ENCDEC_ARCH} bf16 prefill: {prefill_ms:.3f} ms of device "
-        f"time; plain bidirectional attention, encoder q "
-        f"{tuple(enc[0].shape)} against k {tuple(enc[1].shape)}: "
-        f"{enc_ms:.4f} ms a call; cross-attention q {tuple(cross[0].shape)} "
-        f"against the memory's k {tuple(cross[1].shape)}: {cross_ms:.4f} ms "
-        f"a call; {plain_ms:.3f} ms over the {n_enc} + {cfg.num_layers} "
-        f"calls, {100 * share:.1f}% of the prefill; SDPA without a mask at "
-        f"the encoder's call {sdpa_ms} ms ({sdpa_event_ms:.4f} by CUDA "
-        f"events; a yardstick, not used) on {card}")
-    del prog, params, batch, enc, cross, qkv
-    torch.cuda.empty_cache()
-    return share
-
-
 def encdec_vlm_phase(la, ss, card):
     """Phase E: seamless-m4t-large-v2 and internvl2-2b at full width and
     depth in both flavors, served as phase F serves its models; one
@@ -2995,7 +2972,6 @@ def encdec_vlm_phase(la, ss, card):
         time_full_causal(la, call, arch, card)
         del call
         torch.cuda.empty_cache()
-    bidirectional_times(card)
     log(f"[E] main-path calls vs plain versions: max |diff| {worst}")
     t0 = time.perf_counter()
     for arch, n in E_SMALL_LAYERS.items():
@@ -3077,12 +3053,24 @@ def train_program(cfg, device):
 
 def train_batch(cfg, batch, seq, device):
     """The reference test's fixed batch: ``synthetic_batch`` seed
-    TRAIN_DATA_SEED, step 0, as tensors on ``device``."""
+    TRAIN_DATA_SEED, step 0, as tensors on ``device``; an
+    encoder-decoder's frames and a ``vit_stub`` model's patch embeddings
+    (drawn after the tokens, in float32) cast to the params' dtype, as
+    phase E draws them (the same numpy draws on the card and on the
+    CPU)."""
     from repro_torch.data.pipeline import DataSpec, synthetic_batch
     from repro_torch.data.pipeline import to_device as batch_to
 
-    return batch_to(synthetic_batch(
-        DataSpec(cfg.vocab_size, seq, batch, TRAIN_DATA_SEED), 0), device)
+    fe = cfg.frontend
+    kw = {} if fe is None else dict(frontend_kind=fe.kind,
+                                    frontend_dim=fe.embed_dim,
+                                    frontend_tokens=fe.num_tokens)
+    out = batch_to(synthetic_batch(
+        DataSpec(cfg.vocab_size, seq, batch, TRAIN_DATA_SEED,
+                 encdec=cfg.is_encdec, **kw), 0), device)
+    dtype = getattr(torch, cfg.dtype)
+    return {k: v.to(dtype) if k in ("frames", "patch_embeds") else v
+            for k, v in out.items()}
 
 
 def step_launches(cfg, kind: str = "attn"):
@@ -3090,14 +3078,24 @@ def step_launches(cfg, kind: str = "attn"):
     ("attn": the attention; "mamba": the selective scan) one training
     step makes, as the code predicts: each such layer once, again in the
     recompute of each cycle of a segment whose count exceeds 1, and one
-    backward call each."""
-    from repro_torch.models.transformer import build_segments
+    backward call each; the multi-token-prediction layer (of the last
+    layer's kind, never recomputed) once and one backward call; an
+    encoder-decoder's decoder self-attention once a layer and again in
+    its recompute (every layer is checkpointed; the encoder and the
+    cross-attention run no kernel)."""
+    from repro_torch.models.transformer import build_segments, layer_spec
 
+    if cfg.is_encdec:
+        n = cfg.num_layers if kind == "attn" else 0
+        return 2 * n, n
     fwd = bwd = 0
     for seg in build_segments(cfg):
         n = seg.count * sum(spec.kind == kind for spec in seg.cycle)
         bwd += n
         fwd += n * (2 if seg.count > 1 else 1)
+    if cfg.mtp_depth > 0 and layer_spec(cfg, cfg.num_layers - 1).kind \
+            == kind:
+        fwd, bwd = fwd + 1, bwd + 1
     return fwd, bwd
 
 
@@ -3117,14 +3115,24 @@ def bwd_close(got, want, dtype):
     return err <= TOL_BWD[dtype] * scale, err, scale
 
 
-def bwd_work(q, window):
-    """Operations of one backward call at q (B, S, H, D): 10 D per
-    unmasked pair for the five products and 2 D for the statistics'
-    Q K^T."""
+def bwd_work(q, window, dv=None):
+    """Operations of one backward call at q (B, S, H, DQK) and v head dim
+    ``dv`` (DQK when not given): per unmasked pair 2 DQK for each of the
+    statistics' and the gradient's Q K^T, dK and dQ, and 2 DV for dP and
+    dV (12 D at DQK = DV)."""
     b, s, h, d = q.shape
+    dv = d if dv is None else dv
     w = min(int(window), s)
     pairs = w * (w + 1) // 2 + (s - w) * w
-    return 12 * d * pairs * b * h
+    return (8 * d + 4 * dv) * pairs * b * h
+
+
+def bwd_bytes(q, k, v):
+    """Bytes one backward call must move: q, k, v, o and dO read once, dq,
+    dk and dv written once (o and dO as wide as v)."""
+    o = q.numel() // q.shape[3] * v.shape[3]
+    return q.element_size() * (2 * q.numel() + 2 * k.numel()
+                               + 2 * v.numel() + 2 * o)
 
 
 def bwd_case(la, q, k, v, do, window, cap, what, worst):
@@ -3138,7 +3146,7 @@ def bwd_case(la, q, k, v, do, window, cap, what, worst):
                                         softcap=cap)
     torch.cuda.synchronize()
     ok, err, scale = bwd_close(got, want, q.dtype)
-    key = (q.dtype, la.bwd_route(q.dtype, q.shape[3]))
+    key = (q.dtype, la.bwd_route(q.dtype, q.shape[3], v.shape[3]))
     worst[key] = max(worst.get(key, 0.0), err)
     check(launched == {key: int(key == "local_attention_bwd")
                        for key in before},
@@ -3149,28 +3157,29 @@ def bwd_case(la, q, k, v, do, window, cap, what, worst):
 
 def check_bwd_grid(la):
     """The backward kernel against its plain version over the edge grid:
-    every built head dim in both dtypes, so the tensor-core route (bf16
-    at D 64 to 256) and the CUDA-core route (float32, bf16 at D 16).
-    Returns the largest |diff| per (dtype, route)."""
+    every built head-dim pair in both dtypes, so the tensor-core route
+    (bf16 at (64, 64) to (256, 256) and MLA's (192, 128)) and the
+    CUDA-core route (float32, bf16 at (16, 16)); MLA's pair at group 1,
+    its model's.  Returns the largest |diff| per (dtype, route)."""
     worst = {}
     rng = np.random.default_rng(SEED + 22)
     cases = 0
-    for d in la.BWD_HEAD_DIMS:
+    for d, dv in la.BWD_HEAD_DIM_PAIRS:
         for s in BWD_GRID_S:
-            for group in BWD_GRID_GROUPS:
+            for group in (BWD_GRID_GROUPS if d == dv else (1,)):
                 base = [torch.from_numpy(rng.standard_normal(
                     shape).astype(np.float32)).cuda()
                     for shape in ((1, s, 2 * group, d), (1, s, 2, d),
-                                  (1, s, 2, d), (1, s, 2 * group, d))]
+                                  (1, s, 2, dv), (1, s, 2 * group, dv))]
                 for dtype in (torch.float32, torch.bfloat16):
                     q, k, v, do = (t.to(dtype) for t in base)
                     for window in BWD_GRID_WINDOWS:
                         for cap in (None, 50.0):
                             w = s if window is None else window
                             bwd_case(la, q, k, v, do, w, cap,
-                                     f"d {d}, S {s}, group {group}, "
-                                     f"window {w}, cap {cap}, {dtype}",
-                                     worst)
+                                     f"(q/k {d}, v {dv}), S {s}, group "
+                                     f"{group}, window {w}, cap {cap}, "
+                                     f"{dtype}", worst)
                             cases += 1
                 del base, q, k, v, do
     torch.cuda.empty_cache()
@@ -3194,15 +3203,65 @@ def grad_diffs(got, want):
     return out
 
 
+#: SDPA's backends, each forced in turn at a full-causal backward call
+#: to name the one the default dispatch takes
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION",
+                 "CUDNN_ATTENTION", "MATH")
+
+
+def sdpa_bwd(q, k, v, do, window, reps, force=False):
+    """Autograd through SDPA at a backward call's operands (a yardstick;
+    the port never calls it), timed by CUDA events over ``reps``
+    back-to-back backward passes of one forward (the band mask on a
+    local call, ``is_causal`` on a full-causal one): (ms a call of the
+    default dispatch, the backward node SDPA recorded, {backend: ms, or
+    why it refused} when ``force``).  The profiler missed SDPA's kernels
+    at full-causal calls (its readings fell under the kernel's bound),
+    so the events time it."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    s, h = q.shape[1], q.shape[2]
+    qs, ks, vs = (t.detach().repeat_interleave(h // t.shape[2], dim=2)
+                  .transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dos = do.transpose(1, 2).contiguous()
+    kw = {"is_causal": True}
+    if window < s:
+        pos = torch.arange(s, device=q.device)
+        kw = {"attn_mask": (pos[None, :] <= pos[:, None])
+              & (pos[None, :] > pos[:, None] - window)}
+
+    def one():
+        out = F.scaled_dot_product_attention(qs, ks, vs, **kw)
+        node = type(out.grad_fn).__name__
+        ms = event_ms(lambda: torch.autograd.grad(
+            out, (qs, ks, vs), dos, retain_graph=True), [()], reps)
+        del out
+        return ms, node
+
+    default, node = one()
+    forced = {}
+    for name in SDPA_BACKENDS if force else ():
+        try:
+            with sdpa_kernel(getattr(SDPBackend, name)):
+                ms, fnode = one()
+            forced[name] = f"{ms:.4f} ms ({fnode})"
+        except (RuntimeError, torch.OutOfMemoryError) as e:
+            forced[name] = "refused: " + str(e).splitlines()[0][:80]
+        torch.cuda.empty_cache()
+    del qs, ks, vs, dos
+    return default, node, forced
+
+
 def time_bwd(la, local_call, global_call, per_step, card, reps: int = 10):
     """Device time of the backward calls of one step (per_step: window ->
     calls a step), each of the route's three kernels, beside the plain
-    version, autograd through SDPA (the band mask on a local call,
-    ``is_causal`` on a global one) and the bound at the operands' type's
+    version, autograd through SDPA by CUDA events (the band mask on a
+    local call, ``is_causal`` on a global one, there with every backend
+    forced in turn: ``sdpa_bwd``) and the bound at the operands' type's
     peak.  Returns the JSON row's numbers, and per kernel its ms a step
     (``by_kernel``)."""
-    import torch.nn.functional as F
-
     out = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     ops_total = bytes_total = 0
     peak = PEAK_BF16_OPS if local_call[0].dtype == torch.bfloat16 \
@@ -3222,34 +3281,24 @@ def time_bwd(la, local_call, global_call, per_step, card, reps: int = 10):
         kern = sum(each.values())
         plain = device_ms(lambda: la.local_attention_bwd_plain(
             q, k, v, o, do, window=window, softcap=cap), [()], 3)
-        qs, ks, vs = (t.detach().expand(-1, -1, h, -1).transpose(1, 2)
-                      .contiguous().requires_grad_() for t in (q, k, v))
-        if window >= s:
-            lib_out = F.scaled_dot_product_attention(qs, ks, vs,
-                                                     is_causal=True)
-        else:
-            pos = torch.arange(s, device=q.device)
-            mask = (pos[None, :] <= pos[:, None]) & (
-                pos[None, :] > pos[:, None] - window)
-            lib_out = F.scaled_dot_product_attention(qs, ks, vs,
-                                                     attn_mask=mask)
-        dos = do.transpose(1, 2).contiguous()
         try:  # a yardstick; the kernel is timed
-            lib = device_ms(lambda: torch.autograd.grad(
-                lib_out, (qs, ks, vs), dos, retain_graph=True), [()], reps)
+            lib, node, forced = sdpa_bwd(q, k, v, do, window, reps,
+                                         force=window >= s)
         except RuntimeError as e:
             log(f"[G] SDPA autograd at window {window}: {e}: not measured")
-            lib = float("nan")
+            lib, node, forced = float("nan"), None, {}
         ops = bwd_work(q, window)
-        nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel())
+        nbytes = bwd_bytes(q, k, v)
         bound = max(ops / peak, nbytes / PEAK_BYTES) * 1e3
         log(f"[G] local_attention_bwd ({route}), q {tuple(q.shape)} "
             f"{q.dtype}, window {window}: kernel {kern:.4f} ms ("
             + ", ".join(f"{name} {ms:.4f}" for name, ms in each.items())
             + f"; {ops / kern / 1e9:.1f} TFLOP/s on unmasked work, "
             f"{100 * bound / kern:.2f}% of the bound), plain {plain:.4f}, "
-            f"SDPA autograd ({'is_causal' if window >= s else 'band mask'})"
-            f" {lib:.4f}, bound {bound:.4f} (operations {ops / 1e9:.2f} "
+            f"SDPA autograd ({'is_causal' if window >= s else 'band mask'};"
+            f" events) {lib:.4f} by {node}"
+            + (f" (forced: {forced})" if forced else "")
+            + f", bound {bound:.4f} (operations {ops / 1e9:.2f} "
             f"GFLOP; {n} such calls a step) on {card}")
         for name, ms in each.items():
             by_kernel[name] += n * ms
@@ -3259,7 +3308,6 @@ def time_bwd(la, local_call, global_call, per_step, card, reps: int = 10):
         out["bound_ms"] += n * bound
         ops_total += n * ops
         bytes_total += n * nbytes
-        del lib_out, qs, ks, vs, dos
     if out["library_ms"] != out["library_ms"]:  # a NaN: not measured
         out["library_ms"] = None
     out["bound_by"] = ("operations" if ops_total / peak
@@ -3719,15 +3767,19 @@ def scan_bwd_work(dt, b, h0=None):
 class Checked:
     """Wrappers of the backward kernels that hold each call against its
     plain version on the same inputs (scan: TOL_SCAN_BWD; attention:
-    TOL_BWD), keep the largest error and the first call's operands."""
+    TOL_BWD, against ``attn_plain``, ``local_attention_bwd_plain`` by
+    default), keep the largest errors (attention: relative and absolute)
+    and the first call's operands."""
 
-    def __init__(self, la, ss):
+    def __init__(self, la, ss, attn_plain=None):
         self.la, self.ss = la, ss
         self.scan_worst = self.attn_worst = self.scan_abs = 0.0
+        self.attn_abs = 0.0
         self.scan_calls = self.attn_calls = 0
-        self.scan_first = None
+        self.scan_first = self.attn_first = None
         kernel_scan = ss.selective_scan_bwd
         kernel_attn = la.local_attention_bwd
+        attn_plain = attn_plain or la.local_attention_bwd_plain
 
         def scan(dt, x, b, c, a, d, dy, dh_last=None, h0=None):
             got = kernel_scan(dt, x, b, c, a, d, dy, dh_last, h0)
@@ -3748,12 +3800,15 @@ class Checked:
 
         def attn(q, k, v, o, do, *, window, softcap=None):
             got = kernel_attn(q, k, v, o, do, window=window, softcap=softcap)
-            want = la.local_attention_bwd_plain(q, k, v, o, do,
-                                                window=window,
-                                                softcap=softcap)
+            want = attn_plain(q, k, v, o, do, window=window,
+                              softcap=softcap)
             ok, err, scale = bwd_close(got, want, q.dtype)
+            del want
             self.attn_worst = max(self.attn_worst, err / scale)
+            self.attn_abs = max(self.attn_abs, err)
             self.attn_calls += 1
+            if self.attn_first is None:
+                self.attn_first = (q, k, v, o, do, window, softcap)
             check(ok, f"local_attention_bwd != plain at main-path call "
                       f"{self.attn_calls}, q {tuple(q.shape)} window "
                       f"{window}: max |diff| {err}, scale {scale}")
@@ -3821,7 +3876,7 @@ def route_recorder(tables):
     return Swapped((moe_mod, "route", route))
 
 
-def h_f32_vs_cpu(la, ss, cfg, what, card):
+def h_f32_vs_cpu(la, ss, cfg, what, card, tag="H"):
     """A float32 training step cut in depth (or reduced) on the card and
     on the CPU: the launches, the MoE slot tables (a routing flip shows
     as a flip), the loss, every gradient leaf and one AdamW step's
@@ -3848,7 +3903,7 @@ def h_f32_vs_cpu(la, ss, cfg, what, card):
     new_params, _, _ = apply_updates(params, grads, state, tcfg)
     torch.cuda.synchronize()
     counts = all_launches(la, ss)
-    check(counts == want, f"[H] {what} float32: launches {counts}, want "
+    check(counts == want, f"[{tag}] {what} float32: launches {counts}, want "
                           f"{want}")
     card_s = time.perf_counter() - t0
 
@@ -3865,17 +3920,17 @@ def h_f32_vs_cpu(la, ss, cfg, what, card):
     cpu_s = time.perf_counter() - t1
     flips = sum(int((a != b).sum()) for a, b in zip(tables, cpu_tables))
     check(len(tables) == len(cpu_tables) and flips == 0,
-          f"[H] {what} float32: {flips} (token, k) slots routed otherwise "
+          f"[{tag}] {what} float32: {flips} (token, k) slots routed otherwise "
           f"on the card than on the CPU over {len(tables)} router calls")
     loss_err = abs(loss.item() - loss_c.item()) / abs(loss_c.item())
     check(loss_err <= TOL_TRAIN_F32_LOSS,
-          f"[H] {what} float32 loss {loss.item()} on the card, "
+          f"[{tag}] {what} float32 loss {loss.item()} on the card, "
           f"{loss_c.item()} on the CPU (relative {loss_err})")
     worst_grad = 0.0
     for path, err, ref, _ in grad_diffs(grads, grads_c):
         worst_grad = max(worst_grad, err / max(ref, 1e-30))
         check(err <= TOL_TRAIN_F32_GRAD * ref,
-              f"[H] {what} float32 gradient {path}: max |diff| {err} "
+              f"[{tag}] {what} float32 gradient {path}: max |diff| {err} "
               f"against max |value| {ref}")
     lr1 = metrics_c["lr"].item()
     worst_p, worst_share = 0.0, 0.0
@@ -3887,10 +3942,10 @@ def h_f32_vs_cpu(la, ss, cfg, what, card):
         worst_share = max(worst_share, share)
         check(diff.max().item() <= 2 * lr1 * (1 + 1e-3)
               and share <= TOL_TRAIN_F32_SHARE,
-              f"[H] {what} float32 AdamW step {path}: max |diff| "
+              f"[{tag}] {what} float32 AdamW step {path}: max |diff| "
               f"{diff.max().item()} (lr {lr1}), {share:.2e} of the leaf "
               f"beyond lr / 1000")
-    log(f"[H] {what} float32 ({depth(cfg)} layers, d_model {cfg.d_model}, "
+    log(f"[{tag}] {what} float32 ({depth(cfg)} layers, d_model {cfg.d_model}, "
         f"batch 1 x {TRAIN_SMALL_SEQ}, TF32 off): loss {loss.item():.7f} on "
         f"the card, {loss_c.item():.7f} on the CPU (relative "
         f"{loss_err:.2e}); gradients within {worst_grad:.2e} of each leaf's "
@@ -3981,7 +4036,7 @@ def h_train(la, ss, arch, card):
     diffs = grad_diffs(grads_k, grads_p)
     del grads_k
     floor = ""
-    if cfg.num_mamba_layers:
+    if cfg.num_mamba_layers and "--plain-curve" in sys.argv[1:]:
         with plain_training(la, ss), Swapped((ss, "_scan",
                                               plain_scan_f64_y(ss))):
             _, grads_f = value_and_grad(prog.loss_fn, params, batch)
@@ -4282,6 +4337,265 @@ def families_training_phase(la, ss, card):
             "library_ms": None}, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase I: MLA with multi-token prediction, the encoder-decoder and the
+# vit_stub frontend trained
+# ---------------------------------------------------------------------------
+
+#: phase I's bfloat16 runs at the published widths.  deepseek-v3-671b is
+#: cut to its first 3 layers, all dense (``first_dense`` = 3), with its
+#: multi-token-prediction block, whose layer is of the last layer's kind
+#: (dense here): 4.29 G parameters by a count from the config (embedding
+#: and head 1.85 G, a dense MLA layer 0.58 G, ``proj`` 0.10 G), about 63
+#: GB of training state at granite's measured 14.7 bytes a parameter.  A
+#: 4-layer cut would make the MTP layer a 256-expert MoE layer of about
+#: 11.5 G parameters, more than one card trains; MTP over an MoE layer is
+#: held in float32 against the CPU below (and at the reduced config in
+#: the CPU tests).  seamless-m4t-large-v2 (24 + 24 layers) and
+#: internvl2-2b (24) run uncut.  None: uncut.
+I_LAYERS = {"deepseek-v3-671b": 3, "seamless-m4t-large-v2": None,
+            "internvl2-2b": None}
+#: the counted donated steps of each (AdamW as phase G, the first one
+#: repeated from a new init of the same seed)
+I_STEPS = 3
+#: heads a slice of the plain backward takes at a wide call: at
+#: deepseek's 128 heads one float32 score tensor of the whole call is
+#: 4 x 128 x 2048^2 x 4 B = 8.6 GB, and the heads of a group-1 call are
+#: independent, so the plain version runs 8 at a time (the same function)
+BWD_PLAIN_HEADS = 8
+#: phase I's float32 cuts held against the CPU (batch 1 x TRAIN_SMALL_SEQ,
+#: TF32 off): seamless 2 + 2 layers and internvl2 4 at the published
+#: widths (phase E's CPU depths), and an MLA + MTP cut (``mla_small``)
+I_SMALL_LAYERS = {"seamless-m4t-large-v2": 2, "internvl2-2b": 4}
+
+
+def mla_small():
+    """deepseek-v3-671b cut for the float32 check against the CPU: MLA's
+    head dims kept (q and k 128 + 64 rope dims, v 128, so the CUDA-core
+    route's (192, 128) instantiation runs), 2 layers (layer 0 dense,
+    layer 1 MoE with the shared expert, so the MTP layer is an MoE layer
+    whose aux loss the loss drops), 8 heads, d_model 1024, d_ff 2048,
+    q_lora 384 (kv_lora 512 kept), 8 routed experts top-2 of 512, vocab
+    8192: the CPU side's step takes seconds."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("deepseek-v3-671b")
+    return dataclasses.replace(
+        cfg, num_layers=2, d_model=1024, d_ff=2048, vocab_size=8192,
+        attention=dataclasses.replace(cfg.attention, num_heads=8,
+                                      num_kv_heads=8, q_lora_rank=384),
+        moe=dataclasses.replace(cfg.moe, num_experts=8, top_k=2,
+                                d_ff_expert=512, first_dense=1))
+
+
+def bwd_plain_sliced(la, q, k, v, o, do, *, window, softcap=None):
+    """``local_attention_bwd_plain`` over slices of the kv heads (each with
+    its group of query heads, ``BWD_PLAIN_HEADS`` query heads a slice):
+    the same function, the heads being independent, in a fraction of the
+    memory at a wide call."""
+    kvh, g = k.shape[2], q.shape[2] // k.shape[2]
+    step = max(1, BWD_PLAIN_HEADS // g)
+    if kvh <= step:
+        return la.local_attention_bwd_plain(q, k, v, o, do, window=window,
+                                            softcap=softcap)
+    parts = []
+    for i in range(0, kvh, step):
+        qs, ks = slice(i * g, (i + step) * g), slice(i, i + step)
+        parts.append(la.local_attention_bwd_plain(
+            q[:, :, qs], k[:, :, ks], v[:, :, ks], o[:, :, qs], do[:, :, qs],
+            window=window, softcap=softcap))
+    return tuple(torch.cat(p, dim=2) for p in zip(*parts))
+
+
+def i_train(la, ss, arch, card):
+    """Phase I, one model trained in bfloat16 at full width (cut in depth
+    by ``I_LAYERS``).  Returns its counted launches by kernel, the
+    largest |diff| of the attention backward from its plain version, and
+    the first backward call's operands at MLA's (192, 128) pair (None
+    for the others)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.optim.optimizer import init_opt_state
+    from repro_torch.runtime.fault import StepGuard, StragglerMonitor
+    from repro_torch.runtime.train_loop import (
+        build_train_program,
+        value_and_grad,
+    )
+
+    t_model = time.perf_counter()
+    cfg = get_config(arch)
+    if I_LAYERS[arch] is not None:
+        cfg = dataclasses.replace(cfg, num_layers=I_LAYERS[arch])
+    tcfg = TrainConfig(**TRAIN_CFG)
+    prog = build_train_program(cfg, ParallelConfig(remat="full"), tcfg,
+                               "cuda", donate=True)
+    params, state = prog.init_fn(SEED)
+    del state  # the gradient checks run without the moments
+    batch = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, "cuda")
+    want = h_counts(cfg, torch.bfloat16)
+    extras = {k: (tuple(v.shape), str(v.dtype).split(".")[-1])
+              for k, v in batch.items() if k in ("frames", "patch_embeds")}
+    log(f"[I] {arch}: {depth(cfg)} layers at full width (d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}"
+        + (", with its MTP block" if cfg.mtp_depth else "")
+        + f"), {n_params(params)} parameters (bfloat16, stacked as the "
+        f"reference's), batch {TRAIN_BATCH} x {TRAIN_SEQ}"
+        + (f", {extras}" if extras else "")
+        + f", AdamW at lr {tcfg.lr}, remat full, donated steps; launches a "
+        f"step {want}; set up in {time.perf_counter() - t_model:.1f} s")
+
+    # one step's gradients with the kernels, every backward call held
+    # against the plain version; again, bit-equal
+    t0 = time.perf_counter()
+    plain = functools.partial(bwd_plain_sliced, la)
+    with Checked(la, ss, attn_plain=plain) as chk:
+        loss_k, grads_k = value_and_grad(prog.loss_fn, params, batch)
+    torch.cuda.synchronize()
+    check(chk.attn_calls == want["local_attention_bwd"],
+          f"[I] {arch}: {chk.attn_calls} attention backward calls in one "
+          f"step, want {want['local_attention_bwd']}")
+    loss_a, grads_a = value_and_grad(prog.loss_fn, params, batch)
+    check(loss_a.item() == loss_k.item() and trees_equal(grads_a, grads_k),
+          f"[I] {arch}: two gradients of one step differ")
+    del grads_a, grads_k
+    first = chk.attn_first
+    call = first if first[0].shape[3] != first[2].shape[3] else None
+    worst = chk.attn_abs
+    log(f"[I] {arch} bf16 step: loss {loss_k.item():.6f}; the "
+        f"{chk.attn_calls} attention backward calls (q "
+        f"{tuple(first[0].shape)}, v {tuple(first[2].shape)}) within "
+        f"{chk.attn_worst:.3e} of the scale of the plain version (tolerance "
+        f"{TOL_BWD[torch.bfloat16]}, max |diff| {worst:.3e}); two gradients "
+        f"of the step bit-equal; {time.perf_counter() - t0:.1f} s")
+    del chk, first
+
+    # the counted run: donated steps on the fixed batch
+    state = init_opt_state(params, tcfg)
+    guard, monitor = StepGuard(
+        recover=lambda step: fail(f"phase I: a step failed and was retried "
+                                  f"at {step}"), max_retries=0), \
+        StragglerMonitor()
+    losses, step_ms, launches = [], [], dict.fromkeys(want, 0)
+    for step in range(I_STEPS):
+        if step == 1:
+            torch.cuda.reset_peak_memory_stats()
+        reset_lm_counts(la, ss)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = guard.run(prog.step_fn, step, params, state,
+                                           batch)
+        losses.append(metrics["loss"].item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = all_launches(la, ss)
+        check(counts == want, f"[I] {arch} step {step + 1}: launches "
+                              f"{counts}, want {want}")
+        for key, v in counts.items():
+            launches[key] += v
+        monitor.observe(step, step_ms[-1] / 1e3)
+        if step == 0:
+            printed = fingerprint((params, state.m, state.v))
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f"[I] {arch}: losses {losses}")
+    med = float(np.median(step_ms[1:]))
+    log(f"[I] {arch} {I_STEPS} AdamW steps: losses "
+        f"{[round(x, 4) for x in losses]}; step ms "
+        f"{[round(x, 1) for x in step_ms]} (median of steps 2 to {I_STEPS}: "
+        f"{med:.1f} ms, {TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.1f} tokens/s); "
+        f"peak device memory {peak / 1e9:.2f} GB; straggler flags "
+        f"{monitor.flagged_steps}; on {card}")
+
+    # the first step again from a new init of the same seed: bit-equal
+    del params, state, metrics
+    torch.cuda.empty_cache()
+    params, state = prog.init_fn(SEED)
+    again = prog.step_fn(params, state, batch)
+    same = fingerprint((again[0], again[1].m, again[1].v)) == printed
+    check(again[2]["loss"].item() == losses[0] and same,
+          f"[I] {arch}: the first step repeated from the same state differs "
+          f"(loss {again[2]['loss'].item()} / {losses[0]}, fingerprints "
+          f"equal {same})")
+    del params, state, again, batch, prog
+    torch.cuda.empty_cache()
+    log(f"[I] {arch}: the first step repeated from a new init of the same "
+        f"seed: the same loss and fingerprint of every leaf of its params "
+        f"and moments; {time.perf_counter() - t_model:.1f} s on {card}")
+    return launches, worst, call
+
+
+def time_mla_bwd(la, call, card, reps: int = 5):
+    """The backward kernel at deepseek's training call (q, k (4, 2048, 128,
+    192), v (4, 2048, 128, 128), full causal, group 1): device time by
+    kernel (the profiler) and a call by CUDA events, beside the plain
+    version (head slice by head slice), autograd through SDPA by events
+    with every backend forced in turn, and the bound.  Returns the JSON
+    row's numbers."""
+    q, k, v, o, do, window, cap = call
+    names = la.BWD_KERNELS[la.bwd_route(q.dtype, q.shape[3], v.shape[3])]
+
+    def run():
+        return la.local_attention_bwd(q, k, v, o, do, window=window,
+                                      softcap=cap)
+
+    each = device_ms(run, [()], reps, kernel=names, split=True)
+    kern = sum(each.values())
+    events = event_ms(run, [()], reps)
+    plain = device_ms(lambda: bwd_plain_sliced(
+        la, q, k, v, o, do, window=window, softcap=cap), [()], 1)
+    lib, node, forced = sdpa_bwd(q, k, v, do, window, reps, force=True)
+    ops, nbytes = bwd_work(q, window, v.shape[3]), bwd_bytes(q, k, v)
+    t_ops, t_bytes = ops / PEAK_BF16_OPS, nbytes / PEAK_BYTES
+    bound = max(t_ops, t_bytes) * 1e3
+    log(f"[I] local_attention_bwd (tensor cores) at deepseek's call, q "
+        f"{tuple(q.shape)}, v {tuple(v.shape)}, window {window} (full "
+        f"causal): {kern:.4f} ms a call by the profiler ("
+        + ", ".join(f"{name} {ms:.4f}" for name, ms in each.items())
+        + f"), {events:.4f} ms by events; {ops / kern / 1e9:.1f} TFLOP/s on "
+        f"unmasked work, {100 * bound / kern:.2f}% of the {bound:.4f} ms "
+        f"bound ({'operations' if t_ops >= t_bytes else 'bytes'}; "
+        f"{ops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB); plain "
+        f"{plain:.4f} ms; SDPA autograd (is_causal, events) {lib:.4f} ms by "
+        f"{node}; forced: {forced}; on {card}")
+    return {"ms": kern, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": lib}
+
+
+def mla_encdec_training_phase(la, ss, card):
+    """Phase I: deepseek-v3-671b (3 layers and its MTP block),
+    seamless-m4t-large-v2 and internvl2-2b trained at full width; the
+    backward kernel timed at deepseek's call; the float32 cuts against
+    the CPU.  Returns the backward's JSON row numbers at deepseek's call,
+    the counted launches and the backward's largest |diff|."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    launches, worst, call = {}, 0.0, None
+    for arch in I_LAYERS:
+        counted, w, c = i_train(la, ss, arch, card)
+        for key, v in counted.items():
+            launches[key] = launches.get(key, 0) + v
+        worst = max(worst, w)
+        if c is not None:
+            call = c
+    check(call is not None, "[I] no backward call at MLA's (192, 128) pair")
+    row = time_mla_bwd(la, call, card)
+    del call
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    h_f32_vs_cpu(la, ss, mla_small(), "deepseek-v3-671b (MLA + MTP cut)",
+                 card, tag="I")
+    for arch, n in I_SMALL_LAYERS.items():
+        cfg = dataclasses.replace(get_config(arch), num_layers=n)
+        if cfg.is_encdec:
+            cfg = dataclasses.replace(cfg, encoder_layers=n)
+        h_f32_vs_cpu(la, ss, cfg, arch, card, tag="I")
+    log(f"[I] float32 cuts against the CPU: {time.perf_counter() - t0:.1f} "
+        f"s")
+    log(f"[I] phase I: {time.perf_counter() - t_phase:.1f} s on {card}; "
+        f"counted launches {launches}")
+    return row, launches, worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4404,13 +4718,21 @@ def main() -> int:
     e_attn, worst_e = encdec_vlm_phase(la, ss, card)
     bwd_row, g_attn = training_phase(la, card)
     scan_bwd_row, h_launches = families_training_phase(la, ss, card)
-    # phases 5 and 6 (gemma3) and the counted runs of phases F, E, G and H
+    mla_row, i_launches, i_worst = mla_encdec_training_phase(la, ss, card)
+    # phases 5 and 6 (gemma3) and the counted runs of phases F, E, G, H
+    # and I
     launches_attn = {"local_attention": lm["bf16"]["launches"]
                      + family_attn + e_attn + g_attn
-                     + h_launches["local_attention"],
+                     + h_launches["local_attention"]
+                     + i_launches["local_attention"],
                      "local_attention_f32": f32_launches}
     scan_row["launches"] += h_launches["selective_scan"]
-    bwd_row["launches"] += h_launches["local_attention_bwd"]
+    bwd_row["launches"] += (h_launches["local_attention_bwd"]
+                            + i_launches["local_attention_bwd"])
+    # the backward's times: deepseek's (192, 128) call (phase I); gemma3's
+    # step is logged in phase G
+    bwd_row.update(mla_row)
+    bwd_row["max_abs_err"] = max(bwd_row["max_abs_err"], i_worst)
     for name in worst_attn:
         worst_attn[name] = max(worst_attn[name], worst_family.get(name, 0.0),
                                worst_e.get(name, 0.0))

@@ -83,9 +83,10 @@ def lm_train_params_from_reference(params_np: Dict[str, Any], cfg,
     """The reference's LM params as tensors on ``device`` in the
     reference's own layout, the training layout of
     ``models/transformer.py``: ``"segments"`` kept, each leaf of a
-    repeated segment stacked over its count, same dtypes.  The optimizer
-    then sees the reference's leaves (it decays, factors, clips and
-    compresses per leaf)."""
+    repeated segment stacked over its count, same dtypes; deepseek-v3's
+    multi-token-prediction block ``"mtp"`` (one layer and ``proj``, not
+    stacked) carried as it is.  The optimizer then sees the reference's
+    leaves (it decays, factors, clips and compresses per leaf)."""
     from repro_torch.models.transformer import build_segments
 
     out = _tensors(params_np, resolve_device(device))
@@ -146,6 +147,23 @@ def encdec_params_from_reference(params_np: Dict[str, Any], cfg,
            if k not in ("encoder", "decoder")}
     out["encoder"] = _layers(params_np["encoder"], cfg.encoder_layers, dev)
     out["decoder"] = _layers(params_np["decoder"], cfg.num_layers, dev)
+    return out
+
+
+def encdec_train_params_from_reference(params_np: Dict[str, Any], cfg,
+                                       device=None) -> Dict[str, Any]:
+    """The reference's encoder-decoder params as tensors on ``device`` in
+    the reference's own layout, the training layout of
+    ``models/encdec.py``: ``"encoder"`` and ``"decoder"`` each one dict
+    whose leaves are stacked over the layers, same dtypes."""
+    from repro_torch.tree import leaves
+
+    out = _tensors(params_np, resolve_device(device))
+    for name, n in (("encoder", cfg.encoder_layers),
+                    ("decoder", cfg.num_layers)):
+        got = leaves(out[name])[0].shape[0]
+        if got != n:
+            raise ValueError(f"{name} stacked over {got} layers for {n}")
     return out
 
 

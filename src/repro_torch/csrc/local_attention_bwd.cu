@@ -10,6 +10,7 @@
 // j <= i and j > i - window, with kv head h / group:
 //
 //   s_ij  = (q_i . k_j) * D^-0.5       [t = tanh(s / cap), s = t * cap]
+//   (D = DQK, q and k's head dim; v, o and dO are DV wide)
 //   p_ij  = exp(s_ij - lse_i)          lse_i = log sum_j exp(s_ij)
 //   dp_ij = dO_i . v_j                 D_i = dO_i . o_i
 //   ds_ij = p_ij (dp_ij - D_i)         [* (1 - t^2)], * D^-0.5
@@ -28,10 +29,16 @@
 // dq, dk, dv written once take far less (gemma3-1b's local layer, D =
 // 256, window 512: 9x less at bf16's rate).
 //
-// Two routes, one dispatch (local_attention_bwd_launch, at the end):
-// bfloat16 at D = 64, 128 and 256 runs the tensor-core kernels
-// (namespace tcb); float32, and bfloat16 at D = 16 (reduced configs
-// only), run the CUDA-core kernels (namespace simt).
+// Two routes, one dispatch (local_attention_bwd_launch, at the end), over
+// the (DQK, DV) head-dim pairs (D, D) for D = 16, 64, 128, 256 and MLA's
+// (192, 128) (deepseek-v3: q and k 128 + 64 rope dims, v 128; the scale
+// DQK^-0.5): bfloat16 at (64, 64), (128, 128), (256, 256) and (192, 128)
+// runs the tensor-core kernels (namespace tcb); float32 at every pair,
+// and bfloat16 at (16, 16) (reduced configs only), run the CUDA-core
+// kernels (namespace simt).  Every kernel is a template on the pair;
+// where DQK != DV the products over Q and K (S, dK += dS^T Q, dQ += dS
+// K) run DQK deep or wide and those over V and dO (dP, dV += P^T dO,
+// delta) DV.
 // Each route is three kernels on one stream, launched by one call, with
 // no atomics: every gradient is summed in one block or one cluster in a
 // fixed order, so a backward is bitwise repeatable.
@@ -67,13 +74,25 @@
 //       dP^T = V dO^T, takes P^T D^-0.5 (1 - t^2) from warpgroup 0
 //       through shared memory, forms dS^T and runs dK += dS^T Q.  At
 //       D = 256: K, V 64 KB, the ring 2 x 65 KB, the hand-over 16 KB.
+//       At (192, 128): dV += P^T dO is m64n128k16 (64 accumulators a
+//       thread), dK += dS^T Q m64n192k16 (96); K 24 KB, V 16 KB, the
+//       ring 2 x 41 KB (Q, dO, statistics), the hand-over 16 KB:
+//       142,400 bytes with the alignment slack, one block an SM.
 //     tc_dq: one block of two warpgroups per (batch, head, 64 query
 //       rows), K and V through the ring: warpgroup 0 computes S and P,
 //       warpgroup 1 dP and dS, handed back as bf16 fragments; dQ += dS
-//       K is split by columns (D / 2 each; all of it in warpgroup 1 at
-//       D = 64).  Query tiles in reverse, the longest first.
+//       K is split by columns (DV / 2 to warpgroup 0, the rest to
+//       warpgroup 1, so that both run as many products; all of it in
+//       warpgroup 1 at D = 64).  At (192, 128): 64 and 128 columns, the
+//       operand starting on a 64-column atom (an MN-major operand cannot
+//       start inside one); Q 24 KB, dO 16 KB, the ring 2 x 40 KB (K, V),
+//       the hand-over 16 + 8 KB: 148,544 bytes.  tc_stats at (192, 128):
+//       Q and a 2-stage K ring, 74,816 bytes, two blocks an SM.
+//       Query tiles in reverse, the longest first.
 //     So Q K^T runs three times and dO V^T twice: 16 D per pair on the
-//     tensor cores against the 12 D the bound counts.
+//     tensor cores against the 12 D the bound counts (at DQK != DV:
+//     10 DQK + 6 DV against 8 DQK + 4 DV, 2688 against 2048 operations
+//     a pair at (192, 128)).
 //  4. Every visited tile holds an unmasked pair (the walks visit only
 //     the tiles that meet a window; kernels/local_attention.py::
 //     bwd_tile_schedule mirrors them), and the mask is applied only on
@@ -105,7 +124,11 @@
 // block per (kv head, 32 keys): 20 blocks on 132 SMs at batch 1, S 640
 // and a group of 4 on one kv head.  The design now: tiles of 32 query
 // rows and 32 keys, blocks of 256 threads in two teams of four warps,
-// one block an SM at D = 256.
+// one block an SM at D = 256.  At (192, 128) the two teams' S and dP are
+// 192 and 128 deep, so each runs its own copy of the score loop, and
+// their sums differ in width (team 0's dV 32 accumulators a thread,
+// team 1's dK 64 over 96 of its 128 threads; dQ 32 over 192 of 256):
+// stats 125,184 bytes of shared memory, dk / dv 137,216, dq 132,352.
 //  1. 8 x 8 register tiles read as float4s.  S and dP (score_tile): a
 //     team's lane e + 8 (rg + 2 kg) of warp w sums 8 rows against 8
 //     keys over the head dim's 16-byte chunks e, e + 8, ... (16 loads
@@ -172,6 +195,15 @@ struct Geometry {
   int s, h, group, window;
   float scale, softcap;  // softcap <= 0: none
 };
+
+// the first N of an accumulator array of M >= N floats, as an array:
+// at MLA's pair the two teams' or warpgroups' sums differ in width and
+// share one array sized for the wider
+template <int N, int M>
+__device__ __forceinline__ float (&prefix(float (&a)[M]))[N] {
+  static_assert(N <= M, "a prefix of the array");
+  return *reinterpret_cast<float(*)[N]>(&a[0]);
+}
 
 namespace simt {
 
@@ -365,15 +397,21 @@ __device__ __forceinline__ void score_tile(const float* a, const float* b,
 // The layout of a gradient product's accumulators over NT threads: a
 // (32, D) result, thread t < ACTIVE holding rows KR (t % KG) ... + KR - 1
 // and columns 4 (t / KG) + 4 TC m ... + 3 (m < RN / 4)
+__host__ __device__ constexpr int pow2_floor(int x) {
+  return x < 2 ? 1 : 2 * pow2_floor(x / 2);
+}
 template <int D, int NT>
 struct Grad {
   static constexpr int RN = NT == TEAM && D >= 256 ? 8 : 4;
   static constexpr int TC = D / RN;  // column groups
-  static constexpr int KG = NT / TC < TILE ? NT / TC : TILE;  // row groups
+  // row groups: a power of two, so that they divide the tile's rows (D =
+  // 192 leaves NT / TC = 2.67 or 5.33 a column group)
+  static constexpr int KG = pow2_floor(NT / TC < TILE ? NT / TC : TILE);
   static constexpr int KR = TILE / KG;  // rows a thread
   static constexpr int ACTIVE = TC * KG;
   static constexpr int N = KR * RN;  // accumulators a thread
 };
+
 
 // acc += A^T B over the 32 rows r of a (32, 32) tile A (row stride LDT,
 // its columns the result's rows) and a (32, D) tile B, r in order
@@ -426,11 +464,26 @@ __device__ __forceinline__ void grad_tile(const float* a, const float* b,
 // and block z adds up, in block order, and stores the float4s x = z, z +
 // parts, ... of every thread's: a reduce-scatter through distributed
 // shared memory, each block reading one share of the partial sums.
+// put_part leaves them, sum_part adds and stores, and every thread of the
+// cluster syncs between the two (store_sum, or the caller where the
+// block's threads hold sums of two widths).
+template <int D, int NT>
+__device__ __forceinline__ void put_part(const float (&acc)[Grad<D, NT>::N],
+                                         float* part, int t) {
+  using G = Grad<D, NT>;
+  if (gridDim.z == 1 || t >= G::ACTIVE) return;
+  float4* p4 = reinterpret_cast<float4*>(part);
+#pragma unroll
+  for (int x = 0; x < G::N / 4; ++x)
+    p4[x * NT + t] = make_float4(acc[4 * x], acc[4 * x + 1], acc[4 * x + 2],
+                                 acc[4 * x + 3]);
+}
+
 template <typename T, int D, int NT>
-__device__ __forceinline__ void store_sum(const float (&acc)[Grad<D, NT>::N],
-                                          float* part, T* base,
-                                          long long row_stride, int r0, int s,
-                                          int t) {
+__device__ __forceinline__ void sum_part(const float (&acc)[Grad<D, NT>::N],
+                                         const float* part, T* base,
+                                         long long row_stride, int r0, int s,
+                                         int t) {
   using G = Grad<D, NT>;
   constexpr int X = G::N / 4, XR = G::RN / 4;  // float4s: all, of a row
   const bool active = t < G::ACTIVE;
@@ -450,14 +503,7 @@ __device__ __forceinline__ void store_sum(const float (&acc)[Grad<D, NT>::N],
     }
     return;
   }
-  float4* p4 = reinterpret_cast<float4*>(part);
-  if (active) {
-#pragma unroll
-    for (int x = 0; x < X; ++x)
-      p4[x * NT + t] = make_float4(acc[4 * x], acc[4 * x + 1],
-                                   acc[4 * x + 2], acc[4 * x + 3]);
-  }
-  sm90::cluster_sync();  // every thread of the cluster
+  const float4* p4 = reinterpret_cast<const float4*>(part);
   for (int x = blockIdx.z; active && x < X; x += parts) {
     const void* at = p4 + x * NT + t;
     float4 sum = ld_cluster4(sm90::cluster_addr(at, 0));
@@ -470,6 +516,16 @@ __device__ __forceinline__ void store_sum(const float (&acc)[Grad<D, NT>::N],
     }
     put(x, sum);
   }
+}
+
+template <typename T, int D, int NT>
+__device__ __forceinline__ void store_sum(const float (&acc)[Grad<D, NT>::N],
+                                          float* part, T* base,
+                                          long long row_stride, int r0, int s,
+                                          int t) {
+  put_part<D, NT>(acc, part, t);
+  if (gridDim.z > 1) sm90::cluster_sync();  // every thread of the cluster
+  sum_part<T, D, NT>(acc, part, base, row_stride, r0, s, t);
 }
 
 // The walk of tile `tile` split over the gridDim.z blocks of its
@@ -517,12 +573,13 @@ struct StatsTiles {
   static constexpr int BYTES = 4 * FLOATS;
 };
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
     cc_stats(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ o, const T* __restrict__ dout,
              float* __restrict__ lse, float* __restrict__ delta, Geometry g,
              int tiles) {
+  constexpr int D = DQK;  // Q and K; o and dO are DV wide
   using L = StatsTiles<D>;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
@@ -533,6 +590,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int kv_heads = g.h / g.group;
   const long long q_row = static_cast<long long>(g.h) * D;
   const long long k_row = static_cast<long long>(kv_heads) * D;
+  const long long o_row = static_cast<long long>(g.h) * DV;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int team = threadIdx.x / TEAM;
   const int row = lane_row(), key = lane_key();
@@ -542,6 +600,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int bh = tile % heads, b = bh / g.h, h = bh % g.h;
     const int q0 = (nq - 1 - tile / heads) * TILE;
     const long long q_off = static_cast<long long>(b) * g.s * q_row + h * D;
+    const long long o_off = static_cast<long long>(b) * g.s * o_row + h * DV;
     const T* kb =
         k + static_cast<long long>(b) * g.s * k_row + (h / g.group) * D;
     const int t0 = max(0, q0 - g.window + 1) / TILE;
@@ -567,9 +626,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int i = q0 + rr;
       float acc = 0.f;
       if (i < g.s) {
-        const T* orow = o + q_off + static_cast<long long>(i) * q_row;
-        const T* drow = dout + q_off + static_cast<long long>(i) * q_row;
-        for (int d = lane; d < D; d += 32)
+        const T* orow = o + o_off + static_cast<long long>(i) * o_row;
+        const T* drow = dout + o_off + static_cast<long long>(i) * o_row;
+        for (int d = lane; d < DV; d += 32)
           acc = fmaf(to_f32(drow[d]), to_f32(orow[d]), acc);
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
@@ -681,27 +740,31 @@ __device__ __forceinline__ void put_row(float* tile, const float (&x)[8]) {
 // heaviest first (key tiles in order); a cluster's blocks walk
 // consecutive shares of its (head, query tile) steps, the query tiles
 // whose rows reach the keys; team 0 keeps dV, team 1 dK
-template <int D>
+template <int DQK, int DV>
 struct DkdvTiles {
-  static constexpr int TD = TILE * D;
-  static constexpr int STAGE = 2 * TD + 2 * TILE;  // Q, dO, lse, delta
+  static constexpr int TK = TILE * DQK;  // a Q or K tile
+  static constexpr int TV = TILE * DV;   // a dO or V tile
+  static constexpr int STAGE = TK + TV + 2 * TILE;  // Q, dO, lse, delta
   // K, V, the ring, and the (32, 32) tiles of p (rounded), dS and dP
-  static constexpr int FLOATS = 2 * TD + 2 * STAGE + 3 * TILE * LDT;
+  static constexpr int FLOATS = TK + TV + 2 * STAGE + 3 * TILE * LDT;
   static constexpr int BYTES = 4 * FLOATS;
 };
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
     cc_dkdv(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const T* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
             T* __restrict__ dk, T* __restrict__ dv, Geometry g, int tiles) {
-  using L = DkdvTiles<D>;
-  using G = Grad<D, TEAM>;
+  constexpr int D = DQK;  // Q and K; V and dO are DV wide
+  using L = DkdvTiles<DQK, DV>;
+  using G = Grad<D, TEAM>;       // team 1: dK
+  using GV = Grad<DV, TEAM>;     // team 0: dV
+  constexpr int NA = G::N > GV::N ? G::N : GV::N;
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);
-  float* vs = ks + L::TD;
-  float* ring = vs + L::TD;
+  float* vs = ks + L::TK;
+  float* ring = vs + L::TV;
   float* ps = ring + 2 * L::STAGE;
   float* dss = ps + TILE * LDT;
   float* dps = dss + TILE * LDT;
@@ -709,6 +772,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int kv_heads = g.h / g.group;
   const long long q_row = static_cast<long long>(g.h) * D;
   const long long k_row = static_cast<long long>(kv_heads) * D;
+  const long long o_row = static_cast<long long>(g.h) * DV;     // dO
+  const long long v_row = static_cast<long long>(kv_heads) * DV;
   const int team = threadIdx.x / TEAM, t = threadIdx.x % TEAM;
   const int row = lane_row(), key = lane_key();
   for (int r = 0;; ++r) {
@@ -722,33 +787,36 @@ __global__ void __launch_bounds__(THREADS, 1)
     int first, n;
     share(g.group * nq, tile, &first, &n);
     const long long k_off = static_cast<long long>(b) * g.s * k_row + kvh * D;
+    const long long v_off = static_cast<long long>(b) * g.s * v_row + kvh * DV;
     auto load_step = [&](int i) {
       float* st = ring + (i % 2) * L::STAGE;
       const int head = kvh * g.group + (first + i) / nq;
       const int q0 = (qt0 + (first + i) % nq) * TILE;
       const long long q_off =
           static_cast<long long>(b) * g.s * q_row + head * D;
+      const long long o_off =
+          static_cast<long long>(b) * g.s * o_row + head * DV;
       load_rows<T, D>(st, q + q_off, q_row, q0, g.s);
-      load_rows<T, D>(st + L::TD, dout + q_off, q_row, q0, g.s);
+      load_rows<T, DV>(st + L::TK, dout + o_off, o_row, q0, g.s);
       // lse then delta of the 32 rows (the scratch holds rows up to S
       // rounded up to 64; stats zeroed those past S)
       if (threadIdx.x < 16) {
         const long long at =
             static_cast<long long>(b * g.h + head) * stat_stride(g.s) + q0;
         const float* from = threadIdx.x < 8 ? lse + at : delta + at - TILE;
-        cp_async16(st + 2 * L::TD + 4 * threadIdx.x, from + 4 * threadIdx.x,
-                   16);
+        cp_async16(st + L::TK + L::TV + 4 * threadIdx.x,
+                   from + 4 * threadIdx.x, 16);
       }
     };
     __syncthreads();  // the last tile is done with the shared memory
     load_rows<T, D>(ks, k + k_off, k_row, k0, g.s);
-    load_rows<T, D>(vs, v + k_off, k_row, k0, g.s);
+    load_rows<T, DV>(vs, v + v_off, v_row, k0, g.s);
     if (n > 0) load_step(0);
     cp_async_commit();
 
-    float acc[G::N];  // team 0: dV, team 1: dK
+    float acc[NA];  // team 0: dV, team 1: dK
 #pragma unroll
-    for (int x = 0; x < G::N; ++x) acc[x] = 0.f;
+    for (int x = 0; x < NA; ++x) acc[x] = 0.f;
     for (int i = 0; i < n; ++i) {
       cp_async_wait_all();
       __syncthreads();  // this step's tiles landed; the last step is done
@@ -757,13 +825,19 @@ __global__ void __launch_bounds__(THREADS, 1)
         cp_async_commit();
       }
       const float* qs = ring + (i % 2) * L::STAGE;
-      const float* dos = qs + L::TD;
-      const float* stat = dos + L::TD;  // lse, then delta
+      const float* dos = qs + L::TK;
+      const float* stat = dos + L::TV;  // lse, then delta
       const int q0 = (qt0 + (first + i) % nq) * TILE;
       // team 0: S = Q K^T, team 1: dP = dO V^T, through one call (two
-      // copies of the unrolled loop side by side cost instruction fetch)
+      // copies of the unrolled loop side by side cost instruction fetch;
+      // at MLA's pair the two products differ in depth and take two)
       float sc[8];
-      score_tile<D>(team == 0 ? qs : dos, team == 0 ? ks : vs, sc);
+      if constexpr (DQK == DV)
+        score_tile<D>(team == 0 ? qs : dos, team == 0 ? ks : vs, sc);
+      else if (team == 0)
+        score_tile<D>(qs, ks, sc);
+      else
+        score_tile<DV>(dos, vs, sc);
       if (team == 1) put_row(dps, sc);
       __syncthreads();  // dP is in dps
       if (team == 0) {
@@ -777,12 +851,34 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
       __syncthreads();  // p and dS are in ps, dss
       // team 0: dV += P^T dO, team 1: dK += dS^T Q
-      grad_tile<D, TEAM>(team == 0 ? ps : dss, team == 0 ? dos : qs, acc, t);
+      if constexpr (DQK == DV)
+        grad_tile<D, TEAM>(team == 0 ? ps : dss, team == 0 ? dos : qs, acc,
+                           t);
+      else if (team == 0)
+        grad_tile<DV, TEAM>(ps, dos, prefix<GV::N>(acc), t);
+      else
+        grad_tile<D, TEAM>(dss, qs, prefix<G::N>(acc), t);
     }
     cp_async_wait_all();
     __syncthreads();  // the ring is free: the cluster's partials go there
-    store_sum<T, D, TEAM>(acc, ring + team * TEAM * G::N,
-                          (team == 0 ? dv : dk) + k_off, k_row, k0, g.s, t);
+    if constexpr (DQK == DV) {
+      store_sum<T, D, TEAM>(acc, ring + team * TEAM * G::N,
+                            (team == 0 ? dv : dk) + k_off, k_row, k0, g.s,
+                            t);
+    } else {  // team 0's dV partials, then team 1's dK
+      float* part = ring + team * TEAM * GV::N;
+      if (team == 0)
+        put_part<DV, TEAM>(prefix<GV::N>(acc), part, t);
+      else
+        put_part<D, TEAM>(prefix<G::N>(acc), part, t);
+      if (gridDim.z > 1) sm90::cluster_sync();
+      if (team == 0)
+        sum_part<T, DV, TEAM>(prefix<GV::N>(acc), part, dv + v_off, v_row,
+                              k0, g.s, t);
+      else
+        sum_part<T, D, TEAM>(prefix<G::N>(acc), part, dk + k_off, k_row, k0,
+                             g.s, t);
+    }
     if (gridDim.z > 1) sm90::cluster_sync();  // the partials are read
   }
 }
@@ -791,27 +887,30 @@ __global__ void __launch_bounds__(THREADS, 1)
 // 32 query rows), dealt heaviest first; a cluster's blocks walk
 // consecutive shares of the key tiles of its rows' windows, K and V
 // through the ring
-template <int D>
+template <int DQK, int DV>
 struct DqTiles {
-  static constexpr int TD = TILE * D;
-  static constexpr int STAGE = 2 * TD;  // K, V
+  static constexpr int TK = TILE * DQK;  // a Q or K tile
+  static constexpr int TV = TILE * DV;   // a dO or V tile
+  static constexpr int STAGE = TK + TV;  // K, V
   // Q, dO, the ring, the dP and dS^T tiles, lse and delta
-  static constexpr int FLOATS = 2 * TD + 2 * STAGE + 2 * TILE * LDT + 2 * TILE;
+  static constexpr int FLOATS =
+      TK + TV + 2 * STAGE + 2 * TILE * LDT + 2 * TILE;
   static constexpr int BYTES = 4 * FLOATS;
 };
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
     cc_dq(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
           T* __restrict__ dq, Geometry g, int tiles) {
-  using L = DqTiles<D>;
+  constexpr int D = DQK;  // Q, K and dQ; V and dO are DV wide
+  using L = DqTiles<DQK, DV>;
   using G = Grad<D, THREADS>;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
-  float* dos = qs + L::TD;
-  float* ring = dos + L::TD;
+  float* dos = qs + L::TK;
+  float* ring = dos + L::TV;
   float* dps = ring + 2 * L::STAGE;
   float* dst = dps + TILE * LDT;   // dS^T: keys x rows
   float* stat = dst + TILE * LDT;  // lse, then delta
@@ -819,6 +918,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int kv_heads = g.h / g.group;
   const long long q_row = static_cast<long long>(g.h) * D;
   const long long k_row = static_cast<long long>(kv_heads) * D;
+  const long long o_row = static_cast<long long>(g.h) * DV;     // dO
+  const long long v_row = static_cast<long long>(kv_heads) * DV;
   const int team = threadIdx.x / TEAM;
   const int row = lane_row(), key = lane_key();
   for (int r = 0;; ++r) {
@@ -827,8 +928,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int bh = tile % heads, b = bh / g.h, h = bh % g.h;
     const int q0 = (nq - 1 - tile / heads) * TILE;
     const long long q_off = static_cast<long long>(b) * g.s * q_row + h * D;
+    const long long o_off = static_cast<long long>(b) * g.s * o_row + h * DV;
     const long long k_off =
         static_cast<long long>(b) * g.s * k_row + (h / g.group) * D;
+    const long long v_off =
+        static_cast<long long>(b) * g.s * v_row + (h / g.group) * DV;
     const int t0 = max(0, q0 - g.window + 1) / TILE;
     int first, n;
     share(min(q0 + TILE - 1, g.s - 1) / TILE - t0 + 1, tile, &first, &n);
@@ -836,11 +940,11 @@ __global__ void __launch_bounds__(THREADS, 1)
       float* st = ring + (i % 2) * L::STAGE;
       const int k0 = (t0 + first + i) * TILE;
       load_rows<T, D>(st, k + k_off, k_row, k0, g.s);
-      load_rows<T, D>(st + L::TD, v + k_off, k_row, k0, g.s);
+      load_rows<T, DV>(st + L::TK, v + v_off, v_row, k0, g.s);
     };
     __syncthreads();  // the last tile is done with the shared memory
     load_rows<T, D>(qs, q + q_off, q_row, q0, g.s);
-    load_rows<T, D>(dos, dout + q_off, q_row, q0, g.s);
+    load_rows<T, DV>(dos, dout + o_off, o_row, q0, g.s);
     if (threadIdx.x < 16) {
       const long long at = static_cast<long long>(bh) * stat_stride(g.s) + q0;
       const float* from = threadIdx.x < 8 ? lse + at : delta + at - TILE;
@@ -860,12 +964,18 @@ __global__ void __launch_bounds__(THREADS, 1)
         cp_async_commit();
       }
       const float* ks = ring + (i % 2) * L::STAGE;
-      const float* vs = ks + L::TD;
+      const float* vs = ks + L::TK;
       const int k0 = (t0 + first + i) * TILE;
       // team 0: S = Q K^T, team 1: dP = dO V^T, through one call (two
-      // copies of the unrolled loop side by side cost instruction fetch)
+      // copies of the unrolled loop side by side cost instruction fetch;
+      // at MLA's pair the two products differ in depth and take two)
       float sc[8];
-      score_tile<D>(team == 0 ? qs : dos, team == 0 ? ks : vs, sc);
+      if constexpr (DQK == DV)
+        score_tile<D>(team == 0 ? qs : dos, team == 0 ? ks : vs, sc);
+      else if (team == 0)
+        score_tile<D>(qs, ks, sc);
+      else
+        score_tile<DV>(dos, vs, sc);
       if (team == 1) put_row(dps, sc);
       __syncthreads();  // dP is in dps
       if (team == 0) {
@@ -944,8 +1054,8 @@ cudaError_t launch_clusters(void (*kernel)(Params...), int tiles, int parts,
 
 }  // namespace simt
 
-// the CUDA-core route's three kernels at (T, D)
-template <typename T, int D>
+// the CUDA-core route's three kernels at (T, DQK, DV)
+template <typename T, int DQK, int DV>
 int launch_t(const void* q, const void* k, const void* v, const void* o,
              const void* dout, void* dq, void* dk, void* dv, float* lse,
              float* delta, int batch, const Geometry& g,
@@ -953,16 +1063,16 @@ int launch_t(const void* q, const void* k, const void* v, const void* o,
   using namespace simt;
   static const cudaError_t attr = [] {  // once per instantiation
     cudaError_t e = cudaFuncSetAttribute(
-        cc_stats<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        StatsTiles<D>::BYTES);
+        cc_stats<T, DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        StatsTiles<DQK>::BYTES);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(cc_dkdv<T, D>,
+      e = cudaFuncSetAttribute(cc_dkdv<T, DQK, DV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               DkdvTiles<D>::BYTES);
+                               DkdvTiles<DQK, DV>::BYTES);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(cc_dq<T, D>,
+      e = cudaFuncSetAttribute(cc_dq<T, DQK, DV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               DqTiles<D>::BYTES);
+                               DqTiles<DQK, DV>::BYTES);
     return e;
   }();
   if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -978,18 +1088,18 @@ int launch_t(const void* q, const void* k, const void* v, const void* o,
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  e = launch_clusters(cc_stats<T, D>, batch * g.h * nt, rows,
-                      StatsTiles<D>::BYTES, stream, qt, kt,
+  e = launch_clusters(cc_stats<T, DQK, DV>, batch * g.h * nt, rows,
+                      StatsTiles<DQK>::BYTES, stream, qt, kt,
                       static_cast<const T*>(o), dot, lse, delta, g);
   if (e == cudaSuccess)
-    e = launch_clusters(cc_dkdv<T, D>, batch * kv * nt, keys,
-                        DkdvTiles<D>::BYTES, stream, qt, kt, vt, dot,
+    e = launch_clusters(cc_dkdv<T, DQK, DV>, batch * kv * nt, keys,
+                        DkdvTiles<DQK, DV>::BYTES, stream, qt, kt, vt, dot,
                         static_cast<const float*>(lse),
                         static_cast<const float*>(delta), static_cast<T*>(dk),
                         static_cast<T*>(dv), g);
   if (e == cudaSuccess)
-    e = launch_clusters(cc_dq<T, D>, batch * g.h * nt, rows,
-                        DqTiles<D>::BYTES, stream, qt, kt, vt, dot,
+    e = launch_clusters(cc_dq<T, DQK, DV>, batch * g.h * nt, rows,
+                        DqTiles<DQK, DV>::BYTES, stream, qt, kt, vt, dot,
                         static_cast<const float*>(lse),
                         static_cast<const float*>(delta), static_cast<T*>(dq),
                         g);
@@ -997,7 +1107,8 @@ int launch_t(const void* q, const void* k, const void* v, const void* o,
 }
 
 // ---------------------------------------------------------------------
-// bfloat16 at D = 64, 128, 256: tensor cores (namespace tcb)
+// bfloat16 at D = 64, 128, 256 and MLA's (192, 128): tensor cores
+// (namespace tcb)
 // ---------------------------------------------------------------------
 namespace tcb {
 
@@ -1144,13 +1255,14 @@ __device__ __forceinline__ void release(int* done, int st, bool more,
 template <int D>
 constexpr int stats_bytes() { return 3 * tile_bytes<D>() + 64 + 1024; }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(128, 2)
     tc_stats(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
              const bf16* __restrict__ o, const bf16* __restrict__ dout,
              float* __restrict__ lse, float* __restrict__ delta,
              Geometry g) {
+  constexpr int D = DQK;  // Q and K; o and dO are DV wide
   constexpr int T = tile_bytes<D>();
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sq = align1024(smem_raw);
@@ -1181,7 +1293,7 @@ __global__ void __launch_bounds__(128, 2)
   // delta while the tiles land: warp w takes rows w, w + 4, ...; a lane
   // reads 8 columns at a time.  The rows past S of the last tile get 0,
   // as their lse does: the other kernels read them, and mask them.
-  const long long q_row = static_cast<long long>(g.h) * D;
+  const long long o_row = static_cast<long long>(g.h) * DV;
   const long long st_row = static_cast<long long>(bh) * stat_stride(g.s);
   for (int r = warp; r < BT; r += 4) {
     const int i = q0 + r;
@@ -1190,9 +1302,9 @@ __global__ void __launch_bounds__(128, 2)
       continue;
     }
     const long long at =
-        (static_cast<long long>(b) * g.s + i) * q_row + head * D;
+        (static_cast<long long>(b) * g.s + i) * o_row + head * DV;
     float acc = 0.0f;
-    for (int c = 8 * lane; c < D; c += 256) {
+    for (int c = 8 * lane; c < DV; c += 256) {
       const uint4 ov = *reinterpret_cast<const uint4*>(o + at + c);
       const uint4 dv = *reinterpret_cast<const uint4*>(dout + at + c);
       const __nv_bfloat162* op =
@@ -1264,17 +1376,18 @@ __global__ void __launch_bounds__(128, 2)
 // group's query heads.  Warpgroup 0: S^T = K Q^T, P^T, dV += P^T dO;
 // warpgroup 1: dP^T = V dO^T, dS^T, dK += dS^T Q.  Warpgroup 0 hands
 // P^T D^-0.5 (1 - t^2) to warpgroup 1 through shared memory (`pc`).
-template <int D>
+template <int DQK, int DV>
 struct DkdvSmem {
-  static constexpr int T = tile_bytes<D>();
+  static constexpr int T = tile_bytes<DQK>();  // a K or Q tile
+  static constexpr int TV = tile_bytes<DV>();  // a V or dO tile
   // a ring stage: Q, dO, then lse and delta of its 64 rows (padded so
   // that the next stage starts on 1024 bytes)
-  static constexpr int STAGE = 2 * T + 1024;
+  static constexpr int STAGE = T + TV + 1024;
   static constexpr int PC = 4 * BT * BT;
-  static constexpr int BYTES = 2 * T + STAGES * STAGE + PC + 64 + 1024;
+  static constexpr int BYTES = T + TV + STAGES * STAGE + PC + 64 + 1024;
 };
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(256, 1)
     tc_dkdv(const __grid_constant__ CUtensorMap tq,
             const __grid_constant__ CUtensorMap tk,
@@ -1282,12 +1395,15 @@ __global__ void __launch_bounds__(256, 1)
             const __grid_constant__ CUtensorMap tdo,
             const float* __restrict__ lse, const float* __restrict__ delta,
             bf16* __restrict__ dk, bf16* __restrict__ dv, Geometry g) {
-  using L = DkdvSmem<D>;
-  constexpr int T = L::T;
+  constexpr int D = DQK;  // K, Q and dK; V, dO and dV are DV wide
+  using L = DkdvSmem<DQK, DV>;
+  constexpr int T = L::T, TV = L::TV;
+  // accumulators a thread: warpgroup 0's dV, warpgroup 1's dK
+  constexpr int NV = DV / 2, NK = D / 2, NA = NV > NK ? NV : NK;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sk = align1024(smem_raw);
   unsigned char* sv = sk + T;
-  unsigned char* ring = sv + T;
+  unsigned char* ring = sv + TV;
   float* pc = reinterpret_cast<float*>(ring + STAGES * L::STAGE);
   uint64_t* full = reinterpret_cast<uint64_t*>(pc + BT * BT);
   uint64_t* kv_full = full + STAGES;
@@ -1316,11 +1432,11 @@ __global__ void __launch_bounds__(256, 1)
     const int q0 = (qt0 + (first + i) % nq) * BT;
     const long long at =
         static_cast<long long>(b * g.h + head) * stat_stride(g.s) + q0;
-    mbar_expect(bar, 2 * T + 2 * 4 * BT);
+    mbar_expect(bar, T + TV + 2 * 4 * BT);
     load_tile<D>(stage, &tq, head, q0, b, bar);
-    load_tile<D>(stage + T, &tdo, head, q0, b, bar);
-    bulk_load(stage + 2 * T, lse + at, 4 * BT, bar);
-    bulk_load(stage + 2 * T + 4 * BT, delta + at, 4 * BT, bar);
+    load_tile<DV>(stage + T, &tdo, head, q0, b, bar);
+    bulk_load(stage + T + TV, lse + at, 4 * BT, bar);
+    bulk_load(stage + T + TV + 4 * BT, delta + at, 4 * BT, bar);
   };
   if (threadIdx.x == 0) {
     for (int i = 0; i < STAGES; ++i) {
@@ -1329,9 +1445,9 @@ __global__ void __launch_bounds__(256, 1)
     }
     mbar_init(kv_full, 1);
     mbar_fence_init();
-    mbar_expect(kv_full, 2 * T);
+    mbar_expect(kv_full, T + TV);
     load_tile<D>(sk, &tk, kvh, k0, b, kv_full);
-    load_tile<D>(sv, &tv, kvh, k0, b, kv_full);
+    load_tile<DV>(sv, &tv, kvh, k0, b, kv_full);
     for (int i = 0; i < min(n, STAGES); ++i) load_step(i);
   }
   __syncthreads();
@@ -1340,12 +1456,15 @@ __global__ void __launch_bounds__(256, 1)
   const int lane = tid % 32, warp = tid / 32;
   const int key0 = k0 + 16 * warp + lane / 4;  // this lane's first key
   const int col = 2 * (lane % 4);
-  const long long kv_row = static_cast<long long>(kv_heads) * D;
+  // dV's rows (warpgroup 0) are DV wide, dK's (warpgroup 1) D
+  const int out_d = wg == 0 ? DV : D;
+  const long long kv_row = static_cast<long long>(kv_heads) * out_d;
   bf16* const out_base = (wg == 0 ? dv : dk) +
-                         static_cast<long long>(b) * g.s * kv_row + kvh * D;
-  float acc[D / 2];
+                         static_cast<long long>(b) * g.s * kv_row +
+                         kvh * out_d;
+  float acc[NA];
 #pragma unroll
-  for (int x = 0; x < D / 2; ++x) acc[x] = 0.0f;
+  for (int x = 0; x < NA; ++x) acc[x] = 0.0f;
   float sc[32];
 #pragma unroll
   for (int x = 0; x < 32; ++x) sc[x] = 0.0f;
@@ -1355,7 +1474,7 @@ __global__ void __launch_bounds__(256, 1)
     for (int i = 0; i < n; ++i) {
       const int st = i % STAGES;
       const unsigned char* stage = ring + st * L::STAGE;
-      const float* lse_s = reinterpret_cast<const float*>(stage + 2 * T);
+      const float* lse_s = reinterpret_cast<const float*>(stage + T + TV);
       const int q0 = (qt0 + (first + i) % nq) * BT;
       mbar_wait(&full[st], (i / STAGES) & 1);
       product_ss<D>(sc, sk, stage);  // S^T = K Q^T: keys x query rows
@@ -1372,7 +1491,7 @@ __global__ void __launch_bounds__(256, 1)
       }
       bar_arrive<1, 256>();  // pc is ready
       pack_frags(sc, frag);  // p rounded to bf16, as the forward's
-      product_rs<D>(acc, frag, stage + T, 0);  // dV += P^T dO
+      product_rs<DV>(prefix<NV>(acc), frag, stage + T, 0);  // dV += P^T dO
       release<3>(done, st, i + STAGES < n, [&] { load_step(i + STAGES); });
     }
   } else {
@@ -1381,16 +1500,16 @@ __global__ void __launch_bounds__(256, 1)
       const int st = i % STAGES;
       const unsigned char* stage = ring + st * L::STAGE;
       const float* delta_s =
-          reinterpret_cast<const float*>(stage + 2 * T + 4 * BT);
+          reinterpret_cast<const float*>(stage + T + TV + 4 * BT);
       mbar_wait(&full[st], (i / STAGES) & 1);
-      product_ss<D>(sc, sv, stage + T);  // dP^T = V dO^T
+      product_ss<DV>(sc, sv, stage + T);  // dP^T = V dO^T
       bar_sync<1, 256>();                // pc is ready
 #pragma unroll
       for (int x = 0; x < 32; ++x)
         sc[x] = pc[x * 128 + tid] * (sc[x] - delta_s[col + acc_col(x)]);
       if (i + 1 < n) bar_arrive<2, 256>();  // pc is free
       pack_frags(sc, frag);                 // dS^T rounded to bf16
-      product_rs<D>(acc, frag, stage, 0);   // dK += dS^T Q
+      product_rs<D>(prefix<NK>(acc), frag, stage, 0);  // dK += dS^T Q
       release<4>(done, st, i + STAGES < n, [&] { load_step(i + STAGES); });
     }
   }
@@ -1398,43 +1517,58 @@ __global__ void __launch_bounds__(256, 1)
     // the cluster's partial sums, in order: block 1 leaves its
     // accumulators in its ring (no load is in flight once both
     // warpgroups are done), block 0 adds them to its own and stores
+    // (warpgroup 1's after warpgroup 0's NV; x < NA past a warpgroup's
+    // own accumulators is skipped at MLA's pair)
     __syncthreads();
-    float* part = reinterpret_cast<float*>(ring) + wg * (D / 2) * 128;
+    const int nw = wg == 0 ? NV : NK;
+    float* part = reinterpret_cast<float*>(ring) + wg * NV * 128;
     if (blockIdx.z == 1) {
 #pragma unroll
-      for (int x = 0; x < D / 2; ++x) part[x * 128 + tid] = acc[x];
+      for (int x = 0; x < NA; ++x)
+        if (NV == NK || x < nw) part[x * 128 + tid] = acc[x];
     }
     cluster_sync();
     if (blockIdx.z == 0) {
       const uint32_t other = cluster_addr(part, 1);
 #pragma unroll
-      for (int x = 0; x < D / 2; ++x)
-        acc[x] += ld_cluster(other + 4 * (x * 128 + tid));
+      for (int x = 0; x < NA; ++x)
+        if (NV == NK || x < nw) acc[x] += ld_cluster(other + 4 * (x * 128 + tid));
     }
     cluster_sync();  // block 1's shared memory stays until it is read
     if (blockIdx.z != 0) return;
   }
-  store_rows<D>(acc, out_base, kv_row, k0, 0, g.s);
+  if constexpr (DQK == DV)
+    store_rows<D>(acc, out_base, kv_row, k0, 0, g.s);
+  else if (wg == 0)
+    store_rows<DV>(prefix<NV>(acc), out_base, kv_row, k0, 0, g.s);
+  else
+    store_rows<D>(prefix<NK>(acc), out_base, kv_row, k0, 0, g.s);
 }
 
 // 3. dq of 64 query rows of one (batch, head), over the key tiles of the
 // rows' windows, K and V through a 2-stage TMA ring.  Warpgroup 0: S =
 // Q K^T and P, handing P D^-0.5 (1 - t^2) to warpgroup 1 (`pc`);
 // warpgroup 1: dP = dO V^T and dS, handing dS's bf16 fragments back
-// (`dsf`).  dQ += dS K is split by columns, D / 2 each (at D = 64
-// warpgroup 1 takes all of it: half an atom is no wgmma operand).
-template <int D>
+// (`dsf`).  dQ += dS K is split by columns, DV / 2 to warpgroup 0 and
+// the rest to warpgroup 1, so that both run as many products (S is D
+// deep, dP DV; at D = DV, D / 2 each; at MLA's (192, 128) 64 and 128,
+// whole 64-column atoms: an MN-major operand cannot start inside a
+// swizzle atom, so no n96 split at column 96).  At DV = 64 warpgroup 1
+// takes all of it: half an atom is no wgmma operand.
+template <int DQK, int DV>
 struct DqSmem {
-  static constexpr int T = tile_bytes<D>();
-  static constexpr int STAGE = 2 * T;  // K, then V
+  static constexpr int T = tile_bytes<DQK>();  // a Q or K tile
+  static constexpr int TV = tile_bytes<DV>();  // a dO or V tile
+  static constexpr int STAGE = T + TV;  // K, then V
   static constexpr int PC = 4 * BT * BT;
   static constexpr int DSF = 4 * 16 * 128;
-  static constexpr int BYTES = 2 * T + STAGES * STAGE + PC + DSF + 64 + 1024;
-  static constexpr int D0 = D >= 128 ? D / 2 : 0;  // warpgroup 0's columns
-  static constexpr int D1 = D - D0;                // warpgroup 1's
+  static constexpr int BYTES = T + TV + STAGES * STAGE + PC + DSF + 64 + 1024;
+  static constexpr int D0 = DV >= 128 ? DV / 2 : 0;  // warpgroup 0's columns
+  static constexpr int D1 = DQK - D0;                // warpgroup 1's
+  static_assert(D0 % ATOM == 0 && D1 % ATOM == 0, "whole atoms");
 };
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(256, 1)
     tc_dq(const __grid_constant__ CUtensorMap tq,
           const __grid_constant__ CUtensorMap tk,
@@ -1442,12 +1576,13 @@ __global__ void __launch_bounds__(256, 1)
           const __grid_constant__ CUtensorMap tdo,
           const float* __restrict__ lse, const float* __restrict__ delta,
           bf16* __restrict__ dq, Geometry g) {
-  using L = DqSmem<D>;
-  constexpr int T = L::T;
+  constexpr int D = DQK;  // Q, K and dQ; dO and V are DV wide
+  using L = DqSmem<DQK, DV>;
+  constexpr int T = L::T, TV = L::TV;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sq = align1024(smem_raw);
   unsigned char* sdo = sq + T;
-  unsigned char* ring = sdo + T;
+  unsigned char* ring = sdo + TV;
   float* pc = reinterpret_cast<float*>(ring + STAGES * L::STAGE);
   uint32_t* dsf = reinterpret_cast<uint32_t*>(pc + BT * BT);
   uint64_t* full = reinterpret_cast<uint64_t*>(dsf + 16 * 128);
@@ -1464,9 +1599,9 @@ __global__ void __launch_bounds__(256, 1)
   auto load_step = [&](int i) {
     unsigned char* stage = ring + (i % STAGES) * L::STAGE;
     uint64_t* bar = &full[i % STAGES];
-    mbar_expect(bar, 2 * T);
+    mbar_expect(bar, T + TV);
     load_tile<D>(stage, &tk, kvh, (t0 + i) * BT, b, bar);
-    load_tile<D>(stage + T, &tv, kvh, (t0 + i) * BT, b, bar);
+    load_tile<DV>(stage + T, &tv, kvh, (t0 + i) * BT, b, bar);
   };
   if (threadIdx.x == 0) {
     for (int i = 0; i < STAGES; ++i) {
@@ -1475,9 +1610,9 @@ __global__ void __launch_bounds__(256, 1)
     }
     mbar_init(qd_full, 1);
     mbar_fence_init();
-    mbar_expect(qd_full, 2 * T);
+    mbar_expect(qd_full, T + TV);
     load_tile<D>(sq, &tq, head, q0, b, qd_full);
-    load_tile<D>(sdo, &tdo, head, q0, b, qd_full);
+    load_tile<DV>(sdo, &tdo, head, q0, b, qd_full);
     for (int i = 0; i < min(n, STAGES); ++i) load_step(i);
   }
   __syncthreads();
@@ -1499,7 +1634,7 @@ __global__ void __launch_bounds__(256, 1)
   mbar_wait(qd_full, 0);
 
   if (wg == 0) {
-    constexpr int N0 = L::D0 > 0 ? L::D0 : 8;  // (unused at D = 64)
+    constexpr int N0 = L::D0 > 0 ? L::D0 : 8;  // (unused at DV = 64)
     float acc[N0 / 2];
 #pragma unroll
     for (int x = 0; x < N0 / 2; ++x) acc[x] = 0.0f;
@@ -1539,7 +1674,7 @@ __global__ void __launch_bounds__(256, 1)
       const int st = i % STAGES;
       const unsigned char* stage = ring + st * L::STAGE;
       mbar_wait(&full[st], (i / STAGES) & 1);
-      product_ss<D>(sc, sdo, stage + T);  // dP = dO V^T
+      product_ss<DV>(sc, sdo, stage + T);  // dP = dO V^T
       bar_sync<1, 256>();                 // pc is ready
 #pragma unroll
       for (int x = 0; x < 32; ++x)
@@ -1567,41 +1702,44 @@ inline int dkdv_parts(int blocks, int sms, int s, int window) {
   return blocks <= sms && 2 * window > s ? 2 : 1;
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, void* dq, void* dk, void* dv, float* lse,
            float* delta, int batch, const Geometry& g, cudaStream_t stream) {
-  static const cudaError_t attr = [] {  // once per head dim
+  static const cudaError_t attr = [] {  // once per head-dim pair
     cudaError_t e = cudaFuncSetAttribute(
-        tc_stats<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        stats_bytes<D>());
+        tc_stats<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        stats_bytes<DQK>());
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(tc_dkdv<D>,
+      e = cudaFuncSetAttribute(tc_dkdv<DQK, DV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               DkdvSmem<D>::BYTES);
+                               DkdvSmem<DQK, DV>::BYTES);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(tc_dq<D>,
+      e = cudaFuncSetAttribute(tc_dq<DQK, DV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               DqSmem<D>::BYTES);
+                               DqSmem<DQK, DV>::BYTES);
     return e;
   }();
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int kv = g.h / g.group;
-  const long long qs = static_cast<long long>(g.h) * D;  // a q row
-  const long long ks = static_cast<long long>(kv) * D;   // a k row
+  const long long qs = static_cast<long long>(g.h) * DQK;  // a q row
+  const long long os = static_cast<long long>(g.h) * DV;   // a dO row
+  const long long ks = static_cast<long long>(kv) * DQK;   // a k row
+  const long long vs = static_cast<long long>(kv) * DV;    // a v row
   CUtensorMap tq, tk, tv, tdo;
-  int err = tensor_map_4d(&tq, q, qs * g.s, qs, D, batch, g.s, g.h, D, BT);
+  int err = tensor_map_4d(&tq, q, qs * g.s, qs, DQK, batch, g.s, g.h, DQK, BT);
   if (!err)
-    err = tensor_map_4d(&tdo, dout, qs * g.s, qs, D, batch, g.s, g.h, D, BT);
+    err = tensor_map_4d(&tdo, dout, os * g.s, os, DV, batch, g.s, g.h, DV, BT);
   if (!err)
-    err = tensor_map_4d(&tk, k, ks * g.s, ks, D, batch, g.s, kv, D, BT);
+    err = tensor_map_4d(&tk, k, ks * g.s, ks, DQK, batch, g.s, kv, DQK, BT);
   if (!err)
-    err = tensor_map_4d(&tv, v, ks * g.s, ks, D, batch, g.s, kv, D, BT);
+    err = tensor_map_4d(&tv, v, vs * g.s, vs, DV, batch, g.s, kv, DV, BT);
   if (err) return err;
   const int tiles = (g.s + BT - 1) / BT;
-  tc_stats<D><<<dim3(batch * g.h, tiles), 128, stats_bytes<D>(), stream>>>(
-      tq, tk, static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
-      lse, delta, g);
+  tc_stats<DQK, DV>
+      <<<dim3(batch * g.h, tiles), 128, stats_bytes<DQK>(), stream>>>(
+          tq, tk, static_cast<const bf16*>(o),
+          static_cast<const bf16*>(dout), lse, delta, g);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   // the key tiles' walks are balanced while the window is short; on a
@@ -1617,7 +1755,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(batch * kv, tiles, parts);
   cfg.blockDim = dim3(256);
-  cfg.dynamicSmemBytes = DkdvSmem<D>::BYTES;
+  cfg.dynamicSmemBytes = DkdvSmem<DQK, DV>::BYTES;
   cfg.stream = stream;
   cudaLaunchAttribute cluster[1];
   cluster[0].id = cudaLaunchAttributeClusterDimension;
@@ -1626,37 +1764,42 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   cluster[0].val.clusterDim.z = parts;
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, tc_dkdv<D>, tq, tk, tv, tdo,
+  e = cudaLaunchKernelEx(&cfg, tc_dkdv<DQK, DV>, tq, tk, tv, tdo,
                          static_cast<const float*>(lse),
                          static_cast<const float*>(delta),
                          static_cast<bf16*>(dk), static_cast<bf16*>(dv), g);
   if (e == cudaSuccess) e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  tc_dq<D><<<dim3(batch * g.h, tiles), 256, DqSmem<D>::BYTES, stream>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<bf16*>(dq), g);
+  tc_dq<DQK, DV><<<dim3(batch * g.h, tiles), 256, DqSmem<DQK, DV>::BYTES,
+                   stream>>>(tq, tk, tv, tdo, lse, delta,
+                             static_cast<bf16*>(dq), g);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tcb
 
-// the CUDA-core route in float32, at every head dim
-int launch_f32(int d, const void* q, const void* k, const void* v,
-               const void* o, const void* dout, void* dq, void* dk, void* dv,
-               float* lse, float* delta, int batch, const Geometry& g,
-               cudaStream_t stream) {
+// the CUDA-core route in float32, at every head-dim pair
+int launch_f32(int d, int dv, const void* q, const void* k, const void* v,
+               const void* o, const void* dout, void* dq, void* dk,
+               void* dvo, float* lse, float* delta, int batch,
+               const Geometry& g, cudaStream_t stream) {
+  if (d == 192 && dv == 128)
+    return launch_t<float, 192, 128>(q, k, v, o, dout, dq, dk, dvo, lse,
+                                     delta, batch, g, stream);
+  if (d != dv) return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
     case 16:
-      return launch_t<float, 16>(q, k, v, o, dout, dq, dk, dv, lse, delta,
-                                 batch, g, stream);
+      return launch_t<float, 16, 16>(q, k, v, o, dout, dq, dk, dvo, lse,
+                                     delta, batch, g, stream);
     case 64:
-      return launch_t<float, 64>(q, k, v, o, dout, dq, dk, dv, lse, delta,
-                                 batch, g, stream);
+      return launch_t<float, 64, 64>(q, k, v, o, dout, dq, dk, dvo, lse,
+                                     delta, batch, g, stream);
     case 128:
-      return launch_t<float, 128>(q, k, v, o, dout, dq, dk, dv, lse, delta,
-                                  batch, g, stream);
+      return launch_t<float, 128, 128>(q, k, v, o, dout, dq, dk, dvo, lse,
+                                       delta, batch, g, stream);
     case 256:
-      return launch_t<float, 256>(q, k, v, o, dout, dq, dk, dv, lse, delta,
-                                  batch, g, stream);
+      return launch_t<float, 256, 256>(q, k, v, o, dout, dq, dk, dvo, lse,
+                                       delta, batch, g, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1664,38 +1807,44 @@ int launch_f32(int d, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q, o, dout, dq: (batch, s, h, d) contiguous; k, v, dk, dv: (batch, s,
-// h / group, d) contiguous; lse, delta: float scratch of batch * h * (s
-// rounded up to 64) each, on 16 bytes.
-// The route: bf16 at d = 64, 128, 256 takes the tensor-core kernels,
-// float32 and bf16 at d = 16 the CUDA-core ones (another d is refused).
-// Launches the route's three kernels on `stream`; returns
+// q, o, dout, dq: (batch, s, h, d or dv) contiguous; k, v, dk, dv:
+// (batch, s, h / group, d or dv) contiguous (q, k, dq, dk d wide; v, o,
+// dout, dv dv wide); lse, delta: float scratch of batch * h * (s rounded
+// up to 64) each, on 16 bytes.
+// The route: bf16 at (d, dv) = (64, 64), (128, 128), (256, 256) and
+// (192, 128) takes the tensor-core kernels, float32 at those pairs and
+// (16, 16), and bf16 at (16, 16), the CUDA-core ones (another pair is
+// refused).  Launches the route's three kernels on `stream`; returns
 // cudaGetLastError() after the launches (0 on success).
 extern "C" int local_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, float* lse, float* delta,
-    int batch, int s, int h, int group, int d, int window, float scale,
-    float softcap, int bf16, void* stream) {
+    int batch, int s, int h, int group, int d, int dvw, int window,
+    float scale, float softcap, int bf16, void* stream) {
   const Geometry g{s, h, group, window, scale, softcap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) {
+    if (d == 192 && dvw == 128)
+      return tcb::launch<192, 128>(q, k, v, o, dout, dq, dk, dv, lse, delta,
+                                   batch, g, st);
+    if (d != dvw) return static_cast<int>(cudaErrorInvalidValue);
     switch (d) {
       case 64:
-        return tcb::launch<64>(q, k, v, o, dout, dq, dk, dv, lse, delta,
-                               batch, g, st);
+        return tcb::launch<64, 64>(q, k, v, o, dout, dq, dk, dv, lse, delta,
+                                   batch, g, st);
       case 128:
-        return tcb::launch<128>(q, k, v, o, dout, dq, dk, dv, lse, delta,
-                                batch, g, st);
+        return tcb::launch<128, 128>(q, k, v, o, dout, dq, dk, dv, lse,
+                                     delta, batch, g, st);
       case 256:
-        return tcb::launch<256>(q, k, v, o, dout, dq, dk, dv, lse, delta,
-                                batch, g, st);
+        return tcb::launch<256, 256>(q, k, v, o, dout, dq, dk, dv, lse,
+                                     delta, batch, g, st);
       case 16:
-        return launch_t<__nv_bfloat16, 16>(q, k, v, o, dout, dq, dk, dv,
-                                           lse, delta, batch, g, st);
+        return launch_t<__nv_bfloat16, 16, 16>(q, k, v, o, dout, dq, dk, dv,
+                                               lse, delta, batch, g, st);
       default:
         return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  return launch_f32(d, q, k, v, o, dout, dq, dk, dv, lse, delta, batch, g,
-                    st);
+  return launch_f32(d, dvw, q, k, v, o, dout, dq, dk, dv, lse, delta, batch,
+                    g, st);
 }

@@ -44,12 +44,14 @@ call goes through :class:`LocalAttentionFn`: its forward launches the
 same kernel, and its backward launches :func:`local_attention_bwd`
 (``csrc/local_attention_bwd.cu``, ``LAUNCHES["local_attention_bwd"]``
 once per backward), which recomputes each row's log-sum-exp and gives
-dq, dk and dv.  It is built for the (D, D) pairs of ``HEAD_DIMS``
-(``BWD_HEAD_DIMS``) on one of two routes, which :func:`bwd_route`
-chooses by (dtype, D): bfloat16 at D = 64, 128 and 256 on the tensor
-cores (``wgmma``, TMA), float32 and bfloat16 at D = 16 on the CUDA
-cores.  A call that needs the gradient at another pair raises before
-any launch rather than return an output with no ``grad_fn``.
+dq, dk and dv.  It is built for the (q/k, v) head-dim pairs
+``BWD_HEAD_DIM_PAIRS`` (those of the forward: (D, D) for ``HEAD_DIMS``
+and MLA's (192, 128)) on one of two routes, which :func:`bwd_route`
+chooses by (dtype, pair): bfloat16 at (64, 64), (128, 128), (256, 256)
+and (192, 128) on the tensor cores (``wgmma``, TMA), float32 at every
+pair and bfloat16 at (16, 16) on the CUDA cores.  A call that needs the
+gradient at another pair raises before any launch rather than return an
+output with no ``grad_fn``.
 :func:`local_attention_bwd_plain` and
 :func:`local_attention_row_stats_plain` are its plain versions.
 
@@ -85,13 +87,12 @@ MASKED = -1e30
 LAUNCHES = {"local_attention": 0, "local_attention_f32": 0,
             "local_attention_bwd": 0}
 BWD_SOURCE = _build.CSRC / "local_attention_bwd.cu"
-#: head dims the backward kernel is built for, each as (D, D); MLA's
-#: (192, 128) waits for the MLA training slice
-BWD_HEAD_DIMS = HEAD_DIMS
+#: the (q/k, v) head-dim pairs the backward kernel is built for: the
+#: forward's, each of HEAD_DIMS with itself and MLA's (192, 128)
+BWD_HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 #: what a call that needs a gradient the card cannot give raises with
-NO_BWD = ("the attention backward kernel is built for (D, D) with D in "
-          f"{BWD_HEAD_DIMS}; MLA's (192, 128) pair is ROADMAP Queue 1 "
-          "item 16(b)")
+NO_BWD = ("the attention backward kernel is built for the (q/k, v) "
+          f"head-dim pairs {BWD_HEAD_DIM_PAIRS}")
 #: the bfloat16 kernel's tiling (``tc::`` in the CUDA source): query rows
 #: per block, keys per tile, rows per warpgroup, keys per chunk of P V
 TC_BLOCK_Q, TC_BLOCK_K, TC_ROWS, TC_CHUNK = 128, 64, 64, 16
@@ -104,8 +105,8 @@ F32_TILES = dict(block_q=F32_BLOCK_Q, block_k=F32_BLOCK_K, rows=8, chunk=4)
 #: the tensor-core backward's query rows and keys per tile (``tcb`` in
 #: the CUDA source)
 BWD_TC_TILE = 64
-#: head dims at which a bfloat16 backward runs on the tensor cores
-BWD_TC_HEAD_DIMS = (64, 128, 256)
+#: head-dim pairs at which a bfloat16 backward runs on the tensor cores
+BWD_TC_HEAD_DIM_PAIRS = ((64, 64), (128, 128), (256, 256), (192, 128))
 #: the CUDA-core backward's query rows and keys per tile (``simt`` in the
 #: CUDA source), and the most blocks a cluster splits a tile's walk over
 BWD_CC_TILE, BWD_CC_MAX_PARTS = 32, 8
@@ -179,17 +180,17 @@ def tile_schedule(s: int, window: int, block_q: int = TC_BLOCK_Q,
 def bwd_route(dtype: torch.dtype, d: int, dv: Optional[int] = None) -> str:
     """The backward kernels a CUDA call at (dtype, q/k head dim ``d``, v
     head dim ``dv``, ``d`` when not given) launches: ``"tensor_cores"``
-    for bfloat16 at D in ``BWD_TC_HEAD_DIMS``, ``"cuda_cores"`` for
-    float32 and for bfloat16 at D = 16 (reduced configs only).  The C
-    entry point dispatches by the same rule; this is the one place the
-    wrappers ask, before any launch.  Raises RuntimeError (``NO_BWD``)
-    at a pair with no backward: any (DQK, DV) but the (D, D) of
-    ``BWD_HEAD_DIMS``, MLA's (192, 128) among them."""
+    for bfloat16 at a pair of ``BWD_TC_HEAD_DIM_PAIRS``, ``"cuda_cores"``
+    for float32 and for bfloat16 at (16, 16) (reduced configs only).
+    The C entry point dispatches by the same rule; this is the one place
+    the wrappers ask, before any launch.  Raises RuntimeError
+    (``NO_BWD``) at a pair with no backward: any (DQK, DV) not in
+    ``BWD_HEAD_DIM_PAIRS``."""
     dv = d if dv is None else dv
-    if d != dv or d not in BWD_HEAD_DIMS:
+    if (d, dv) not in BWD_HEAD_DIM_PAIRS:
         raise RuntimeError(f"head dims (q/k {d}, v {dv}) need a gradient: "
                            f"{NO_BWD}")
-    if dtype == torch.bfloat16 and d in BWD_TC_HEAD_DIMS:
+    if dtype == torch.bfloat16 and (d, dv) in BWD_TC_HEAD_DIM_PAIRS:
         return "tensor_cores"
     return "cuda_cores"
 
@@ -378,7 +379,7 @@ def _bwd_launcher():
     lib = ctypes.CDLL(str(build_bwd()[0]))
     fn = lib.local_attention_bwd_launch
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [ptr] * 10 + [i32] * 6 + [f32, f32, i32, ptr]
+    fn.argtypes = [ptr] * 10 + [i32] * 7 + [f32, f32, i32, ptr]
     fn.restype = ctypes.c_int
     return fn
 
@@ -573,7 +574,10 @@ def local_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     rounded to v's type for ``dV = p^T dO``; ``dS = p (dO V^T - D)``,
     times ``1 - tanh^2(s / cap)`` under a soft cap, then the scale; dQ
     = dS K and dK = dS^T Q, a kv head's group summed.  Outputs in the
-    operands' types: dq (B, S, H, D), dk and dv (B, S, KV, D)."""
+    operands' types: dq (B, S, H, DQK), dk (B, S, KV, DQK) and dv (B, S,
+    KV, DV).  The heads are independent: a call on a slice of them gives
+    that slice of the gradients (``chip_smoke.py`` runs a wide call head
+    slice by head slice)."""
     _check(q, k, v, window, softcap)
     b, s, h, d = q.shape
     kvh = k.shape[2]
@@ -604,14 +608,15 @@ def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *, window: int,
                         softcap: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of :func:`grouped_local_attention` at q (B, S, H, D),
-    k, v (B, S, KV, D), its output o and the output's gradient do.
+    """(dq, dk, dv) of :func:`grouped_local_attention` at q (B, S, H,
+    DQK), k (B, S, KV, DQK), v (B, S, KV, DV), its output o and the
+    output's gradient do (B, S, H, DV).
 
     CPU tensors take :func:`local_attention_bwd_plain`.  CUDA tensors
     launch the three kernels of the route :func:`bwd_route` names for
-    (dtype, D) (``LAUNCHES["local_attention_bwd"]`` counts each call), at
-    the (D, D) pairs of ``BWD_HEAD_DIMS``; another pair raises before any
-    launch."""
+    (dtype, DQK, DV) (``LAUNCHES["local_attention_bwd"]`` counts each
+    call), at the pairs of ``BWD_HEAD_DIM_PAIRS``; another pair raises
+    before any launch."""
     _check(q, k, v, window, softcap)
     if o.shape != q.shape[:3] + v.shape[3:] or do.shape != o.shape:
         raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
@@ -623,7 +628,8 @@ def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"local attention runs on cpu or cuda, not "
                          f"{q.device}")
     b, s, h, d = q.shape
-    bwd_route(q.dtype, d, v.shape[3])  # raises where there is no backward
+    dv_dim = v.shape[3]
+    bwd_route(q.dtype, d, dv_dim)  # raises where there is no backward
     if b * h > 65535:
         raise ValueError(f"(B, S, H) = ({b}, {s}, {h}) exceeds the backward "
                          f"kernel's grid")
@@ -647,8 +653,9 @@ def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = launch(*(t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv,
                                               lse, delta)),
-                     b, s, h, h // k.shape[2], d, min(int(window), s),
-                     d ** -0.5, 0.0 if softcap is None else float(softcap),
+                     b, s, h, h // k.shape[2], d, dv_dim,
+                     min(int(window), s), d ** -0.5,
+                     0.0 if softcap is None else float(softcap),
                      int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"local_attention_bwd launch failed: CUDA error "

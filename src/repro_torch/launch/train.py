@@ -15,12 +15,17 @@ deterministic ``synthetic_batch(spec, step)``, each step runs under the
 ``--ckpt-dir`` every ``--ckpt-every`` steps and at the end.  The port
 checkpoints the optimizer state beside the params (the reference saves
 the params alone), so ``--resume`` continues where the run stopped and
-gives the uninterrupted run's params.  The dense decoder family
-(gemma3-1b, gemma2-27b, qwen2-0.5b, minitron-8b), the MoE stack
-(granite-moe-3b-a800m), the Mamba stack (falcon-mamba-7b) and the hybrid
-(jamba-v0.1-52b) train; MLA with multi-token prediction (deepseek-v3),
-the vit_stub frontend (internvl2) and the encoder-decoder (seamless-m4t)
-raise (ROADMAP Queue 1 items 16(b), 16(c)).
+gives the uninterrupted run's params.  Every config in ``configs/``
+trains: the dense decoder family (gemma3-1b, gemma2-27b, qwen2-0.5b,
+minitron-8b), the MoE stack (granite-moe-3b-a800m), the Mamba stack
+(falcon-mamba-7b), the hybrid (jamba-v0.1-52b), MLA with multi-token
+prediction (deepseek-v3-671b), the vit_stub frontend (internvl2-2b) and
+the encoder-decoder (seamless-m4t-large-v2).  The batch's speech frames
+(seamless) and patch embeddings (internvl2), which ``synthetic_batch``
+draws in float32, are cast to the params' dtype, as the serving CLI draws
+them: with bfloat16 params the reference's decoder refuses float32
+frames, and float32 patch embeddings would turn internvl2's whole stream
+float32.
 """
 from __future__ import annotations
 
@@ -88,8 +93,14 @@ def main(argv=None) -> int:
     monitor = StragglerMonitor()
     guard = StepGuard(recover=lambda s: print(f"recover to step {s}"))
 
+    def extras_dtype(batch):
+        dtype = params["embed"].dtype
+        return {k: v.to(dtype) if k in ("frames", "patch_embeds") else v
+                for k, v in batch.items()}
+
     for step in range(start_step, args.steps):
-        batch = to_device(synthetic_batch(spec, step), prog.device)
+        batch = extras_dtype(to_device(synthetic_batch(spec, step),
+                                       prog.device))
         t0 = time.time()
         params, state, metrics = guard.run(
             prog.step_fn, step, params, state, batch)

@@ -26,14 +26,27 @@ Dtypes follow the reference's promotion.  With bfloat16 params, float32
 frames make a float32 memory, which turns the decoder stream float32 at
 the first cross-attention; the reference's ``lax.scan`` then refuses the
 layer (its carry changes dtype), and so does the port, with a
-``ValueError``.  The training loss (``encdec_loss``) is ROADMAP Queue 1
-item 16.
+``ValueError``.
+
+Training: :func:`encdec_loss` is the reference's at tp = 1 (the encoder,
+the decoder stack and the chunked cross-entropy over the tied head).
+Its params keep the reference's layout (:func:`stack_layers`):
+``"encoder"`` and ``"decoder"`` each one dict whose leaves are stacked
+over the layers, as the reference's ``vmap``-ed init gives them, so the
+optimizer sees the reference's leaves.  :func:`encode` and
+:func:`_decoder_stack` take either layout; with grad enabled each layer
+runs under ``torch.utils.checkpoint`` as the reference's ``remat`` policy
+over its scanned layer says.  Neither stack's self-attention nor the
+cross-attention is causal, so autograd differentiates their plain
+blocks; the decoder's causal self-attention goes through the attention
+kernel and its backward kernel.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -48,6 +61,7 @@ from repro_torch.models.common import (
     local_linear,
     rms_norm,
 )
+from repro_torch.tree import leaves
 
 # ---------------------------------------------------------------------------
 # Cross-attention
@@ -130,6 +144,39 @@ def init_params(cfg: ModelConfig, plan: ShardingPlan, gen: torch.Generator,
     return params
 
 
+def stack_layers(params) -> Dict[str, Any]:
+    """Params with ``"encoder"`` and ``"decoder"`` as lists (one dict per
+    layer) in the reference's training layout: each one dict whose
+    leaves are stacked over its layers (a copy)."""
+    out = dict(params)
+    for name in ("encoder", "decoder"):
+        out[name] = tfm._stack(params[name])
+    return out
+
+
+def _layers(stack) -> List[Any]:
+    """A stack's layers: the list itself, or a stacked dict as
+    ``torch.unbind`` views, one per layer (whose backward stacks the
+    gradients onto the stacked leaves)."""
+    if isinstance(stack, list):
+        return stack
+    return tfm._unbind(stack, leaves(stack)[0].shape[0])
+
+
+def _run_layers(layer_fn, x: torch.Tensor, layers, remat: str):
+    """``x = layer_fn(x, lp)`` over the layers, each under
+    ``torch.utils.checkpoint`` with the ``remat`` policy when grad is
+    enabled (the reference checkpoints each layer of its scan)."""
+    context = tfm._remat_context(remat)
+    for lp in layers:
+        if context is not None and torch.is_grad_enabled():
+            x = checkpoint(layer_fn, x, lp, use_reentrant=False,
+                           context_fn=context)
+        else:
+            x = layer_fn(x, lp)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # Encoder / decoder stacks
 # ---------------------------------------------------------------------------
@@ -149,49 +196,75 @@ def _same_dtype(x_in: torch.Tensor, x_out: torch.Tensor, where: str
 
 
 def encode(params, frames: torch.Tensor, cfg: ModelConfig,
-           plan: ShardingPlan) -> torch.Tensor:
+           plan: ShardingPlan, remat: str = "full") -> torch.Tensor:
     """frames: (B, T, embed_dim) -> memory (B, T, D), in the frames'
     dtype: ``frontend_proj``, the bidirectional layers (rope on the
-    frames' positions), ``enc_norm``."""
+    frames' positions), ``enc_norm``.  ``remat``: each layer's policy
+    when grad is enabled ("none", "full" or "dots")."""
     x = local_linear(frames, params["frontend_proj"])
     positions = torch.arange(frames.shape[1], device=frames.device)
-    for lp in params["encoder"]:
-        x_in = x
+
+    def layer(x, lp):
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
         o, _ = attn_mod.gqa_forward(lp["attn"], h, cfg, 0, plan, positions,
                                     causal=False)
-        x = x + o
-        h = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        x = _same_dtype(x_in, x + tfm.mlp_forward(lp["mlp"], h, cfg, plan),
-                        "encoder")
+        y = x + o
+        h = rms_norm(y, lp["norm2"], cfg.norm_eps)
+        return _same_dtype(x, y + tfm.mlp_forward(lp["mlp"], h, cfg, plan),
+                           "encoder")
+
+    x = _run_layers(layer, x, _layers(params["encoder"]), remat)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
 def _decoder_stack(params, x: torch.Tensor, memory: torch.Tensor,
                    cfg: ModelConfig, plan: ShardingPlan,
                    positions: torch.Tensor, *, want_caches: bool = False,
-                   kv_dtype: str = "bfloat16"):
-    """-> (hidden after ``dec_norm``, (self caches, cross caches) | None)."""
+                   kv_dtype: str = "bfloat16", remat: str = "full"):
+    """-> (hidden after ``dec_norm``, (self caches, cross caches) | None).
+    ``remat``: each layer's policy when grad is enabled and no caches are
+    asked for."""
     self_c: List[Any] = []
     cross_c: List[Any] = []
-    for lp in params["decoder"]:
-        x_in = x
+
+    def layer(x, lp):
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
         o, sc = attn_mod.gqa_forward(lp["attn"], h, cfg, 0, plan, positions,
                                      want_cache=want_caches,
                                      kv_dtype=kv_dtype)
-        x = x + o
-        h = rms_norm(x, lp["norm_cross"], cfg.norm_eps)
+        y = x + o
+        h = rms_norm(y, lp["norm_cross"], cfg.norm_eps)
         o, cc = cross_attn_forward(lp["cross"], h, memory, cfg, plan,
                                    want_cache=want_caches)
-        x = x + o
-        h = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        x = _same_dtype(x_in, x + tfm.mlp_forward(lp["mlp"], h, cfg, plan),
-                        "decoder")
-        self_c.append(sc)
-        cross_c.append(cc)
+        y = y + o
+        h = rms_norm(y, lp["norm2"], cfg.norm_eps)
+        if want_caches:
+            self_c.append(sc)
+            cross_c.append(cc)
+        return _same_dtype(x, y + tfm.mlp_forward(lp["mlp"], h, cfg, plan),
+                           "decoder")
+
+    x = _run_layers(layer, x, _layers(params["decoder"]),
+                    "none" if want_caches else remat)
     x = rms_norm(x, params["dec_norm"], cfg.norm_eps)
     return x, ((self_c, cross_c) if want_caches else None)
+
+
+def encdec_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                plan: ShardingPlan, remat: str = "full",
+                xent_chunk: int = 1024) -> torch.Tensor:
+    """batch: ``{"frames": (B, T, embed_dim), "tokens": (B, S),
+    "labels": (B, S)}`` (a label < 0 is not counted) -> the scalar mean
+    cross-entropy of the decoder's next tokens, float32: the reference's
+    ``encdec_loss`` at tp = 1 (no aux loss)."""
+    memory = encode(params, batch["frames"], cfg, plan, remat=remat)
+    tokens, labels = batch["tokens"], batch["labels"]
+    x = embed_lookup(params["embed"], tokens, plan)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    h, _ = _decoder_stack(params, x, memory, cfg, plan, positions,
+                          remat=remat)
+    return tfm._chunked_xent(h, labels, tfm._head_weight(params, cfg), cfg,
+                             plan, xent_chunk)
 
 
 def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -201,7 +274,7 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     (last-token logits (B, V) float32, (self, cross) caches); the self
     caches grown to ``s_max`` positions (the layers are global, so the
     reference's ring layout is a zero pad)."""
-    memory = encode(params, batch["frames"], cfg, plan)
+    memory = encode(params, batch["frames"], cfg, plan, remat="none")
     tokens = batch["tokens"]
     s = tokens.shape[1]
     x = embed_lookup(params["embed"], tokens, plan)

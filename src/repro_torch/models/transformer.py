@@ -30,9 +30,8 @@ GQA ``k`` / ``v`` (B, S, KV, hd) (+ ``k_scale`` / ``v_scale``
 ``conv`` (B, d_conv - 1, d_inner).
 
 Multi-token prediction (deepseek-v3's ``mtp_depth``): its parameters
-are built, converted and quantized as the reference's, but serving never
-reads them; their forward belongs to the training loss (ROADMAP Queue 1
-item 16(b)).
+are built, converted and quantized as the reference's; serving never
+reads them, and :func:`lm_loss` adds its term (:func:`mtp_loss`).
 
 Training keeps the reference's layout: ``"segments"`` in place of
 ``"layers"``, one list per segment with one dict per position of its
@@ -43,11 +42,14 @@ backward stacks the gradients onto the reference's leaves, and with
 grad enabled it runs each cycle of a repeated segment under
 ``torch.utils.checkpoint`` as the reference's ``remat`` policy says.
 :func:`lm_loss` is the reference's loss (the cross-entropy plus the MoE
-aux loss) for the dense decoder family and for the MoE (granite-moe),
-Mamba (falcon-mamba) and hybrid (jamba) stacks, whose scan differentiates
-through its own backward kernel (``kernels/selective_scan.py``); MLA
-with MTP, the frontends and the encoder-decoder raise (ROADMAP Queue 1
-items 16(b), 16(c)).
+aux loss) for every decoder-only config at tp = 1: the dense family, the
+MoE (granite-moe), Mamba (falcon-mamba) and hybrid (jamba) stacks, whose
+scan differentiates through its own backward kernel
+(``kernels/selective_scan.py``), MLA with multi-token prediction
+(deepseek-v3, its attention differentiated by the backward kernel at the
+(192, 128) pair) and the vit_stub frontend (internvl2, whose batch
+carries ``patch_embeds``).  The encoder-decoder's loss is
+``models/encdec.py::encdec_loss``.
 """
 from __future__ import annotations
 
@@ -449,23 +451,6 @@ def lm_logits_local(params, h: torch.Tensor, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for what :func:`lm_loss` does not train yet, rather than
-    train it silently wrong."""
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder's training batch is ROADMAP "
-            "Queue 1 item 16(c)")
-    if _is_mla(cfg) or cfg.mtp_depth > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA's (192, 128) backward pair and multi-token "
-            "prediction are ROADMAP Queue 1 item 16(b)")
-    if has_frontend(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend.kind} frontend's batch is "
-            "ROADMAP Queue 1 item 16(c)")
-
-
 def _chunk_loss(hc, lc, w, cfg: ModelConfig, plan: ShardingPlan):
     """(loss x count (1,), count (1,)) of one sequence chunk."""
     vm = lc >= 0
@@ -506,18 +491,47 @@ def _chunked_xent(h: torch.Tensor, labels: torch.Tensor, w: torch.Tensor,
     return (total / torch.clamp_min(count, 1.0))[0]
 
 
+def mtp_loss(params, h: torch.Tensor, labels: torch.Tensor,
+             w: torch.Tensor, cfg: ModelConfig, plan: ShardingPlan,
+             xent_chunk: int = 1024) -> torch.Tensor:
+    """The multi-token-prediction term of the reference's ``lm_loss``
+    (deepseek-v3): ``proj`` over ``[h ‖ emb(max(labels, 0))]`` (h the
+    stack's output after the final norm, the embedding cast to h's
+    dtype), one layer of kind ``layer_spec(cfg, num_layers - 1)`` at
+    positions ``arange(S)``, not checkpointed, its MoE aux loss dropped,
+    then the head over its output with no final norm, against
+    ``labels[:, 2:]`` padded with two -1s on the right (the reference's
+    offset, as it is)."""
+    s = h.shape[1]
+    emb_next = embed_lookup(params["embed"], torch.clamp_min(labels, 0),
+                            plan)
+    hm = local_linear(torch.cat([h, emb_next.to(h.dtype)], dim=-1),
+                      params["mtp"]["proj"])
+    hm, _, _ = apply_layer(params["mtp"]["layer"], hm,
+                           layer_spec(cfg, cfg.num_layers - 1), cfg, plan,
+                           torch.arange(s, device=h.device))
+    mtp_labels = torch.cat([labels[:, 2:],
+                            labels.new_full((labels.shape[0], 2), -1)],
+                           dim=1)
+    return _chunked_xent(hm, mtp_labels, w, cfg, plan, xent_chunk)
+
+
 def lm_loss(params, batch, cfg: ModelConfig, plan: ShardingPlan,
             remat: str = "full", xent_chunk: int = 1024) -> torch.Tensor:
-    """batch: {tokens (B, S), labels (B, S)} (a label < 0 is not counted)
-    -> the scalar mean cross-entropy plus the aux loss, float32.  The
-    reference's ``lm_loss`` at tp = 1 for the dense, MoE, Mamba and
-    hybrid decoder stacks (:func:`check_trainable`)."""
-    check_trainable(cfg)
+    """batch: {tokens (B, S), labels (B, S), [patch_embeds (B, N, e)]}
+    (a label < 0 is not counted) -> the scalar mean cross-entropy plus
+    0.1 times the multi-token-prediction loss (:func:`mtp_loss`, where
+    ``cfg.mtp_depth`` and the params have it) plus the aux loss,
+    float32: the reference's ``lm_loss`` at tp = 1, for every
+    decoder-only config."""
     tokens, labels = batch["tokens"], batch["labels"]
     h, _, aux = forward(params, tokens, cfg, plan, extras=batch,
                         remat=remat)
-    loss = _chunked_xent(h, labels, _head_weight(params, cfg), cfg, plan,
-                         xent_chunk)
+    w = _head_weight(params, cfg)
+    loss = _chunked_xent(h, labels, w, cfg, plan, xent_chunk)
+    if cfg.mtp_depth > 0 and "mtp" in params:
+        loss = loss + 0.1 * mtp_loss(params, h, labels, w, cfg, plan,
+                                     xent_chunk)
     return loss + aux
 
 

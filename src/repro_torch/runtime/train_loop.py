@@ -1,17 +1,22 @@
 """The training step at tp = 1: the reference's
 ``repro/runtime/train_loop.py::build_train_program`` on one device.
 
-``step_fn`` follows the reference's ``step_fn_py``: the gradient of
-``lm_loss`` by autograd (every attention and selective-scan call on the
-card runs its forward kernel, and its backward its backward kernel),
-for the dense, MoE, Mamba and hybrid decoder stacks
-(``models/transformer.py::check_trainable``), microbatches
-accumulated in float32 and divided by their count, the loss the mean of
-the microbatch losses, optional int8 gradient compression with error
-feedback, then ``apply_updates``.  Params and optimizer state are the
-reference's trees (``"segments"`` stacked over each segment's count),
-and a step is functional: it returns new trees and leaves its inputs as
-they are, so two steps from one state are bit-equal.  With
+``step_fn`` follows the reference's ``step_fn_py``: the gradient of the
+config's loss by autograd (every attention and selective-scan call on
+the card runs its forward kernel, and its backward its backward
+kernel), microbatches accumulated in float32 and divided by their
+count, the loss the mean of the microbatch losses, optional int8
+gradient compression with error feedback, then ``apply_updates``.  The
+loss and the init are the reference's ``loss_for`` / ``init_for``:
+``encdec.encdec_loss`` and ``encdec.init_params`` for the
+encoder-decoder (seamless-m4t), ``transformer.lm_loss`` and
+``transformer.init_params`` for every other config (MLA with
+multi-token prediction and the vit_stub frontend included).  Params
+and optimizer state are the reference's trees (``"segments"`` stacked
+over each segment's count; the encoder-decoder's ``"encoder"`` and
+``"decoder"`` stacked over their layers), and a step is functional: it
+returns new trees and leaves its inputs as they are, so two steps from
+one state are bit-equal.  With
 ``donate=True`` a step writes its new params and moments into the trees
 it was given and returns them, as the reference's jitted step donates
 its arguments: one copy of the training state lives on the device
@@ -34,6 +39,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ParallelConfig, TrainConfig
 from repro_torch.core.cim import divide
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ShardingPlan
 from repro_torch.optim import optimizer as opt
@@ -65,6 +71,21 @@ def value_and_grad(loss_fn: Callable, params, *args):
         for p, g in zip(flat, grads)])
 
 
+def loss_for(cfg: ModelConfig) -> Callable:
+    """The config's training loss, as the reference's ``loss_for``."""
+    return ED.encdec_loss if cfg.is_encdec else T.lm_loss
+
+
+def init_for(cfg: ModelConfig) -> Callable:
+    """(cfg, plan, generator) -> params in the training layout, as the
+    reference's ``init_for`` (its trees stacked as the reference's)."""
+    if cfg.is_encdec:
+        return lambda c, plan, gen: ED.stack_layers(
+            ED.init_params(c, plan, gen))
+    return lambda c, plan, gen: T.stack_layers(T.init_params(c, plan, gen),
+                                               c)
+
+
 def build_train_program(cfg: ModelConfig, pcfg: ParallelConfig,
                         tcfg: TrainConfig, device=None,
                         donate: bool = False) -> TrainProgram:
@@ -75,18 +96,18 @@ def build_train_program(cfg: ModelConfig, pcfg: ParallelConfig,
         raise NotImplementedError(
             "zero3 and dp_only shard params over a mesh: ROADMAP Queue 1 "
             "item 15")
-    T.check_trainable(cfg)
     dev = resolve_device(device)
     plan = ShardingPlan.for_model(cfg, tp=1)
+    init, loss = init_for(cfg), loss_for(cfg)
 
     def init_fn(seed: int):
         gen = torch.Generator(device=dev).manual_seed(seed)
-        params = T.stack_layers(T.init_params(cfg, plan, gen), cfg)
+        params = init(cfg, plan, gen)
         return params, opt.init_opt_state(params, tcfg,
                                           pcfg.grad_compression)
 
     def loss_fn(params, batch):
-        return T.lm_loss(params, batch, cfg, plan, remat=pcfg.remat)
+        return loss(params, batch, cfg, plan, remat=pcfg.remat)
 
     def step_fn(params, opt_state: opt.OptState, batch: Dict[str, Any]):
         if pcfg.microbatches > 1:

@@ -152,21 +152,27 @@ def test_bwd_walks_at_gemma3_shapes():
     assert glob.partial == 32 and local.partial == 2 * 32 - 8
 
 
-@pytest.mark.parametrize("d", LA.BWD_HEAD_DIMS)
+@pytest.mark.parametrize("d, dv", [(16, 16), (64, 64), (128, 128),
+                                   (256, 256), (192, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_bwd_route_by_dtype_and_head_dim(dtype, d):
-    want = ("tensor_cores" if dtype == torch.bfloat16
-            and d in (64, 128, 256) else "cuda_cores")
-    assert LA.bwd_route(dtype, d) == want
-    assert LA.bwd_route(dtype, d, d) == want
+def test_bwd_route_by_dtype_and_head_dim(dtype, d, dv):
+    """bf16 on the tensor cores at (64, 64) to (256, 256) and MLA's
+    (192, 128); float32 at every pair and bf16 at (16, 16) on the CUDA
+    cores."""
+    want = ("tensor_cores" if dtype == torch.bfloat16 and d >= 64
+            else "cuda_cores")
+    assert LA.bwd_route(dtype, d, dv) == want
+    if d == dv:
+        assert LA.bwd_route(dtype, d) == want
+    assert (d, dv) in LA.BWD_HEAD_DIM_PAIRS
     assert set(LA.BWD_KERNELS) == {"tensor_cores", "cuda_cores"}
 
 
-@pytest.mark.parametrize("dqk, dv", [(192, 128), (32, 32), (64, 128)])
+@pytest.mark.parametrize("dqk, dv", [(32, 32), (64, 128)])
 def test_bwd_route_raises_without_a_backward(dqk, dv):
     before = dict(LA.LAUNCHES)
     for dtype in (torch.float32, torch.bfloat16):
-        with pytest.raises(RuntimeError, match="item 16"):
+        with pytest.raises(RuntimeError, match="need a gradient"):
             LA.bwd_route(dtype, dqk, dv)
     assert LA.LAUNCHES == before
 
@@ -274,7 +280,7 @@ def _cc_walk_gradients(q, k, v, o, do, window, softcap, row_parts,
                 sums = []
                 for part in range(key_parts):
                     sk = torch.zeros(tile, d)
-                    sv = torch.zeros(tile, d)
+                    sv = torch.zeros(tile, v.shape[3])
                     for _, _, gi, qt in (w for w in walks
                                          if w[:2] == (kt, part)):
                         head = kvh * group + gi
@@ -305,25 +311,28 @@ def _cc_walk_gradients(q, k, v, o, do, window, softcap, row_parts,
             dv[:, :s].to(v.dtype), lse[:, :s].permute(0, 2, 1))
 
 
+@pytest.mark.parametrize("dims", [(16, 16), (24, 16)])
 @pytest.mark.parametrize("parts", [(1, 1), (2, 7), (3, 8)])
 @pytest.mark.parametrize("cap", [None, 30.0])
 @pytest.mark.parametrize("window", [5, 40, None])
-def test_bwd_cc_walks_give_the_plain_gradient(window, cap, parts):
+def test_bwd_cc_walks_give_the_plain_gradient(window, cap, parts, dims):
     """The CUDA-core walks, split over clusters of ``parts`` (stats and
     dq, dk / dv) blocks whose sums are added in block order, give the
     plain version's lse, dq, dk and dv (float32 on the CPU, other
     summation orders: within 1e-5 of each one's largest value), at a
     ragged S of 70 (three tiles, the last 6 rows deep; blocks of a
-    cluster of 7 or 8 with no step), 4 heads on 2 kv heads."""
+    cluster of 7 or 8 with no step), 4 heads on 2 kv heads, at the
+    (q/k, v) pairs (16, 16) and the reduced MLA's (24, 16)."""
     rng = np.random.default_rng(24)
     s = 70
     window = s if window is None else window
+    d, dv = dims
 
     def t(shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32))
-    q, do = t((1, s, 4, 16)), t((1, s, 4, 16))
-    k, v = t((1, s, 2, 16)), t((1, s, 2, 16))
+    q, do = t((1, s, 4, d)), t((1, s, 4, dv))
+    k, v = t((1, s, 2, d)), t((1, s, 2, dv))
     o = LA.grouped_local_attention_plain(q, k, v, window=window, softcap=cap)
     *got, lse = _cc_walk_gradients(q, k, v, o, do, window, cap, *parts)
     want = LA.local_attention_bwd_plain(q, k, v, o, do, window=window,

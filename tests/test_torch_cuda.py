@@ -770,24 +770,25 @@ def _bwd_close(got, want, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 64, 128, 256])
-def test_cuda_local_attention_bwd_matches_plain(d, dtype):
+@pytest.mark.parametrize("d, dv", LA.BWD_HEAD_DIM_PAIRS)
+def test_cuda_local_attention_bwd_matches_plain(d, dv, dtype):
     """The backward kernels of the route ``bwd_route`` names (tensor
-    cores for bf16 at D 64 to 256, CUDA cores otherwise) against
-    ``local_attention_bwd_plain`` where their tiles have edges: S 37,
-    130, 200 and 513 (the CUDA cores' 32-row tiles, the tensor cores'
-    64), windows 1, 5, 33 and S, GQA groups 1 and 4 over 2 kv heads, soft
-    cap off and 50.0; one launch a call, and none of either forward
-    kernel."""
+    cores for bf16 at (64, 64) to (256, 256) and MLA's (192, 128), CUDA
+    cores otherwise) against ``local_attention_bwd_plain`` where their
+    tiles have edges: S 37, 130, 200 and 513 (the CUDA cores' 32-row
+    tiles, the tensor cores' 64), windows 1, 5, 33 and S, GQA groups 1
+    and 4 over 2 kv heads, soft cap off and 50.0; one launch a call, and
+    none of either forward kernel."""
     _needs_card()
     torch.backends.cuda.matmul.allow_tf32 = False
-    rng = np.random.default_rng(300 + d)
+    rng = np.random.default_rng(300 + d + dv)
     calls = 0
     for s in (37, 130, 200, 513):
         for group in (1, 4):
             q = _normal(rng, (2, s, 2 * group, d), dtype)
-            k, v = (_normal(rng, (2, s, 2, d), dtype) for _ in range(2))
-            do = _normal(rng, (2, s, 2 * group, d), dtype)
+            k = _normal(rng, (2, s, 2, d), dtype)
+            v = _normal(rng, (2, s, 2, dv), dtype)
+            do = _normal(rng, (2, s, 2 * group, dv), dtype)
             for window in (1, 5, 33, s):
                 for cap in (None, 50.0):
                     o = LA.grouped_local_attention_plain(
@@ -849,13 +850,15 @@ def test_cuda_local_attention_bwd_repeats_bitwise(dtype, s, window):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_local_attention_bwd_one_launch_a_call(dtype):
-    """Every built head dim, on either route: each call adds exactly one
-    to ``LAUNCHES["local_attention_bwd"]`` and nothing else."""
+    """Every built head-dim pair, on either route: each call adds exactly
+    one to ``LAUNCHES["local_attention_bwd"]`` and nothing else."""
     _needs_card()
     rng = np.random.default_rng(41)
-    for d in LA.BWD_HEAD_DIMS:
-        q, do = (_normal(rng, (1, 96, 2, d), dtype) for _ in range(2))
-        k, v = (_normal(rng, (1, 96, 1, d), dtype) for _ in range(2))
+    for d, dv in LA.BWD_HEAD_DIM_PAIRS:
+        q, k = _normal(rng, (1, 96, 2, d), dtype), \
+            _normal(rng, (1, 96, 1, d), dtype)
+        v, do = _normal(rng, (1, 96, 1, dv), dtype), \
+            _normal(rng, (1, 96, 2, dv), dtype)
         o = LA.grouped_local_attention_plain(q, k, v, window=40)
         for _ in range(2):
             before = dict(LA.LAUNCHES)
@@ -903,16 +906,19 @@ def test_cuda_local_attention_grad_through_kernels(dtype):
 @pytest.mark.cuda
 def test_cuda_attention_and_scan_raise_without_backward():
     """A CUDA call that needs a gradient the card cannot give raises
-    before any launch: the attention at MLA's (192, 128) pair, and the
+    before any launch: the attention at a (q/k, v) pair with no kernel,
+    (64, 128) (the forward refuses it, and so does the backward), and the
     selective scan at a d_state its kernels are not built for."""
     from repro_torch.kernels import selective_scan as SS
 
     _needs_card()
-    q = torch.zeros((1, 8, 2, 192), device="cuda", requires_grad=True)
+    q = torch.zeros((1, 8, 2, 64), device="cuda", requires_grad=True)
     v = torch.zeros((1, 8, 2, 128), device="cuda")
     before = dict(LA.LAUNCHES)
-    with pytest.raises(RuntimeError, match="item 16"):
+    with pytest.raises(ValueError, match="not among"):
         LA.grouped_local_attention(q, q, v, window=4)
+    with pytest.raises(RuntimeError, match="need a gradient"):
+        LA.local_attention_bwd(q.detach(), q.detach(), v, v, v, window=4)
     assert LA.LAUNCHES == before
     ops = _scan_operands(np.random.default_rng(0), 1, 4, 8, 8, False)
     ops[1].requires_grad_()

@@ -262,20 +262,42 @@ def test_remat_modes_give_bit_equal_grads(arch):
 @pytest.mark.parametrize("arch", ["deepseek-v3-671b", "internvl2-2b",
                                   "seamless-m4t-large-v2"])
 def test_lm_loss_raises_for_families_not_trained(arch):
-    """MLA (with MTP), a frontend and the encoder-decoder raise, naming
-    the ROADMAP item, rather than train silently wrong (the MoE and Mamba
-    families train: ``test_torch_train_families.py``)."""
-    cfg = get_config(arch).reduced()
-    item = {"deepseek-v3-671b": "16(b)", "internvl2-2b": "16(c)",
-            "seamless-m4t-large-v2": "16(c)"}[arch]
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
-             "labels": torch.zeros((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match=item.replace("(", r"\(")
-                       .replace(")", r"\)")):
-        T.lm_loss({}, batch, cfg, ShardingPlan())
-    with pytest.raises(NotImplementedError, match="item 16"):
-        build_train_program(cfg, ParallelConfig(), TrainConfig(),
-                            device="cpu")
+    """The three families that raised until MLA with MTP, the vit_stub
+    frontend and the encoder-decoder were ported now train (the test
+    keeps its name): each builds a train program at its reduced config
+    (float32) and takes an AdamW step on the CPU on
+    ``synthetic_batch``'s batch (its frames or patch embeddings
+    included), whose loss is the config's loss (``encdec_loss`` for the
+    encoder-decoder, ``lm_loss`` with the MTP term or the batch's patch
+    embeddings otherwise) and which moves the params the new paths
+    reach."""
+    from repro_torch.models import encdec as ED
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    prog = build_train_program(cfg, ParallelConfig(),
+                               TrainConfig(lr=1e-2, warmup_steps=1),
+                               device="cpu")
+    params, state = prog.init_fn(0)
+    fe = cfg.frontend
+    kw = {} if fe is None else dict(frontend_kind=fe.kind,
+                                    frontend_dim=fe.embed_dim,
+                                    frontend_tokens=fe.num_tokens)
+    batch = PD.to_device(PD.synthetic_batch(PD.DataSpec(
+        cfg.vocab_size, S, B, 1, encdec=cfg.is_encdec, **kw), 0), "cpu")
+    plan = ShardingPlan.for_model(cfg)
+    with torch.no_grad():
+        want = (ED.encdec_loss if cfg.is_encdec else T.lm_loss)(
+            params, batch, cfg, plan)
+    new_p, new_s, metrics = prog.step_fn(params, state, batch)
+    assert torch.isfinite(metrics["loss"]) and int(new_s.step) == 1
+    assert abs(float(metrics["loss"]) - float(want)) <= 1e-6 * float(want)
+    moved = {"deepseek-v3-671b": ("mtp", "proj"),
+             "internvl2-2b": ("frontend_proj",),
+             "seamless-m4t-large-v2": ("decoder", "cross", "wq")}[arch]
+    a, b = params, new_p
+    for key in moved:
+        a, b = a[key], b[key]
+    assert not torch.equal(a, b)
 
 
 @pytest.mark.parametrize("field", ["zero3", "dp_only"])
@@ -448,20 +470,24 @@ def test_step_fn_matches_reference_composition(microbatches, compression):
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("dims", [(16, 16), (24, 16)])
 @pytest.mark.parametrize("cap", [None, 50.0])
 @pytest.mark.parametrize("group", [1, 4])
 @pytest.mark.parametrize("window", [1, 5, 19])
 def test_attention_bwd_plain_matches_autograd_and_jax_vjp(window, group,
-                                                          cap):
+                                                          cap, dims):
     """``local_attention_bwd_plain`` and the row statistics against
     autograd of the plain forward and against ``jax.vjp`` of the
-    reference's ``flash_attention`` (window S = 19: full causal)."""
-    s, d, kvh = 19, 16, 2
-    rng = np.random.default_rng(window * 10 + group)
-    q_np, do_np = (rng.standard_normal((2, s, kvh * group, d)).astype(
-        np.float32) for _ in range(2))
-    k_np, v_np = (rng.standard_normal((2, s, kvh, d)).astype(np.float32)
-                  for _ in range(2))
+    reference's ``flash_attention`` (window S = 19: full causal), at the
+    (q/k, v) head-dim pairs (16, 16) and the reduced MLA's (24, 16)
+    (scale 24^-0.5; dq, dk 24 wide, dv 16)."""
+    s, kvh = 19, 2
+    d, dv = dims
+    rng = np.random.default_rng(window * 10 + group + d)
+    q_np = rng.standard_normal((2, s, kvh * group, d)).astype(np.float32)
+    do_np = rng.standard_normal((2, s, kvh * group, dv)).astype(np.float32)
+    k_np = rng.standard_normal((2, s, kvh, d)).astype(np.float32)
+    v_np = rng.standard_normal((2, s, kvh, dv)).astype(np.float32)
     q, k, v = (torch.from_numpy(a).requires_grad_()
                for a in (q_np, k_np, v_np))
     o = LA.grouped_local_attention_plain(q, k, v, window=window, softcap=cap)
