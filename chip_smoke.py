@@ -172,7 +172,7 @@ F. the MoE, Mamba and MLA LM families: granite-moe-3b-a800m and
    prefill ms, decode ms/token, tokens/s; on the bfloat16 flavor every
    kernel call of one prefill held against its plain version, device
    time by kernel and the busy share of a prefill and of four decode
-   steps.  Then granite and falcon-mamba cut to 4 layers, deepseek to
+   steps.  Then granite cut to 4 layers, falcon-mamba to 2, deepseek to
    its first 2 (dense), and jamba's reduced config, in float32 on the
    card and on the CPU as in phase 7; the
    scan kernel against its plain version (rtol = atol = TOL_SCAN) over
@@ -262,7 +262,7 @@ H. the MoE, Mamba and hybrid families trained: granite-moe-3b-a800m at
    swapped in (ROADMAP's fault F2: both loss curves side by side, and
    whether they part by more than the first step's kernel-vs-plain loss
    difference; no gate). Then the
-   float32 cuts (granite and falcon-mamba at 4 layers of full width,
+   float32 cuts (granite at 4 layers of full width, falcon-mamba at 2,
    jamba at its reduced config; batch 1 x 640, TF32 off) on the card
    and on the CPU: the MoE slot tables equal, then phase G's float32
    gates;
@@ -296,14 +296,49 @@ I. MLA with multi-token prediction, the encoder-decoder and the vit_stub
    float32 cuts on the card and on the CPU with phase G's gates: an MLA
    + MTP cut (``mla_small``: MLA's head dims, so the CUDA-core (192,
    128) instantiation runs, and an MoE MTP layer), seamless 2 + 2 and
-   internvl2 4 layers at full width (batch 1 x 640, TF32 off).
+   internvl2 2 layers at full width (batch 1 x 640, TF32 off).
+P. Serving at tp > 1 through the port's mesh (``launch/mesh.py``): one
+   spawn of ``P_WORLD`` = 4 ranks, all on cuda:0 (the script needs one
+   card, and NCCL refuses two ranks on one device), whose collectives
+   take gloo's explicit host copies (``core/dataflow.py``).  Each rank
+   draws the global weights from the phase's seeded card generator and
+   keeps its shard of each layer as it is drawn, so the tp = 1 and
+   tp > 1 runs compute with the same weights.  bfloat16 at full width,
+   batch 4, prompt 2048, ``P_GEN`` = 8 greedy tokens (``P_BF16_STEPS``):
+   gemma3-1b
+   on mesh (2, 2) (the group trick: 2 heads on 1 kv head a rank), ring
+   and all-reduce, bf16 and int8 weights + KV; qwen2-0.5b on (1, 4) (14
+   heads: replicated attention, the sequence-sharded cache), bf16 and
+   int8; granite-moe-3b-a800m (20 experts a rank), falcon-mamba-7b cut to
+   ``P_MAMBA_LAYERS`` (the scan at 4096 channels a rank) and
+   deepseek-v3-671b's first 4 layers (64 heads and 128 experts a rank;
+   its ranks draw one after the other) on (1, 2).  Gates, per rank: one
+   prefill's launches those of tp = 1 and the kernels' call shapes the
+   rank's (``P_LAUNCHES``), every collective through the host, two
+   prefills bit-equal, the padded vocabulary columns at -1e30, the
+   model ranks of a data row returning the same logits; prefill logits
+   within 0.1 max / 0.03 mean of the tp = 1 run on the card (gemma3,
+   qwen2, falcon-mamba) or, where per-rank MoE capacity drops other
+   pairs than tp = 1 does (granite, deepseek), of the same tp > 1 run
+   with the plain kernels, within ``TOL_FAMILY_LOGITS``; ring and
+   all-reduce within the same bounds of each other.  Then float32 cuts
+   of every family at tp 2 (``P_F32_CUTS``, on falcon-mamba's mesh while
+   granite's ranks serve granite), each on the card and again on the CPU with the
+   card's shards: tokens equal, logits within TOL_SMALL, each rank's
+   MoE slot tables equal, and (bf16 flavor, no capacity difference)
+   tokens and logits equal to the tp = 1 card run.  Logged, labelled
+   as ranks sharing one card with collectives crossing the host: prefill
+   ms and decode ms/token per reduction at tp > 1 and gemma3's at
+   tp = 1, bytes each rank sends per prefill, the device busy share of
+   a rank's prefill.  ``--only-tp`` runs the builds and phase P alone
+   (no result line, exit code 2).
 
 The line before the last is the ``kernels`` JSON (a CIM variant's
 ``launches`` summed over the counted runs of phases 2 and M, its
 times phase 4's, per vgg11 batch; the bfloat16 attention kernel's
-launches those of phases 5, F, E, G, H and I, its times phase 9's; the
-scan's launches those of phases F and H, its times per falcon-mamba
-prefill; the attention backward's launches those of the counted steps
+launches those of phases 5, F, E, G, H, I and P (P's counted prefills
+summed over its ranks), its times phase 9's; the scan's launches those
+of phases F, H and P, its times per falcon-mamba prefill; the attention backward's launches those of the counted steps
 of phases G, H and I, its times a call at deepseek's (192, 128)
 training call (phase I; gemma3's per step are in phase G's log); the
 scan
@@ -450,11 +485,12 @@ FAMILY_LAUNCHES = {
                              ("jamba-v0.1-52b", 1, 7),
                              ("deepseek-v3-671b", 4, 0))}
 #: phase F's card-against-CPU check in float32: the published widths cut
-#: to 4 layers, deepseek's to its first 2 (both dense: 3.0 G parameters,
+#: to 4 layers (falcon-mamba to 2, paying for phase P's time: its CPU
+#: run took the longest), deepseek's to its first 2 (both dense: 3.0 G parameters,
 #: 12 GB in float32, with all 128 heads through the float32 kernel at
 #: (192, 128)), jamba at its reduced config (None: a full-width MoE cycle
 #: in float32 is too large for the host)
-FAMILY_SMALL_LAYERS = {"granite-moe-3b-a800m": 4, "falcon-mamba-7b": 4,
+FAMILY_SMALL_LAYERS = {"granite-moe-3b-a800m": 4, "falcon-mamba-7b": 2,
                        "jamba-v0.1-52b": None, "deepseek-v3-671b": 2}
 #: prefill logits of the kernels' run vs the plain versions' run, both in
 #: bfloat16, (max |diff|, mean |diff|), stated before the first run on
@@ -1951,7 +1987,7 @@ def timed_generate(prog, params, batch):
     """LM_REPS timed ``greedy_generate`` runs of LM_GEN tokens through
     the entry point: the prefill ends where its logits reach
     ``on_logits`` (after a synchronize).  Returns (prefill s, decode s
-    per token, the last run's prefill logits)."""
+    per token, the last run's prefill logits, its tokens)."""
     from repro_torch.runtime.serve_loop import greedy_generate
 
     pre, dec, seen = [], [], {}
@@ -1964,12 +2000,13 @@ def timed_generate(prog, params, batch):
     for _ in range(LM_REPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        greedy_generate(prog, params, batch, LM_GEN, on_logits=prefill_done)
+        tokens = greedy_generate(prog, params, batch, LM_GEN,
+                                 on_logits=prefill_done)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         pre.append(seen["t"] - t0)
         dec.append((t2 - seen["t"]) / (LM_GEN - 1))
-    return pre, dec, seen["logits"]
+    return pre, dec, seen["logits"], tokens
 
 
 def lm_serving(la):
@@ -1993,10 +2030,12 @@ def lm_serving(la):
             f"{cfg.d_model}, vocab {cfg.vocab_size}; set up in "
             f"{time.perf_counter() - t0:.1f} s")
 
+        # the counted generation is the timed one (LM_REPS 1); a second
+        # prefill holds it to determinism
         for key in la.LAUNCHES:
             la.LAUNCHES[key] = 0
         torch.cuda.synchronize()
-        tokens = greedy_generate(prog, params, batch, LM_GEN)
+        pre, dec, logits, tokens = timed_generate(prog, params, batch)
         torch.cuda.synchronize()
         counts = dict(la.LAUNCHES)
         launches = counts["local_attention"]
@@ -2010,12 +2049,11 @@ def lm_serving(la):
               and int(tokens.min()) >= 0
               and int(tokens.max()) < cfg.vocab_size,
               f"{name}: generated {tuple(tokens.shape)} out of range")
-
-        pre, dec, logits = timed_generate(prog, params, batch)
         check(tuple(logits.shape) == (LM_BATCH, cfg.vocab_size)
               and bool(torch.isfinite(logits).all()),
               f"{name}: prefill logits {tuple(logits.shape)} not finite")
-        check(torch.equal(torch.argmax(logits, -1).int(), tokens[:, 0]),
+        again = prog.prefill_fn(params, batch)[0]
+        check(torch.equal(torch.argmax(again, -1).int(), tokens[:, 0]),
               f"{name}: prefill is not deterministic")
 
         # the same prefill with the kernel's plain version swapped in
@@ -2077,7 +2115,7 @@ def lm_serving(la):
             f"(median {np.median(results[name]['decode_ms']):.4f}, "
             f"{results[name]['tok_s']:.1f} tokens/s at batch {LM_BATCH}); "
             f"sample {tokens[0, :8].tolist()}")
-        del prog, params, batch, logits, ref_logits
+        del prog, params, batch, logits, ref_logits, again
         torch.cuda.empty_cache()
     return results, calls
 
@@ -2613,12 +2651,11 @@ def family_serving(la, ss, arch: str, card, label: str = "F"):
             f"served tensor elements; set up in "
             f"{time.perf_counter() - t0:.1f} s")
 
-        counted = {}
+        # the counted generation is the timed one (LM_REPS 1); a second
+        # prefill is held bit-equal to it
         reset_lm_counts(la, ss)
         torch.cuda.synchronize()
-        tokens = greedy_generate(prog, params, batch, LM_GEN,
-                                 on_logits=lambda i, lg: counted.setdefault(
-                                     "logits", lg))
+        pre, dec, logits, tokens = timed_generate(prog, params, batch)
         torch.cuda.synchronize()
         counts = all_launches(la, ss)
         for key, v in counts.items():
@@ -2630,15 +2667,14 @@ def family_serving(la, ss, arch: str, card, label: str = "F"):
               and int(tokens.min()) >= 0
               and int(tokens.max()) < cfg.vocab_size,
               f"{arch} {name}: generated {tuple(tokens.shape)} out of range")
-
-        pre, dec, logits = timed_generate(prog, params, batch)
         check(tuple(logits.shape) == (LM_BATCH, cfg.vocab_size)
               and bool(torch.isfinite(logits).all()),
               f"{arch} {name}: prefill logits {tuple(logits.shape)} not "
               f"finite")
-        check(torch.equal(logits, counted["logits"]),
+        again = prog.prefill_fn(params, batch)[0]
+        check(torch.equal(logits, again),
               f"{arch} {name}: two prefills gave other logits (max |diff| "
-              f"{(logits - counted['logits']).abs().max().item()})")
+              f"{(logits - again).abs().max().item()})")
 
         with plain_kernels(la, ss):
             ref_logits, _ = prog.prefill_fn(params, batch)
@@ -2690,7 +2726,7 @@ def family_serving(la, ss, arch: str, card, label: str = "F"):
             f"sample {tokens[0, :8].tolist()}; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
             f"{time.perf_counter() - t0:.1f} s on {card}")
-        del prog, params, batch, logits, ref_logits, counted
+        del prog, params, batch, logits, ref_logits, again
         torch.cuda.empty_cache()
     return results, launches, worst, first
 
@@ -3710,11 +3746,12 @@ H_LAYERS = {"granite-moe-3b-a800m": None, "falcon-mamba-7b": 32}
 #: and 5e-4, most steadily at 5e-4
 H_LR = {"falcon-mamba-7b": 5e-4}
 #: the float32 cuts held against the CPU: 4 layers at the published
-#: widths (batch 1 x TRAIN_SMALL_SEQ), jamba at its reduced config (one
+#: widths (batch 1 x TRAIN_SMALL_SEQ; falcon-mamba 2, paying for phase
+#: P's time: at 4 its CPU step took 39.5 s), jamba at its reduced config (one
 #: 8-layer cycle at d_model 64: a full-width cycle is 13.3 G parameters,
 #: 160 GB of training state; any cut that keeps its attention layer at 4
 #: keeps two 2.8 G-parameter MoE layers)
-H_SMALL_LAYERS = {"granite-moe-3b-a800m": 4, "falcon-mamba-7b": 4,
+H_SMALL_LAYERS = {"granite-moe-3b-a800m": 4, "falcon-mamba-7b": 2,
                   "jamba-v0.1-52b": None}
 #: the scan backward against its plain version at each call of a step:
 #: each of the seven gradients (ddt, dx, dB, dC, dA, dD, dh0) within
@@ -4364,9 +4401,10 @@ I_STEPS = 3
 #: independent, so the plain version runs 8 at a time (the same function)
 BWD_PLAIN_HEADS = 8
 #: phase I's float32 cuts held against the CPU (batch 1 x TRAIN_SMALL_SEQ,
-#: TF32 off): seamless 2 + 2 layers and internvl2 4 at the published
-#: widths (phase E's CPU depths), and an MLA + MTP cut (``mla_small``)
-I_SMALL_LAYERS = {"seamless-m4t-large-v2": 2, "internvl2-2b": 4}
+#: TF32 off): seamless 2 + 2 layers and internvl2 2 at the published
+#: widths (internvl2 at 4 layers took 19.2 s on the CPU; 2 pay for phase
+#: P's time), and an MLA + MTP cut (``mla_small``)
+I_SMALL_LAYERS = {"seamless-m4t-large-v2": 2, "internvl2-2b": 2}
 
 
 def mla_small():
@@ -4596,6 +4634,601 @@ def mla_encdec_training_phase(la, ss, card):
     return row, launches, worst
 
 
+# ---------------------------------------------------------------------------
+# Phase P: serving at tp > 1, the ranks sharing cuda:0
+# ---------------------------------------------------------------------------
+
+#: phase P's ranks: one spawn, all on cuda:0; NCCL refuses two ranks on
+#: one device, so the collectives take gloo's explicit host copies
+P_WORLD = 4
+#: the label of every phase P time: they measure the host's copies and
+#: the shared card, not an interconnect, and claim nothing
+P_SHARED = "ranks share one card; collectives cross the host"
+#: the device of phase P's card runs (its float32 cuts' second run is on
+#: the CPU)
+P_DEVICE = "cuda"
+#: falcon-mamba's depth in phase P (of 64 layers): the scan at 4096
+#: channels a rank
+P_MAMBA_LAYERS = 8
+#: greedy tokens of phase P's generations (phase 5 generates LM_GEN =
+#: 32): a decode step at tp > 1 waits on a host round trip per
+#: collective, 0.26 to 1.2 s a token on the shared card, so 32 tokens
+#: cost more than phase P's budget
+P_GEN = 8
+#: phase P's bfloat16 jobs, in steps; a step's jobs run side by side on
+#: disjoint ranks.  (arch, layers or None, mesh (data, model), ranks,
+#: flavors (name, kv dtype, int8 weights, reduction, whether it
+#: generates P_GEN tokens or only prefills), the plain-kernel swap as
+#: the logits' yardstick, the busy share profiled).  The first flavor's
+#: prefill also runs twice (bit-equal) and under the plain kernels
+P_BF16_STEPS = (
+    (("gemma3-1b", None, (2, 2), (0, 1, 2, 3),
+      (("bf16-ring", "bfloat16", False, "ring", True),
+       ("bf16-allreduce", "bfloat16", False, "allreduce", True),
+       ("int8-ring", "int8", True, "ring", False),
+       ("int8-allreduce", "int8", True, "allreduce", False)), False, True),),
+    (("qwen2-0.5b", None, (1, 4), (0, 1, 2, 3),
+      (("bf16-allreduce", "bfloat16", False, "allreduce", True),
+       ("bf16-ring", "bfloat16", False, "ring", False),
+       ("int8-ring", "int8", True, "ring", False)), False, False),),
+    (("granite-moe-3b-a800m", None, (1, 2), (0, 1),
+      (("bf16-ring", "bfloat16", False, "ring", False),
+       ("bf16-allreduce", "bfloat16", False, "allreduce", False)), True,
+      False),
+     ("falcon-mamba-7b", P_MAMBA_LAYERS, (1, 2), (2, 3),
+      (("bf16-ring", "bfloat16", False, "ring", True),
+       ("bf16-allreduce", "bfloat16", False, "allreduce", False)), False,
+      False)),
+    (("deepseek-v3-671b", 4, (1, 2), (0, 1),
+      (("bf16-ring", "bfloat16", False, "ring", True),
+       ("bf16-allreduce", "bfloat16", False, "allreduce", False)), True,
+      False),),
+)
+#: per rank, per prefill: each kernel's launches (those of tp = 1) and
+#: the attention call's (q heads, kv heads) or the scan's channels at
+#: tp > 1: gemma3 4 heads on 1 kv head -> 2 on 1 (the group trick);
+#: qwen2's 14 heads do not divide 4 -> replicated, 14 on 2
+P_LAUNCHES = {"gemma3-1b": ("local_attention", 26, (2, 1)),
+              "qwen2-0.5b": ("local_attention", 24, (14, 2)),
+              "granite-moe-3b-a800m": ("local_attention", 32, (12, 4)),
+              "falcon-mamba-7b": ("selective_scan", P_MAMBA_LAYERS, 4096),
+              "deepseek-v3-671b": ("local_attention", 4, (64, 64))}
+#: the float32 card-against-CPU cuts, phase 7's and phases F and E's:
+#: (arch, layers or None for the reduced config, flavors, the bfloat16
+#: job whose mesh runs it, after that job).  At tp = 2 they run on
+#: falcon-mamba's (1, 2) mesh, while granite's ranks serve granite;
+#: qwen2 runs again at tp = 4 on its own (1, 4) mesh, where its 14 heads
+#: do not shard and its decode reads the sequence-sharded cache, in
+#: both cache dtypes
+P_F32_CUTS = ((("gemma3-1b", SMALL_LAYERS, ("bf16", "cim_int8"),
+                "falcon-mamba-7b"),
+               ("qwen2-0.5b", 4, ("bf16",), "falcon-mamba-7b"))
+              + tuple((arch, layers, ("bf16",), "falcon-mamba-7b")
+                      for arch, layers in {**FAMILY_SMALL_LAYERS,
+                                           **E_SMALL_LAYERS}.items())
+              + (("qwen2-0.5b", 4, ("bf16", "cim_int8"), "qwen2-0.5b"),))
+#: the float32 cuts whose per-rank MoE capacity drops other pairs than
+#: tp = 1 does: held against the CPU's tp = 2 run only
+P_F32_NOT_TP1 = ("granite-moe-3b-a800m",)
+
+
+def p_config(arch: str, layers, dtype=None):
+    """Phase P's config: ``family_config``'s cut (seamless: ``layers``
+    encoder and decoder layers), or the reduced config for None with a
+    float32 dtype asked for (jamba's cut)."""
+    from repro_torch.configs import get_config
+
+    if layers is None and dtype == torch.float32:
+        return get_config(arch).reduced()
+    cfg = family_config(arch, layers)
+    if cfg.is_encdec and layers is not None:
+        cfg = dataclasses.replace(cfg, encoder_layers=layers)
+    return cfg
+
+
+def p_program(cfg, batch, prompt, gen, kv_dtype, cim, device, dtype, mesh,
+              reduction, serial: bool = False):
+    """``lm_program`` on a mesh: the same seeded draws (the global
+    weights, each layer cut to this rank's shard as it is drawn, then
+    the prompt), this rank's rows of the batch.  ``serial``: the ranks
+    of the model axis draw one after another (deepseek's global MoE
+    layer is 37 GB while drawn)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.runtime.serve_loop import build_serve_program
+
+    prog = build_serve_program(cfg, batch=batch, s_max=prompt + gen + 1,
+                               kv_dtype=kv_dtype, cim_weights=cim,
+                               device=device, mesh=mesh,
+                               pcfg=ParallelConfig(reduction=reduction))
+    gen_ = torch.Generator(device=prog.device).manual_seed(SEED)
+    params = None
+    for turn in range(mesh.model.size if serial else 1):
+        if not serial or turn == mesh.model.index:
+            params = prog.serving_params(prog.init_params(gen_, dtype))
+            if prog.device.type == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+        if serial:
+            dist.barrier(group=mesh.model.group)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt),
+                                   generator=gen_, device=prog.device)}
+    fe = cfg.frontend
+    if cfg.is_encdec or (fe is not None and fe.kind == "vit_stub"):
+        key, n = (("frames", prompt) if cfg.is_encdec
+                  else ("patch_embeds", fe.num_tokens))
+        out[key] = torch.randn((batch, n, fe.embed_dim), generator=gen_,
+                               device=prog.device).to(dtype)
+    return prog, params, prog.shard_batch(out)
+
+
+def p_busy(run) -> float:
+    """Device busy share of ``run()`` in this rank (``torch.profiler``),
+    or None where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy = sum(getattr(ev, "self_device_time_total", 0.0)
+               for ev in prof.key_averages()
+               if str(getattr(ev, "device_type", "")).endswith("CUDA"))
+    return busy / wall_us if busy > 0 else None
+
+
+def p_bf16_job(job, mesh):
+    """One bfloat16 model on this rank's mesh.  Per flavor, one counted
+    prefill (launches, the kernels' call shapes, the bytes sent; the
+    timed generation's own where the flavor generates P_GEN tokens).
+    The first flavor's prefill runs again (bit-equal) with each kernel
+    call held against its plain version, and where asked with the plain
+    kernels and under the profiler.  Returns CPU results."""
+    import repro_torch.kernels.local_attention as la
+    import repro_torch.kernels.selective_scan as ss
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.core import dataflow
+    from repro_torch.runtime.serve_loop import (build_serve_program,
+                                                greedy_generate)
+
+    arch, layers, _, _, flavors, plain, busy = job
+    cfg = family_config(arch, layers)
+    out, params_by_cim = {}, {}
+    for i, (name, kv_dtype, cim, reduction, gen) in enumerate(flavors):
+        t0 = time.perf_counter()
+        if cim in params_by_cim:  # the other reduction: the same params
+            params, batch = params_by_cim[cim]
+            prog = build_serve_program(
+                cfg, batch=LM_BATCH, s_max=LM_PROMPT + P_GEN + 1,
+                kv_dtype=kv_dtype, cim_weights=cim, device=P_DEVICE,
+                mesh=mesh, pcfg=ParallelConfig(reduction=reduction))
+        else:
+            params_by_cim.clear()
+            prog, params, batch = p_program(
+                cfg, LM_BATCH, LM_PROMPT, P_GEN, kv_dtype, cim, P_DEVICE,
+                torch.bfloat16, mesh, reduction,
+                serial=arch == "deepseek-v3-671b")
+            params_by_cim[cim] = (params, batch)
+        if i == 0:  # the card, the libraries and the host buffers
+            greedy_generate(prog, params, warm_batch(batch), 2)
+        torch.cuda.synchronize()
+        res = {"setup_s": time.perf_counter() - t0}
+        calls = []
+        attn, scan = la.grouped_local_attention, ss.selective_scan
+
+        def attn_rec(q, k, v, *, window, softcap=None):
+            calls.append(("attn", tuple(q.shape), tuple(k.shape)))
+            return attn(q, k, v, window=window, softcap=softcap)
+
+        def scan_rec(*ops):
+            calls.append(("scan", tuple(ops[0].shape)))
+            return scan(*ops)
+
+        def prefill_done(step, logits):
+            if step == 0:
+                torch.cuda.synchronize()
+                res.update(t_prefill=time.perf_counter(), logits=logits,
+                           launches=all_launches(la, ss),
+                           traffic=dict(dataflow.TRAFFIC))
+
+        reset_lm_counts(la, ss)
+        dataflow.reset_traffic()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with Swapped((la, "grouped_local_attention", attn_rec),
+                     (ss, "selective_scan", scan_rec)):
+            if gen:
+                tokens = greedy_generate(prog, params, batch, P_GEN,
+                                         on_logits=prefill_done)
+                torch.cuda.synchronize()
+                res["decode_ms"] = ((time.perf_counter() - res["t_prefill"])
+                                    / (P_GEN - 1) * 1e3)
+                res["tokens_ok"] = bool(
+                    tuple(tokens.shape) == (batch["tokens"].shape[0], P_GEN)
+                    and int(tokens.min()) >= 0
+                    and int(tokens.max()) < cfg.vocab_size)
+            else:
+                prefill_done(0, prog.prefill_fn(params, batch)[0])
+        res["prefill_ms"] = (res.pop("t_prefill") - t1) * 1e3
+        logits = res.pop("logits")
+        res.update(calls=calls, logits=logits.float().cpu(),
+                   finite=bool(torch.isfinite(logits[:, :cfg.vocab_size])
+                               .all()),
+                   pad_masked=bool((logits[:, cfg.vocab_size:] == -1e30)
+                                   .all()))
+        if i == 0:
+            # the second prefill holds every kernel call against its
+            # plain version on the same inputs (``checked_kernels``); it
+            # returns the kernels' own outputs, so it stays bit-equal
+            worst, seen = {}, {}
+            with checked_kernels(la, ss, worst, seen):
+                again = prog.prefill_fn(params, batch)[0]
+            res.update(equal=torch.equal(again, logits), worst=worst)
+            del seen, again
+            if plain:
+                with plain_kernels(la, ss):
+                    res["plain_logits"] = prog.prefill_fn(
+                        params, batch)[0].float().cpu()
+            if busy:
+                # every rank of the mesh runs the prefill (its
+                # collectives); the mesh's first rank profiles it
+                run = functools.partial(prog.prefill_fn, params, batch)
+                if mesh.coords == (0, 0):
+                    res["busy"] = p_busy(run)
+                else:
+                    run()
+            torch.cuda.synchronize()
+        res["seconds"] = time.perf_counter() - t0
+        out[name] = res
+        del prog, logits
+    del params_by_cim
+    torch.cuda.empty_cache()
+    return out
+
+
+def p_f32_job(arch, layers, flavors, mesh):
+    """One float32 cut on this rank's mesh, on the card and then
+    on the CPU (the card's shard copied across): per flavor the tokens,
+    each step's logits and the MoE slot tables of each call."""
+    from repro_torch.runtime.serve_loop import (build_serve_program,
+                                                greedy_generate)
+
+    cfg = p_config(arch, layers, torch.float32)
+    out = {}
+    for name in flavors:
+        _, kv_dtype, cim = next(f for f in LM_FLAVORS if f[0] == name)
+        t0 = time.perf_counter()
+        prog, params, batch = p_program(cfg, 1, SMALL_PROMPT, SMALL_GEN,
+                                        kv_dtype, cim, P_DEVICE,
+                                        torch.float32, mesh, "ring")
+        runs = {}
+        for where in ("card", "cpu"):
+            if where == "cpu":
+                prog = build_serve_program(
+                    cfg, batch=1, s_max=prog.s_max, kv_dtype=kv_dtype,
+                    cim_weights=cim, device="cpu", mesh=mesh)
+                params, batch = to_device(params, "cpu"), to_device(batch,
+                                                                   "cpu")
+            seen, tables = [], []
+            with route_recorder(tables):
+                tokens = greedy_generate(
+                    prog, params, batch, SMALL_GEN,
+                    on_logits=lambda i, lg: seen.append(lg.float().cpu()))
+            runs[where] = dict(tokens=tokens.cpu(), logits=seen,
+                               tables=tables)
+        runs["seconds"] = time.perf_counter() - t0
+        out[name] = runs
+        del prog, params, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def p_rank(rank: int, world: int):
+    """Phase P's rank program: the bfloat16 steps, then the float32 cuts.
+    Every rank builds every mesh (``new_group`` is collective) and runs
+    the jobs it belongs to; a barrier closes each step."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.set_num_threads(2)  # four ranks share the host's cores
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"bf16": {}, "f32": {}}
+    with torch.no_grad():
+        for step in P_BF16_STEPS:
+            meshes = [make_mesh(*job[2], backend="gloo", host_copies=True,
+                                ranks=job[3]) for job in step]
+            for job, mesh in zip(step, meshes):
+                if mesh is None:
+                    continue
+                t0 = time.perf_counter()
+                out["bf16"][job[0]] = dict(
+                    coords=mesh.coords, flavors=p_bf16_job(job, mesh),
+                    seconds=time.perf_counter() - t0)
+                for arch, layers, flavors, after in P_F32_CUTS:
+                    if after == job[0]:
+                        out["f32"][(arch, mesh.model.size)] = dict(
+                            coords=mesh.coords,
+                            runs=p_f32_job(arch, layers, flavors, mesh))
+            dist.barrier()
+    # this rank's failed checks (``checked_kernels``'), gated by the
+    # parent
+    out["failures"] = list(FAILURES)
+    return out
+
+
+def p_tp1_references(card):
+    """The tp = 1 runs on the card phase P holds its tp > 1 runs against,
+    from the same seeded draws: the bfloat16 prefill logits of gemma3,
+    qwen2 and falcon-mamba (per int8 flag), gemma3's timed bf16
+    generation, and the float32 cuts' tokens and logits where tp > 1
+    routes the same pairs (``P_F32_NOT_TP1``).  Every tp draws the same
+    global weights: a padded vocabulary's embedding and head are drawn
+    at the real vocabulary and padded with zeros."""
+    from repro_torch.runtime.serve_loop import greedy_generate
+
+    bf16, timing, f32 = {}, None, {}
+    for arch, layers in (("gemma3-1b", None), ("qwen2-0.5b", None),
+                         ("falcon-mamba-7b", P_MAMBA_LAYERS)):
+        cfg = family_config(arch, layers)
+        cims = (False, True) if arch != "falcon-mamba-7b" else (False,)
+        for cim in cims:
+            kv = "int8" if cim else "bfloat16"
+            prog, params, batch = lm_program(cfg, LM_BATCH, LM_PROMPT, LM_GEN,
+                                             kv, cim, P_DEVICE,
+                                             torch.bfloat16)
+            if arch == "gemma3-1b" and not cim:
+                greedy_generate(prog, params, warm_batch(batch), 2)
+                pre, dec, logits, _ = timed_generate(prog, params, batch)
+                timing = (pre[0] * 1e3, dec[0] * 1e3)
+            else:
+                logits = prog.prefill_fn(params, batch)[0]
+            bf16[(arch, cim)] = logits.float().cpu()
+            del prog, params, batch, logits
+            torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for arch, layers, flavors, _ in P_F32_CUTS:
+        if arch in P_F32_NOT_TP1:
+            continue
+        cfg = p_config(arch, layers, torch.float32)
+        for name in flavors:
+            if (arch, name) in f32:
+                continue
+            _, kv, cim = next(f for f in LM_FLAVORS if f[0] == name)
+            prog, params, batch = lm_program(cfg, 1, SMALL_PROMPT, SMALL_GEN,
+                                             kv, cim, P_DEVICE, torch.float32)
+            seen = []
+            tokens = greedy_generate(
+                prog, params, batch, SMALL_GEN,
+                on_logits=lambda i, lg: seen.append(lg.float().cpu()))
+            f32[(arch, name)] = (tokens.cpu(), seen)
+            del prog, params, batch
+            torch.cuda.empty_cache()
+    return bf16, timing, f32
+
+
+def p_rows(results, arch, name, key="logits"):
+    """The global (B, V) of one flavor: rows by data coordinate, from the
+    model index 0 ranks; the other model ranks must hold the same."""
+    parts = {r["bf16"][arch]["coords"]: r["bf16"][arch]["flavors"][name]
+             for r in results if arch in r["bf16"]}
+    n_data = 1 + max(d for d, _ in parts)
+    n_model = 1 + max(m for _, m in parts)
+    rows = []
+    for d in range(n_data):
+        first = parts[(d, 0)][key]
+        for m in range(1, n_model):
+            check(torch.equal(parts[(d, m)][key], first),
+                  f"[P] {arch} {name}: model rank {m} of data row {d} "
+                  f"returned other {key} than rank 0")
+        rows.append(first)
+    return torch.cat(rows), parts
+
+
+def p_close(a, b, max_tol, mean_tol):
+    diff = (a - b).abs()
+    return (diff.max().item() <= max_tol and diff.mean().item() <= mean_tol,
+            diff.max().item(), diff.mean().item())
+
+
+def tp_phase(la, ss, card):
+    """Phase P: every LM family served at tp > 1 on the card through the
+    port's mesh, 4 ranks sharing cuda:0 over gloo host copies.  Returns
+    the kernels' launches in its counted prefills, summed over ranks,
+    and each kernel's largest |diff| from its plain version in the
+    ranks' checked prefills."""
+    import repro_torch.launch.mesh as mesh_mod
+
+    import gc
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[P] this process holds {torch.cuda.memory_allocated() / 1e9:.2f} "
+        "GB of device memory as the ranks start")
+    ref_bf16, timing, ref_f32 = p_tp1_references(card)
+    t_ref = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    tmp = Path(__file__).resolve().parent / "build" / "chip_smoke" / "spawn"
+    results = mesh_mod.spawn(p_rank, P_WORLD, tmp_dir=str(tmp),
+                             backend="gloo", timeout_s=900)
+    t_ranks = time.perf_counter() - t0
+    for rank, res in enumerate(results):
+        check(not res["failures"], f"[P] rank {rank}: failed checks "
+              f"{res['failures']}")
+    launches, worst = {}, {}
+    for step in P_BF16_STEPS:
+        for arch, layers, mesh_shape, _, flavors, plain, _ in step:
+            p_check_bf16(results, arch, layers, mesh_shape, flavors, plain,
+                         ref_bf16, launches, worst, card)
+    log(f"[P] gemma3-1b bf16 at tp = 1 (one process): prefill "
+        f"{timing[0]:.1f} ms, decode {timing[1]:.2f} ms/token on {card}, "
+        "beside phase P's tp > 1 times")
+    for arch, layers, flavors, after in P_F32_CUTS:
+        tp = next(job[2][1] for step in P_BF16_STEPS for job in step
+                  if job[0] == after)
+        p_check_f32(results, arch, layers, flavors, tp, ref_f32)
+    log(f"[P] phase P: tp = 1 references {t_ref:.1f} s, ranks "
+        f"{t_ranks:.1f} s, total {time.perf_counter() - t_phase:.1f} s "
+        f"({P_SHARED}) on {card}")
+    return launches, worst
+
+
+def p_check_bf16(results, arch, layers, mesh_shape, flavors, plain,
+                 ref_bf16, launches, worst, card):
+    """Phase P's gates on one bfloat16 model, and its log lines; each
+    kernel's largest |diff| from its plain version goes into
+    ``worst``."""
+    v = family_config(arch, layers).vocab_size
+    kname, want_n, want_shape = P_LAUNCHES[arch]
+    tol = ((TOL_FULL_LOGITS, TOL_FULL_LOGITS_MEAN) if not plain
+           else TOL_FAMILY_LOGITS[arch])
+    logits = {}
+    for i, (name, kv, cim, reduction, gen) in enumerate(flavors):
+        rows, parts = p_rows(results, arch, name)
+        logits[name] = rows
+        per = list(parts.values())
+        for coords, res in parts.items():
+            counts = res["launches"]
+            for k, n in counts.items():
+                launches[k] = launches.get(k, 0) + n
+            other = {k: n for k, n in counts.items() if k != kname and n}
+            check(counts.get(kname) == want_n and not other,
+                  f"[P] {arch} {name} rank {coords}: launches in one "
+                  f"prefill {counts}, want {want_n} of {kname} (tp = 1's) "
+                  "and nothing else")
+            if kname == "selective_scan":
+                shapes = {c[1] for c in res["calls"]}
+                want = {(LM_BATCH, LM_PROMPT, want_shape)}
+            else:
+                shapes = {(c[1][0], c[1][1], c[1][2], c[2][2])
+                          for c in res["calls"]}
+                want = {(LM_BATCH // mesh_shape[0], LM_PROMPT) + want_shape}
+            check(shapes == want and len(res["calls"]) == want_n,
+                  f"[P] {arch} {name} rank {coords}: kernel calls "
+                  f"{sorted(shapes)}, want {sorted(want)}")
+            check(res.get("equal", True), f"[P] {arch} {name} rank "
+                  f"{coords}: two prefills gave other logits")
+            if i == 0:
+                check(set(res["worst"]) == {kname},
+                      f"[P] {arch} {name} rank {coords}: the checked "
+                      f"prefill held {sorted(res['worst'])} against the "
+                      f"plain versions, want {kname}")
+                for k, err in res["worst"].items():
+                    worst[k] = max(worst.get(k, 0.0), err)
+            check(res.get("tokens_ok", True), f"[P] {arch} {name} rank "
+                  f"{coords}: generated tokens out of range")
+            check(res["finite"] and res["pad_masked"],
+                  f"[P] {arch} {name} rank {coords}: logits not finite, "
+                  "or padded vocabulary columns not -1e30")
+            traffic = res["traffic"]
+            check(traffic["host_copies"] == traffic["collectives"] > 0,
+                  f"[P] {arch} {name} rank {coords}: {traffic} (every "
+                  "collective through the host)")
+        first = per[0]
+        busy = ""
+        if "busy" in first:
+            busy = "; device busy " + (
+                "not measured" if first["busy"] is None
+                else f"{100 * first['busy']:.2f}% of a rank's prefill")
+        held = ""
+        if "worst" in first:
+            err = max(p["worst"].get(kname, 0.0) for p in per)
+            held = f"; checked prefill max |diff| from plain {err:.6f}"
+        log(f"[P] {arch} {name} on mesh {mesh_shape}: per rank "
+            f"{first['launches'].get(kname)} {kname} launches a prefill at "
+            f"{first['calls'][0][1:]}; bytes sent per rank in one prefill "
+            f"{[p['traffic']['bytes_sent'] for p in per]} in "
+            f"{first['traffic']['collectives']} collectives; prefill ms "
+            f"{[round(p['prefill_ms'], 1) for p in per]}"
+            + (f", decode ms/token {[round(p['decode_ms'], 2) for p in per]}"
+               if gen else "")
+            + f"{busy}{held}; set up {first['setup_s']:.1f} s, "
+            f"{first['seconds']:.1f} s in all ({P_SHARED}) on {card}")
+        if plain and i == 0:
+            plain_rows = p_rows(results, arch, name, "plain_logits")[0]
+            ok, mx, mn = p_close(rows[:, :v], plain_rows[:, :v], *tol)
+            log(f"[P] {arch} {name}: kernels vs plain versions at tp > 1, "
+                f"prefill logits max |diff| {mx:.6f}, mean {mn:.6f} "
+                f"(tolerances {tol})")
+            check(ok, f"[P] {arch} {name}: prefill logits differ from the "
+                  "plain versions' run")
+        if not plain:
+            ok, mx, mn = p_close(rows[:, :v], ref_bf16[(arch, cim)], *tol)
+            log(f"[P] {arch} {name}: tp > 1 vs tp = 1 prefill logits max "
+                f"|diff| {mx:.6f}, mean {mn:.6f} (tolerances {tol})")
+            check(ok, f"[P] {arch} {name}: prefill logits differ from "
+                  "tp = 1's")
+    for name, kv, cim, reduction, gen in flavors:
+        if reduction != "allreduce":
+            continue
+        ring = name.replace("allreduce", "ring")
+        ok, mx, mn = p_close(logits[name][:, :v], logits[ring][:, :v], *tol)
+        log(f"[P] {arch}: {name} vs {ring} prefill logits max |diff| "
+            f"{mx:.6f}, mean {mn:.6f} (tolerances {tol})")
+        check(ok, f"[P] {arch}: {name} differs from {ring}")
+
+
+def p_check_f32(results, arch, layers, flavors, tp, ref_f32):
+    """Phase P's gates on one float32 cut at ``tp``, and its log line."""
+    cfg = p_config(arch, layers, torch.float32)
+    v = cfg.vocab_size
+    parts = {r["f32"][(arch, tp)]["coords"]: r["f32"][(arch, tp)]["runs"]
+             for r in results if (arch, tp) in r["f32"]}
+    for name in flavors:
+        kv = next(f for f in LM_FLAVORS if f[0] == name)[1]
+        card_run = parts[(0, 0)][name]["card"]
+        cpu_run = parts[(0, 0)][name]["cpu"]
+        errs = []
+        for i, (a, b) in enumerate(zip(card_run["logits"],
+                                       cpu_run["logits"])):
+            tol = TOL_SMALL["bfloat16" if i == 0 else kv]
+            errs.append((a - b).abs().max().item())
+            check(torch.allclose(a, b, rtol=tol, atol=tol),
+                  f"[P] {arch} {name} float32 cut: step {i} logits differ "
+                  f"from the CPU's tp = {tp} run by {errs[-1]}")
+        check(torch.equal(card_run["tokens"], cpu_run["tokens"]),
+              f"[P] {arch} {name} float32 cut: tokens on the card "
+              f"{card_run['tokens'].tolist()}, on the CPU "
+              f"{cpu_run['tokens'].tolist()}")
+        for coords, runs in parts.items():
+            t_card, t_cpu = runs[name]["card"]["tables"], \
+                runs[name]["cpu"]["tables"]
+            check(len(t_card) == len(t_cpu)
+                  and all(torch.equal(a, b) for a, b in zip(t_card, t_cpu)),
+                  f"[P] {arch} {name} float32 cut rank {coords}: MoE slot "
+                  "tables differ from the CPU's")
+        msg = ""
+        # int8 weights quantize the same global leaves as tp = 1
+        if (arch, name) in ref_f32:
+            tokens1, logits1 = ref_f32[(arch, name)]
+            errs1 = []
+            for i, (a, b) in enumerate(zip(card_run["logits"], logits1)):
+                tol = TOL_SMALL["bfloat16" if i == 0 else kv]
+                errs1.append((a[:, :v] - b[:, :v]).abs().max().item())
+                check(torch.allclose(a[:, :v], b[:, :v], rtol=tol, atol=tol),
+                      f"[P] {arch} {name} float32 cut: step {i} logits "
+                      f"differ from tp = 1's by {errs1[-1]}")
+            check(torch.equal(card_run["tokens"], tokens1),
+                  f"[P] {arch} {name} float32 cut: tokens "
+                  f"{card_run['tokens'].tolist()} at tp = {tp}, "
+                  f"{tokens1.tolist()} at tp = 1")
+            msg = (f"; against tp = 1 on the card max |logit diff| per step "
+                   f"{[f'{e:.2e}' for e in errs1]}")
+        n_tables = len(parts[(0, 0)][name]["card"]["tables"])
+        log(f"[P] {arch} {name} float32 cut at tp = {tp}: tokens "
+            f"{card_run['tokens'][0].tolist()} equal on the card and the "
+            f"CPU; max |logit diff| per step {[f'{e:.2e}' for e in errs]}"
+            f"{msg}; {n_tables} MoE slot tables a rank equal the CPU's; "
+            f"{parts[(0, 0)][name]['seconds']:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4631,6 +5264,13 @@ def main() -> int:
     check_cim_sass(km.build()[0])
     check_bwd_sass(la.build_bwd()[0])
     check_scan_bwd_sass(ss, ss.build_bwd()[0])
+    if "--only-tp" in sys.argv[1:]:
+        # phase P alone, for work on the tp > 1 path: no result line
+        tp_phase(la, ss, card)
+        if FAILURES:
+            fail(f"{len(FAILURES)} checks failed: {FAILURES}")
+        log("[P] --only-tp: phase P passed; the other phases did not run")
+        return 2
 
     sim, frames, launches, wall, calls, reps = main_path(km)
     # nominal again, after the variation run: separates the flavor from
@@ -4719,14 +5359,17 @@ def main() -> int:
     bwd_row, g_attn = training_phase(la, card)
     scan_bwd_row, h_launches = families_training_phase(la, ss, card)
     mla_row, i_launches, i_worst = mla_encdec_training_phase(la, ss, card)
-    # phases 5 and 6 (gemma3) and the counted runs of phases F, E, G, H
-    # and I
+    p_launches, p_worst = tp_phase(la, ss, card)
+    # phases 5 and 6 (gemma3) and the counted runs of phases F, E, G, H,
+    # I and P (P's summed over its ranks)
     launches_attn = {"local_attention": lm["bf16"]["launches"]
                      + family_attn + e_attn + g_attn
                      + h_launches["local_attention"]
-                     + i_launches["local_attention"],
+                     + i_launches["local_attention"]
+                     + p_launches.get("local_attention", 0),
                      "local_attention_f32": f32_launches}
-    scan_row["launches"] += h_launches["selective_scan"]
+    scan_row["launches"] += (h_launches["selective_scan"]
+                             + p_launches.get("selective_scan", 0))
     bwd_row["launches"] += (h_launches["local_attention_bwd"]
                             + i_launches["local_attention_bwd"])
     # the backward's times: deepseek's (192, 128) call (phase I); gemma3's
@@ -4735,7 +5378,10 @@ def main() -> int:
     bwd_row["max_abs_err"] = max(bwd_row["max_abs_err"], i_worst)
     for name in worst_attn:
         worst_attn[name] = max(worst_attn[name], worst_family.get(name, 0.0),
-                               worst_e.get(name, 0.0))
+                               worst_e.get(name, 0.0),
+                               p_worst.get(name, 0.0))
+    scan_row["max_abs_err"] = max(scan_row["max_abs_err"],
+                                  p_worst.get("selective_scan", 0.0))
     for name, row in attn.items():
         kernels.append({
             "name": name, "route": "cuda", "source": ATTN_SOURCE,

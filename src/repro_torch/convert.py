@@ -7,8 +7,10 @@ the port keeps the same layout as tensors on a device.  LM params and
 caches are segment-stacked in the reference and a per-layer list in the
 port (``models/transformer.py``); an encoder-decoder's stacks and caches
 likewise (``models/encdec.py``).  Training keeps the reference's stacked
-layout, and the optimizer state crosses as it is.  Nothing here imports
-the reference: it reads plain arrays and duck-typed engines.
+layout, and the optimizer state crosses as it is.  At tp > 1 a rank
+takes its shard of those global params or caches
+(:func:`shard_lm_params`, :func:`shard_lm_caches`).  Nothing here
+imports the reference: it reads plain arrays and duck-typed engines.
 """
 from __future__ import annotations
 
@@ -187,3 +189,24 @@ def copy_calibration(ref_engine, engine):
     for name, cal in ref_engine.calib.items():
         engine.set_layer(name, a_scale=cal.a_scale, gain=cal.gain)
     return engine
+
+
+def shard_lm_params(global_params, specs, coords):
+    """One rank's shard of the global params that
+    :func:`lm_params_from_reference` or :func:`encdec_params_from_reference`
+    give (padded experts included: the reference's params under
+    ``ShardingPlan(tp=1, experts_pad=...)``).  ``specs``: a serve
+    program's ``param_specs``; ``coords``: its mesh's ``coords_dict()``.
+    The shard computes what the reference's shard_map device computes."""
+    from repro_torch.runtime.partition import shard_tree
+
+    return shard_tree(global_params, specs, coords)
+
+
+def shard_lm_caches(global_caches, specs, coords):
+    """One rank's shard of global caches (the port's layout, e.g. from
+    :func:`lm_caches_from_reference`) by a serve program's
+    ``cache_specs``."""
+    from repro_torch.runtime.partition import shard_tree
+
+    return shard_tree(global_caches, specs, coords)

@@ -1,26 +1,31 @@
-"""LM model foundations on torch — the tp = 1 subset of
-``repro/models/common.py``: the sharding plan, norms, activations, RoPE,
-soft caps, the embedding lookup, the cross-entropy over the head's
-logits, initializers, the quantized-weight leaf path and flash
-attention (with its gradient on the card: ``grouped_local_attention``
+"""LM model foundations on torch (``repro/models/common.py``): the
+sharding plan, the plan-aware linear dispatchers, norms, activations,
+RoPE, soft caps, the vocab-sharded embedding lookup, the cross-entropy
+over the head's logits, initializers, the quantized-weight leaf path and
+flash attention (with its gradient on the card: ``grouped_local_attention``
 takes ``LocalAttentionFn`` when an input requires grad).
 
 The reference writes these as per-device functions inside one
-``shard_map``; on one card every collective is local math, so only
-that case is ported.  Sharding over several cards (the Domino ring
-matmuls, the group trick, the sequence-sharded cache) is ROADMAP Queue
-1 item 15.
+``shard_map``.  Here each is a per-rank function: at tp = 1 every
+collective is local math, and at tp > 1 the plan holds the mesh axis
+(``launch/mesh.py::MeshAxis``) over which :func:`up` and :func:`down`
+run the Domino ring matmuls or the all-reduce baseline
+(``core/dataflow.py``), :func:`psum_if` reduces partial sums and
+:func:`embed_lookup` merges the vocab shards' gathers.  Training at
+tp > 1 (the sharded cross-entropy's gradients) is ROADMAP Queue 1 item
+15(b): the loss here is the tp = 1 one.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field, replace
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import dataflow
 from repro_torch.core.engine import is_quantized_leaf
 from repro_torch.kernels import local_attention as attention_kernel
 
@@ -31,28 +36,79 @@ from repro_torch.kernels import local_attention as attention_kernel
 
 @dataclass(frozen=True)
 class ShardingPlan:
-    """The parallel layout of one (arch, device) pair: tp = 1 only, so
-    every device holds all heads, the whole vocabulary, every expert and
-    every weight whole."""
+    """Static parallel layout decisions for one (arch, mesh) pair, the
+    reference's fields, plus the mesh axis the model axis runs on
+    (``axis``; None where no collective runs: tp = 1, or shapes only)."""
 
-    tp: int = 1
-    #: experts added to make the count a multiple of tp (0 at tp = 1)
-    experts_pad: int = 0
+    tp: int = 1                      # model-axis size
+    tp_axis: str = "model"
+    dp_axes: Tuple[str, ...] = ()    # data axes
+    reduction: str = "ring"          # "ring" (Domino) | "allreduce"
+    attn_sharded: bool = True        # query heads sharded over tp?
+    kv_sharded: bool = True          # kv heads sharded too?
+    experts_pad: int = 0             # experts padded to a multiple of tp
+    seq_shard: bool = True           # residual stream sequence-sharded
+    #: global-attention KV caches sharded over their sequence dim when
+    #: heads cannot shard (H % tp != 0), merged by log-sum-exp
+    seq_cache: bool = False
+    #: init functions produce global (unsharded) shapes
+    global_shapes: bool = False
+    axis: Any = field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
-        if self.tp != 1 or self.experts_pad:
-            raise NotImplementedError(
-                "tp > 1 (ring dataflow, group trick, sequence-sharded "
-                "cache, expert padding and all_to_all) is not ported: "
-                "ROADMAP Queue 1 item 15")
+        if self.reduction not in ("ring", "allreduce"):
+            raise ValueError(f"reduction must be ring or allreduce: "
+                             f"{self.reduction!r}")
+        if self.axis is not None and self.axis.size != self.tp:
+            raise ValueError(f"a plan at tp={self.tp} on a mesh axis of "
+                             f"size {self.axis.size}")
+
+    def as_global(self) -> "ShardingPlan":
+        return replace(self, global_shapes=True)
 
     @staticmethod
-    def for_model(cfg: ModelConfig, tp: int = 1) -> "ShardingPlan":
-        return ShardingPlan(tp=tp)
+    def for_model(cfg: ModelConfig, tp: int = 1,
+                  dp_axes: Tuple[str, ...] = (),
+                  reduction: str = "ring", axis=None) -> "ShardingPlan":
+        a = cfg.attention
+        attn_sharded = a is not None and a.num_heads % tp == 0
+        kv_sharded = attn_sharded and a.num_kv_heads % tp == 0
+        pad = (-cfg.moe.num_experts) % tp if cfg.moe is not None else 0
+        return ShardingPlan(
+            tp=tp, dp_axes=dp_axes, reduction=reduction,
+            attn_sharded=attn_sharded, kv_sharded=kv_sharded,
+            experts_pad=pad, axis=axis)
+
+    # -- local shard sizes ---------------------------------------------------
+
+    def heads_local(self, cfg: ModelConfig) -> int:
+        h = cfg.attention.num_heads
+        if self.global_shapes:
+            return h
+        return h // self.tp if self.attn_sharded else h
+
+    def kv_local(self, cfg: ModelConfig) -> int:
+        kv = cfg.attention.num_kv_heads
+        if self.global_shapes:
+            return kv
+        return kv // self.tp if self.kv_sharded else kv
 
     def shard(self, n: int) -> int:
-        """This device's share of ``n`` (all of it at tp = 1)."""
+        """This rank's share of ``n`` (all of it with global shapes)."""
+        if self.global_shapes:
+            return n
+        if n % self.tp:
+            raise ValueError(f"{n} does not shard {self.tp} ways")
         return n // self.tp
+
+    def tp_index(self) -> int:
+        """This rank's index on the model axis."""
+        if self.tp == 1:
+            return 0
+        if self.axis is None:
+            raise RuntimeError("a tp > 1 plan without a mesh axis runs no "
+                               "collective (build it with axis=)")
+        return self.axis.index
 
 
 # ---------------------------------------------------------------------------
@@ -88,6 +144,44 @@ def local_linear(x: torch.Tensor, w, bias=None) -> torch.Tensor:
     if bias is None:
         return y.to(x.dtype)
     return (y.float() + bias).to(x.dtype)
+
+
+def up(x: torch.Tensor, w, plan: ShardingPlan, tail=None) -> torch.Tensor:
+    """Sequence-sharded in -> (full sequence, local features) out: the
+    ring all-gather matmul or the all-gather baseline by
+    ``plan.reduction``; ``tail`` runs on the float32 product.  At
+    tp > 1 only: at tp = 1 the callers take :func:`local_linear`."""
+    w = resolve_w(w, x)
+    return dataflow.up_matmul(x, w, axis=plan.axis,
+                              reduction=plan.reduction, tail=tail)
+
+
+def down(x: torch.Tensor, w, plan: ShardingPlan, tail=None) -> torch.Tensor:
+    """(full sequence, local features) in -> sequence-sharded, fully
+    reduced out: the ring reduce-scatter matmul or the all-reduce
+    baseline.  At tp > 1 only, as :func:`up`."""
+    w = resolve_w(w, x)
+    return dataflow.down_matmul(x, w, axis=plan.axis,
+                                reduction=plan.reduction, tail=tail)
+
+
+def psum_if(x: torch.Tensor, plan: ShardingPlan) -> torch.Tensor:
+    """Sum over the model axis at tp > 1."""
+    if plan.tp == 1:
+        return x
+    return dataflow.psum(x, plan.axis)
+
+
+def last_shard_row(h: torch.Tensor, plan: ShardingPlan) -> torch.Tensor:
+    """h[:, -1] of the whole sequence from a sequence-sharded h
+    (B, S/k, D): the last shard's row, others zero, summed over the
+    model axis (the reference's masked psum)."""
+    last = h[:, -1]
+    if plan.tp == 1 or not plan.seq_shard:
+        return last
+    if plan.tp_index() != plan.tp - 1:
+        last = torch.zeros_like(last)
+    return psum_if(last, plan)
 
 
 # ---------------------------------------------------------------------------
@@ -225,8 +319,18 @@ def bidirectional_attention(q: torch.Tensor, k: torch.Tensor,
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
                  plan: ShardingPlan) -> torch.Tensor:
-    """table: (V, D); ids: (B, S) -> (B, S, D)."""
-    return table[ids]
+    """table: (V_local, D), this rank's vocab shard; ids: (B, S) global
+    ids -> (B, S, D).  At tp > 1 a masked local gather (ids outside the
+    shard read zero) summed over the model axis."""
+    if plan.tp == 1:
+        return table[ids]
+    v_local = table.shape[0]
+    lo = plan.tp_index() * v_local
+    hit = (ids >= lo) & (ids < lo + v_local)
+    emb = table[torch.clamp(ids - lo, 0, v_local - 1)]
+    emb = torch.where(hit[..., None], emb, torch.zeros((), dtype=emb.dtype,
+                                                       device=emb.device))
+    return psum_if(emb, plan)
 
 
 def sharded_softmax_xent(logits_local: torch.Tensor, labels: torch.Tensor,
@@ -253,12 +357,14 @@ def sharded_softmax_xent(logits_local: torch.Tensor, labels: torch.Tensor,
 
 def _mask_pad_vocab(logits_local: torch.Tensor, cfg: ModelConfig,
                     plan: ShardingPlan, v_local: int) -> torch.Tensor:
-    """Columns past the vocabulary at ``-1e30``.  At tp = 1 every column
-    is a real id, and the logits come back as they are (the reference's
-    ``where`` with an all-true mask)."""
-    if v_local <= cfg.vocab_size:
+    """Columns past the vocabulary at ``-1e30``: this rank's vocab shard
+    starts at ``tp_index * v_local``.  Where every column is a real id
+    the logits come back as they are (the reference's ``where`` with an
+    all-true mask)."""
+    lo = plan.tp_index() * v_local
+    if lo + v_local <= cfg.vocab_size:
         return logits_local
-    col = torch.arange(v_local, device=logits_local.device)
+    col = lo + torch.arange(v_local, device=logits_local.device)
     return torch.where((col < cfg.vocab_size)[None, None, :], logits_local,
                        torch.full_like(logits_local, -1e30))
 
@@ -268,16 +374,28 @@ def _mask_pad_vocab(logits_local: torch.Tensor, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 
-def dense_init(gen: torch.Generator, fan_in: int, shape, dtype
-               ) -> torch.Tensor:
+def randn(gen, shape) -> torch.Tensor:
+    """Normal float32 draws from ``gen`` on its device; on the ``meta``
+    device (``runtime/partition.py::META``) only the shape."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=gen.device)
+
+
+def rand(gen, shape) -> torch.Tensor:
+    """Uniform [0, 1) float32 draws, as :func:`randn`."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.rand(shape, generator=gen, dtype=torch.float32,
+                      device=gen.device)
+
+
+def dense_init(gen, fan_in: int, shape, dtype) -> torch.Tensor:
     """Normal draws in float32 / sqrt(fan_in), cast to ``dtype``; the
     division in place, so one float32 copy is made, not two."""
-    w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return w.div_(math.sqrt(fan_in)).to(dtype)
+    return randn(gen, shape).div_(math.sqrt(fan_in)).to(dtype)
 
 
-def embed_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:
-    w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return (w * 0.02).to(dtype)
+def embed_init(gen, shape, dtype) -> torch.Tensor:
+    return (randn(gen, shape) * 0.02).to(dtype)

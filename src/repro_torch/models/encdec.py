@@ -1,5 +1,5 @@
 """Encoder-decoder transformer on torch (seamless-m4t-large-v2's
-backbone) — the tp = 1 subset of ``repro/models/encdec.py``.
+backbone, ``repro/models/encdec.py``).
 
 The speech frontend is a stub: the caller hands in precomputed frame
 embeddings (B, T, embed_dim).  The model owns ``frontend_proj``, the
@@ -22,13 +22,27 @@ cross)``, each a list with one dict per decoder layer; self ``k`` / ``v``
 (B, s_max, KV, hd) (+ ``k_scale`` / ``v_scale`` when int8), cross ``k``
 / ``v`` (B, T, KV, hd) in the memory's dtype, never int8.
 
+At tp > 1 each rank runs the reference's per-device program: the
+encoder's stream is sequence-sharded after ``frontend_proj`` and
+all-gathered after ``enc_norm`` (the memory is whole on every rank);
+the decoder's self-attention and MLP shard as the decoder-only stack's
+(``models/transformer.py``); cross-attention's queries come through
+``up`` and its output through ``down``, its K / V projected from the
+whole memory at the rank's kv heads (the group trick where they do not
+shard), and decode psums its output projection's partial sums.  The
+last token comes from the last shard, and the logits are masked past
+the vocabulary and all-gathered (the reference's encoder-decoder skips
+the mask; its padded columns would hold the padded embedding rows'
+logits, here they read -1e30 as the decoder-only stack's do).
+
 Dtypes follow the reference's promotion.  With bfloat16 params, float32
 frames make a float32 memory, which turns the decoder stream float32 at
 the first cross-attention; the reference's ``lax.scan`` then refuses the
 layer (its carry changes dtype), and so does the port, with a
 ``ValueError``.
 
-Training: :func:`encdec_loss` is the reference's at tp = 1 (the encoder,
+Training: :func:`encdec_loss` is the reference's at tp = 1 (tp > 1 is
+ROADMAP Queue 1 item 15(b): the encoder,
 the decoder stack and the chunked cross-entropy over the tied head).
 Its params keep the reference's layout (:func:`stack_layers`):
 ``"encoder"`` and ``"decoder"`` each one dict whose leaves are stacked
@@ -52,14 +66,18 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as tfm
+from repro_torch.core import dataflow
 from repro_torch.models.common import (
     ShardingPlan,
     dense_init,
-    embed_init,
+    down,
     embed_lookup,
     flash_attention,
+    last_shard_row,
     local_linear,
+    psum_if,
     rms_norm,
+    up,
 )
 from repro_torch.tree import leaves
 
@@ -76,18 +94,30 @@ def init_cross_attn(gen: torch.Generator, cfg: ModelConfig,
 def cross_attn_forward(p, x: torch.Tensor, memory: torch.Tensor,
                        cfg: ModelConfig, plan: ShardingPlan,
                        want_cache: bool = False):
-    """x: (B, S, D) decoder stream; memory: (B, T, D) encoder output.
-    No positions (cross-attention carries none).  Returns (out, cache |
-    None); the cache is the projected memory in its own dtype."""
+    """x: (B, S_local, D) decoder stream (sequence-sharded at tp > 1);
+    memory: (B, T, D) encoder output, whole.  No positions
+    (cross-attention carries none).  Returns (out, cache | None); the
+    cache is the projected memory, this rank's kv heads, in its own
+    dtype."""
     a = cfg.attention
     hd = a.head_dim
-    b, s = x.shape[:2]
+    b = x.shape[0]
     t = memory.shape[1]
-    q = local_linear(x, p["wq"]).reshape(b, s, a.num_heads, hd)
-    k = local_linear(memory, p["wk"]).reshape(b, t, a.num_kv_heads, hd)
-    v = local_linear(memory, p["wv"]).reshape(b, t, a.num_kv_heads, hd)
-    o = flash_attention(q, k, v, causal=False)
-    out = local_linear(o.reshape(b, s, a.num_heads * hd), p["wo"])
+    hl = plan.heads_local(cfg)
+    kv_store = attn_mod.stored_kv_heads(cfg, plan)
+    sharded = plan.tp > 1
+    q = up(x, p["wq"], plan) if sharded else local_linear(x, p["wq"])
+    k = local_linear(memory, p["wk"])
+    v = local_linear(memory, p["wv"])
+    if plan.attn_sharded and not plan.kv_sharded and sharded:
+        k = attn_mod._group_slice(k, cfg, plan, hd)
+        v = attn_mod._group_slice(v, cfg, plan, hd)
+    s = q.shape[1]
+    q = q.reshape(b, s, hl, hd)
+    k = k.reshape(b, t, kv_store, hd)
+    v = v.reshape(b, t, kv_store, hd)
+    o = flash_attention(q, k, v, causal=False).reshape(b, s, hl * hd)
+    out = down(o, p["wo"], plan) if sharded else local_linear(o, p["wo"])
     return out, ({"k": k, "v": v} if want_cache else None)
 
 
@@ -95,17 +125,21 @@ def cross_attn_decode(p, x: torch.Tensor, cache, cfg: ModelConfig,
                       plan: ShardingPlan) -> torch.Tensor:
     """x: (B, 1, D) against the cached cross K / V (B, T, KV, hd): the
     reference's products, float32 logits of the upcast operands times
-    ``hd^-0.5``, a float32 softmax, the probabilities in v's dtype."""
+    ``hd^-0.5``, a float32 softmax, the probabilities in v's dtype; at
+    the rank's heads, psummed over the model axis where they shard."""
     a = cfg.attention
     hd = a.head_dim
     b = x.shape[0]
-    h, kvh = a.num_heads, cache["k"].shape[2]
+    h, kvh = plan.heads_local(cfg), cache["k"].shape[2]
     q = local_linear(x, p["wq"]).reshape(b, kvh, h // kvh, hd)
     kt = cache["k"].float().permute(0, 2, 3, 1)          # (B, KV, hd, T)
     logits = torch.matmul(q.float(), kt) * hd ** -0.5     # (B, KV, G, T)
     probs = torch.softmax(logits, dim=-1).to(cache["v"].dtype)
     o = torch.matmul(probs, cache["v"].permute(0, 2, 1, 3))  # (B,KV,G,hd)
-    return local_linear(o.reshape(b, 1, h * hd), p["wo"])
+    out = local_linear(o.reshape(b, 1, h * hd), p["wo"])
+    if plan.tp > 1 and plan.attn_sharded:
+        out = psum_if(out, plan)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -114,12 +148,16 @@ def cross_attn_decode(p, x: torch.Tensor, cache, cfg: ModelConfig,
 
 
 def init_params(cfg: ModelConfig, plan: ShardingPlan, gen: torch.Generator,
-                dtype=None) -> Dict[str, Any]:
+                dtype=None, shard_fn=None) -> Dict[str, Any]:
     """Random params on ``gen``'s device, drawn as
     ``transformer.init_params`` draws them (norms zero); the draws
     differ from the reference's, and parity tests carry the reference's
-    params across (``convert.encdec_params_from_reference``)."""
+    params across (``convert.encdec_params_from_reference``).
+    ``shard_fn(path, tree)`` replaces each top-level leaf and each layer
+    (paths ``("encoder", l)``, ``("decoder", l)``) as soon as it is
+    drawn."""
     dtype = dtype or getattr(torch, cfg.dtype)
+    keep = shard_fn or tfm._no_shard
     dev = gen.device
     spec = tfm.layer_spec(cfg, 0)
     d, e = cfg.d_model, cfg.frontend.embed_dim
@@ -131,16 +169,19 @@ def init_params(cfg: ModelConfig, plan: ShardingPlan, gen: torch.Generator,
         return p
 
     params: Dict[str, Any] = {
-        "embed": embed_init(gen, (cfg.vocab_size, d), dtype),
+        "embed": keep(("embed",), tfm.vocab_leaf(gen, cfg, plan, dtype)),
         "frontend_proj": dense_init(gen, e, (e, d), dtype),
         "enc_norm": torch.zeros((d,), dtype=dtype, device=dev),
         "dec_norm": torch.zeros((d,), dtype=dtype, device=dev),
-        "encoder": [tfm.init_layer(gen, spec, cfg, plan, dtype)
-                    for _ in range(cfg.encoder_layers)],
-        "decoder": [dec_layer() for _ in range(cfg.num_layers)],
+        "encoder": [keep(("encoder", l),
+                         tfm.init_layer(gen, spec, cfg, plan, dtype))
+                    for l in range(cfg.encoder_layers)],
+        "decoder": [keep(("decoder", l), dec_layer())
+                    for l in range(cfg.num_layers)],
     }
     if not cfg.tie_embeddings:
-        params["head"] = dense_init(gen, d, (d, cfg.vocab_size), dtype)
+        params["head"] = keep(("head",), tfm.vocab_leaf(gen, cfg, plan,
+                                                        dtype, head=True))
     return params
 
 
@@ -199,9 +240,11 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig,
            plan: ShardingPlan, remat: str = "full") -> torch.Tensor:
     """frames: (B, T, embed_dim) -> memory (B, T, D), in the frames'
     dtype: ``frontend_proj``, the bidirectional layers (rope on the
-    frames' positions), ``enc_norm``.  ``remat``: each layer's policy
-    when grad is enabled ("none", "full" or "dots")."""
-    x = local_linear(frames, params["frontend_proj"])
+    frames' positions), ``enc_norm``; at tp > 1 the stream is this
+    rank's sequence chunk in between, and the memory is all-gathered.
+    ``remat``: each layer's policy when grad is enabled ("none", "full"
+    or "dots")."""
+    x = tfm.seq_chunk(local_linear(frames, params["frontend_proj"]), plan)
     positions = torch.arange(frames.shape[1], device=frames.device)
 
     def layer(x, lp):
@@ -214,7 +257,10 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig,
                            "encoder")
 
     x = _run_layers(layer, x, _layers(params["encoder"]), remat)
-    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+    x = rms_norm(x, params["enc_norm"], cfg.norm_eps)
+    if plan.tp > 1 and plan.seq_shard:
+        x = dataflow.all_gather(x, plan.axis, dim=1)
+    return x
 
 
 def _decoder_stack(params, x: torch.Tensor, memory: torch.Tensor,
@@ -271,13 +317,13 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             plan: ShardingPlan, kv_dtype: str = "bfloat16",
             s_max: Optional[int] = None):
     """batch: ``{"frames": (B, T, embed_dim), "tokens": (B, S)}`` ->
-    (last-token logits (B, V) float32, (self, cross) caches); the self
-    caches grown to ``s_max`` positions (the layers are global, so the
-    reference's ring layout is a zero pad)."""
+    (last-token logits (B, V_pad) float32, (self, cross) caches); the
+    self caches grown to ``s_max`` positions (the layers are global, so
+    the reference's ring layout is a zero pad)."""
     memory = encode(params, batch["frames"], cfg, plan, remat="none")
     tokens = batch["tokens"]
     s = tokens.shape[1]
-    x = embed_lookup(params["embed"], tokens, plan)
+    x = tfm.seq_chunk(embed_lookup(params["embed"], tokens, plan), plan)
     positions = torch.arange(s, device=tokens.device)
     h, (self_c, cross_c) = _decoder_stack(
         params, x, memory, cfg, plan, positions, want_caches=True,
@@ -285,8 +331,9 @@ def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     if s_max is not None and s_max != s:
         self_c = [{name: tfm._to_ring(arr, 1, s, s_max)
                    for name, arr in c.items()} for c in self_c]
-    logits = tfm.lm_logits_local(params, h[:, -1:], cfg, plan)[:, 0]
-    return logits, (self_c, cross_c)
+    last = last_shard_row(h, plan)[:, None]
+    logits = tfm.lm_logits_local(params, last, cfg, plan)[:, 0]
+    return tfm.gather_logits(logits, cfg, plan), (self_c, cross_c)
 
 
 def init_cache(cfg: ModelConfig, plan: ShardingPlan, batch: int, s_max: int,
@@ -300,7 +347,8 @@ def init_cache(cfg: ModelConfig, plan: ShardingPlan, batch: int, s_max: int,
     a = cfg.attention
     dev = resolve_device(device)
     shapes = attn_mod.gqa_cache_shape(cfg, plan, batch, s_max, 0, kv_dtype)
-    cross_shape = (batch, t_enc, a.num_kv_heads, a.head_dim)
+    cross_shape = (batch, t_enc, attn_mod.stored_kv_heads(cfg, plan),
+                   a.head_dim)
     self_c = [{k: torch.zeros(sh, dtype=dt, device=dev)
                for k, (sh, dt) in shapes.items()}
               for _ in range(cfg.num_layers)]
@@ -313,7 +361,7 @@ def init_cache(cfg: ModelConfig, plan: ShardingPlan, batch: int, s_max: int,
 def decode_step(params, token: torch.Tensor, caches, pos: int,
                 cfg: ModelConfig, plan: ShardingPlan,
                 kv_dtype: str = "bfloat16"):
-    """token: (B,) ids at absolute position ``pos`` -> (logits (B, V)
+    """token: (B,) ids at absolute position ``pos`` -> (logits (B, V_pad)
     float32, caches).  The self caches are updated in place; the cross
     caches are read."""
     self_c, cross_c = caches
@@ -332,5 +380,5 @@ def decode_step(params, token: torch.Tensor, caches, pos: int,
                         "decoder")
         new_self.append(sc)
     x = rms_norm(x, params["dec_norm"], cfg.norm_eps)
-    return (tfm.lm_logits_local(params, x, cfg, plan)[:, 0],
-            (new_self, cross_c))
+    logits = tfm.lm_logits_local(params, x, cfg, plan)[:, 0]
+    return tfm.gather_logits(logits, cfg, plan), (new_self, cross_c)

@@ -1,11 +1,15 @@
-"""Mixture-of-Experts on torch — the tp = 1 subset of
-``repro/models/moe.py`` (jamba 16e/top-2, granite 40e/top-8, deepseek-v3
-256e/top-8 + shared experts).
+"""Expert-parallel Mixture-of-Experts on torch (``repro/models/moe.py``:
+jamba 16e/top-2, granite 40e/top-8, deepseek-v3 256e/top-8 + shared
+experts).
 
-The reference shards experts over the model axis and moves tokens to
-them with one ``all_to_all`` each way; at tp = 1 every expert is local
-and the exchange is a reshape, so only that case is ported (tp > 1 is
-ROADMAP Queue 1 item 15).  What stays is the reference's dispatch:
+Experts are sharded over the model axis; tokens are already sharded on
+the same axis (the sequence-parallel stream), so the dispatch is one
+tiled ``all_to_all`` each way: ``(E_total, cap, D) -> (e_local, tp * cap,
+D)`` and back (Domino's view: tokens travel to the tiles that hold their
+weights).  At tp = 1 the exchange is a reshape.  ``E_total`` is
+``num_experts + plan.experts_pad``; the padded experts' router columns
+read ``-1e30``, so no token picks them.  Routing, the capacity (from the
+rank's own tokens) and the dropping are per rank, as in the reference:
 capacity-sliced, Switch-style token dropping.  The (token, k) pairs are
 sorted stably by expert, each keeps its position within its expert's
 group, and a pair whose position reaches the capacity is dropped.
@@ -29,6 +33,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import dataflow
 from repro_torch.models.common import (
     ACT,
     ShardingPlan,
@@ -75,6 +80,9 @@ def route(p, xt: torch.Tensor, cfg: ModelConfig, plan: ShardingPlan):
     t = xt.shape[0]
     e_total = m.num_experts + plan.experts_pad
     logits = torch.matmul(xt.float(), p["router"].float())  # (T, E_real)
+    if plan.experts_pad:
+        logits = torch.cat([logits, logits.new_full(
+            (t, plan.experts_pad), -1e30)], dim=1)
     probs = torch.softmax(logits, dim=-1)
     gate_w, gate_e = torch.topk(probs, m.top_k, dim=-1)      # descending
     gate_w = gate_w / torch.clamp_min(gate_w.sum(-1, keepdim=True), 1e-9)
@@ -122,7 +130,9 @@ class _GatherRows(torch.autograd.Function):
 
 def moe_forward(p, x: torch.Tensor, cfg: ModelConfig, plan: ShardingPlan
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (same shape, aux loss scalar)."""
+    """x: (B, S_local, D) -> (same shape, aux loss scalar).  At tp > 1
+    this rank routes its own tokens; the experts it holds run on every
+    rank's tokens for them."""
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -147,15 +157,24 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig, plan: ShardingPlan
     rows = torch.where(slot >= 0, slot, torch.full_like(slot, n_slots))
     dispatched = _GatherRows.apply(xt, slot_tok, rows).reshape(
         e_total, cap, d)
+    if plan.tp > 1:
+        # tokens -> the ranks holding their experts: (e_local, tp * cap,
+        # D), sender-major rows
+        dispatched = dataflow.all_to_all(dispatched, plan.axis,
+                                         split_axis=0, concat_axis=1)
 
-    # expert FFN, batched over the experts, in x's dtype
+    # expert FFN, batched over the local experts, in x's dtype
     h = torch.bmm(dispatched, resolve_w(p["w_in"], x))
     if "w_gate" in p:
         g = torch.bmm(dispatched, resolve_w(p["w_gate"], x))
         h = (act(g.float()) * h.float()).to(x.dtype)
     else:
         h = act(h.float()).to(x.dtype)
-    y = torch.bmm(h, resolve_w(p["w_out"], x)).reshape(n_slots, d)
+    y = torch.bmm(h, resolve_w(p["w_out"], x))
+    if plan.tp > 1:
+        # results back to their senders: (E_total, cap, D)
+        y = dataflow.all_to_all(y, plan.axis, split_axis=1, concat_axis=0)
+    y = y.reshape(n_slots, d)
 
     # combine: each token's K contributions (dropped pairs zero), summed
     # over k in one fixed-order reduction

@@ -1,13 +1,17 @@
-"""Mamba-1 selective-SSM block on torch (falcon-mamba, jamba's mamba
-layers) — the tp = 1 subset of ``repro/models/ssm.py``.
+"""Mamba-1 selective-SSM block on torch (``repro/models/ssm.py``:
+falcon-mamba, jamba's mamba layers).
 
-The reference shards the d_inner channels over the model axis and
-psums the small x_proj output; at tp = 1 that is local math, so only
-that case is ported (tp > 1 is ROADMAP Queue 1 item 15).  Prefill runs
-the causal depthwise conv, the dt / B / C projections, and the scan
-through the selective-scan kernel (``kernels/selective_scan.py``; the
-reference's ``lax.associative_scan``); decode is the O(1) recurrent
-step on the carried (conv, ssm) state, in plain PyTorch.
+The d_inner channels are sharded over the model axis: the conv and the
+scan are independent across channels, so each rank runs them on its
+``d_inner / tp`` channels; only the small x_proj that produces dt / B /
+C needs a sum over the axis (a Domino-style partial sum of a
+``dt_rank + 2 d_state`` wide vector).  The in projections ride the ring
+(``up``) and the out projection comes back through ``down``; decode
+psums the out projection's partial sums.  Prefill runs the causal
+depthwise conv, the dt / B / C projections, and the scan through the
+selective-scan kernel (``kernels/selective_scan.py``; the reference's
+``lax.associative_scan``); decode is the O(1) recurrent step on the
+carried (conv, ssm) state, in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -21,8 +25,12 @@ from repro_torch.kernels import selective_scan as scan_kernel
 from repro_torch.models.common import (
     ShardingPlan,
     dense_init,
+    down,
     local_linear,
+    psum_if,
+    rand,
     resolve_w,
+    up,
 )
 
 
@@ -41,7 +49,7 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig, plan: ShardingPlan,
     # [1e-3, 0.1]
     a_init = torch.log(torch.arange(1, s.d_state + 1, dtype=torch.float32,
                                     device=dev))[None, :].repeat(dl, 1)
-    u = torch.rand((dl,), generator=gen, dtype=torch.float32, device=dev)
+    u = rand(gen, (dl,))
     dt_init = torch.exp(u * (math.log(0.1) - math.log(1e-3))
                         + math.log(1e-3))
     dt_bias = dt_init + torch.log(-torch.expm1(-dt_init))
@@ -64,13 +72,15 @@ def _softplus(v: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(v, 0.0) + torch.log1p(torch.exp(-torch.abs(v)))
 
 
-def _ssm_params(p, xc: torch.Tensor, cfg: ModelConfig):
-    """dt, B, C (float32) from the conv output.  x_proj and dt_proj
-    resolve with no ``like``, as in the reference: an int8 leaf
+def _ssm_params(p, xc: torch.Tensor, cfg: ModelConfig, plan: ShardingPlan):
+    """dt, B, C (float32) from the conv output; the x_proj partial sums
+    of this rank's channels summed over the model axis.  x_proj and
+    dt_proj resolve with no ``like``, as in the reference: an int8 leaf
     dequantizes through bfloat16 before the float32 product."""
     s = cfg.ssm
     dt_rank = s.resolved_dt_rank(cfg.d_model)
-    proj = torch.matmul(xc.float(), resolve_w(p["x_proj"]).float())
+    proj = psum_if(torch.matmul(xc.float(), resolve_w(p["x_proj"]).float()),
+                   plan)
     dt_in = proj[..., :dt_rank]
     b_mat = proj[..., dt_rank:dt_rank + s.d_state]
     c_mat = proj[..., dt_rank + s.d_state:]
@@ -81,12 +91,14 @@ def _ssm_params(p, xc: torch.Tensor, cfg: ModelConfig):
 
 def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, plan: ShardingPlan,
                   want_cache: bool = False):
-    """x: (B, S, D) -> (same shape, cache | None); the cache is
-    ``{"h": (B, d_inner, d_state) float32, "conv": (B, d_conv - 1,
-    d_inner) in x's dtype}``."""
+    """x: (B, S_local, D), sequence-sharded at tp > 1 -> (same shape,
+    cache | None); the cache is ``{"h": (B, d_inner_local, d_state)
+    float32, "conv": (B, d_conv - 1, d_inner_local) in x's dtype}``."""
     s, _, dl, _ = _dims(cfg, plan)
-    xb = local_linear(x, p["w_in_x"])
-    zb = local_linear(x, p["w_in_z"])
+    if plan.tp > 1:
+        xb, zb = up(x, p["w_in_x"], plan), up(x, p["w_in_z"], plan)
+    else:
+        xb, zb = local_linear(x, p["w_in_x"]), local_linear(x, p["w_in_z"])
     bsz, seq = xb.shape[0], xb.shape[1]
 
     # causal depthwise conv along the sequence, tap by tap
@@ -98,12 +110,13 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, plan: ShardingPlan,
         xc = xc + xp[:, k:k + seq] * w[:, k]
     xc = F.silu(xc + p["conv_b"].float())
 
-    dt, b_mat, c_mat = _ssm_params(p, xc, cfg)
+    dt, b_mat, c_mat = _ssm_params(p, xc, cfg, plan)
     a = -torch.exp(p["A_log"].float())  # (dl, n)
     y, h_last = scan_kernel.selective_scan(
         dt, xc, b_mat.contiguous(), c_mat.contiguous(), a, p["D"].float())
     y = (y * F.silu(zb.float())).to(x.dtype)
-    out = local_linear(y, p["w_out"])
+    out = down(y, p["w_out"], plan) if plan.tp > 1 \
+        else local_linear(y, p["w_out"])
 
     cache = None
     if want_cache:
@@ -117,7 +130,8 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, plan: ShardingPlan,
 
 def mamba_decode(p, x: torch.Tensor, cache, cfg: ModelConfig,
                  plan: ShardingPlan):
-    """x: (B, 1, D) -> ((B, 1, D), new cache).  O(1) per step."""
+    """x: (B, 1, D), replicated over the model axis -> ((B, 1, D) fully
+    reduced, new cache).  O(1) per step."""
     s, _, dl, _ = _dims(cfg, plan)
     xb = local_linear(x, p["w_in_x"])[:, 0]  # (B, dl)
     zb = local_linear(x, p["w_in_z"])[:, 0]
@@ -132,14 +146,14 @@ def mamba_decode(p, x: torch.Tensor, cache, cfg: ModelConfig,
         xc = xc + hist[:, k] * w[:, k]
     xc = F.silu(xc + p["conv_b"].float())
 
-    dt, b_mat, c_mat = _ssm_params(p, xc[:, None, :], cfg)
+    dt, b_mat, c_mat = _ssm_params(p, xc[:, None, :], cfg, plan)
     dt, b_mat, c_mat = dt[:, 0], b_mat[:, 0], c_mat[:, 0]
     a = -torch.exp(p["A_log"].float())
     decay = torch.exp(dt[..., None] * a[None])
     h = decay * cache["h"] + dt[..., None] * b_mat[:, None, :] * xc[..., None]
     y = torch.einsum("bdn,bn->bd", h, c_mat) + p["D"] * xc
     y = (y * F.silu(zb.float())).to(x.dtype)[:, None, :]
-    out = local_linear(y, p["w_out"])
+    out = psum_if(local_linear(y, p["w_out"]), plan)
     new_cache = {"h": h, "conv": conv_hist[:, -(s.d_conv - 1):]
                  if s.d_conv > 1 else conv_hist[:, :0]}
     return out, new_cache

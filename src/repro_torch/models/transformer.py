@@ -1,5 +1,4 @@
-"""Decoder-only LM on torch — the tp = 1 subset of
-``repro/models/transformer.py``: dense GQA stacks (gemma, qwen2,
+"""Decoder-only LM on torch (``repro/models/transformer.py``): dense GQA stacks (gemma, qwen2,
 minitron), MoE stacks (granite-moe), attention-free Mamba stacks
 (falcon-mamba), the Mamba + attention + MoE hybrid (jamba), the MLA +
 MoE stack of deepseek-v3, and the vision-language internvl2, whose
@@ -33,6 +32,20 @@ Multi-token prediction (deepseek-v3's ``mtp_depth``): its parameters
 are built, converted and quantized as the reference's; serving never
 reads them, and :func:`lm_loss` adds its term (:func:`mtp_loss`).
 
+Serving at tp > 1 runs the reference's per-device program on each rank
+of the model axis (``models/common.py::ShardingPlan`` holds the axis):
+the embedding is vocab-sharded (a masked gather summed over the axis),
+the residual stream is sequence-sharded after it, attention, MLP, MoE
+and Mamba layers shard heads, features, experts and channels, prefill's
+last token comes from the last shard by a masked psum, and the
+vocab-sharded head's logits are masked past the vocabulary and
+all-gathered, so every rank returns (B, V_pad) logits (V_pad: the
+vocabulary padded to a multiple of tp, :func:`padded_vocab`).
+``init_params`` builds a rank's local shapes, or the global ones with
+``plan.global_shapes``; ``shard_fn`` cuts each layer (and each top-level
+leaf) as soon as it is drawn, so a rank that draws the global weights
+holds one global layer at a time.
+
 Training keeps the reference's layout: ``"segments"`` in place of
 ``"layers"``, one list per segment with one dict per position of its
 layer cycle, each leaf stacked over the segment's repeat count when it
@@ -42,7 +55,8 @@ backward stacks the gradients onto the reference's leaves, and with
 grad enabled it runs each cycle of a repeated segment under
 ``torch.utils.checkpoint`` as the reference's ``remat`` policy says.
 :func:`lm_loss` is the reference's loss (the cross-entropy plus the MoE
-aux loss) for every decoder-only config at tp = 1: the dense family, the
+aux loss) for every decoder-only config at tp = 1 (tp > 1 is ROADMAP
+Queue 1 item 15(b)): the dense family, the
 MoE (granite-moe), Mamba (falcon-mamba) and hybrid (jamba) stacks, whose
 scan differentiates through its own backward kernel
 (``kernels/selective_scan.py``), MLA with multi-token prediction
@@ -56,9 +70,10 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -71,19 +86,23 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.core import dataflow
 from repro_torch.models.common import (
     ACT,
     ShardingPlan,
     _mask_pad_vocab,
     dense_init,
+    down,
     embed_init,
     embed_lookup,
     gated_act,
+    last_shard_row,
     local_linear,
     resolve_w,
     rms_norm,
     sharded_softmax_xent,
     softcap,
+    up,
 )
 
 # ---------------------------------------------------------------------------
@@ -176,10 +195,11 @@ def init_layer(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig,
         p["norm2"] = torch.zeros((cfg.d_model,), dtype=dtype, device=dev)
     if spec.mlp == "dense":
         d, f = cfg.d_model, cfg.d_ff
-        p["mlp"] = {"w_in": dense_init(gen, d, (d, f), dtype),
-                    "w_out": dense_init(gen, f, (f, d), dtype)}
+        fl = plan.shard(f) if plan.tp > 1 else f
+        p["mlp"] = {"w_in": dense_init(gen, d, (d, fl), dtype),
+                    "w_out": dense_init(gen, f, (fl, d), dtype)}
         if gated_act(cfg.activation):
-            p["mlp"]["w_gate"] = dense_init(gen, d, (d, f), dtype)
+            p["mlp"]["w_gate"] = dense_init(gen, d, (d, fl), dtype)
     elif spec.mlp == "moe":
         p["moe"] = moe_mod.init_moe(gen, cfg, plan, dtype)
     return p
@@ -187,7 +207,17 @@ def init_layer(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig,
 
 def mlp_forward(p, x: torch.Tensor, cfg: ModelConfig, plan: ShardingPlan
                 ) -> torch.Tensor:
+    """The dense MLP; at tp > 1 its features are sharded: ``up`` in (the
+    gate's activation on its float32 product), ``down`` out."""
     act = ACT[cfg.activation]
+    if plan.tp > 1:
+        h = up(x, p["w_in"], plan)
+        if "w_gate" in p:
+            g = up(x, p["w_gate"], plan, tail=act)
+            h = (g.float() * h.float()).to(x.dtype)
+        else:
+            h = act(h.float()).to(x.dtype)
+        return down(h, p["w_out"], plan)
     h = local_linear(x, p["w_in"])
     if "w_gate" in p:
         h = (act(local_linear(x, p["w_gate"]).float()) * h.float()
@@ -249,8 +279,39 @@ def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
     return [layer_spec(cfg, l) for l in range(cfg.num_layers)]
 
 
+def padded_vocab(cfg: ModelConfig, plan: ShardingPlan) -> int:
+    """The vocabulary rounded up to a multiple of tp."""
+    return ((cfg.vocab_size + plan.tp - 1) // plan.tp) * plan.tp
+
+
+def vocab_local(cfg: ModelConfig, plan: ShardingPlan) -> int:
+    v = padded_vocab(cfg, plan)
+    return v if plan.global_shapes else v // plan.tp
+
+
+def _no_shard(path, tree):
+    return tree
+
+
+def vocab_leaf(gen: torch.Generator, cfg: ModelConfig, plan: ShardingPlan,
+               dtype, head: bool = False) -> torch.Tensor:
+    """The embedding (V, D), or the head (D, V).  A global tree of a
+    padded vocabulary draws it at the real vocabulary and pads it with
+    zeros to :func:`padded_vocab`, so every tp draws the weights of
+    tp = 1; a rank's tree draws its :func:`vocab_local` shape."""
+    d, v = cfg.d_model, cfg.vocab_size
+    drawn = v if plan.global_shapes else vocab_local(cfg, plan)
+    pad = padded_vocab(cfg, plan) - v if plan.global_shapes else 0
+    if head:
+        w = dense_init(gen, d, (d, drawn), dtype)
+        return F.pad(w, (0, pad)) if pad else w
+    w = embed_init(gen, (drawn, d), dtype)
+    return F.pad(w, (0, 0, 0, pad)) if pad else w
+
+
 def init_params(cfg: ModelConfig, plan: ShardingPlan,
-                gen: torch.Generator, dtype=None) -> Dict[str, Any]:
+                gen: torch.Generator, dtype=None,
+                shard_fn: Optional[Callable] = None) -> Dict[str, Any]:
     """Random params on ``gen``'s device: normal draws from ``gen`` in
     float32 (``dense_init``: / sqrt(fan_in); embedding: * 0.02), norms
     zero, biases zero, cast to ``dtype`` (``cfg.dtype`` by default).
@@ -259,29 +320,35 @@ def init_params(cfg: ModelConfig, plan: ShardingPlan,
     as the reference builds it; serving does not read it.  The draws
     differ from the reference's ``jax.random`` ones; parity tests carry
     the reference's params across instead.  A modality frontend gets its
-    ``frontend_proj``."""
+    ``frontend_proj``.  The embedding and head are
+    :func:`vocab_leaf`'s.
+    ``shard_fn(path, tree)``, when given, replaces each top-level leaf
+    (path ``("embed",)``), each layer (``("layers", l)``) and the MTP
+    block (``("mtp",)``) as soon as it is drawn."""
     _decoder_only(cfg)
     dtype = dtype or getattr(torch, cfg.dtype)
+    keep = shard_fn or _no_shard
     dev = gen.device
+    d = cfg.d_model
     params: Dict[str, Any] = {
-        "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype),
-        "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
+        "embed": keep(("embed",), vocab_leaf(gen, cfg, plan, dtype)),
+        "final_norm": torch.zeros((d,), dtype=dtype, device=dev),
     }
     if not cfg.tie_embeddings:
-        params["head"] = dense_init(gen, cfg.d_model,
-                                    (cfg.d_model, cfg.vocab_size), dtype)
+        params["head"] = keep(("head",), vocab_leaf(gen, cfg, plan, dtype,
+                                                    head=True))
     if has_frontend(cfg):
         e = cfg.frontend.embed_dim
-        params["frontend_proj"] = dense_init(gen, e, (e, cfg.d_model), dtype)
-    params["layers"] = [init_layer(gen, spec, cfg, plan, dtype)
-                        for spec in layer_specs(cfg)]
+        params["frontend_proj"] = dense_init(gen, e, (e, d), dtype)
+    params["layers"] = [keep(("layers", l), init_layer(gen, spec, cfg,
+                                                       plan, dtype))
+                        for l, spec in enumerate(layer_specs(cfg))]
     if cfg.mtp_depth > 0:
-        d = cfg.d_model
-        params["mtp"] = {
+        params["mtp"] = keep(("mtp",), {
             "layer": init_layer(gen, layer_spec(cfg, cfg.num_layers - 1),
                                 cfg, plan, dtype),
             "proj": dense_init(gen, 2 * d, (2 * d, d), dtype),
-        }
+        })
     return params
 
 
@@ -293,7 +360,8 @@ def has_frontend(cfg: ModelConfig) -> bool:
 
 def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig,
                  plan: ShardingPlan, extras=None) -> torch.Tensor:
-    """tokens: (B, S) ids -> (B, S, D).  ``extras["patch_embeds"]``
+    """tokens: (B, S) ids -> (B, S, D), or this rank's sequence chunk
+    (B, S/k, D) at tp > 1.  ``extras["patch_embeds"]``
     (B, N, embed_dim), with a ``frontend_proj``, replaces the first N
     positions by their projection.  The result takes the dtype both
     promote to, as the reference's ``jnp.where`` does: float32 patch
@@ -308,7 +376,20 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig,
                              f"{s} tokens: the prompt must hold them")
         dt = torch.promote_types(img.dtype, x.dtype)
         x = torch.cat([img.to(dt), x[:, n_img:].to(dt)], dim=1)
-    return x
+    return seq_chunk(x, plan)
+
+
+def seq_chunk(x: torch.Tensor, plan: ShardingPlan) -> torch.Tensor:
+    """This rank's chunk of dim 1 of a replicated (B, S, ...) tensor at
+    tp > 1 (the whole tensor at tp = 1)."""
+    if plan.tp == 1 or not plan.seq_shard:
+        return x
+    s = x.shape[1]
+    if s % plan.tp:
+        raise ValueError(f"a sequence of {s} does not shard {plan.tp} ways")
+    chunk = s // plan.tp
+    i = plan.tp_index()
+    return x[:, i * chunk:(i + 1) * chunk].contiguous()
 
 
 def stack_layers(params, cfg: ModelConfig) -> Dict[str, Any]:
@@ -387,9 +468,9 @@ def _remat_context(remat: str):
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
             plan: ShardingPlan, extras=None, *, want_caches: bool = False,
             kv_dtype: str = "bfloat16", remat: str = "full"):
-    """-> (hidden (B, S, D) after the final norm, per-layer caches |
-    None, aux loss (0 for a dense stack)).  ``extras``: the frontend's
-    inputs (:func:`embed_tokens`).  With grad enabled and no caches
+    """-> (hidden (B, S_local, D) after the final norm, sequence-sharded
+    at tp > 1, per-layer caches | None, aux loss (0 for a dense
+    stack)).  ``extras``: the frontend's inputs (:func:`embed_tokens`).  With grad enabled and no caches
     asked for, each cycle of a segment repeated more than once runs
     under ``torch.utils.checkpoint`` unless ``remat="none"``; a segment
     of count 1 never does, as in the reference."""
@@ -556,7 +637,10 @@ def prepare_decode_caches(caches, cfg: ModelConfig, plan: ShardingPlan,
                           s: int, s_max: int):
     """Grow prefill caches (length s) to decode capacity (s_max), turning
     sliding-window layers into their ring-buffer layout (MLA has no
-    window: its ``c`` caches grow along the sequence)."""
+    window: its ``c`` caches grow along the sequence).  A layer whose
+    cache is sequence-sharded (``attention.use_seq_cache``) grows to
+    s_max padded to a multiple of tp, of which this rank keeps its
+    chunk (the replicated prefill computed all of it)."""
     out = []
     for spec, c in zip(layer_specs(cfg), caches):
         if spec.kind == "mamba":  # O(1) state: nothing grows
@@ -566,28 +650,50 @@ def prepare_decode_caches(caches, cfg: ModelConfig, plan: ShardingPlan,
                   else cfg.attention.layer_window(spec.pattern_idx))
         target = s_max if window is None else attn_mod._ring_len(window,
                                                                  s_max)
-        out.append({name: _to_ring(arr, 1, s, target)
-                    for name, arr in c.items()})
+        chunked = not _is_mla(cfg) and attn_mod.use_seq_cache(cfg, plan,
+                                                              window)
+        if chunked:
+            target = attn_mod._pad_to(s_max, plan.tp)
+        grown = {name: _to_ring(arr, 1, s, target)
+                 for name, arr in c.items()}
+        if chunked:
+            grown = {name: seq_chunk(arr, plan) for name, arr in grown.items()}
+        out.append(grown)
     return out
+
+
+def gather_logits(logits_local: torch.Tensor, cfg: ModelConfig,
+                  plan: ShardingPlan) -> torch.Tensor:
+    """(B, V_local) logits of this rank's vocab shard -> (B, V_pad): the
+    columns past the vocabulary at -1e30, then all-gathered over the
+    model axis (the logits as they are at tp = 1)."""
+    if plan.tp == 1:
+        return logits_local
+    masked = _mask_pad_vocab(logits_local[:, None], cfg, plan,
+                             logits_local.shape[-1])[:, 0]
+    return dataflow.all_gather(masked, plan.axis, dim=1)
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
             plan: ShardingPlan, extras=None, kv_dtype: str = "bfloat16",
             s_max: Optional[int] = None):
-    """-> (last-token logits (B, V) float32, caches ready for decode up
-    to s_max positions)."""
+    """-> (last-token logits (B, V_pad) float32, caches ready for decode
+    up to s_max positions).  At tp > 1 the last token's row comes from
+    the last sequence shard (:func:`common.last_shard_row`)."""
     h, caches, _ = forward(params, tokens, cfg, plan, extras,
                            want_caches=True, kv_dtype=kv_dtype)
     if s_max is not None and s_max != tokens.shape[1]:
         caches = prepare_decode_caches(caches, cfg, plan, tokens.shape[1],
                                        s_max)
-    return lm_logits_local(params, h[:, -1:], cfg, plan)[:, 0], caches
+    last = last_shard_row(h, plan)[:, None]
+    logits = lm_logits_local(params, last, cfg, plan)[:, 0]
+    return gather_logits(logits, cfg, plan), caches
 
 
 def decode_step(params, token: torch.Tensor, caches, pos: int,
                 cfg: ModelConfig, plan: ShardingPlan,
                 kv_dtype: str = "bfloat16"):
-    """token: (B,) ids at absolute position ``pos`` -> (logits (B, V)
+    """token: (B,) ids at absolute position ``pos`` -> (logits (B, V_pad)
     float32, caches).  The caches are updated in place."""
     x = embed_lookup(params["embed"], token[:, None], plan)  # (B, 1, D)
     new_caches = []
@@ -595,14 +701,16 @@ def decode_step(params, token: torch.Tensor, caches, pos: int,
         x, c = decode_layer(p, x, c, pos, spec, cfg, plan, kv_dtype=kv_dtype)
         new_caches.append(c)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return lm_logits_local(params, x, cfg, plan)[:, 0], new_caches
+    logits = lm_logits_local(params, x, cfg, plan)[:, 0]
+    return gather_logits(logits, cfg, plan), new_caches
 
 
 def init_cache(cfg: ModelConfig, plan: ShardingPlan, batch: int, s_max: int,
                kv_dtype: str = "bfloat16", device=None
                ) -> List[Dict[str, torch.Tensor]]:
     """Zero decode caches, one dict per layer, on ``device`` (``None`` =
-    the card)."""
+    the card): a rank's shapes under ``plan`` (the global ones with
+    ``plan.global_shapes``)."""
     _decoder_only(cfg)
     dev = resolve_device(device)
     out = []

@@ -23,7 +23,7 @@ leaf and, for the elementwise optimizers, ``DONATE_CHUNK`` elements at a
 time along each leaf's first axis, so that a step holds one copy of the
 params and moments (the same arithmetic, the same bits).  The ZeRO
 sharding specs (``zero_spec_for``, ``set_axis_sizes``) are sharding,
-ROADMAP Queue 1 item 15.
+ROADMAP Queue 1 item 15(b).
 """
 from __future__ import annotations
 

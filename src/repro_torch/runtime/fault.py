@@ -12,7 +12,7 @@ reference's ``repro/runtime/fault.py``, host code copied):
   flags those slower than ``threshold`` x the running mean.
 
 ``elastic_remesh`` builds a mesh over the surviving devices: sharding,
-ROADMAP Queue 1 item 15.
+ROADMAP Queue 1 item 15(b).
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Serving on torch — ``repro/runtime/serve_loop.py`` on one card.
+"""Serving on torch (``repro/runtime/serve_loop.py``).
 
 LM half: :func:`build_serve_program` gives prefill and one-token decode
 functions for a GQA, MLA, MoE or Mamba decoder stack, with or without a
@@ -14,9 +14,23 @@ decides), dequantized on use; the router, the norms and the Mamba
 ``conv_w``, ``A_log``, ``D`` and ``dt_bias`` stay float.
 ``kv_dtype="int8"`` keeps the KV cache (MLA's latent ``c``) in int8
 (Mamba state stays float32, and the encoder-decoder's cross-attention
-cache the memory's dtype).  The reference's mesh, ``shard_map`` and cache
-PartitionSpecs have no counterpart on one card (tp > 1 is ROADMAP
-Queue 1 item 15).
+cache the memory's dtype).
+
+With a ``mesh`` (``launch/mesh.py``) the program is one rank's part of
+the reference's ``shard_map``: the plan follows the reference's
+``make_plan`` (tp the model axis, ``seq_cache`` from
+``ParallelConfig.seq_sharded_cache``, ``reduction`` "ring" or
+"allreduce"), parameter and cache specs come from
+``runtime/partition.py`` (a cache's batch dim found by comparing its
+shapes at ``batch`` and ``2 batch``), and ``prefill_fn`` / ``decode_fn``
+take this rank's shard of the params and its rows of the batch (all of
+them when the batch does not divide the data axis) and return the whole
+(rows, V_pad) logits.  ``init_params`` draws the global weights and
+keeps this rank's shard of each layer as it is drawn, so every rank of
+a mesh holds one model and no rank holds all of it; with
+``cim_weights`` it quantizes each global layer (the decisions of the
+global shapes, each column's scale over all its rows, as the reference
+quantizes its global params) before it cuts the codes and scales.
 
 CNN half: :func:`serve_stream` is a request-queue loop that feeds image
 frames into the pipelined streaming simulator (``core/network.py``) at
@@ -39,6 +53,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ShardingPlan
+from repro_torch.runtime import partition
 from repro_torch.runtime.fault import StragglerMonitor
 
 #: leaf names that are true matmul weights (safe to int8-quantize with
@@ -103,21 +118,32 @@ def quantize_decisions(params, cfg: ModelConfig, min_size: int = 1 << 14
 
 def quantize_params_for_serving(params, cfg: ModelConfig,
                                 min_size: int = 1 << 14,
-                                decisions: Optional[Dict[str, bool]] = None):
+                                decisions: Optional[Dict[str, bool]] = None,
+                                prefix: Tuple[str, ...] = ()):
     """Quantize the selected matmul weights to int8 + a float32 scale
     per output column (``core/cim.py::quantize_symmetric`` over the
     contraction axis); the layers dequantize on use
     (``models/common.py::resolve_w``).  A stacked (E, d, f) expert
     weight is quantized one expert at a time: the same codes and
     scales (each column's scale is its own), without a float32 copy of
-    the whole stack (15 GB for one of deepseek-v3's)."""
+    the whole stack (15 GB for one of deepseek-v3's).  Leaves already
+    int8 pass as they are.  ``prefix``: the path of ``params`` in the
+    whole tree that ``decisions`` names (one layer of it, say).
+
+    On a mesh the reference quantizes the global params (a column's
+    scale over all its rows) and shards the codes and scales after: a
+    serve program's ``init_params`` quantizes each layer before it cuts
+    the rank's shard, and ``convert.shard_lm_params`` takes quantized
+    global params."""
     from repro_torch.core.cim import quantize_symmetric
 
     if decisions is None:
         decisions = quantize_decisions(params, cfg, min_size)
 
     def one(tree, path):
-        if isinstance(tree, dict) and not is_quantized_leaf(tree):
+        if is_quantized_leaf(tree):
+            return tree
+        if isinstance(tree, dict):
             return {k: one(v, path + (str(k),)) for k, v in tree.items()}
         if isinstance(tree, list):
             return [one(v, path + (str(i),)) for i, v in enumerate(tree)]
@@ -131,18 +157,20 @@ def quantize_params_for_serving(params, cfg: ModelConfig,
             return {"q": q, "s": s}
         return tree
 
-    return one(params, ())
+    return one(params, tuple(str(k) for k in prefix))
 
 
 @dataclass
 class ServeProgram:
-    """Prefill and decode of one model on one device.
+    """Prefill and decode of one model on one device, or one rank's part
+    of them on a mesh.
 
-    ``prefill_fn(params, {"tokens": (batch, S)[, "patch_embeds" |
-    "frames": (batch, N, embed_dim)]})`` -> (last-token logits (batch, V)
-    float32, caches grown to ``s_max``); ``decode_fn(params, token
-    (batch,), caches, pos)`` -> (logits, caches), the caches updated in
-    place."""
+    ``prefill_fn(params, {"tokens": (rows, S)[, "patch_embeds" |
+    "frames": (rows, N, embed_dim)]})`` -> (last-token logits (rows,
+    V_pad) float32, caches grown to ``s_max``); ``decode_fn(params,
+    token (rows,), caches, pos)`` -> (logits, caches), the caches updated
+    in place.  ``rows`` is ``batch_local``: the batch, or this rank's
+    part of it on a data axis it divides."""
 
     cfg: ModelConfig
     plan: ShardingPlan
@@ -154,49 +182,151 @@ class ServeProgram:
     device: torch.device
     prefill_fn: Callable
     decode_fn: Callable
+    mesh: Any = None
+    batch_local: int = 0
+    param_specs: Any = None
+    cache_specs: Any = None
+    #: the int8 decisions of the global shapes (by "/"-joined path)
+    decisions: Optional[Dict[str, bool]] = None
 
     def init_params(self, gen: torch.Generator, dtype=None):
         """Random params for this program's model (``models/encdec.py``
-        for an encoder-decoder, ``models/transformer.py`` otherwise)."""
+        for an encoder-decoder, ``models/transformer.py`` otherwise): on
+        a mesh, the global draws of ``gen`` (those of a tp = 1 program
+        where the global shapes are tp = 1's), each layer cut to this
+        rank's shard as soon as it is drawn."""
         model = ED if self.cfg.is_encdec else T
-        return model.init_params(self.cfg, self.plan, gen, dtype)
+        if self.mesh is None:
+            return model.init_params(self.cfg, self.plan, gen, dtype)
+        coords = self.mesh.coords_dict()
 
-    def serving_params(self, params):
+        def keep(path, tree):
+            spec = self.param_specs
+            for key in path:
+                spec = spec[key]
+            return partition.shard_tree(self.serving_params(tree, path),
+                                        spec, coords)
+
+        return self.serving_params(model.init_params(
+            self.cfg, self.plan.as_global(), gen, dtype, shard_fn=keep))
+
+    def shard_batch(self, batch_in: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """This rank's rows of a global batch (all of them where the
+        batch does not divide the data axis)."""
+        if self.mesh is None:
+            return batch_in
+        specs = partition.batch_specs(batch_in, self.plan.dp_axes,
+                                      self.mesh.data.size)
+        return partition.shard_tree(batch_in, specs,
+                                    self.mesh.coords_dict())
+
+    def serving_params(self, params, prefix: Tuple[str, ...] = ()):
         """``params`` as this program serves them: int8 ``{"q", "s"}``
-        matmul weights when ``cim_weights``, else unchanged."""
+        matmul weights when ``cim_weights``, else unchanged.  On a mesh,
+        give it global params (then ``convert.shard_lm_params``), or the
+        rank's params from ``init_params``, which are quantized
+        already."""
         if not self.cim_weights:
             return params
         return quantize_params_for_serving(params, self.cfg,
-                                           self.quant_min_size)
+                                           self.quant_min_size,
+                                           self.decisions, prefix)
+
+
+def make_plan(cfg: ModelConfig, mesh, pcfg) -> ShardingPlan:
+    """The reference's ``make_plan`` for serving: tp the model axis'
+    size, every other axis a data axis, ``seq_cache`` from
+    ``pcfg.seq_sharded_cache``.  ``dp_only`` (every axis a data axis)
+    belongs with training at tp > 1, ROADMAP Queue 1 item 15(b)."""
+    import dataclasses
+
+    if pcfg.dp_only or pcfg.zero3:
+        raise NotImplementedError(
+            "dp_only and zero3 are not ported: ROADMAP Queue 1 item 15(b)")
+    plan = ShardingPlan.for_model(cfg, tp=mesh.model.size,
+                                  dp_axes=("data",),
+                                  reduction=pcfg.reduction, axis=mesh.model)
+    return dataclasses.replace(plan, seq_cache=pcfg.seq_sharded_cache)
+
+
+def _meta_params(cfg: ModelConfig, plan: ShardingPlan):
+    model = ED if cfg.is_encdec else T
+    return model.init_params(cfg, plan, partition.META)
+
+
+def _meta_caches(cfg: ModelConfig, plan: ShardingPlan, b: int, s_max: int,
+                 kv_dtype: str):
+    if cfg.is_encdec:
+        return ED.init_cache(cfg, plan, b, s_max, t_enc=s_max,
+                             kv_dtype=kv_dtype, device="meta")
+    return T.init_cache(cfg, plan, b, s_max, kv_dtype, device="meta")
 
 
 def build_serve_program(cfg: ModelConfig, batch: int, s_max: int,
                         kv_dtype: str = "bfloat16",
                         cim_weights: bool = False,
                         quant_min_size: int = 1 << 14,
-                        device=None) -> ServeProgram:
+                        device=None, mesh=None, pcfg=None) -> ServeProgram:
     """Serving functions for ``cfg`` on ``device`` (``None`` = the card):
     prompts of ``batch`` rows, caches for ``s_max`` positions.  An
     encoder-decoder's prompt carries ``frames`` (batch, T, embed_dim), T
     > 0; a ``vit_stub`` model's may carry ``patch_embeds`` (batch, N,
     embed_dim), which the prompt's S >= N positions must hold.  Both
-    move to the device in their own dtype."""
+    move to the device in their own dtype.  With ``mesh`` (and ``pcfg``,
+    a ``ParallelConfig``; its defaults without one) this rank's part of
+    the sharded program; a prompt's S must then divide the model axis."""
+    from repro_torch.configs.base import ParallelConfig
+
     if kv_dtype not in ("bfloat16", "int8"):
         raise ValueError(f"kv_dtype must be bfloat16 or int8: {kv_dtype}")
     dev = resolve_device(device)
-    plan = ShardingPlan.for_model(cfg, tp=1)
-
     model = ED if cfg.is_encdec else T
     extra = ("frames" if cfg.is_encdec
              else "patch_embeds" if T.has_frontend(cfg) else None)
+    rows, param_specs, cache_specs, decisions = batch, None, None, None
+    if mesh is None:
+        plan = ShardingPlan.for_model(cfg, tp=1)
+    else:
+        plan = make_plan(cfg, mesh, pcfg or ParallelConfig())
+        g_params, l_params = partition.eval_shape_pair(
+            lambda p: _meta_params(cfg, p), plan)
+        if cim_weights:
+            # the specs of the served leaves: codes and scales
+            decisions = quantize_decisions(g_params, cfg, quant_min_size)
+            g_params, l_params = (quantize_params_for_serving(
+                t, cfg, decisions=decisions) for t in (g_params, l_params))
+        param_specs = partition.derive_specs(g_params, l_params, plan.tp,
+                                             plan.tp_axis)
+        dpn = mesh.data.size
+        divides = batch % dpn == 0
+        rows = batch // dpn if divides else batch
+        cl = _meta_caches(cfg, plan, batch, s_max, kv_dtype)
+        c2 = _meta_caches(cfg, plan, 2 * batch, s_max, kv_dtype)
+        specs = partition.derive_specs(
+            _meta_caches(cfg, plan.as_global(), batch, s_max, kv_dtype), cl,
+            plan.tp, plan.tp_axis)
+        from repro_torch.tree import tree_map
+
+        def add_batch(spec, a, b2):
+            dims = list(spec.dims)
+            for i, (da, db) in enumerate(zip(a.shape, b2.shape)):
+                if da != db and dims[i] is None and divides and dpn > 1:
+                    dims[i] = "data"
+            return partition.Spec(tuple(dims))
+
+        cache_specs = tree_map(add_batch, specs, cl, c2)
 
     @torch.no_grad()
     def prefill_fn(params, batch_in):
         tokens = batch_in["tokens"]
-        if tokens.dim() != 2 or tokens.shape[0] != batch \
+        if tokens.dim() != 2 or tokens.shape[0] != rows \
                 or not 0 < tokens.shape[1] < s_max:
-            raise ValueError(f"tokens {tuple(tokens.shape)}: want ({batch}, "
+            raise ValueError(f"tokens {tuple(tokens.shape)}: want ({rows}, "
                              f"S) with 0 < S < s_max={s_max}")
+        if plan.tp > 1 and tokens.shape[1] % plan.tp:
+            raise ValueError(f"a prompt of {tokens.shape[1]} tokens does not "
+                             f"shard over the model axis ({plan.tp})")
         unknown = set(batch_in) - {"tokens", extra}
         if unknown:
             raise ValueError(f"{cfg.name} takes no {sorted(unknown)}")
@@ -204,9 +334,9 @@ def build_serve_program(cfg: ModelConfig, batch: int, s_max: int,
         if extra in batch_in:
             e = batch_in[extra]
             width = cfg.frontend.embed_dim
-            if e.dim() != 3 or e.shape[0] != batch or e.shape[1] == 0 \
+            if e.dim() != 3 or e.shape[0] != rows or e.shape[1] == 0 \
                     or e.shape[2] != width:
-                raise ValueError(f"{extra} {tuple(e.shape)}: want ({batch}, "
+                raise ValueError(f"{extra} {tuple(e.shape)}: want ({rows}, "
                                  f"N, {width}) with N > 0")
             extras[extra] = e.to(dev)
         elif cfg.is_encdec:
@@ -229,7 +359,10 @@ def build_serve_program(cfg: ModelConfig, batch: int, s_max: int,
     return ServeProgram(cfg=cfg, plan=plan, batch=batch, s_max=s_max,
                         kv_dtype=kv_dtype, cim_weights=cim_weights,
                         quant_min_size=quant_min_size, device=dev,
-                        prefill_fn=prefill_fn, decode_fn=decode_fn)
+                        prefill_fn=prefill_fn, decode_fn=decode_fn,
+                        mesh=mesh, batch_local=rows,
+                        param_specs=param_specs, cache_specs=cache_specs,
+                        decisions=decisions)
 
 
 def greedy_generate(serve: ServeProgram, params, batch_in, steps: int,

@@ -26,8 +26,10 @@ moments, and a functional step would hold two).
 The ``ParallelConfig`` fields that only move data between devices have
 no effect on one device, as in the reference's tp = 1 plan:
 ``reduction``, ``zero_axes``, ``seq_sharded_cache`` (and the serving
-fields).  ``zero3`` and ``dp_only`` shard or replicate over a mesh:
-ROADMAP Queue 1 item 15.
+fields).  ``zero3`` and ``dp_only`` shard or replicate over a mesh, and
+training at tp > 1 needs the sharded cross-entropy's and the ring
+matmuls' gradients: ROADMAP Queue 1 item 15(b) (serving at tp > 1 is
+``runtime/serve_loop.py``).
 """
 from __future__ import annotations
 
@@ -88,14 +90,19 @@ def init_for(cfg: ModelConfig) -> Callable:
 
 def build_train_program(cfg: ModelConfig, pcfg: ParallelConfig,
                         tcfg: TrainConfig, device=None,
-                        donate: bool = False) -> TrainProgram:
+                        donate: bool = False, mesh=None) -> TrainProgram:
     """The train program of ``cfg`` on ``device`` (``None`` = the card);
     ``donate``: each step updates the params and optimizer state it is
-    given in place."""
+    given in place.  ``mesh`` (``launch/mesh.py``) must have a model
+    axis of 1: training at tp > 1 raises."""
+    if mesh is not None and (mesh.model.size > 1 or mesh.data.size > 1):
+        raise NotImplementedError(
+            f"training on a {mesh.shape} mesh (tp > 1, or data parallel "
+            "over ranks) is not ported: ROADMAP Queue 1 item 15(b)")
     if pcfg.zero3 or pcfg.dp_only:
         raise NotImplementedError(
             "zero3 and dp_only shard params over a mesh: ROADMAP Queue 1 "
-            "item 15")
+            "item 15(b)")
     dev = resolve_device(device)
     plan = ShardingPlan.for_model(cfg, tp=1)
     init, loss = init_for(cfg), loss_for(cfg)
