@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--plain-curve]
+    python3 chip_smoke.py [--plain-curve | --only-tp | --only-train-tp]
 
 ``--plain-curve`` adds phase H's diagnostics of ROADMAP's fault F2 and
 check C2 (about 100 to 160 s of plain training steps, and the plain
@@ -109,8 +109,8 @@ T. telemetry and chiplets: vgg11 served over 4 floret chiplets with a
 5. LM serving: gemma3-1b at full width (26 layers, vocab 262144) with
    random weights from ``torch.Generator(device="cuda").manual_seed(0)``,
    batch 4, a 2048-token prompt (four windows of 512, so the local
-   layers slide) and 32 greedy tokens through ``build_serve_program``
-   and ``greedy_generate`` — once with bfloat16 weights and KV cache,
+   layers slide) and ``LM_GEN`` = 8 greedy tokens through
+   ``build_serve_program`` and ``greedy_generate`` — once with bfloat16 weights and KV cache,
    once with int8 CIM weights and an int8 KV cache.  Each counted run
    resets both attention kernels' launch counts just before and reads
    them just after: one launch of the bfloat16 (tensor-core) kernel per
@@ -150,16 +150,13 @@ T. telemetry and chiplets: vgg11 served over 4 floret chiplets with a
    band mask, the same with ``is_causal=True`` on the global launches
    (exactly their function), and the bound; the rate on unmasked and on
    computed work (``tile_schedule`` at each kernel's tiles) and the share
-   of the bound.  After phase F, one of deepseek-v3's prefill calls, q
-   (4, 2048, 128, 192) against v (4, 2048, 128, 128), full causal, in
-   both dtypes: device time beside the plain version, SDPA with
-   ``is_causal=True`` (exactly its function) and the bound;
+   of the bound.
 F. the MoE, Mamba and MLA LM families: granite-moe-3b-a800m and
    falcon-mamba-7b at full width, jamba-v0.1-52b at full width over one
    8-layer cycle, deepseek-v3-671b at full width over its first 4
    layers (3 dense, 1 MoE; no MTP, which serving never reads), random
    weights from a card generator seeded with SEED, each served as in
-   phase 5 (batch 4, prompt 2048, 32 greedy tokens, bfloat16 and the
+   phase 5 (batch 4, prompt 2048, 8 greedy tokens, bfloat16 and the
    int8 CIM flavor).  Each counted generation resets every kernel count
    just before and reads them just after: granite 32 launches of the
    bfloat16 attention kernel, falcon-mamba 64 of the selective scan,
@@ -171,8 +168,7 @@ F. the MoE, Mamba and MLA LM families: granite-moe-3b-a800m and
    in one prefill and one decode step; the flavor's peak device memory;
    prefill ms, decode ms/token, tokens/s; on the bfloat16 flavor every
    kernel call of one prefill held against its plain version, device
-   time by kernel and the busy share of a prefill and of four decode
-   steps.  Then granite cut to 4 layers, falcon-mamba to 2, deepseek to
+   time by kernel and the busy share of a prefill.  Then granite cut to 4 layers, falcon-mamba to 2, deepseek to
    its first 2 (dense), and jamba's reduced config, in float32 on the
    card and on the CPU as in phase 7; the
    scan kernel against its plain version (rtol = atol = TOL_SCAN) over
@@ -211,23 +207,18 @@ G. the training path: gemma3-1b at full width and depth (26 layers),
    kernel and 26 of the backward one; the loss falls by TRAIN_LOSS_DROP;
    the first step repeated from the same state is bit-equal; a
    checkpoint saved at step 4 and restored gives steps 5 to 8 bit-equal
-   to the uninterrupted run.  Step ms, tokens/s, peak device memory, one
-   step's device time by kernel; the backward's device time per step and
-   per kernel (its tensor-core route: statistics, dK / dV, dQ) beside
-   its bound, the plain version and autograd through SDPA (timed by
-   CUDA events, each backend forced in turn at the full-causal call to
-   name the one SDPA takes: ``sdpa_bwd``); the backward
+   to the uninterrupted run.  Step ms, tokens/s, peak device memory
+   (the backward's row is timed in phase I); the backward
    kernel against its plain version over an edge grid (head dims 16 to
    256, S 37, 777, 2049, windows 1, 65, 513, S, groups 1, 4, 8, soft
    cap off and 50.0, both dtypes: both routes at every built head dim;
    MLA's (192, 128) pair at group 1);
    then 12 layers in float32 (batch 1 x 640, TF32 off) on the card and
    on the CPU: loss, every gradient leaf and one AdamW step's params
-   within TOL_TRAIN_F32_*, and the float32 route's device time at that
-   run's calls beside its bound (at float32's rate), the plain version
-   and SDPA's autograd, and again at gemma3-1b's full-width call shapes
-   (batch 4 x 2048, windows 512 and 2048), each call first held against
-   the plain version.  After the builds, the backward library's SASS:
+   within TOL_TRAIN_F32_*, and the float32 route at gemma3-1b's
+   full-width call shapes (batch 4 x 2048, windows 512 and 2048), each
+   call held against the plain version.  After the builds, the backward
+   library's SASS:
    its tensor-core kernels hold HGMMA and UTMALDG, its CUDA-core kernels
    LDS.128, and none a global atomic.
 H. the MoE, Mamba and hybrid families trained: granite-moe-3b-a800m at
@@ -252,8 +243,8 @@ H. the MoE, Mamba and hybrid families trained: granite-moe-3b-a800m at
    loss falls by TRAIN_LOSS_DROP; the first step repeated from a new
    init of the same seed gives the same loss and the same params and
    moments (every leaf's ``fingerprint``: a difference in any one
-   element changes it). Step ms, tokens/s, peak device memory, one
-   step's device time by kernel; the scan backward's device time per
+   element changes it). Step ms, tokens/s, peak device memory; the
+   scan backward's device time per
    call and per step (its two kernels) beside its bound and its plain
    version (no library call computes the scan), with each kernel's
    registers a thread, the walk's resident blocks an SM and its waves at
@@ -304,7 +295,7 @@ P. Serving at tp > 1 through the port's mesh (``launch/mesh.py``): one
    draws the global weights from the phase's seeded card generator and
    keeps its shard of each layer as it is drawn, so the tp = 1 and
    tp > 1 runs compute with the same weights.  bfloat16 at full width,
-   batch 4, prompt 2048, ``P_GEN`` = 8 greedy tokens (``P_BF16_STEPS``):
+   batch 4, prompt 2048, ``P_GEN`` = 4 greedy tokens (``P_BF16_STEPS``):
    gemma3-1b
    on mesh (2, 2) (the group trick: 2 heads on 1 kv head a rank), ring
    and all-reduce, bf16 and int8 weights + KV; qwen2-0.5b on (1, 4) (14
@@ -332,14 +323,49 @@ P. Serving at tp > 1 through the port's mesh (``launch/mesh.py``): one
    tp = 1, bytes each rank sends per prefill, the device busy share of
    a rank's prefill.  ``--only-tp`` runs the builds and phase P alone
    (no result line, exit code 2).
+Q. Training at tp > 1: one spawn of ``Q_WORLD`` = 4 ranks on cuda:0 over
+   gloo host copies (a gloo timeout of ``Q_TIMEOUT_S``, so a deadlock
+   fails fast).  gemma3-1b at full width and depth, bf16, on mesh (2, 2)
+   with the ring: phase G's recipe (AdamW, lr 3e-3, warmup 2, ``remat=
+   "full"``), ZeRO-1 states over both axes, phase G's fixed batch of 4 x
+   2048 (2 rows a data rank) and seed, each rank holding its shard of
+   the same global draws.  Gates, per rank: the first step's every
+   forward and backward attention call within ``TOL_ATTN`` /
+   ``TOL_BWD`` of its plain version; its loss and each reduced gradient
+   leaf (the ranks' slices, L2 summed over them) within
+   ``TOL_TRAIN_PLAIN_LOSS`` / ``TOL_TRAIN_PLAIN_GRAD`` of phase G's
+   first tp = 1 step (phase G keeps its gradients on the host for this);
+   ZeRO-3 from the same init: the loss and the reduced gradients
+   bit-equal to the baseline's, params and moments within 1e-6 of each
+   leaf's max, each ZeRO-3 leaf half a rank; the all-reduce baseline's
+   loss and gradients within the same gates of the ring's; then
+   ``Q_STEPS`` counted ring steps from a new init of the seed: the first
+   bit-equal to the checked step (fingerprints), each step's launches
+   ``step_launches``' at the rank's shapes, the first two losses within
+   ``TOL_TRAIN_PLAIN_LOSS`` of phase G's.  Float32 cuts: every family's
+   reduced config at tp 2 on (1, 2), and gemma3's with ZeRO-3, dp_only
+   and int8 gradient compression on (2, 2), one step on the card ranks
+   and on CPU ranks from the card's shards, and at tp = 1 on the card:
+   loss and gradients within ``TOL_TRAIN_F32_*``, params within 2 lr and
+   within lr / 1000 where the gradient is above ``Q_HELD`` of its leaf's
+   max, each step's float32 launches.  Logged (ranks share one card over
+   host copies; no time claimed): step ms a rank, bytes each rank sends
+   a step and a gradient's ring against all-reduce, the busy share, peak
+   memory a rank.  ``--only-train-tp`` runs the builds, phase G's first
+   step, phase Q and F2's curves (no result line, exit code 2).
+F2. After phase H: falcon-mamba's reduced config in float32 for 8 steps
+   of phase H's recipe on the card (kernels) and on the CPU (plain
+   versions), each step's loss logged against ``TOL_F2`` (ROADMAP's
+   fault F2; it gates nothing).
 
 The line before the last is the ``kernels`` JSON (a CIM variant's
 ``launches`` summed over the counted runs of phases 2 and M, its
 times phase 4's, per vgg11 batch; the bfloat16 attention kernel's
-launches those of phases 5, F, E, G, H, I and P (P's counted prefills
-summed over its ranks), its times phase 9's; the scan's launches those
+launches those of phases 5, F, E, G, H, I, P and Q (P's counted
+prefills and Q's counted steps summed over their ranks), its times
+phase 9's; the float32 kernel's phase 6's and Q's float32 cuts'; the scan's launches those
 of phases F, H and P, its times per falcon-mamba prefill; the attention backward's launches those of the counted steps
-of phases G, H and I, its times a call at deepseek's (192, 128)
+of phases G, H, I and Q (and Q's float32 cuts), its times a call at deepseek's (192, 128)
 training call (phase I; gemma3's per step are in phase G's log); the
 scan
 backward's launches those of phase H's counted steps, its times per
@@ -423,7 +449,10 @@ ATTN_KERNEL = {torch.bfloat16: "local_attention",
                torch.float32: "local_attention_f32"}
 
 LM_ARCH = "gemma3-1b"
-LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
+#: LM_GEN greedy tokens a served generation: their range is checked and
+#: their decode steps timed (8, not 32, since phase Q joined: the
+#: script's time limit; the median decode step takes 7 intervals)
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 8
 #: timed generations per flavor: one since phase I joined (the script's
 #: time limit; the medians of 3 cost about 77 s on a slow host)
 LM_REPS = 1
@@ -558,8 +587,12 @@ EDGE_SCAN_D = (256, 200, 130, 5)
 EDGE_SCAN_N = (4, 16)
 
 
+#: the script's start, for the elapsed seconds at the end of each log line
+T_START = time.perf_counter()
+
+
 def log(*a) -> None:
-    print(*a, flush=True)
+    print(*a, f"[{time.perf_counter() - T_START:.0f} s]", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -2090,19 +2123,6 @@ def lm_serving(la):
                 la.grouped_local_attention = real
             profile_device(lambda: prog.prefill_fn(params, batch),
                            f"one {name} prefill", keys=("tc::attn_kernel",))
-
-            def decode_steps():
-                logits, caches = prog.prefill_fn(params, batch)
-                torch.cuda.synchronize()
-                token = torch.argmax(logits, dim=-1).to(torch.int32)
-                return caches, token
-
-            caches, token = decode_steps()
-            profile_device(
-                lambda: [prog.decode_fn(params, token, caches, LM_PROMPT + i)
-                         for i in range(4)], f"four {name} decode steps",
-                keys=())
-            del caches
         results[name] = dict(
             launches=launches, prefill_ms=[v * 1e3 for v in pre],
             decode_ms=[v * 1e3 for v in dec],
@@ -2703,13 +2723,6 @@ def family_serving(la, ss, arch: str, card, label: str = "F"):
             share, found = profile_device(
                 lambda: prog.prefill_fn(params, batch),
                 f"{arch}: one {name} prefill", keys=FAMILY_KERNEL_NAMES)
-            caches = prog.prefill_fn(params, batch)[1]
-            token = tokens[:, 0].contiguous()
-            profile_device(
-                lambda: [prog.decode_fn(params, token, caches, LM_PROMPT + i)
-                         for i in range(4)],
-                f"{arch}: four {name} decode steps", keys=())
-            del caches
             results["profile"] = dict(busy=share, kernels=found)
         results[name] = dict(
             prefill_ms=[v * 1e3 for v in pre],
@@ -2940,7 +2953,6 @@ def families_phase(la, ss, card):
     # phases 8 and 9 at the MLA head dims, on deepseek's prefill calls
     for key, v in check_mla_attention(la, mla_calls).items():
         worst[key] = max(worst.get(key, 0.0), v)
-    time_full_causal(la, mla_calls[0], "MLA", card)
     del mla_calls
 
     # the scan's times: the first call of one falcon-mamba bf16 prefill,
@@ -2951,8 +2963,14 @@ def families_phase(la, ss, card):
     t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_BYTES
     ms = device_ms(lambda *a: ss.selective_scan(*a), [scan_call] * per_prefill,
                    1, kernel="scan_kernel")
-    plain_ms = device_ms(lambda *a: ss.selective_scan_plain(*a),
-                         [scan_call] * per_prefill, 1)
+    # the plain version's per prefill: one call's (every call has this
+    # shape) times the calls; its thousands of small launches a call make
+    # a profiled prefill of them cost a minute of host time.  The row
+    # says so: ``calls`` calls are timed for ``ms``, ``plain_calls`` for
+    # ``plain_ms``, which is scaled to ``calls``
+    plain_calls = 1
+    plain_ms = per_prefill / plain_calls * device_ms(
+        lambda *a: ss.selective_scan_plain(*a), [scan_call] * plain_calls, 1)
     bound_ms = max(t_ops, t_bytes) * 1e3 * per_prefill
     row = {"name": "selective_scan", "route": "cuda", "source": SCAN_SOURCE,
            "replaces": SCAN_REPLACES,
@@ -2960,7 +2978,8 @@ def families_phase(la, ss, card):
            "max_abs_err": max(worst.get("selective_scan", 0.0), worst_edge),
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "library_ms": None}
+           "library_ms": None, "calls": per_prefill,
+           "plain_calls": plain_calls}
     log(f"[time] selective_scan per {SCAN_ARCH} prefill ({per_prefill} "
         f"calls, dt {tuple(scan_call[0].shape)}, d_state "
         f"{scan_call[4].shape[1]}): {ms:.4f} ms device time (profiled "
@@ -2968,7 +2987,8 @@ def families_phase(la, ss, card):
         f"bound {bound_ms:.4f} "
         f"ms ({row['bound_by']}; {ops / 1e9:.3f} GFLOP, "
         f"{nbytes / 1e9:.3f} GB a call), {100 * bound_ms / ms:.1f}% of it; "
-        f"plain {plain_ms:.4f} ms on {card}")
+        f"plain {plain_ms:.4f} ms ({plain_calls} call timed, times "
+        f"{per_prefill}) on {card}")
     log(f"[F] phase F: {time.perf_counter() - t_phase:.1f} s on {card}")
     return row, launches["local_attention"], worst
 
@@ -3290,95 +3310,9 @@ def sdpa_bwd(q, k, v, do, window, reps, force=False):
     return default, node, forced
 
 
-def time_bwd(la, local_call, global_call, per_step, card, reps: int = 10):
-    """Device time of the backward calls of one step (per_step: window ->
-    calls a step), each of the route's three kernels, beside the plain
-    version, autograd through SDPA by CUDA events (the band mask on a
-    local call, ``is_causal`` on a global one, there with every backend
-    forced in turn: ``sdpa_bwd``) and the bound at the operands' type's
-    peak.  Returns the JSON row's numbers, and per kernel its ms a step
-    (``by_kernel``)."""
-    out = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    ops_total = bytes_total = 0
-    peak = PEAK_BF16_OPS if local_call[0].dtype == torch.bfloat16 \
-        else PEAK_F32_OPS
-    route = la.bwd_route(local_call[0].dtype, local_call[0].shape[3])
-    names = la.BWD_KERNELS[route]
-    check(set(names) <= set(BWD_KERNELS),
-          f"the {route} route's kernels {names} are not in BWD_KERNELS")
-    by_kernel = dict.fromkeys(names, 0.0)
-    for call in (local_call, global_call):
-        q, k, v, o, do, window, cap = call
-        b, s, h, d = q.shape
-        n = per_step[window]
-        each = device_ms(lambda: la.local_attention_bwd(
-            q, k, v, o, do, window=window, softcap=cap), [()], reps,
-            kernel=names, split=True)
-        kern = sum(each.values())
-        plain = device_ms(lambda: la.local_attention_bwd_plain(
-            q, k, v, o, do, window=window, softcap=cap), [()], 3)
-        try:  # a yardstick; the kernel is timed
-            lib, node, forced = sdpa_bwd(q, k, v, do, window, reps,
-                                         force=window >= s)
-        except RuntimeError as e:
-            log(f"[G] SDPA autograd at window {window}: {e}: not measured")
-            lib, node, forced = float("nan"), None, {}
-        ops = bwd_work(q, window)
-        nbytes = bwd_bytes(q, k, v)
-        bound = max(ops / peak, nbytes / PEAK_BYTES) * 1e3
-        log(f"[G] local_attention_bwd ({route}), q {tuple(q.shape)} "
-            f"{q.dtype}, window {window}: kernel {kern:.4f} ms ("
-            + ", ".join(f"{name} {ms:.4f}" for name, ms in each.items())
-            + f"; {ops / kern / 1e9:.1f} TFLOP/s on unmasked work, "
-            f"{100 * bound / kern:.2f}% of the bound), plain {plain:.4f}, "
-            f"SDPA autograd ({'is_causal' if window >= s else 'band mask'};"
-            f" events) {lib:.4f} by {node}"
-            + (f" (forced: {forced})" if forced else "")
-            + f", bound {bound:.4f} (operations {ops / 1e9:.2f} "
-            f"GFLOP; {n} such calls a step) on {card}")
-        for name, ms in each.items():
-            by_kernel[name] += n * ms
-        out["ms"] += n * kern
-        out["plain_ms"] += n * plain
-        out["library_ms"] += n * lib
-        out["bound_ms"] += n * bound
-        ops_total += n * ops
-        bytes_total += n * nbytes
-    if out["library_ms"] != out["library_ms"]:  # a NaN: not measured
-        out["library_ms"] = None
-    out["bound_by"] = ("operations" if ops_total / peak
-                       >= bytes_total / PEAK_BYTES else "bytes")
-    out["tflops"] = ops_total / out["ms"] / 1e9
-    out["by_kernel"] = by_kernel
-    return out
-
-
-def profile_step(prog, params, state, batch, card, keys=BWD_KERNELS):
-    """Device time by kernel of one training step under the profiler:
-    (total ms, ms of the kernels named by ``keys``, top kernels)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = prog.step_fn(params, state, batch)
-        torch.cuda.synchronize()
-    del out
-    rows = []
-    for ev in prof.key_averages():
-        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            rows.append((getattr(ev, "self_device_time_total",
-                                 getattr(ev, "self_cuda_time_total", 0.0))
-                         / 1e3, ev.count, ev.key))
-    rows.sort(reverse=True)
-    total = sum(r[0] for r in rows)
-    bwd = sum(r[0] for r in rows if any(k in r[2] for k in keys))
-    return total, bwd, rows[:10]
-
-
 def train_f32_vs_cpu(la, cfg, card):
     """The float32 run cut in depth on the card and on the CPU: loss,
-    every gradient leaf and one AdamW step's params; then the float32
-    backward route's device time at this run's calls."""
+    every gradient leaf and one AdamW step's params."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.optim.optimizer import apply_updates
     from repro_torch.runtime.train_loop import value_and_grad
@@ -3396,15 +3330,7 @@ def train_f32_vs_cpu(la, cfg, card):
     fwd_want, bwd_want = step_launches(cfg)
     for key in la.LAUNCHES:
         la.LAUNCHES[key] = 0
-    calls = []
-    kernel_bwd = la.local_attention_bwd
-
-    def recording_bwd(q, k, v, o, do, *, window, softcap=None):
-        calls.append((q, k, v, o, do, window, softcap))
-        return kernel_bwd(q, k, v, o, do, window=window, softcap=softcap)
-
-    with Swapped((la, "local_attention_bwd", recording_bwd)):
-        loss, grads = value_and_grad(prog.loss_fn, params, batch)
+    loss, grads = value_and_grad(prog.loss_fn, params, batch)
     new_params, _, metrics = apply_updates(params, grads, state, tcfg)
     torch.cuda.synchronize()
     counts = dict(la.LAUNCHES)
@@ -3457,31 +3383,12 @@ def train_f32_vs_cpu(la, cfg, card):
     del prog, params, state, grads, new_params, cpu_params, grads_c, new_c
     torch.cuda.empty_cache()
 
-    # the float32 route's own row: its calls in this run, per step
-    per_step = {}
-    for c in calls:
-        per_step[c[5]] = per_step.get(c[5], 0) + 1
-    seq = TRAIN_SMALL_SEQ
-    row = time_bwd(la, next(c for c in calls if c[5] < seq),
-                   next(c for c in calls if c[5] >= seq), per_step, card)
-    log(f"[G] local_attention_bwd float32 ({TRAIN_SMALL_LAYERS} layers, "
-        f"{per_step} calls by window): {row['ms']:.4f} ms a step ("
-        + ", ".join(f"{name} {ms:.4f}"
-                    for name, ms in row["by_kernel"].items())
-        + f"; {row['tflops']:.1f} TFLOP/s on unmasked work, "
-        f"{100 * row['bound_ms'] / row['ms']:.2f}% of the "
-        f"{row['bound_ms']:.4f} ms bound at float32's rate), plain "
-        f"{row['plain_ms']:.4f} ms, SDPA autograd {row['library_ms']} ms "
-        f"on {card}")
-    del calls
 
 
 def bwd_f32_full_width(la, card):
     """The float32 backward route at gemma3-1b's full-width call shapes
     (operands drawn from SEED on the card): each call within TOL_BWD of
-    the plain version, then its device time per kernel beside the plain
-    version, SDPA's float32 autograd and the bound (``time_bwd``, one
-    call of each window)."""
+    the plain version."""
     c = BWD_F32_FULL
     gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
 
@@ -3491,7 +3398,6 @@ def bwd_f32_full_width(la, card):
 
     q, do, k, v = (normal(n) for n in (c["heads"], c["heads"],
                                          c["kv_heads"], c["kv_heads"]))
-    calls = []
     for window in c["windows"]:
         with torch.no_grad():
             o = la.grouped_local_attention(q, k, v, window=window)
@@ -3504,18 +3410,8 @@ def bwd_f32_full_width(la, card):
         log(f"[G] float32 local_attention_bwd at q {tuple(q.shape)}, window "
             f"{window}: within {err:.3e} of the plain version (scale "
             f"{scale:.3e}, tolerance {TOL_BWD[torch.float32]})")
-        calls.append((q, k, v, o, do, window, None))
         del got, want
-    row = time_bwd(la, calls[0], calls[1], {w: 1 for w in c["windows"]},
-                   card)
-    log(f"[G] local_attention_bwd float32 at full width, one call of each "
-        f"window: {row['ms']:.4f} ms ("
-        + ", ".join(f"{name} {ms:.4f}"
-                    for name, ms in row["by_kernel"].items())
-        + f"; {100 * row['bound_ms'] / row['ms']:.2f}% of the "
-        f"{row['bound_ms']:.4f} ms bound), plain {row['plain_ms']:.4f} ms, "
-        f"SDPA autograd {row['library_ms']} ms on {card}")
-    del calls, q, k, v, o, do
+    del q, k, v, o, do
     torch.cuda.empty_cache()
 
 
@@ -3567,12 +3463,8 @@ def training_phase(la, card):
         check(ok, f"local_attention_bwd != plain at main-path call {i}, q "
                   f"{tuple(q.shape)} window {window}: max |diff| {err}, "
                   f"scale {scale}")
-    per_step = {}
-    for c in calls:
-        per_step[c[5]] = per_step.get(c[5], 0) + 1
-    local_call = next(c for c in calls if c[5] < TRAIN_SEQ)
-    global_call = next(c for c in calls if c[5] >= TRAIN_SEQ)
     del calls, got, ref
+    q_save_grads(grads_k)  # phase Q's yardstick
     with Swapped((la, "grouped_local_attention",
                   la.grouped_local_attention_plain)):
         loss_p, grads_p = value_and_grad(prog.loss_fn, params, batch)
@@ -3678,25 +3570,8 @@ def training_phase(la, card):
         f"the restore bit-equal to the uninterrupted run")
     del rp, rs
 
-    total, bwd_dev, top = profile_step(prog, params, state, batch, card)
-    log(f"[G] one step under the profiler: {total:.2f} ms of device time "
-        f"({100 * total / med:.1f}% of the median step), the backward "
-        f"kernels {bwd_dev:.2f} ms; top kernels "
-        + "; ".join(f"{ms:.2f} ms x{n} {name[:60]}" for ms, n, name in top)
-        + f" on {card}")
     del params, state, metrics, batch, prog
     torch.cuda.empty_cache()
-
-    row = time_bwd(la, local_call, global_call, per_step, card)
-    log(f"[G] local_attention_bwd per step ({per_step} calls by window): "
-        f"{row['ms']:.4f} ms ("
-        + ", ".join(f"{name} {ms:.4f}"
-                    for name, ms in row["by_kernel"].items())
-        + f"; {row['tflops']:.1f} TFLOP/s on unmasked "
-        f"work, {100 * row['bound_ms'] / row['ms']:.2f}% of the "
-        f"{row['bound_ms']:.4f} ms bound), plain {row['plain_ms']:.4f} ms, "
-        f"SDPA autograd {row['library_ms']} ms on {card}")
-    del local_call, global_call
     grid_worst, cases = check_bwd_grid(la)
     log(f"[G] local_attention_bwd vs plain over {cases} edge cases: max "
         f"|diff| " + ", ".join(f"{str(dt).split('.')[-1]} on {route} "
@@ -3705,13 +3580,13 @@ def training_phase(la, card):
     train_f32_vs_cpu(la, cfg, card)
     bwd_f32_full_width(la, card)
     log(f"[G] phase G: {time.perf_counter() - t_phase:.1f} s on {card}")
+    g_ref = {"loss": loss_k.item(), "losses": losses}
+    # the row's times are phase I's, at deepseek's (192, 128) call
     return {"name": "local_attention_bwd", "route": "cuda",
             "source": BWD_SOURCE, "replaces": BWD_REPLACES,
             "launches": bwd_launches,
-            "max_abs_err": max(worst, *grid_worst.values()),
-            "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"]}, fwd_launches
+            "max_abs_err": max(worst, *grid_worst.values())}, \
+        fwd_launches, g_ref
 
 
 # ---------------------------------------------------------------------------
@@ -4150,14 +4025,6 @@ def h_train(la, ss, arch, card):
         f"memory {peak / 1e9:.2f} GB; straggler "
         f"flags {monitor.flagged_steps}; on {card}")
 
-    total, scan_dev, top = profile_step(prog, params, state, batch, card,
-                                        keys=SCAN_BWD_KERNELS)
-    log(f"[H] {arch} one step under the profiler: {total:.2f} ms of device "
-        f"time ({100 * total / med:.1f}% of the median step), the scan "
-        f"backward's kernels {scan_dev:.2f} ms; top kernels "
-        + "; ".join(f"{ms:.2f} ms x{n} {name[:60]}" for ms, n, name in top)
-        + f" on {card}")
-
     # the first step again from the same initial state: bit-equal
     del params, state, metrics
     torch.cuda.empty_cache()
@@ -4339,6 +4206,55 @@ def check_scan_bwd_sass(ss, lib) -> None:
     if any(v > want_ex2 for v in ex2.values()):
         fail(f"the scan backward's walk runs {ex2} MUFU.EX2, more than its "
              f"two forward walks' {want_ex2}: an expf in the walk back")
+
+
+#: fault F2: falcon-mamba's reduced config in float32 for
+#: F2_STEPS steps of phase H's recipe (AdamW, lr 5e-4, warmup 2, one fixed
+#: batch), on the card with the kernels and on the CPU with the plain
+#: versions; TOL_F2 (stated before the first run) on each step's loss,
+#: relative.  Logged: it settles a fault, and gates nothing of phase H
+F2_STEPS, F2_BATCH, F2_SEQ = 8, 4, 512
+TOL_F2 = 1e-4
+
+
+def f2_curve(card):
+    """F2's float32 curves: each step's loss on the card (kernels) and on
+    the CPU (plain versions) from the card's init, and the verdict."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.runtime.train_loop import build_train_program
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(SCAN_ARCH).reduced(),
+                              dtype="float32")
+    tcfg = TrainConfig(**{**TRAIN_CFG, "lr": H_LR[SCAN_ARCH]})
+    curves, start = {}, None
+    for dev in ("cuda", "cpu"):
+        prog = build_train_program(cfg, ParallelConfig(remat="full"), tcfg,
+                                   dev)
+        if start is None:
+            start = prog.init_fn(SEED)
+        params, state = tree_map(lambda t: t.to(dev), start)
+        batch = train_batch(cfg, F2_BATCH, F2_SEQ, dev)
+        curves[dev] = []
+        for _ in range(F2_STEPS):
+            params, state, metrics = prog.step_fn(params, state, batch)
+            curves[dev].append(metrics["loss"].item())
+    rel = [abs(a - b) / abs(b) for a, b in zip(curves["cuda"],
+                                                curves["cpu"])]
+    verdict = ("agree: F2 is the bf16 recipe's sensitivity"
+               if max(rel) <= TOL_F2 else
+               "part: F2 is a parity fault of the kernels")
+    log(f"[F2] {SCAN_ARCH} reduced, float32, {F2_STEPS} steps of phase H's "
+        f"recipe (lr {tcfg.lr}), batch {F2_BATCH} x {F2_SEQ}: losses on the "
+        f"card (kernels) {curves['cuda']}, on the CPU (plain) "
+        f"{curves['cpu']}; relative differences "
+        f"{[float(f'{x:.3e}') for x in rel]} (tolerance {TOL_F2}): the "
+        f"curves {verdict}; {time.perf_counter() - t0:.1f} s on {card}")
+    return curves, rel
 
 
 def families_training_phase(la, ss, card):
@@ -4650,11 +4566,10 @@ P_DEVICE = "cuda"
 #: falcon-mamba's depth in phase P (of 64 layers): the scan at 4096
 #: channels a rank
 P_MAMBA_LAYERS = 8
-#: greedy tokens of phase P's generations (phase 5 generates LM_GEN =
-#: 32): a decode step at tp > 1 waits on a host round trip per
-#: collective, 0.26 to 1.2 s a token on the shared card, so 32 tokens
-#: cost more than phase P's budget
-P_GEN = 8
+#: greedy tokens of phase P's generations: a decode step at tp > 1
+#: waits on a host round trip per collective, 0.2 to 0.9 s a token on the
+#: shared card (4, not 8, since phase Q joined: the script's time limit)
+P_GEN = 4
 #: phase P's bfloat16 jobs, in steps; a step's jobs run side by side on
 #: disjoint ranks.  (arch, layers or None, mesh (data, model), ranks,
 #: flavors (name, kv dtype, int8 weights, reduction, whether it
@@ -5229,6 +5144,644 @@ def p_check_f32(results, arch, layers, flavors, tp, ref_f32):
             f"{parts[(0, 0)][name]['seconds']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase Q: training at tp > 1, the ranks sharing cuda:0
+# ---------------------------------------------------------------------------
+
+#: phase Q's ranks: one spawn on cuda:0 over gloo host copies, as phase P
+Q_WORLD = 4
+#: gemma3-1b's mesh: 2 rows of the batch and 2 of its 4 heads a rank
+Q_MESH = (2, 2)
+#: counted ring steps from a new init (the first repeats the checked one)
+Q_STEPS = 3
+#: the kernels phase Q's profiled step lists, by device time
+Q_TOP = 10
+#: gloo's timeout in phase Q's spawn: a deadlocked collective fails the
+#: phase in 5 minutes, not the spawn's default 10
+Q_TIMEOUT_S = 300
+#: where phase G keeps its first step's gradients for phase Q (bf16, the
+#: training layout; each rank reads its slices through a memory map)
+Q_REF_GRADS = Path(__file__).resolve().parent / "build" / "chip_smoke" \
+    / "g_first_grads.pt"
+#: float32 cuts: every family's reduced config at tp 2 on (1, 2) (two
+#: meshes side by side), then gemma3's with each of these on (2, 2); a
+#: batch of 4 x 64 (the reduced configs' MoE capacity drops no pair);
+#: the MoE aux loss off (it is per rank, so it differs from tp = 1's)
+Q_F32_BATCH, Q_F32_SEQ = 4, 64
+Q_F32_2X2 = (("zero3", dict(zero3=True, zero3_min_size=1)),
+             ("dp_only", dict(dp_only=True)),
+             ("grad_compression", dict(grad_compression=True)))
+#: an AdamW first step moves a param by lr g / (|g| + 1e-8): where |g| is
+#: near the float32 sums' noise (or near 1e-8) the move follows the noise,
+#: up to 2 lr apart; above this share of its leaf's max |g| the moves
+#: agree within lr / 1000
+Q_HELD = 1e-2
+Q_F32_ARCHS = ("gemma3-1b", "qwen2-0.5b", "granite-moe-3b-a800m",
+               "falcon-mamba-7b", "jamba-v0.1-52b", "deepseek-v3-671b",
+               "seamless-m4t-large-v2", "internvl2-2b")
+
+
+def q_program(cfg, mesh, device, reduction="ring", **pkw):
+    """Phase G's recipe (AdamW, lr 3e-3, warmup 2, ``remat="full"``) on
+    a mesh, ZeRO-1 states over both axes."""
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.runtime.train_loop import build_train_program
+
+    return build_train_program(
+        cfg, ParallelConfig(reduction=reduction, remat="full", **pkw),
+        TrainConfig(**TRAIN_CFG), device, mesh=mesh)
+
+
+def q_reference(cfg):
+    """Phase G's first step at tp = 1 on the card, for ``--only-train-tp``
+    (phase G keeps it when it runs): the first step's loss and gradients
+    (these written to ``Q_REF_GRADS``) and the losses of two steps."""
+    from repro_torch.runtime.train_loop import value_and_grad
+
+    prog = train_program(cfg, "cuda")
+    params, state = prog.init_fn(SEED)
+    batch = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, "cuda")
+    loss, grads = value_and_grad(prog.loss_fn, params, batch)
+    q_save_grads(grads)
+    del grads
+    losses = []
+    for _ in range(2):
+        params, state, metrics = prog.step_fn(params, state, batch)
+        losses.append(metrics["loss"].item())
+    del params, state, prog
+    torch.cuda.empty_cache()
+    return {"loss": loss.item(), "losses": losses}
+
+
+def q_save_grads(grads) -> None:
+    from repro_torch.tree import tree_map
+
+    Q_REF_GRADS.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(tree_map(lambda g: g.detach().cpu(), grads), Q_REF_GRADS)
+
+
+def q_leaf_sums(prog, grads, ref_tree, what, sliced=False):
+    """Per leaf of a rank's reduced gradient slices against the same
+    slices of ``ref_tree`` (global leaves, any device; or, ``sliced``,
+    this rank's slices of the same layouts): (sum of squared
+    differences, sum of squared reference values, max |diff|, max
+    |ref|), the sums over the slices this rank counts (one replica of
+    each), so the parent adds the ranks' into the global L2 norms."""
+    from repro_torch.runtime import partition
+    from repro_torch.tree import leaves, leaves_with_paths
+
+    coords = prog.mesh.coords_dict()
+    out = {}
+    for (path, g), ref, lay in zip(leaves_with_paths(grads),
+                                   leaves(ref_tree), leaves(prog.layouts)):
+        at = partition.slice_starts(lay.zspec, lay.shape, coords)
+        r = (ref if sliced else ref[at]).to(g.device).float()
+        diff = g.float() - r
+        own = partition.owns(lay.zspec, coords)
+        out[path] = (torch.sum(diff * diff).item() if own else 0.0,
+                     torch.sum(r * r).item() if own else 0.0,
+                     diff.abs().max().item(), r.abs().max().item())
+    return {"what": what, "leaves": out}
+
+
+def q_common_equal(mesh, a_tree, a_specs, b_tree, b_specs, base_specs,
+                   rel: float = None):
+    """Leaf by leaf, ``a`` and ``b`` (slices under their specs) gathered
+    to each leaf's ``base`` spec on every rank and compared: bit-equal,
+    or within ``rel`` of the leaf's largest |value| on this rank.
+    Returns (the leaves that differ, the largest difference over the
+    leaf's max)."""
+    from repro_torch.runtime import partition
+    from repro_torch.tree import leaves, leaves_with_paths
+
+    bad, worst = [], 0.0
+    for (path, a), sa, b, sb, base in zip(
+            leaves_with_paths(a_tree), leaves(a_specs), leaves(b_tree),
+            leaves(b_specs), leaves(base_specs)):
+        ga = partition.gather_leaf(a, sa, mesh, base)
+        gb = partition.gather_leaf(b, sb, mesh, base)
+        if rel is None:
+            if not torch.equal(ga, gb):
+                bad.append(path)
+            continue
+        scale = gb.float().abs().max().item()
+        err = (ga.float() - gb.float()).abs().max().item() if ga.numel() \
+            else 0.0
+        worst = max(worst, err / max(scale, 1e-30))
+        if err > rel * scale:
+            bad.append(path)
+        del ga, gb
+    return bad, worst
+
+
+def q_busy(run):
+    """Device busy share of ``run()`` in this rank: ``torch.profiler``
+    tracing the card only (tracing the host's operators too makes a
+    training step last two and a half times as long), or None where it
+    saw no device time; and where the device time went: the ``Q_TOP``
+    kernels that took most of it, (name, launches, ms), and the ms of
+    every kernel with ``gemm`` in its name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [(ev.key, ev.count, getattr(ev, "self_device_time_total", 0.0))
+               for ev in prof.key_averages()
+               if str(getattr(ev, "device_type", "")).endswith("CUDA")]
+    busy = sum(us for _, _, us in kernels)
+    top = [(name[:120], n, us / 1e3) for name, n, us in
+           sorted(kernels, key=lambda k: -k[2])[:Q_TOP]]
+    gemm_ms = sum(us for name, _, us in kernels if "gemm" in name.lower()) / 1e3
+    return (busy / wall_us if busy > 0 else None), top, gemm_ms
+
+
+def q_bf16(la, mesh, ref):
+    """gemma3-1b at full width and depth, bf16, on this rank of the (2,
+    2) mesh: the checked first step, ZeRO-3 and the all-reduce baseline
+    from the same init, then the counted ring steps from a new init."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import dataflow
+    from repro_torch.runtime import partition
+    from repro_torch.tree import leaves_with_paths, tree_map
+
+    cfg = get_config(TRAIN_ARCH)
+    gbatch = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, "cuda")
+    out = {"worst": {}}
+    t0 = time.perf_counter()
+    prog = q_program(cfg, mesh, "cuda")
+    batch = prog.shard_batch(gbatch)
+    del gbatch
+    params, state = prog.init_fn(SEED)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+
+    # the first step: every forward call against its plain version as it
+    # runs, every backward call recorded and held against plain after
+    attn, kernel_bwd = la.grouped_local_attention, la.local_attention_bwd
+    bwd_calls, fwd_worst = [], [0.0]
+
+    def attn_checked(q, k, v, *, window, softcap=None):
+        y = attn(q, k, v, window=window, softcap=softcap)
+        with torch.no_grad():
+            want = la.grouped_local_attention_plain(q, k, v, window=window,
+                                                    softcap=softcap)
+            err = (y.float() - want.float()).abs().max().item()
+        fwd_worst[0] = max(fwd_worst[0], err)
+        check(attn_close(y.detach(), want, q.dtype),
+              f"[Q] rank {mesh.coords}: local_attention != plain at q "
+              f"{tuple(q.shape)} window {window}: max |diff| {err}")
+        return y
+
+    def bwd_recorded(q, k, v, o, do, *, window, softcap=None):
+        bwd_calls.append((q, k, v, o, do, window, softcap))
+        return kernel_bwd(q, k, v, o, do, window=window, softcap=softcap)
+
+    dataflow.reset_traffic()
+    t0 = time.perf_counter()
+    with Swapped((la, "grouped_local_attention", attn_checked),
+                 (la, "local_attention_bwd", bwd_recorded)):
+        loss, grads = prog.grad_fn(params, batch)
+    torch.cuda.synchronize()
+    out["checked_grad_s"] = time.perf_counter() - t0
+    out["ring_grad_bytes"] = dataflow.TRAFFIC["bytes_sent"]
+    worst_bwd = 0.0
+    for q, k, v, o, do, window, cap in bwd_calls:
+        got = kernel_bwd(q, k, v, o, do, window=window, softcap=cap)
+        want = la.local_attention_bwd_plain(q, k, v, o, do, window=window,
+                                            softcap=cap)
+        ok, err, scale = bwd_close(got, want, q.dtype)
+        worst_bwd = max(worst_bwd, err)
+        check(ok, f"[Q] rank {mesh.coords}: local_attention_bwd != plain at "
+                  f"q {tuple(q.shape)} window {window}: max |diff| {err}, "
+                  f"scale {scale}")
+        del got, want
+    out["bwd_calls"] = len(bwd_calls)
+    out["bwd_shape"] = tuple(bwd_calls[0][0].shape) if bwd_calls else None
+    out["worst"] = {"local_attention": fwd_worst[0],
+                    "local_attention_bwd": worst_bwd}
+    del bwd_calls
+    out["loss"] = loss.item()
+    out["vs_g"] = q_leaf_sums(prog, grads, torch.load(
+        Q_REF_GRADS, mmap=True), "phase G's first step")
+    p1, s1, m1 = prog.update_fn(params, state, loss, grads)
+    out["first_fp"] = (fingerprint(p1), fingerprint(s1))
+
+    # ZeRO-3 from the same init: the loss and the reduced gradients
+    # bit-equal, params and moments within 1e-6 of each leaf's max
+    z3 = q_program(cfg, mesh, "cuda", zero3=True)
+    zp = tree_map(lambda p, base, lay: partition.narrow_to(
+        p, base, lay.pspec, mesh.coords_dict()), params, prog.param_specs,
+        z3.layouts)  # init_fn's draws, cut as its init_fn cuts them
+    zs = z3.init_state(zp)
+    zloss, zgrads = z3.grad_fn(zp, batch)
+    base_specs = prog.param_specs
+    out["zero3_loss_equal"] = torch.equal(zloss, loss)
+    out["zero3_grads_bad"], _ = q_common_equal(
+        mesh, zgrads, tree_map(lambda l: l.zspec, z3.layouts), grads,
+        tree_map(lambda l: l.zspec, prog.layouts), base_specs)
+    zp1, zs1, _ = z3.update_fn(zp, zs, zloss, zgrads)
+    del zgrads
+    bad_p, worst_p = q_common_equal(mesh, zp1, z3.param_specs, p1,
+                                    base_specs, base_specs, rel=1e-6)
+    moments_bad, worst_m = [], 0.0
+    for name in ("m", "v"):
+        b, w = q_common_equal(mesh, getattr(zs1, name),
+                              getattr(z3.opt_specs, name), getattr(s1, name),
+                              getattr(prog.opt_specs, name), base_specs,
+                              rel=1e-6)
+        moments_bad += b
+        worst_m = max(worst_m, w)
+    out["zero3_params_bad"], out["zero3_moments_bad"] = bad_p, moments_bad
+    out["zero3_worst"] = (worst_p, worst_m)
+    z_local, b_local = dict(leaves_with_paths(zp)), \
+        dict(leaves_with_paths(params))
+    halves = [z_local[path].shape[dim] * mesh.data.size
+              == b_local[path].shape[dim]
+              for path, (dim, _) in z3.zero3.items()]
+    out["zero3_leaves"] = len(z3.zero3)
+    out["zero3_halves"] = all(halves) and bool(halves)
+    del z3, zp, zs, zp1, zs1, z_local, b_local
+    torch.cuda.empty_cache()
+
+    # the all-reduce baseline from the same init
+    ar = q_program(cfg, mesh, "cuda", reduction="allreduce")
+    dataflow.reset_traffic()
+    aloss, agrads = ar.grad_fn(params, batch)  # its specs are the ring's
+    out["allreduce_grad_bytes"] = dataflow.TRAFFIC["bytes_sent"]
+    out["allreduce_loss"] = aloss.item()
+    out["allreduce_loss_equal"] = torch.equal(aloss, loss)
+    out["vs_ring"] = q_leaf_sums(ar, agrads, grads, "the ring's",
+                                 sliced=True)
+    del ar, agrads, grads, p1, s1, params, state
+    torch.cuda.empty_cache()
+
+    # the counted ring steps from a new init of the same seed; the last
+    # runs under the profiler (its busy share; its time not counted)
+    params, state = prog.init_fn(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(Q_STEPS):
+        for key in la.LAUNCHES:
+            la.LAUNCHES[key] = 0
+        dataflow.reset_traffic()
+        result = []
+
+        def run():
+            result.append(prog.step_fn(params, state, batch))
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        profiled = q_busy(run) if i == Q_STEPS - 1 else run()
+        torch.cuda.synchronize()
+        params, state, metrics = result[0]
+        steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                      "profiled": i == Q_STEPS - 1,
+                      "loss": metrics["loss"].item(),
+                      "launches": dict(la.LAUNCHES),
+                      "bytes": dataflow.TRAFFIC["bytes_sent"],
+                      "host_copies": dataflow.TRAFFIC["host_copies"]})
+        if i == 0:
+            out["repeat_equal"] = (
+                (fingerprint(params), fingerprint(state))
+                == out["first_fp"]
+                and metrics["loss"].item() == steps[0]["loss"])
+    out["busy"], out["top"], out["gemm_ms"] = profiled
+    out["steps"] = steps
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, state, prog, batch, result
+    torch.cuda.empty_cache()
+    return out
+
+
+def q_f32_job(la, arch, mesh, extra=None):
+    """One float32 cut on this rank's mesh: the reduced config's first
+    step (loss, gradients reduced and all-gathered, the params after it)
+    on the card, on the CPU from the card's shards, and at tp = 1 on the
+    card from the gathered global params (on the mesh's first rank).
+    Returns each gate's largest figure and the card step's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.optim import optimizer as opt
+    from repro_torch.runtime import partition
+    from repro_torch.runtime.train_loop import value_and_grad
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(q_f32_config(arch), dtype="float32")
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, aux_loss_coef=0.0))
+    extra = extra or {}
+    runs, start = {}, None
+    for dev in ("cuda", "cpu"):
+        prog = q_program(cfg, mesh, dev, **extra)
+        if start is None:
+            start = prog.init_fn(SEED)
+            for key in la.LAUNCHES:
+                la.LAUNCHES[key] = 0
+        params, state = tree_map(lambda t: t.to(dev), start)
+        loss, grads = prog.grad_fn(params, prog.shard_batch(
+            train_batch(cfg, Q_F32_BATCH, Q_F32_SEQ, dev)))
+        new_p, _, metrics = prog.update_fn(params, state, loss, grads)
+        runs[dev] = (loss.item(),
+                     tree_map(lambda g, lay: partition.gather_leaf(
+                         g, lay.zspec, mesh).cpu(), grads, prog.layouts),
+                     tree_map(lambda t, s: partition.gather_leaf(
+                         t, s, mesh).cpu(), new_p, prog.param_specs),
+                     metrics["lr"].item())
+        if dev == "cuda":
+            launches = dict(la.LAUNCHES)
+            glob = tree_map(lambda t, s: partition.gather_leaf(t, s, mesh),
+                            start[0], prog.param_specs)
+    out = {"cpu": q_f32_diffs(runs["cuda"], runs["cpu"]),
+           "launches": launches}
+    if mesh.rank_index == 0:
+        tcfg = TrainConfig(**TRAIN_CFG)
+        one = train_program(cfg, "cuda")
+        loss, grads = value_and_grad(one.loss_fn, glob, train_batch(
+            cfg, Q_F32_BATCH, Q_F32_SEQ, "cuda"))
+        compress = bool(extra.get("grad_compression"))
+        state = opt.init_opt_state(glob, tcfg, compress)
+        applied = grads
+        if compress:
+            qs, scales, err = opt.compress_gradients(grads, state.err)
+            applied = opt.decompress_gradients(qs, scales)
+            state = state._replace(err=err)
+        new_p, _, metrics = opt.apply_updates(glob, applied, state, tcfg)
+        out["tp1"] = q_f32_diffs(runs["cuda"], (
+            loss.item(), tree_map(lambda t: t.cpu(), grads),
+            tree_map(lambda t: t.cpu(), new_p), metrics["lr"].item()))
+    del runs, start, glob
+    return out
+
+
+def q_f32_diffs(a, b):
+    """(loss relative difference, the largest gradient leaf's max |diff|
+    over its max |value|, the largest param |diff|, the largest param
+    |diff| where the reference gradient is above ``Q_HELD`` of its leaf's
+    max, lr) of two float32 first steps.  An AdamW first step moves a param
+    by lr g / |g|: where g is at the sums' noise its sign is the noise's
+    (a difference up to 2 lr), elsewhere the moves agree."""
+    from repro_torch.tree import leaves
+
+    loss_a, grads_a, params_a, _ = a
+    loss_b, grads_b, params_b, lr = b
+    grad = 0.0
+    for x, y in zip(leaves(grads_a), leaves(grads_b)):
+        if y.numel():
+            scale = y.float().abs().max().item()
+            grad = max(grad, (x.float() - y.float()).abs().max().item()
+                       / max(scale, 1e-30))
+    worst_p, worst_held = 0.0, 0.0
+    for x, y, g in zip(leaves(params_a), leaves(params_b), leaves(grads_b)):
+        if y.numel() and y.is_floating_point():
+            diff = (x.float() - y.float()).abs()
+            worst_p = max(worst_p, diff.max().item())
+            held = g.float().abs() > Q_HELD * g.float().abs().max()
+            if held.any():
+                worst_held = max(worst_held, diff[held].max().item())
+    return (abs(loss_a - loss_b) / abs(loss_b), grad, worst_p, worst_held,
+            lr)
+
+
+def q_rank(rank: int, world: int, ref):
+    """Phase Q's rank program: gemma3-1b in bf16 on (2, 2), then the
+    float32 cuts.  Every rank builds every mesh (``new_group`` is
+    collective) and runs the jobs it belongs to."""
+    import repro_torch.kernels.local_attention as la
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.set_num_threads(2)  # four ranks share the host's cores
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(*Q_MESH, backend="gloo", host_copies=True)
+    t0 = time.perf_counter()
+    out = {"coords": mesh.coords, "bf16": q_bf16(la, mesh, ref)}
+    out["bf16_s"] = time.perf_counter() - t0
+    if mesh.rank_index == 0:  # a trace of the run, should a later part fail
+        b = out["bf16"]
+        log(f"[Q] rank (0, 0): bf16 part {out['bf16_s']:.1f} s; first-step "
+            f"loss {b['loss']}, counted steps "
+            f"{[(round(s['ms'], 1), s['loss']) for s in b['steps']]}, ZeRO-3 "
+            f"loss / gradients bit-equal {b['zero3_loss_equal']} / "
+            f"{not b['zero3_grads_bad']}, failed checks {FAILURES}")
+    t0 = time.perf_counter()
+    pairs = [make_mesh(1, 2, backend="gloo", host_copies=True, ranks=r)
+             for r in ((0, 1), (2, 3))]
+    mine = next(m for m in pairs if m is not None)
+    half = pairs.index(mine)
+    out["f32"] = {}
+    for arch in Q_F32_ARCHS[half::2]:
+        out["f32"][arch] = q_f32_job(la, arch, mine)
+        if mine.rank_index == 0:
+            log(f"[Q] float32 {arch} on ranks {mine.both.ranks}: "
+                f"{out['f32'][arch]}")
+    import torch.distributed as dist
+
+    dist.barrier()
+    for name, extra in Q_F32_2X2:
+        out["f32"][name] = q_f32_job(la, TRAIN_ARCH, mesh, extra)
+    out["f32_s"] = time.perf_counter() - t0
+    out["failures"] = list(FAILURES)
+    return out
+
+
+def q_rel_l2(results, key):
+    """Per leaf, the relative L2 difference of one of ``q_leaf_sums``'
+    comparisons, its ranks' sums added; and its largest max |diff| over
+    max |ref|."""
+    per = {}
+    for res in results:
+        for path, (d2, r2, dmax, rmax) in res["bf16"][key]["leaves"].items():
+            a = per.setdefault(path, [0.0, 0.0, 0.0, 0.0])
+            a[0] += d2
+            a[1] += r2
+            a[2] = max(a[2], dmax)
+            a[3] = max(a[3], rmax)
+    return {path: (float(np.sqrt(d2 / max(r2, 1e-30))), dmax / max(rmax, 1e-30))
+            for path, (d2, r2, dmax, rmax) in per.items()}
+
+
+def train_tp_phase(la, card, g_ref):
+    """Phase Q: gemma3-1b trained at tp 2 on a (2, 2) mesh of 4 ranks
+    sharing cuda:0 over gloo host copies, and the float32 cuts.  Returns
+    the kernels' launches in its counted steps and float32 cuts, summed
+    over ranks, and each kernel's largest |diff| from its plain
+    version."""
+    import gc
+
+    import repro_torch.launch.mesh as mesh_mod
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.configs import get_config
+
+    fwd_want, bwd_want = step_launches(get_config(TRAIN_ARCH))
+    want = {"local_attention": fwd_want, "local_attention_f32": 0,
+            "local_attention_bwd": bwd_want}
+    tmp = Path(__file__).resolve().parent / "build" / "chip_smoke" / "spawn"
+    results = mesh_mod.spawn(q_rank, Q_WORLD, g_ref, tmp_dir=str(tmp),
+                             backend="gloo", timeout_s=Q_TIMEOUT_S)
+    Q_REF_GRADS.unlink(missing_ok=True)
+    for res in results:
+        check(not res["failures"], f"[Q] rank {res['coords']}: failed "
+              f"checks {res['failures']}")
+    bf = [r["bf16"] for r in results]
+    worst = {"local_attention": max(b["worst"]["local_attention"]
+                                    for b in bf),
+             "local_attention_bwd": max(b["worst"]["local_attention_bwd"]
+                                        for b in bf)}
+    for r, b in zip(results, bf):
+        check(b["bwd_calls"] == bwd_want,
+              f"[Q] rank {r['coords']}: {b['bwd_calls']} backward calls in "
+              f"the first step, want {bwd_want}")
+        check(b["loss"] == bf[0]["loss"],
+              f"[Q] rank {r['coords']}: loss {b['loss']}, rank (0, 0) "
+              f"{bf[0]['loss']}")
+        check(b["repeat_equal"], f"[Q] rank {r['coords']}: the first step "
+              "repeated from a new init of the seed differs")
+        check(b["zero3_loss_equal"] and not b["zero3_grads_bad"],
+              f"[Q] rank {r['coords']}: ZeRO-3's loss or reduced gradients "
+              f"differ from the baseline's: {b['zero3_grads_bad']}")
+        check(not b["zero3_params_bad"] and not b["zero3_moments_bad"],
+              f"[Q] rank {r['coords']}: ZeRO-3's params {b['zero3_params_bad']}"
+              f" or moments {b['zero3_moments_bad']} beyond 1e-6 of a leaf's "
+              "max")
+        check(b["zero3_leaves"] > 0 and b["zero3_halves"],
+              f"[Q] rank {r['coords']}: {b['zero3_leaves']} ZeRO-3 leaves, "
+              f"each half a rank: {b['zero3_halves']}")
+        for i, step in enumerate(b["steps"]):
+            check(step["launches"] == want,
+                  f"[Q] rank {r['coords']} step {i + 1}: launches "
+                  f"{step['launches']}, want {want}")
+    loss = bf[0]["loss"]
+    check(abs(loss - g_ref["loss"]) <= TOL_TRAIN_PLAIN_LOSS,
+          f"[Q] first-step loss {loss} at tp 2, {g_ref['loss']} at tp = 1 "
+          "(phase G)")
+    vs_g = q_rel_l2(results, "vs_g")
+    worst_g = max(vs_g.items(), key=lambda kv: kv[1][0])
+    for path, (rel, _) in vs_g.items():
+        check(rel <= TOL_TRAIN_PLAIN_GRAD,
+              f"[Q] gradient {path} at tp 2 against phase G's at tp = 1: "
+              f"relative L2 {rel}")
+    a_loss = bf[0]["allreduce_loss"]
+    check(abs(a_loss - loss) <= TOL_TRAIN_PLAIN_LOSS,
+          f"[Q] all-reduce loss {a_loss}, ring {loss}")
+    vs_ring = q_rel_l2(results, "vs_ring")
+    worst_r = max(vs_ring.items(), key=lambda kv: kv[1][0])
+    for path, (rel, _) in vs_ring.items():
+        check(rel <= TOL_TRAIN_PLAIN_GRAD,
+              f"[Q] all-reduce gradient {path} against the ring's: "
+              f"relative L2 {rel}")
+    losses = [s["loss"] for s in bf[0]["steps"]]
+    for i in range(2):
+        check(abs(losses[i] - g_ref["losses"][i]) <= TOL_TRAIN_PLAIN_LOSS,
+              f"[Q] counted step {i + 1}: loss {losses[i]}, phase G's "
+              f"{g_ref['losses'][i]}")
+    launches = {}
+    for b in bf:
+        for step in b["steps"]:
+            for key, n in step["launches"].items():
+                launches[key] = launches.get(key, 0) + n
+    log(f"[Q] {TRAIN_ARCH} bf16 at full width and depth on mesh {Q_MESH} "
+        f"(ring, ZeRO-1 over both axes, remat full, batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, 2 rows and 2 heads a rank): first-step loss {loss:.6f}"
+        f" against phase G's {g_ref['loss']:.6f} (|diff| "
+        f"{abs(loss - g_ref['loss']):.2e}, tolerance {TOL_TRAIN_PLAIN_LOSS});"
+        f" gradients' relative L2 against phase G's at most "
+        f"{worst_g[1][0]:.3e} ({worst_g[0]}; tolerance "
+        f"{TOL_TRAIN_PLAIN_GRAD}); forward calls within "
+        f"{worst['local_attention']:.3e} of plain, the {bwd_want} backward "
+        f"calls a rank (q {bf[0]['bwd_shape']}) within "
+        f"{worst['local_attention_bwd']:.3e}; repeat bit-equal on every "
+        "rank")
+    log(f"[Q] ZeRO-3 ({bf[0]['zero3_leaves']} leaves, each half a rank): "
+        "loss and reduced gradients bit-equal to the baseline's, params "
+        f"within {max(b['zero3_worst'][0] for b in bf):.2e} and moments "
+        f"{max(b['zero3_worst'][1] for b in bf):.2e} of each leaf's max; "
+        f"all-reduce: loss {a_loss:.6f} (|diff| {abs(a_loss - loss):.2e}),"
+        f" gradients within {worst_r[1][0]:.3e} relative L2 of the ring's "
+        f"({worst_r[0]})")
+    for r, b in zip(results, bf):
+        ms = [round(s["ms"], 1) for s in b["steps"]]
+        log(f"[Q] rank {r['coords']}: init {b['init_s']:.1f} s, checked "
+            f"first gradient {b['checked_grad_s']:.1f} s; counted steps ms "
+            f"{ms} (the last under the profiler), losses "
+            f"{[round(s['loss'], 4) for s in b['steps']]}; bytes sent a "
+            f"step {[s['bytes'] for s in b['steps']]}, host round trips "
+            f"{b['steps'][0]['host_copies']}; a gradient's bytes ring "
+            f"{b['ring_grad_bytes']} / all-reduce {b['allreduce_grad_bytes']}"
+            f" ({b['ring_grad_bytes'] / b['allreduce_grad_bytes']:.3f}x); "
+            "busy " + ("not measured" if b["busy"] is None
+                       else f"{100 * b['busy']:.2f}%")
+            + f"; peak {b['peak_gb']:.2f} GB; bf16 part {r['bf16_s']:.1f} s "
+            f"({P_SHARED}) on {card}")
+        log(f"[Q] rank {r['coords']}: the profiled step's kernels with gemm "
+            f"in their names {b['gemm_ms']:.3f} ms device time; its top "
+            f"{Q_TOP} kernels (name, launches, ms): "
+            + "; ".join(f"{n} x{c} {ms:.3f}" for n, c, ms in b["top"]))
+    log(f"[Q] counted losses {[round(x, 4) for x in losses]} beside phase "
+        f"G's {[round(x, 4) for x in g_ref['losses'][:Q_STEPS]]}")
+
+    # the float32 cuts
+    f32_worst = [0.0] * 4
+    for r in results:
+        for name, job in r["f32"].items():
+            for against in ("cpu", "tp1"):
+                if against not in job:
+                    continue
+                lr_, grad, worst_p, held, lr = job[against]
+                for i, v in enumerate((lr_, grad, worst_p, held)):
+                    f32_worst[i] = max(f32_worst[i], v)
+                check(lr_ <= TOL_TRAIN_F32_LOSS and grad <= TOL_TRAIN_F32_GRAD
+                      and worst_p <= 2 * lr * (1 + 1e-3)
+                      and held <= lr / 1000,
+                      f"[Q] float32 {name} on rank {r['coords']} against "
+                      f"{against}: loss {lr_:.2e}, gradients {grad:.2e}, "
+                      f"params {worst_p:.2e} (lr {lr}), {held:.2e} where "
+                      f"the gradient is above {Q_HELD} of its leaf's max")
+            fw, bw = step_launches(q_f32_config(
+                name if name in Q_F32_ARCHS else TRAIN_ARCH))
+            got = job["launches"]
+            check(got.get("local_attention_f32", 0) == fw
+                  and got.get("local_attention_bwd", 0) == bw
+                  and got.get("local_attention", 0) == 0,
+                  f"[Q] float32 {name} on rank {r['coords']}: launches "
+                  f"{got}, want {fw} forward and {bw} backward (float32)")
+            for key, n in got.items():
+                launches[key] = launches.get(key, 0) + n
+    log(f"[Q] float32 cuts ({len(Q_F32_ARCHS)} families at tp 2 on (1, 2), "
+        f"gemma3 with {[n for n, _ in Q_F32_2X2]} on (2, 2); batch "
+        f"{Q_F32_BATCH} x {Q_F32_SEQ}, TF32 off), against the CPU's ranks "
+        f"and tp = 1: loss within {f32_worst[0]:.2e}, gradients "
+        f"{f32_worst[1]:.2e} of a leaf's max, params {f32_worst[2]:.2e} "
+        f"(within 2 lr), {f32_worst[3]:.2e} where the gradient is above "
+        f"{Q_HELD} of its leaf's max (within lr / 1000); "
+        f"{max(r['f32_s'] for r in results):.1f} s")
+    log(f"[Q] phase Q: {time.perf_counter() - t_phase:.1f} s on {card}; "
+        f"launches {launches}")
+    return launches, worst
+
+
+def q_f32_config(name):
+    """A float32 cut's config: the family's reduced config, gemma3's for
+    the (2, 2) cuts; deepseek's ``mla_small`` (its reduced config's MLA
+    head dims, 24 and 16, are not among the kernel's pairs) at the
+    reduced configs' capacity factor of 4, so that no pair drops and
+    tp = 2 routes what tp = 1 routes."""
+    from repro_torch.configs import get_config
+
+    if name == MLA_ARCH:
+        cfg = mla_small()
+        return dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=4.0))
+    return get_config(name if name in Q_F32_ARCHS else TRAIN_ARCH).reduced()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5270,6 +5823,16 @@ def main() -> int:
         if FAILURES:
             fail(f"{len(FAILURES)} checks failed: {FAILURES}")
         log("[P] --only-tp: phase P passed; the other phases did not run")
+        return 2
+    if "--only-train-tp" in sys.argv[1:]:
+        # phase Q alone (phase G's first step as its yardstick) and F2's
+        # float32 curves: no result line
+        train_tp_phase(la, card, q_reference(get_config(TRAIN_ARCH)))
+        f2_curve(card)
+        if FAILURES:
+            fail(f"{len(FAILURES)} checks failed: {FAILURES}")
+        log("[Q] --only-train-tp: phase Q passed; the other phases did not "
+            "run")
         return 2
 
     sim, frames, launches, wall, calls, reps = main_path(km)
@@ -5356,30 +5919,37 @@ def main() -> int:
                     for k, v in lm.items()) + f" on {card}")
     scan_row, family_attn, worst_family = families_phase(la, ss, card)
     e_attn, worst_e = encdec_vlm_phase(la, ss, card)
-    bwd_row, g_attn = training_phase(la, card)
+    bwd_row, g_attn, g_ref = training_phase(la, card)
     scan_bwd_row, h_launches = families_training_phase(la, ss, card)
+    f2_curve(card)
     mla_row, i_launches, i_worst = mla_encdec_training_phase(la, ss, card)
     p_launches, p_worst = tp_phase(la, ss, card)
+    q_launches, q_worst = train_tp_phase(la, card, g_ref)
     # phases 5 and 6 (gemma3) and the counted runs of phases F, E, G, H,
     # I and P (P's summed over its ranks)
     launches_attn = {"local_attention": lm["bf16"]["launches"]
                      + family_attn + e_attn + g_attn
                      + h_launches["local_attention"]
                      + i_launches["local_attention"]
-                     + p_launches.get("local_attention", 0),
-                     "local_attention_f32": f32_launches}
+                     + p_launches.get("local_attention", 0)
+                     + q_launches.get("local_attention", 0),
+                     "local_attention_f32": f32_launches
+                     + q_launches.get("local_attention_f32", 0)}
     scan_row["launches"] += (h_launches["selective_scan"]
                              + p_launches.get("selective_scan", 0))
     bwd_row["launches"] += (h_launches["local_attention_bwd"]
-                            + i_launches["local_attention_bwd"])
+                            + i_launches["local_attention_bwd"]
+                            + q_launches.get("local_attention_bwd", 0))
     # the backward's times: deepseek's (192, 128) call (phase I); gemma3's
     # step is logged in phase G
     bwd_row.update(mla_row)
-    bwd_row["max_abs_err"] = max(bwd_row["max_abs_err"], i_worst)
+    bwd_row["max_abs_err"] = max(bwd_row["max_abs_err"], i_worst,
+                                 q_worst["local_attention_bwd"])
     for name in worst_attn:
         worst_attn[name] = max(worst_attn[name], worst_family.get(name, 0.0),
                                worst_e.get(name, 0.0),
-                               p_worst.get(name, 0.0))
+                               p_worst.get(name, 0.0),
+                               q_worst.get(name, 0.0))
     scan_row["max_abs_err"] = max(scan_row["max_abs_err"],
                                   p_worst.get("selective_scan", 0.0))
     for name, row in attn.items():

@@ -15,6 +15,13 @@ either package restores in the other, leaf for leaf:
   background thread (one save in flight at a time); a step is written
   to ``.tmp_step_<N>`` and renamed to ``step_<N>`` (the commit), and
   only the last ``keep`` steps stay.
+
+A mesh's training state is saved whole: the caller gathers the global
+leaves (``convert.gather_train_state``) and one rank saves them, so the
+checkpoint is the one a tp = 1 run writes.  ``restore(..., specs=,
+coords=)`` re-shards it onto whatever mesh the new job has: each rank
+reads the global leaves and keeps its part under each leaf's spec, as
+the reference's ``restore(..., shardings=)`` places them.
 """
 from __future__ import annotations
 
@@ -28,12 +35,17 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.tree import leaves_with_paths, unflatten
+from repro_torch.tree import leaves, leaves_with_paths, unflatten
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
     """A torch dtype as numpy and jax name it (``bfloat16``, ``int32``)."""
     return str(dtype).replace("torch.", "")
+
+
+def _crc(a: np.ndarray) -> int:
+    """CRC-32 of the array's bytes, read in place (no copy)."""
+    return zlib.crc32(np.ascontiguousarray(a))
 
 
 class CheckpointManager:
@@ -69,7 +81,7 @@ class CheckpointManager:
                 manifest["leaves"].append({
                     "path": p, "file": fn, "shape": list(a.shape),
                     "dtype": dt,
-                    "crc": zlib.crc32(np.ascontiguousarray(a).tobytes()),
+                    "crc": _crc(a),
                 })
             with open(os.path.join(tmp, "manifest.json"), "w") as f:
                 json.dump(manifest, f)
@@ -110,10 +122,16 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, template: Any, step: Optional[int] = None,
-                verify: bool = True) -> Tuple[Any, int]:
+                verify: bool = True, specs: Any = None,
+                coords: Any = None) -> Tuple[Any, int]:
         """Restore into the structure of ``template`` (a tree of tensors):
         each leaf in its template's dtype, on its template's device.
-        Returns (tree, step)."""
+        With ``specs`` (a tree of ``runtime/partition.py::Spec`` in the
+        template's structure) and ``coords`` (axis name -> (index,
+        size)), the template holds this rank's shards: each global leaf
+        on disk is cut to this rank's part under its spec.  Returns
+        (tree, step)."""
+        from repro_torch.runtime.partition import shard_leaf
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
@@ -123,13 +141,16 @@ class CheckpointManager:
         by_path = {l["path"]: l for l in manifest["leaves"]}
 
         out = []
-        for p, tmpl in leaves_with_paths(template):
+        spec_leaves = (leaves(specs) if specs is not None
+                       else [None] * len(leaves(template)))
+        for (p, tmpl), spec in zip(leaves_with_paths(template), spec_leaves):
             meta = by_path[p]
             arr = np.load(os.path.join(d, meta["file"]))["data"]
             if verify:
-                crc = zlib.crc32(np.ascontiguousarray(arr).tobytes())
-                if crc != meta["crc"]:
+                if _crc(arr) != meta["crc"]:
                     raise IOError(f"checksum mismatch for {p} at step {step}")
+            if spec is not None:
+                arr = shard_leaf(torch.from_numpy(arr), spec, coords).numpy()
             if list(arr.shape) != list(tmpl.shape):
                 raise ValueError(f"{p}: {arr.shape} on disk, template "
                                  f"{tuple(tmpl.shape)}")

@@ -210,3 +210,33 @@ def shard_lm_caches(global_caches, specs, coords):
     from repro_torch.runtime.partition import shard_tree
 
     return shard_tree(global_caches, specs, coords)
+
+
+def shard_train_state(prog, params, opt_state):
+    """This rank's training state on a train program's mesh from the
+    global params and optimizer state (the reference's trees, e.g. from
+    :func:`lm_train_params_from_reference` and
+    :func:`opt_state_from_reference`): each param cut by its spec (a
+    ZeRO-3 leaf over the data axes too), each moment, residual and
+    Adafactor state to its ZeRO slice.  Off a mesh, as they are."""
+    from repro_torch.runtime.partition import shard_tree
+
+    if prog.mesh is None:
+        return params, opt_state
+    coords = prog.mesh.coords_dict()
+    return (shard_tree(params, prog.param_specs, coords),
+            shard_tree(opt_state, prog.opt_specs, coords))
+
+
+def gather_train_state(prog, params, opt_state):
+    """The global params and optimizer state from every rank's training
+    state on a train program's mesh (all-gathers: every rank of the mesh
+    calls it).  Off a mesh, as they are."""
+    from repro_torch.runtime.partition import gather_leaf
+    from repro_torch.tree import tree_map
+
+    if prog.mesh is None:
+        return params, opt_state
+    gather = lambda t, s: gather_leaf(t, s, prog.mesh)  # noqa: E731
+    return (tree_map(gather, params, prog.param_specs),
+            tree_map(gather, opt_state, prog.opt_specs))

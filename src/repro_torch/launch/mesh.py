@@ -67,10 +67,36 @@ class Mesh:
     backend: str
     host_copies: bool
     axis_names: Tuple[str, str] = AXES
+    #: both axes as one, index ``d * model + m``: the ranks a spec entry
+    #: ``("data", "model")`` splits over (ZeRO over the whole mesh,
+    #: ``dp_only``'s data axes)
+    both: Optional[MeshAxis] = None
 
     def coords_dict(self) -> Dict[str, Tuple[int, int]]:
         """axis name -> (this rank's index, the axis size)."""
         return {a.name: (a.index, a.size) for a in (self.data, self.model)}
+
+    @property
+    def size(self) -> int:
+        return self.data.size * self.model.size
+
+    @property
+    def rank_index(self) -> int:
+        """This rank's index on the mesh, ``d * model + m``."""
+        return self.coords[0] * self.model.size + self.coords[1]
+
+    def axis(self, entry) -> MeshAxis:
+        """The axis a spec entry names: ``"data"``, ``"model"``, or a
+        tuple of names (split over their product, the first major):
+        ``("data", "model")`` is :attr:`both`.  An axis name in a tuple
+        of one stands for itself."""
+        names = entry if isinstance(entry, tuple) else (entry,)
+        if len(names) == 1:
+            return {"data": self.data, "model": self.model}[names[0]]
+        if tuple(names) == AXES:
+            return self.both
+        raise ValueError(f"no process group for the axes {names}: a "
+                         f"tuple entry must be {AXES}")
 
 
 def make_mesh(data: int, model: int, *, backend: str,
@@ -89,9 +115,9 @@ def make_mesh(data: int, model: int, *, backend: str,
                          "CUDA tensors as they are")
     n = data * model
     ranks = tuple(range(n)) if ranks is None else tuple(int(r) for r in ranks)
-    if len(ranks) != n or len(set(ranks)) != n:
+    if len(ranks) != n or list(ranks) != sorted(set(ranks)):
         raise ValueError(f"a ({data}, {model}) mesh needs {n} distinct "
-                         f"ranks: {ranks}")
+                         f"ranks in increasing order: {ranks}")
     if max(ranks) >= dist.get_world_size():
         raise ValueError(f"ranks {ranks} outside a world of "
                          f"{dist.get_world_size()}")
@@ -101,6 +127,7 @@ def make_mesh(data: int, model: int, *, backend: str,
     # every rank creates every group, in the same order
     model_groups = [dist.new_group(list(r), backend=backend) for r in rows]
     data_groups = [dist.new_group(list(c), backend=backend) for c in cols]
+    both_group = dist.new_group(list(ranks), backend=backend)
     if me not in ranks:
         return None
     pos = ranks.index(me)
@@ -111,7 +138,9 @@ def make_mesh(data: int, model: int, *, backend: str,
         data=MeshAxis("data", data, d, cols[m], backend, host_copies,
                       data_groups[m]),
         model=MeshAxis("model", model, m, rows[d], backend, host_copies,
-                       model_groups[d]))
+                       model_groups[d]),
+        both=MeshAxis("data,model", n, pos, ranks, backend, host_copies,
+                      both_group))
 
 
 def _rank_main(rank: int, fn: Callable, world: int, args: tuple,

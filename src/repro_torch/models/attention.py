@@ -30,6 +30,13 @@ At tp > 1 the reference's head sharding rules hold, per rank:
   merges the ranks' partial softmax by log-sum-exp.
 * decode psums the output projection's partial sums over the model axis
   where heads are sharded; MLA's too.
+
+Training at tp > 1 differentiates the same per-rank program: the ring
+matmuls' backward is the transposed ring, the replicated weights (the
+group trick's kv projection, replicated attention, MLA's down
+projections) get partial gradients that the train step sums over the
+model axis, and the backward kernel runs at the rank's heads (MLA's
+(192, 128) pair included).
 """
 from __future__ import annotations
 

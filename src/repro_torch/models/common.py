@@ -11,9 +11,13 @@ collective is local math, and at tp > 1 the plan holds the mesh axis
 (``launch/mesh.py::MeshAxis``) over which :func:`up` and :func:`down`
 run the Domino ring matmuls or the all-reduce baseline
 (``core/dataflow.py``), :func:`psum_if` reduces partial sums and
-:func:`embed_lookup` merges the vocab shards' gathers.  Training at
-tp > 1 (the sharded cross-entropy's gradients) is ROADMAP Queue 1 item
-15(b): the loss here is the tp = 1 one.
+:func:`embed_lookup` merges the vocab shards' gathers.  Every collective
+there has its gradient (the collective's transpose), so the same
+functions train at tp > 1: :func:`sharded_softmax_xent` merges the
+vocab shards' log-sum-exp and label picks over the model axis and
+averages over the data axes (``plan.dp_axis``), and a :class:`Zero3`
+leaf (ZeRO-3: a weight split over the data axes too) is all-gathered by
+:func:`resolve_w` at its use, its gradient reduce-scattered back.
 """
 from __future__ import annotations
 
@@ -54,6 +58,10 @@ class ShardingPlan:
     #: init functions produce global (unsharded) shapes
     global_shapes: bool = False
     axis: Any = field(default=None, compare=False, repr=False)
+    #: the mesh axis over the data axes (``launch/mesh.py``: the data
+    #: axis, or both axes under ``dp_only``), over which the loss is
+    #: averaged; None on one rank's data
+    dp_axis: Any = field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
         if self.reduction not in ("ring", "allreduce"):
@@ -69,7 +77,8 @@ class ShardingPlan:
     @staticmethod
     def for_model(cfg: ModelConfig, tp: int = 1,
                   dp_axes: Tuple[str, ...] = (),
-                  reduction: str = "ring", axis=None) -> "ShardingPlan":
+                  reduction: str = "ring", axis=None,
+                  dp_axis=None) -> "ShardingPlan":
         a = cfg.attention
         attn_sharded = a is not None and a.num_heads % tp == 0
         kv_sharded = attn_sharded and a.num_kv_heads % tp == 0
@@ -77,7 +86,7 @@ class ShardingPlan:
         return ShardingPlan(
             tp=tp, dp_axes=dp_axes, reduction=reduction,
             attn_sharded=attn_sharded, kv_sharded=kv_sharded,
-            experts_pad=pad, axis=axis)
+            experts_pad=pad, axis=axis, dp_axis=dp_axis)
 
     # -- local shard sizes ---------------------------------------------------
 
@@ -116,12 +125,60 @@ class ShardingPlan:
 # ---------------------------------------------------------------------------
 
 
+class Zero3:
+    """A ZeRO-3 leaf: this rank's ``shard`` of a weight split over the
+    data axes (the mesh axis ``axis``) on ``dim``, the reference's
+    ``Zero3``; :func:`resolve_w` all-gathers it at each use, so a rank
+    holds one layer's whole weight at a time (under checkpointing the
+    recompute gathers it again).  The gradient goes to ``sink``, a
+    float32 leaf of the shard's shape (a zero-stride expand: no memory),
+    not to the shard: the gather's backward reduce-scatters the whole
+    weight's gradient in float32 over the data axes, and the sink keeps
+    that sum unrounded, as the other leaves' data sums are kept."""
+
+    def __init__(self, shard: torch.Tensor, dim: int, axis, sink=None):
+        self.shard, self.dim, self.axis, self.sink = shard, dim, axis, sink
+
+    @property
+    def shape(self):
+        return self.shard.shape
+
+    def unbind(self):
+        """One :class:`Zero3` per entry of a stacked shard's first dim
+        (``dim`` is in the entries' coordinates)."""
+        sinks = (torch.unbind(self.sink, 0) if self.sink is not None
+                 else [None] * self.shard.shape[0])
+        return [Zero3(s, self.dim, self.axis, k)
+                for s, k in zip(torch.unbind(self.shard, 0), sinks)]
+
+
+class _Zero3Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, shard, sink, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return dataflow._all_gather(shard, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, dataflow._psum_scatter(g.float(), ctx.axis, ctx.dim),
+                None, None)
+
+
+def _gather_zero3(w: Zero3) -> torch.Tensor:
+    if w.sink is not None and torch.is_grad_enabled():
+        return _Zero3Gather.apply(w.shard, w.sink, w.axis, w.dim)
+    return dataflow.all_gather(w.shard, w.axis, w.dim)
+
+
 def resolve_w(w, like: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Weights may arrive as ``{"q": int8, "s": scale}`` (CIM-resident
     serving mode): dequantize on use, in float32 and then to ``like``'s
     dtype (bfloat16 without ``like``, as the reference does).  The scale
     is applied in place: one float32 copy of the weight, not two (a
-    deepseek-v3 expert stack is 15 GB in float32)."""
+    deepseek-v3 expert stack is 15 GB in float32).  A :class:`Zero3`
+    leaf is all-gathered over its data axes first."""
+    if isinstance(w, Zero3):
+        return resolve_w(_gather_zero3(w), like)
     if is_quantized_leaf(w):
         dtype = like.dtype if like is not None else torch.bfloat16
         return w["q"].to(torch.float32).mul_(w["s"]).to(dtype)
@@ -170,6 +227,15 @@ def psum_if(x: torch.Tensor, plan: ShardingPlan) -> torch.Tensor:
     if plan.tp == 1:
         return x
     return dataflow.psum(x, plan.axis)
+
+
+def all_gather_seq(h: torch.Tensor, plan: ShardingPlan) -> torch.Tensor:
+    """The whole sequence (B, S, ...) from the sequence-sharded stream
+    (B, S/k, ...) at tp > 1: all-gathered over the model axis (its
+    gradient reduce-scatters); as it is otherwise."""
+    if plan.tp == 1 or not plan.seq_shard:
+        return h
+    return dataflow.all_gather(h, plan.axis, dim=1)
 
 
 def last_shard_row(h: torch.Tensor, plan: ShardingPlan) -> torch.Tensor:
@@ -337,22 +403,41 @@ def sharded_softmax_xent(logits_local: torch.Tensor, labels: torch.Tensor,
                          plan: ShardingPlan,
                          valid: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
-    """Mean cross-entropy of logits (B, S, V) against label ids (B, S),
-    over the ``valid`` positions (all without it), in float32.  The
-    reference's at tp = 1: the max shift is detached (its
-    ``stop_gradient``), the log-sum-exp is ``m + log(sum(exp(x - m)))``,
-    and a label outside the vocabulary picks 0."""
+    """Mean cross-entropy of vocab-sharded logits (B, S, V_local)
+    against global label ids (B, S), over the ``valid`` positions (all
+    without it), in float32; the reference's.  The max shift is
+    detached before its ``pmax`` over the model axis (the reference's
+    ``stop_gradient``: it has no gradient), the log-sum-exp is ``m +
+    log(psum(sum(exp(x - m))))``, and the label's logit is picked on the
+    rank whose shard ``[lo, lo + V_local)`` holds it and psummed (a label
+    outside the vocabulary picks 0).  With ``plan.dp_axes`` the loss is
+    averaged over ``plan.dp_axis``."""
     v_local = logits_local.shape[-1]
+    lo = plan.tp_index() * v_local
     x = logits_local.float()
     m = torch.amax(x, dim=-1).detach()
-    lse = m + torch.log(torch.sum(torch.exp(x - m[..., None]), dim=-1))
-    hit = (labels >= 0) & (labels < v_local)
-    local = torch.clamp(labels, 0, v_local - 1).long()
+    if plan.tp > 1:
+        m = dataflow.pmax(m, plan.axis)
+    sumexp = psum_if(torch.sum(torch.exp(x - m[..., None]), dim=-1), plan)
+    lse = m + torch.log(sumexp)
+    hit = (labels >= lo) & (labels < lo + v_local)
+    local = torch.clamp(labels - lo, 0, v_local - 1).long()
     picked = torch.gather(x, -1, local[..., None])[..., 0]
-    picked = torch.where(hit, picked, torch.zeros_like(picked))
+    picked = psum_if(torch.where(hit, picked, torch.zeros_like(picked)),
+                     plan)
     nll = lse - picked
     valid = torch.ones_like(nll) if valid is None else valid.float()
-    return torch.sum(nll * valid) / torch.clamp_min(torch.sum(valid), 1.0)
+    loss = torch.sum(nll * valid) / torch.clamp_min(torch.sum(valid), 1.0)
+    return pmean_dp(loss, plan)
+
+
+def pmean_dp(x: torch.Tensor, plan: ShardingPlan) -> torch.Tensor:
+    """``x`` averaged over the data axes (the reference's ``lax.pmean``
+    over ``plan.dp_axes``); as it is without them or on one rank's
+    data."""
+    if not plan.dp_axes or plan.dp_axis is None:
+        return x
+    return dataflow.pmean(x, plan.dp_axis)
 
 
 def _mask_pad_vocab(logits_local: torch.Tensor, cfg: ModelConfig,

@@ -41,9 +41,9 @@ the first cross-attention; the reference's ``lax.scan`` then refuses the
 layer (its carry changes dtype), and so does the port, with a
 ``ValueError``.
 
-Training: :func:`encdec_loss` is the reference's at tp = 1 (tp > 1 is
-ROADMAP Queue 1 item 15(b): the encoder,
-the decoder stack and the chunked cross-entropy over the tied head).
+Training: :func:`encdec_loss` is the reference's, at tp = 1 and over a
+mesh (the encoder, the decoder stack and the chunked cross-entropy over
+the tied head; every collective has its gradient).
 Its params keep the reference's layout (:func:`stack_layers`):
 ``"encoder"`` and ``"decoder"`` each one dict whose leaves are stacked
 over the layers, as the reference's ``vmap``-ed init gives them, so the
@@ -69,12 +69,14 @@ from repro_torch.models import transformer as tfm
 from repro_torch.core import dataflow
 from repro_torch.models.common import (
     ShardingPlan,
+    all_gather_seq,
     dense_init,
     down,
     embed_lookup,
     flash_attention,
     last_shard_row,
     local_linear,
+    pmean_dp,
     psum_if,
     rms_norm,
     up,
@@ -302,15 +304,18 @@ def encdec_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     """batch: ``{"frames": (B, T, embed_dim), "tokens": (B, S),
     "labels": (B, S)}`` (a label < 0 is not counted) -> the scalar mean
     cross-entropy of the decoder's next tokens, float32: the reference's
-    ``encdec_loss`` at tp = 1 (no aux loss)."""
+    ``encdec_loss`` (no aux loss).  At tp > 1 the decoder's stream is
+    this rank's sequence chunk, all-gathered for the head; the loss is
+    averaged over the data axes."""
     memory = encode(params, batch["frames"], cfg, plan, remat=remat)
     tokens, labels = batch["tokens"], batch["labels"]
-    x = embed_lookup(params["embed"], tokens, plan)
+    x = tfm.seq_chunk(embed_lookup(params["embed"], tokens, plan), plan)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     h, _ = _decoder_stack(params, x, memory, cfg, plan, positions,
                           remat=remat)
-    return tfm._chunked_xent(h, labels, tfm._head_weight(params, cfg), cfg,
-                             plan, xent_chunk)
+    return pmean_dp(tfm._chunked_xent(
+        all_gather_seq(h, plan), labels, tfm._head_weight(params, cfg), cfg,
+        plan, xent_chunk), plan)
 
 
 def prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,

@@ -24,6 +24,11 @@ inputs give the same bits.  The backward of the dispatch and of the
 combine gathers too (:class:`_GatherRows`): a token's gradient is its K
 slots' gradients summed over k, and a slot's is its one pair's, where
 autograd's scatter-add would sum through atomics.
+
+In training each all_to_all's gradient is the all_to_all with its two
+dims swapped (``core/dataflow.py``), and the aux loss is each rank's,
+over its own tokens, as the reference defines it (per-device balance is
+what the capacity limit acts on): at tp > 1 it is not tp = 1's.
 """
 from __future__ import annotations
 

@@ -11,7 +11,9 @@ psums the out projection's partial sums.  Prefill runs the causal
 depthwise conv, the dt / B / C projections, and the scan through the
 selective-scan kernel (``kernels/selective_scan.py``; the reference's
 ``lax.associative_scan``); decode is the O(1) recurrent step on the
-carried (conv, ssm) state, in plain PyTorch.
+carried (conv, ssm) state, in plain PyTorch.  In training at tp > 1 the
+x_proj psum's gradient is a psum (its transpose), and the scan's
+backward kernel runs at the rank's channels.
 """
 from __future__ import annotations
 

@@ -32,8 +32,9 @@ Multi-token prediction (deepseek-v3's ``mtp_depth``): its parameters
 are built, converted and quantized as the reference's; serving never
 reads them, and :func:`lm_loss` adds its term (:func:`mtp_loss`).
 
-Serving at tp > 1 runs the reference's per-device program on each rank
-of the model axis (``models/common.py::ShardingPlan`` holds the axis):
+Serving and training at tp > 1 run the reference's per-device program
+on each rank of the model axis (``models/common.py::ShardingPlan``
+holds the axis):
 the embedding is vocab-sharded (a masked gather summed over the axis),
 the residual stream is sequence-sharded after it, attention, MLP, MoE
 and Mamba layers shard heads, features, experts and channels, prefill's
@@ -55,8 +56,10 @@ backward stacks the gradients onto the reference's leaves, and with
 grad enabled it runs each cycle of a repeated segment under
 ``torch.utils.checkpoint`` as the reference's ``remat`` policy says.
 :func:`lm_loss` is the reference's loss (the cross-entropy plus the MoE
-aux loss) for every decoder-only config at tp = 1 (tp > 1 is ROADMAP
-Queue 1 item 15(b)): the dense family, the
+aux loss) for every decoder-only config, at tp = 1 and on a mesh (the
+stream all-gathered for the vocab-sharded head; every collective
+differentiates as its transpose, ``core/dataflow.py``): the dense
+family, the
 MoE (granite-moe), Mamba (falcon-mamba) and hybrid (jamba) stacks, whose
 scan differentiates through its own backward kernel
 (``kernels/selective_scan.py``), MLA with multi-token prediction
@@ -69,7 +72,7 @@ from __future__ import annotations
 
 import functools
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -97,7 +100,10 @@ from repro_torch.models.common import (
     embed_lookup,
     gated_act,
     last_shard_row,
+    Zero3,
+    all_gather_seq,
     local_linear,
+    pmean_dp,
     resolve_w,
     rms_norm,
     sharded_softmax_xent,
@@ -427,6 +433,8 @@ def _unbind(tree, n: int) -> List[Any]:
     if isinstance(tree, list):
         parts = [_unbind(v, n) for v in tree]
         return [[p[r] for p in parts] for r in range(n)]
+    if isinstance(tree, Zero3):
+        return tree.unbind()
     return list(torch.unbind(tree, 0))
 
 
@@ -533,7 +541,9 @@ def lm_logits_local(params, h: torch.Tensor, cfg: ModelConfig,
 
 
 def _chunk_loss(hc, lc, w, cfg: ModelConfig, plan: ShardingPlan):
-    """(loss x count (1,), count (1,)) of one sequence chunk."""
+    """(loss x count (1,), count (1,)) of one sequence chunk, summed over
+    the vocab shards (not averaged over the data axes: the caller
+    does)."""
     vm = lc >= 0
     logits = torch.matmul(hc.float(), w.float())
     logits = softcap(logits, cfg.final_softcap)
@@ -558,6 +568,7 @@ def _chunked_xent(h: torch.Tensor, labels: torch.Tensor, w: torch.Tensor,
     while s % n_chunks:
         n_chunks -= 1
     n = s // n_chunks
+    plan = replace(plan, dp_axes=(), dp_axis=None)
     total = torch.zeros((1,), dtype=torch.float32, device=h.device)
     count = torch.zeros((1,), dtype=torch.float32, device=h.device)
     for i in range(n_chunks):
@@ -577,15 +588,17 @@ def mtp_loss(params, h: torch.Tensor, labels: torch.Tensor,
              xent_chunk: int = 1024) -> torch.Tensor:
     """The multi-token-prediction term of the reference's ``lm_loss``
     (deepseek-v3): ``proj`` over ``[h ‖ emb(max(labels, 0))]`` (h the
-    stack's output after the final norm, the embedding cast to h's
-    dtype), one layer of kind ``layer_spec(cfg, num_layers - 1)`` at
-    positions ``arange(S)``, not checkpointed, its MoE aux loss dropped,
-    then the head over its output with no final norm, against
-    ``labels[:, 2:]`` padded with two -1s on the right (the reference's
-    offset, as it is)."""
-    s = h.shape[1]
-    emb_next = embed_lookup(params["embed"], torch.clamp_min(labels, 0),
-                            plan)
+    stack's output after the final norm, this rank's sequence chunk at
+    tp > 1, the embedding cast to h's dtype), one layer of kind
+    ``layer_spec(cfg, num_layers - 1)`` at positions ``arange(S)``, not
+    checkpointed, its MoE aux loss dropped, then the head over its
+    output (all-gathered over the model axis at tp > 1) with no final
+    norm, against ``labels[:, 2:]`` padded with two -1s on the right
+    (the reference's offset, as it is), averaged over the data axes."""
+    s = labels.shape[1]
+    emb_next = seq_chunk(embed_lookup(params["embed"],
+                                      torch.clamp_min(labels, 0), plan),
+                         plan)
     hm = local_linear(torch.cat([h, emb_next.to(h.dtype)], dim=-1),
                       params["mtp"]["proj"])
     hm, _, _ = apply_layer(params["mtp"]["layer"], hm,
@@ -594,7 +607,8 @@ def mtp_loss(params, h: torch.Tensor, labels: torch.Tensor,
     mtp_labels = torch.cat([labels[:, 2:],
                             labels.new_full((labels.shape[0], 2), -1)],
                            dim=1)
-    return _chunked_xent(hm, mtp_labels, w, cfg, plan, xent_chunk)
+    return pmean_dp(_chunked_xent(all_gather_seq(hm, plan), mtp_labels, w,
+                                  cfg, plan, xent_chunk), plan)
 
 
 def lm_loss(params, batch, cfg: ModelConfig, plan: ShardingPlan,
@@ -603,13 +617,19 @@ def lm_loss(params, batch, cfg: ModelConfig, plan: ShardingPlan,
     (a label < 0 is not counted) -> the scalar mean cross-entropy plus
     0.1 times the multi-token-prediction loss (:func:`mtp_loss`, where
     ``cfg.mtp_depth`` and the params have it) plus the aux loss,
-    float32: the reference's ``lm_loss`` at tp = 1, for every
-    decoder-only config."""
+    float32: the reference's ``lm_loss``, for every decoder-only config.
+    At tp > 1 the sequence-sharded output is all-gathered over the model
+    axis and each rank's vocab shard of the head runs over the whole
+    sequence; the cross-entropy and the aux loss are averaged over the
+    data axes.  The aux loss is this rank's, over its own tokens, as the
+    reference defines it: ranks of one data row may hold other totals."""
     tokens, labels = batch["tokens"], batch["labels"]
     h, _, aux = forward(params, tokens, cfg, plan, extras=batch,
                         remat=remat)
     w = _head_weight(params, cfg)
-    loss = _chunked_xent(h, labels, w, cfg, plan, xent_chunk)
+    loss = pmean_dp(_chunked_xent(all_gather_seq(h, plan), labels, w, cfg,
+                                  plan, xent_chunk), plan)
+    aux = pmean_dp(aux, plan)
     if cfg.mtp_depth > 0 and "mtp" in params:
         loss = loss + 0.1 * mtp_loss(params, h, labels, w, cfg, plan,
                                      xent_chunk)

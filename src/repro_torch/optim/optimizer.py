@@ -1,5 +1,5 @@
 """Optimizers from scratch, the reference's ``repro/optim/optimizer.py``
-on torch (tp = 1):
+on torch, on one device or on a mesh's ZeRO slices:
 
 * **AdamW** — float32 or bfloat16 moments (``moment_dtype``), decoupled
   decay on leaves of two or more dimensions;
@@ -21,20 +21,40 @@ they are; or, with ``donate=True`` (the reference's jitted step donates
 its params and optimizer state), written into the old tensors leaf by
 leaf and, for the elementwise optimizers, ``DONATE_CHUNK`` elements at a
 time along each leaf's first axis, so that a step holds one copy of the
-params and moments (the same arithmetic, the same bits).  The ZeRO
-sharding specs (``zero_spec_for``, ``set_axis_sizes``) are sharding,
-ROADMAP Queue 1 item 15(b).
+params and moments (the same arithmetic, the same bits).
+
+On a mesh (``mesh=`` and ``layouts=``, one :class:`Layout` per param
+leaf) each rank updates its ZeRO slice: the gradient, the moments and
+the compression residual of a leaf are its slice under
+:func:`zero_spec_for` of the param's spec (the reference's ZeRO-1
+specs), and the param's slice is a view of the rank's shard.  What the
+reference computes over a whole leaf is computed over the whole leaf
+here too: the global norm sums every slice once (a replicated slice on
+one of its replicas) over the mesh, Adafactor's row and column means
+and its update RMS are global sums, and compression's amax is a
+``pmax`` over the mesh.  Adafactor's factored states keep the
+reference's specs (:func:`zero_spec_for` of no param spec); their
+update runs on the global vectors, of which each rank keeps its slice.
+The caller all-gathers the new param slices back into the shards
+(``runtime/train_loop.py``).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.cim import divide
-from repro_torch.tree import leaves, tree_map
+from repro_torch.runtime.partition import (
+    Spec,
+    global_sum,
+    owns,
+    slice_starts,
+)
+from repro_torch.tree import leaves, tree_map, unflatten
 
 
 #: elements of a leaf updated at once by a donated AdamW or SGD step
@@ -106,13 +126,24 @@ def _adafactor_init(p: torch.Tensor):
     return {"full": torch.zeros(p.shape, **f32)}
 
 
-def _clip_scale(grads, max_norm: float):
+def _clip_scale(grads, max_norm: float, mesh=None, layouts=None):
     """(min(1, max_norm / |g|), |g|): the norm over every leaf in float32,
-    summed leaf after leaf in the reference's order."""
+    summed leaf after leaf in the reference's order.  On a mesh each
+    rank sums its slices (a replicated slice on one replica,
+    ``partition.owns``) and the sum is psummed over the mesh."""
     gl = leaves(grads)
     gsq = torch.zeros((), dtype=torch.float32, device=gl[0].device)
-    for g in gl:
-        gsq = gsq + torch.sum(torch.square(g.float()))
+    if mesh is None:
+        for g in gl:
+            gsq = gsq + torch.sum(torch.square(g.float()))
+    else:
+        from repro_torch.core import dataflow
+
+        coords = mesh.coords_dict()
+        for g, lay in zip(gl, leaves(layouts)):
+            if owns(lay.zspec, coords):
+                gsq = gsq + torch.sum(torch.square(g.float()))
+        gsq = dataflow.psum(gsq, mesh.both)
     gnorm = torch.sqrt(gsq)
     scale = torch.clamp_max(
         torch.full_like(gnorm, max_norm) / torch.clamp_min(gnorm, 1e-9), 1.0)
@@ -161,14 +192,22 @@ def _donated(upd, params, grads, slots, scale, chunked: bool) -> None:
 
 
 def apply_updates(params, grads, state: OptState, cfg: TrainConfig,
-                  donate: bool = False
+                  donate: bool = False, mesh=None, layouts=None,
+                  state_specs=None
                   ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One step of ``cfg.optimizer``: clip, then update each leaf.
     Returns (new params, new state, {"lr", "grad_norm", "step"}).  With
     ``donate`` the new values are written into ``params`` and
-    ``state``'s moments, which are returned (the old values are gone)."""
-    if donate:
-        scale, gnorm = _clip_scale(grads, cfg.grad_clip)
+    ``state``'s moments, which are returned (the old values are gone).
+
+    On a ``mesh``: ``params``, ``grads`` and the moments are this rank's
+    slices under each leaf's ``layouts`` entry's ZeRO spec, and
+    ``state_specs`` (Adafactor) the specs of its factored states; the
+    new params returned are the new slices."""
+    if donate or mesh is not None:
+        scale, gnorm = _clip_scale(grads, cfg.grad_clip, mesh, layouts)
+        if not donate:
+            grads = tree_map(lambda g: _clipped(g, scale), grads)
     else:
         grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
     step = state.step + 1
@@ -222,6 +261,10 @@ def apply_updates(params, grads, state: OptState, cfg: TrainConfig,
             p_new = p.float() - lr * delta
             return p_new.to(p.dtype), new_vf
 
+        if mesh is not None:
+            upd = _sharded_adafactor(decay, lr, cfg, params, layouts,
+                                     state_specs, mesh)
+
         # tree_map hands upd each param leaf's {"row", "col"} / {"full"}
         slots, elementwise = (state.v,), False
 
@@ -252,6 +295,72 @@ def apply_updates(params, grads, state: OptState, cfg: TrainConfig,
                                                "step": step}
 
 
+def _sharded_adafactor(decay, lr, cfg: TrainConfig, params, layouts,
+                       state_specs, mesh):
+    """Adafactor's update of one rank's slices: the row and column means
+    of the squared gradient and the update's RMS summed over the whole
+    leaf (``partition.global_sum``), the factored states updated as
+    global vectors (each rank's slice gathered first) of which the rank
+    keeps its slice."""
+    from repro_torch.core import dataflow
+    from repro_torch.runtime.partition import gather_leaf
+
+    coords = mesh.coords_dict()
+    lay = {id(p): (l, sp) for p, l, sp in zip(
+        leaves(params), leaves(layouts), _per_param(params, state_specs))}
+
+    def upd(p, g, vf):
+        layout, specs = lay[id(p)]
+        shape, zdims = layout.shape, layout.zspec.dims
+        at = slice_starts(layout.zspec, shape, coords)
+        g32 = g.float()
+        sq = g32 * g32 + 1e-30
+        if p.dim() >= 2:
+            row_sum = global_sum(torch.sum(sq, -1), Spec(zdims[:-1]),
+                                 shape[:-1], mesh, layout.zspec)
+            col_sum = global_sum(torch.sum(sq, -2),
+                                 Spec(zdims[:-2] + zdims[-1:]),
+                                 shape[:-2] + shape[-1:], mesh, layout.zspec)
+            row = (decay * gather_leaf(vf["row"], specs["row"], mesh)
+                   + (1 - decay) * divide(row_sum, float(shape[-1])))
+            col = (decay * gather_leaf(vf["col"], specs["col"], mesh)
+                   + (1 - decay) * divide(col_sum, float(shape[-2])))
+            den = torch.clamp_min(torch.mean(row, -1, keepdim=True)[
+                ..., None], 1e-30)
+            vhat = (row[at[:-1]][..., None] * col[at[:-2] + at[-1:]][
+                ..., None, :] / den[at[:-2]])
+            new_vf = {"row": row, "col": col}
+        else:
+            full = (decay * gather_leaf(vf["full"], specs["full"], mesh)
+                    + (1 - decay) * global_sum(sq, layout.zspec, shape,
+                                               mesh))
+            vhat = full[at]
+            new_vf = {"full": full}
+        new_vf = {k: v[slice_starts(specs[k], tuple(v.shape), coords)]
+                  for k, v in new_vf.items()}
+        delta = g32 / torch.clamp_min(torch.sqrt(vhat), 1e-30)
+        dsq = torch.sum(delta * delta)
+        if not owns(layout.zspec, coords):
+            dsq = torch.zeros_like(dsq)
+        n = float(math.prod(shape))
+        rms = torch.sqrt(divide(dataflow.psum(dsq, mesh.both), n) + 1e-30)
+        delta = delta / torch.clamp_min(rms, 1.0)
+        if p.dim() >= 2:
+            delta = delta + cfg.weight_decay * p.float()
+        p_new = p.float() - lr * delta
+        return p_new.to(p.dtype), new_vf
+
+    return upd
+
+
+def _per_param(params, specs):
+    """``specs`` (a tree in the params' structure with a dict per param
+    leaf) as a list in the params' leaf order."""
+    by_id = {}
+    tree_map(lambda p, sp: by_id.__setitem__(id(p), sp), params, specs)
+    return [by_id[id(p)] for p in leaves(params)]
+
+
 def _select(params, out, i):
     """From a tree of tuples in ``params``' structure (one per param
     leaf), the tree of each tuple's ``i``-th entry."""
@@ -263,25 +372,84 @@ def _select(params, out, i):
 
 
 # ---------------------------------------------------------------------------
+# ZeRO sharding specs
+# ---------------------------------------------------------------------------
+
+
+def zero_spec_for(p_spec: Optional[Spec], shape: Tuple[int, ...],
+                  zero_axes: Tuple[str, ...], axis_sizes: Dict[str, int]
+                  ) -> Spec:
+    """The reference's ``zero_spec_for``: an optimizer-state leaf split
+    over ``zero_axes`` on its largest dim that the param's spec leaves
+    whole (ZeRO-1), the axes the param already splits over dropped; the
+    param's own spec where no dim is free or the free dim does not
+    divide the axes' product.  ``axis_sizes``: axis name -> size (the
+    reference reads them from module state set by ``set_axis_sizes``;
+    an axis missing here counts 1, as there)."""
+    base = list(p_spec) if p_spec is not None else [None] * len(shape)
+    while len(base) < len(shape):
+        base.append(None)
+    used = set()
+    for entry in base:
+        if entry is None:
+            continue
+        for a in (entry if isinstance(entry, tuple) else (entry,)):
+            used.add(a)
+    avail = tuple(a for a in zero_axes if a not in used)
+    if not avail or not shape:
+        return Spec(tuple(base))
+    free = [i for i, e in enumerate(base) if e is None and shape[i] > 1]
+    if not free:
+        return Spec(tuple(base))
+    target = max(free, key=lambda i: shape[i])
+    n = 1
+    for a in avail:
+        n *= axis_sizes.get(a, 1)
+    if shape[target] % n:
+        return Spec(tuple(base))
+    base[target] = avail if len(avail) > 1 else avail[0]
+    return Spec(tuple(base))
+
+
+@dataclass(frozen=True)
+class Layout:
+    """One param leaf on a mesh: the global leaf's shape, the param's
+    spec (tensor parallelism, ZeRO-3) and its gradient's and moments'
+    ZeRO spec (:func:`zero_spec_for`)."""
+
+    shape: Tuple[int, ...]
+    pspec: Spec
+    zspec: Spec
+
+
+# ---------------------------------------------------------------------------
 # int8 gradient compression with error feedback
 # ---------------------------------------------------------------------------
 
 
-def compress_gradients(grads, err):
+def compress_gradients(grads, err, axis=None):
     """(int8 grads, float32 scales, new residual): ``q = Q(g + err)``
     with a per-leaf scale amax / 127, and ``err' = (g + err) - deQ(q)``,
-    so the compression error re-enters the next step."""
-    def comp(g, e):
-        g32 = g.float() + e.float()
-        amax = torch.amax(torch.abs(g32))
+    so the compression error re-enters the next step.  With ``axis``
+    (a mesh axis over every rank) ``grads`` and ``err`` are each rank's
+    slices of the global leaves, and each leaf's amax is the global
+    one: every leaf's slice amax in one ``pmax`` over ``axis``."""
+    from repro_torch.core import dataflow
+
+    flat = [g.float() + e.float()
+            for g, e in zip(leaves(grads), leaves(err))]
+    amaxes = torch.stack([torch.amax(torch.abs(g)) for g in flat])
+    if axis is not None:
+        amaxes = dataflow.pmax(amaxes, axis)
+    qs, scales, errs = [], [], []
+    for g32, e, amax in zip(flat, leaves(err), amaxes):
         scale = divide(torch.clamp_min(amax, 1e-12), 127.0)
         q = torch.clamp(torch.round(g32 / scale), -128, 127).to(torch.int8)
-        new_e = g32 - q.float() * scale
-        return q, scale, new_e.to(e.dtype)
-
-    out = tree_map(comp, grads, err)
-    return (_select(grads, out, 0), _select(grads, out, 1),
-            _select(grads, out, 2))
+        qs.append(q)
+        scales.append(scale)
+        errs.append((g32 - q.float() * scale).to(e.dtype))
+    return (unflatten(grads, qs), unflatten(grads, scales),
+            unflatten(grads, errs))
 
 
 def decompress_gradients(qs, scales, dtype=torch.float32):

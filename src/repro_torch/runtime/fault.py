@@ -11,14 +11,20 @@ reference's ``repro/runtime/fault.py``, host code copied):
 * :class:`StragglerMonitor` — EWMA of step (or request) durations;
   flags those slower than ``threshold`` x the running mean.
 
-``elastic_remesh`` builds a mesh over the surviving devices: sharding,
-ROADMAP Queue 1 item 15(b).
+* :func:`elastic_remesh` — the largest (data, model) mesh of the
+  surviving ranks (:func:`remesh_shape`, the reference's rule), over
+  which a job restores its last checkpoint (``checkpoint/manager.py``
+  re-shards it).
+
+On a mesh the guard also waits for every rank of it (a barrier), so a
+step ends on all ranks together.
 """
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass, field
-from typing import Callable, List, Tuple
+from typing import Any, Callable, List, Sequence, Tuple
 
 import torch
 
@@ -80,14 +86,20 @@ class StepGuard:
     backoff_s: float = 1.0
     failures: int = 0
     retryable: Tuple[type, ...] = RETRYABLE_FAULTS
+    #: the mesh the step runs on (``launch/mesh.py``), or None
+    mesh: Any = None
 
     def run(self, step_fn: Callable, step: int, *args):
         for attempt in range(self.max_retries + 1):
             try:
                 out = step_fn(*args)
                 # synchronize so device-side failures surface *inside*
-                # the guard
+                # the guard, and on a mesh wait for its every rank
                 _synchronize(out)
+                if self.mesh is not None and self.mesh.size > 1:
+                    import torch.distributed as dist
+
+                    dist.barrier(group=self.mesh.both.group)
                 return out
             except self.retryable:
                 self.failures += 1
@@ -98,3 +110,30 @@ class StepGuard:
             # everything else — including KeyboardInterrupt/SystemExit,
             # which are not even Exceptions — propagates uncaught
         raise RuntimeError("unreachable")
+
+
+def remesh_shape(n: int, model_parallelism: int = 16) -> Tuple[int, int]:
+    """(data, model) of the reference's ``elastic_remesh`` over ``n``
+    devices: the model axis ``gcd(model_parallelism, n)`` (halved while
+    it does not divide n), the data axis the rest."""
+    model = math.gcd(model_parallelism, n)
+    while model > 1 and n % model:
+        model //= 2
+    return n // model, model
+
+
+def elastic_remesh(ranks: Sequence[int], model_parallelism: int = 16, *,
+                   backend: str = "gloo", host_copies: bool = False):
+    """The largest (data, model) mesh of the surviving ``ranks`` (global
+    ranks, in order) by :func:`remesh_shape`, and the ranks left out:
+    (mesh, dropped), the reference's ``elastic_remesh`` over ranks.
+    Every rank of the world calls it (building a mesh is collective); a
+    rank outside the new mesh gets None for it."""
+    from repro_torch.launch.mesh import make_mesh
+
+    ranks = list(ranks)
+    data, model = remesh_shape(len(ranks), model_parallelism)
+    usable = ranks[:data * model]
+    mesh = make_mesh(data, model, backend=backend, host_copies=host_copies,
+                     ranks=usable)
+    return mesh, ranks[data * model:]

@@ -10,7 +10,14 @@ built on the ``meta`` device (:func:`eval_shape_pair`), and
 specs; that is how weights and caches reach the ranks.
 
 A spec is a :class:`Spec`: per dim, None (replicated) or the mesh axis
-name it is split over.
+name it is split over.  Training reads more from the specs: the axes a
+leaf is replicated on (:func:`replicated_axes`: its gradient is summed
+over them), whether this rank is the one of its replicas that counts a
+slice in a global sum (:func:`owns`), the dim a ZeRO spec adds
+(:func:`added_dim`), and the collectives that move a leaf between two
+specs: :func:`gather_leaf` (all-gathers) and :func:`global_sum` (a
+slice's partial sums placed in the global shape and summed over the
+mesh).
 """
 from __future__ import annotations
 
@@ -124,3 +131,109 @@ def shard_tree(global_tree: Any, specs: Any,
     this rank's ``coords`` (axis name -> (index, size))."""
     return tree_map(lambda t, s: shard_leaf(t, s, coords), global_tree,
                     specs)
+
+
+# ---------------------------------------------------------------------------
+# Specs on a mesh (training)
+# ---------------------------------------------------------------------------
+
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The axis names of one spec entry (none for None)."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def spec_axes(spec: Spec) -> Tuple[str, ...]:
+    """Every axis name a spec splits over."""
+    return tuple(a for e in spec for a in entry_axes(e))
+
+
+def replicated_axes(spec: Spec, axis_names=("data", "model")
+                    ) -> Tuple[str, ...]:
+    """The mesh axes ``spec`` does not split over: a leaf holds the same
+    slice on every rank of them, and its gradient there is a partial sum
+    (the leaf's gradient is the sum over them)."""
+    used = spec_axes(spec)
+    return tuple(a for a in axis_names if a not in used)
+
+
+def owns(spec: Spec, coords: Dict[str, Tuple[int, int]]) -> bool:
+    """Whether this rank is index 0 on every axis ``spec`` is replicated
+    on: the one replica of its slice that a global sum counts."""
+    return all(coords[a][0] == 0 for a in replicated_axes(spec, coords))
+
+
+def added_dim(base: Spec, spec: Spec) -> Optional[int]:
+    """The dim where ``spec`` splits and ``base`` does not (a ZeRO spec
+    over its param's), or None where they are equal.  They may differ
+    at one dim only."""
+    dims = [d for d, (a, b) in enumerate(zip(base, spec)) if a != b]
+    if not dims:
+        return None
+    if len(dims) > 1 or base.dims[dims[0]] is not None:
+        raise ValueError(f"{spec.dims} does not add one split to "
+                         f"{base.dims}")
+    return dims[0]
+
+
+def narrow_to(t: torch.Tensor, base: Spec, spec: Spec,
+              coords: Dict[str, Tuple[int, int]]) -> torch.Tensor:
+    """This rank's part under ``spec`` of ``t``, its part under ``base``
+    (a view: the one dim :func:`added_dim` is cut)."""
+    d = added_dim(base, spec)
+    if d is None:
+        return t
+    idx, n = _index(spec.dims[d], coords)
+    size = t.shape[d] // n
+    return t.narrow(d, idx * size, size)
+
+
+def gather_leaf(t: torch.Tensor, spec: Spec, mesh,
+                base: Optional[Spec] = None) -> torch.Tensor:
+    """``t``, this rank's part under ``spec``, all-gathered to its part
+    under ``base`` (the global leaf without it): over each split of
+    ``spec`` that ``base`` lacks, the dim's axis all-gathered (a tuple
+    entry over ``mesh.axis`` of the tuple, its first axis major)."""
+    from repro_torch.core import dataflow
+
+    base = base or Spec((None,) * t.dim())
+    for d, (a, b) in enumerate(zip(spec, base)):
+        if a != b:
+            if b is not None:
+                raise ValueError(f"cannot gather {spec.dims} to "
+                                 f"{base.dims}")
+            t = dataflow.all_gather(t, mesh.axis(a), d)
+    return t
+
+
+def slice_starts(spec: Spec, shape: Tuple[int, ...],
+                 coords: Dict[str, Tuple[int, int]]) -> Tuple[slice, ...]:
+    """The index of this rank's part under ``spec`` in the global leaf
+    of ``shape``."""
+    out = []
+    for size, entry in zip(shape, spec):
+        if entry is None:
+            out.append(slice(None))
+            continue
+        idx, n = _index(entry, coords)
+        out.append(slice(idx * (size // n), (idx + 1) * (size // n)))
+    return tuple(out)
+
+
+def global_sum(t: torch.Tensor, spec: Spec, shape: Tuple[int, ...], mesh,
+               source: Optional[Spec] = None) -> torch.Tensor:
+    """The global tensor of ``shape`` in which every rank's ``t`` (its
+    part under ``spec``: partial sums, or values) is added at its
+    slice, on every rank: one psum over the whole mesh.  ``t`` comes
+    from the rank's part under ``source`` (``spec`` by default; a row
+    sum of a slice split on its columns too): ranks that hold the same
+    part under ``source`` count it once (:func:`owns`)."""
+    from repro_torch.core import dataflow
+
+    coords = mesh.coords_dict()
+    out = torch.zeros(shape, dtype=t.dtype, device=t.device)
+    if owns(source or spec, coords):
+        out[slice_starts(spec, shape, coords)] = t
+    return dataflow.psum(out, mesh.both)

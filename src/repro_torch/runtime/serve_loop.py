@@ -20,7 +20,7 @@ With a ``mesh`` (``launch/mesh.py``) the program is one rank's part of
 the reference's ``shard_map``: the plan follows the reference's
 ``make_plan`` (tp the model axis, ``seq_cache`` from
 ``ParallelConfig.seq_sharded_cache``, ``reduction`` "ring" or
-"allreduce"), parameter and cache specs come from
+"allreduce"; ``dp_only``: tp = 1, the batch over both axes), parameter and cache specs come from
 ``runtime/partition.py`` (a cache's batch dim found by comparing its
 shapes at ``batch`` and ``2 batch``), and ``prefill_fn`` / ``decode_fn``
 take this rank's shard of the params and its rows of the batch (all of
@@ -55,6 +55,9 @@ from repro_torch.models import transformer as T
 from repro_torch.models.common import ShardingPlan
 from repro_torch.runtime import partition
 from repro_torch.runtime.fault import StragglerMonitor
+# the reference serves through its training ``make_plan``, and so does the
+# port: dp_only serves at tp = 1 over both axes, zero3 has no effect
+from repro_torch.runtime.train_loop import make_plan
 
 #: leaf names that are true matmul weights (safe to int8-quantize with
 #: per-output-column scales), as in the reference
@@ -216,8 +219,11 @@ class ServeProgram:
         batch does not divide the data axis)."""
         if self.mesh is None:
             return batch_in
-        specs = partition.batch_specs(batch_in, self.plan.dp_axes,
-                                      self.mesh.data.size)
+        sizes = {"data": self.mesh.data.size, "model": self.mesh.model.size}
+        dpn = 1
+        for a in self.plan.dp_axes:
+            dpn *= sizes[a]
+        specs = partition.batch_specs(batch_in, self.plan.dp_axes, dpn)
         return partition.shard_tree(batch_in, specs,
                                     self.mesh.coords_dict())
 
@@ -232,22 +238,6 @@ class ServeProgram:
         return quantize_params_for_serving(params, self.cfg,
                                            self.quant_min_size,
                                            self.decisions, prefix)
-
-
-def make_plan(cfg: ModelConfig, mesh, pcfg) -> ShardingPlan:
-    """The reference's ``make_plan`` for serving: tp the model axis'
-    size, every other axis a data axis, ``seq_cache`` from
-    ``pcfg.seq_sharded_cache``.  ``dp_only`` (every axis a data axis)
-    belongs with training at tp > 1, ROADMAP Queue 1 item 15(b)."""
-    import dataclasses
-
-    if pcfg.dp_only or pcfg.zero3:
-        raise NotImplementedError(
-            "dp_only and zero3 are not ported: ROADMAP Queue 1 item 15(b)")
-    plan = ShardingPlan.for_model(cfg, tp=mesh.model.size,
-                                  dp_axes=("data",),
-                                  reduction=pcfg.reduction, axis=mesh.model)
-    return dataclasses.replace(plan, seq_cache=pcfg.seq_sharded_cache)
 
 
 def _meta_params(cfg: ModelConfig, plan: ShardingPlan):
@@ -298,7 +288,12 @@ def build_serve_program(cfg: ModelConfig, batch: int, s_max: int,
                 t, cfg, decisions=decisions) for t in (g_params, l_params))
         param_specs = partition.derive_specs(g_params, l_params, plan.tp,
                                              plan.tp_axis)
-        dpn = mesh.data.size
+        sizes = {"data": mesh.data.size, "model": mesh.model.size}
+        dpn = 1
+        for a in plan.dp_axes:
+            dpn *= sizes[a]
+        dp_entry = (plan.dp_axes if len(plan.dp_axes) > 1
+                    else plan.dp_axes[0])
         divides = batch % dpn == 0
         rows = batch // dpn if divides else batch
         cl = _meta_caches(cfg, plan, batch, s_max, kv_dtype)
@@ -312,7 +307,7 @@ def build_serve_program(cfg: ModelConfig, batch: int, s_max: int,
             dims = list(spec.dims)
             for i, (da, db) in enumerate(zip(a.shape, b2.shape)):
                 if da != db and dims[i] is None and divides and dpn > 1:
-                    dims[i] = "data"
+                    dims[i] = dp_entry
             return partition.Spec(tuple(dims))
 
         cache_specs = tree_map(add_batch, specs, cl, c2)

@@ -13,9 +13,18 @@ set before jax starts and a test worker may have started it already.
 Both sides read the same numpy inputs; each rank's output is placed
 into the global array its spec says, and the global arrays compared.
 
+The gradients: each matmul's (with and without its tail) and each
+collective's (``ppermute``, ``psum``, ``all_gather``, ``all_to_all``,
+``psum_scatter``) with respect to x and w, at k = 2 and 4, against the
+reference's ``jax.grad`` of the same function under ``shard_map``
+against a fixed cotangent of its global output.  Each rank seeds its
+objective with 1 over the model ranks that hold the same output (the
+reference differentiates one copy of an output whole on every device);
+a weight's gradient is summed over the data ranks that hold it.
+
 Tolerance: 2e-5 absolute, float32 (the reference's own
 ``tests/test_dataflow.py``): both sides sum the same partial products
-in orders that may differ.
+in orders that may differ.  The gradients: rtol = atol = 1e-5.
 """
 import os
 import subprocess
@@ -37,6 +46,7 @@ TOL = 2e-5
 REFERENCE = r"""
 import sys
 import jax, jax.numpy as jnp, numpy as np
+from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
 sys.path.insert(0, sys.argv[2])
 import torch_tp_ranks as R
@@ -74,6 +84,53 @@ for k in (2, 4):
                              P(None, None, "model", None), P(None, "model")),
         out_specs=P()))
     out[f"lse_merge-k{k}"] = np.asarray(f(q, kc, vc, valid))
+    # gradients against fixed cotangents of the global outputs
+    cts = R.grad_cotangents()
+    for name in R.DATAFLOW_FNS:
+        for tail in (None, jnp.tanh):
+            if name.startswith(("up_", "down_")):
+                kind, red = name.split("_")
+                fn = df.up_matmul if kind == "up" else df.down_matmul
+                call = lambda a, b, fn=fn, red=red, tail=tail: fn(
+                    a, b, axis="model", reduction=red, tail=tail)
+            else:
+                call = lambda a, b, fn=getattr(df, name), tail=tail: fn(
+                    a, b, axis="model", tail=tail)
+            if name in R.DOWN:
+                specs = (P(None, None, "model"), P("model", None))
+                out_spec, ct = P(None, "model", None), cts["down"]
+            else:
+                specs = (P(None, "model", None), P(None, "model"))
+                out_spec, ct = P(None, None, "model"), cts["up"]
+            f = shard_map(call, mesh=mesh, in_specs=specs,
+                          out_specs=out_spec)
+            gx, gw = jax.jit(jax.grad(
+                lambda a, b, f=f, ct=ct: jnp.sum(f(a, b) * ct),
+                argnums=(0, 1)))(x, w)
+            key = f"grad-{name}-k{k}-{'tanh' if tail is not None else 'none'}"
+            out[key + "-x"], out[key + "-w"] = np.asarray(gx), np.asarray(gw)
+    perm = [(j, (j + 1) % k) for j in range(k)]
+    colls = {
+        "ppermute": (lambda a: lax.ppermute(a, "model", perm),
+                     P(None, "model", None)),
+        "psum": (lambda a: lax.psum(a, "model"), P()),
+        "all_gather": (lambda a: lax.all_gather(a, "model", axis=1,
+                                                tiled=True), P()),
+        "all_to_all": (lambda a: lax.all_to_all(a, "model", 2, 1,
+                                                tiled=True),
+                       P(None, None, "model")),
+        "psum_scatter": (lambda a: lax.psum_scatter(
+            a, "model", scatter_dimension=2, tiled=True),
+            P(None, None, "model")),
+    }
+    x3 = np.random.default_rng(2).standard_normal(
+        (R.B, R.S, R.K)).astype(np.float32)
+    for name, (fn, out_spec) in colls.items():
+        f = shard_map(fn, mesh=mesh, in_specs=(P(None, "model", None),),
+                      out_specs=out_spec)
+        ct = cts[f"{name}-k{k}"]
+        gx = jax.jit(jax.grad(lambda a, f=f, ct=ct: jnp.sum(f(a) * ct)))(x3)
+        out[f"grad-{name}-k{k}-x"] = np.asarray(gx)
 np.savez(sys.argv[1], **out)
 """
 
@@ -199,3 +256,42 @@ def test_bf16_products_reach_the_sums_in_float32():
     out = dataflow.ring_reducescatter_matmul(x, w, axis)
     assert out.dtype == torch.bfloat16
     assert torch.equal(out, y.to(torch.bfloat16))
+
+
+def _assemble_grad(ranks, case):
+    """(dx, dw) global gradients of one case from its ranks: dx placed by
+    the input's split (rows by data coordinate; the contraction dim of a
+    down product's x, the sequence of an up product's or a collective's
+    by model coordinate), dw by the weight's model split and summed over
+    the data coordinates that hold it."""
+    parts = {}
+    for res in ranks:
+        coords, dx, dw = res["grads"][case]
+        parts[coords] = (dx.numpy(), None if dw is None else dw.numpy())
+    n_data = 1 + max(d for d, _ in parts)
+    n_model = 1 + max(m for _, m in parts)
+    fn = case.rsplit("-", 2)[0] if case.count("-") == 2 else \
+        case.split("-")[0]
+    x_dim, w_dim = (2, 0) if fn in R.DOWN else (1, 1)
+    dx = np.concatenate([np.concatenate(
+        [parts[(d, m)][0] for m in range(n_model)], axis=x_dim)
+        for d in range(n_data)], axis=0)
+    if parts[(0, 0)][1] is None:
+        return dx, None
+    dw = sum(np.concatenate([parts[(d, m)][1] for m in range(n_model)],
+                            axis=w_dim) for d in range(n_data))
+    return dx, dw
+
+
+@pytest.mark.parametrize("case", R.grad_case_names())
+def test_gradients_match_reference_under_shard_map(case, ranks, reference):
+    """The transposes: a ring's backward is the transposed ring, psum's
+    is psum, an all-gather's a reduce-scatter and back, an all_to_all's
+    the all_to_all with its dims swapped, ppermute's the permutation
+    back."""
+    dx, dw = _assemble_grad(ranks, case)
+    np.testing.assert_allclose(dx, reference[f"grad-{case}-x"], rtol=1e-5,
+                               atol=1e-5, err_msg=case)
+    if dw is not None:
+        np.testing.assert_allclose(dw, reference[f"grad-{case}-w"],
+                                   rtol=1e-5, atol=1e-5, err_msg=case)

@@ -367,24 +367,26 @@ def test_patch_embeds_are_checked():
 
 
 def test_tp_above_one_raises():
-    """Serving at tp > 1 is ported (``test_torch_serve_tp.py``).  What
-    still raises at tp > 1: a plan with no mesh axis asked for its rank's
-    index (it can run no collective), and training (item 15(b))."""
-    from types import SimpleNamespace
-
+    """Serving (``test_torch_serve_tp.py``) and training
+    (``test_torch_train_tp.py``) at tp > 1 are ported.  What still
+    raises at tp > 1: a plan with no mesh axis asked for its rank's
+    index (it can run no collective).  A train program on a (1, 2) mesh
+    builds its rank's plan and specs without running a collective."""
     from repro_torch.configs.base import ParallelConfig, TrainConfig
     from repro_torch.runtime.train_loop import build_train_program
+    from repro_torch.tree import leaves
+    from test_torch_serve_tp import _fake_mesh
 
     cfg = get_config("gemma3-1b")
     plan = ShardingPlan.for_model(cfg, tp=2)
     assert plan.tp == 2 and plan.attn_sharded and not plan.kv_sharded
     with pytest.raises(RuntimeError, match="mesh axis"):
         plan.tp_index()
-    mesh = SimpleNamespace(shape=(1, 2), model=SimpleNamespace(size=2),
-                           data=SimpleNamespace(size=1))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        build_train_program(cfg.reduced(), ParallelConfig(), TrainConfig(),
-                            device="cpu", mesh=mesh)
+    prog = build_train_program(cfg.reduced(), ParallelConfig(),
+                               TrainConfig(), device="cpu",
+                               mesh=_fake_mesh((1, 2), (0, 1)))
+    assert prog.plan.tp == 2 and prog.plan.tp_index() == 1
+    assert any("model" in s.dims for s in leaves(prog.param_specs))
 
 
 def test_serving_defaults_to_the_card():

@@ -302,12 +302,23 @@ def test_lm_loss_raises_for_families_not_trained(arch):
 
 @pytest.mark.parametrize("field", ["zero3", "dp_only"])
 def test_mesh_only_parallel_configs_raise(field):
-    """Sharding params over a mesh or replicating them over one is item
-    15; on one device the other ParallelConfig fields have no effect."""
+    """ZeRO-3 and dp_only shard params over a mesh, or replicate them
+    over one (item 15(b), ``test_torch_train_tp.py``); they raise no
+    more.  On one device they have no effect, as the other
+    ParallelConfig fields that move data between devices: the step
+    equals the default config's, bit for bit."""
     cfg = _setup("qwen2-0.5b")[1]
-    with pytest.raises(NotImplementedError, match="item 15"):
-        build_train_program(cfg, ParallelConfig(**{field: True}),
-                            TrainConfig(), device="cpu")
+    runs = []
+    for pcfg in (ParallelConfig(), ParallelConfig(**{field: True})):
+        prog = build_train_program(cfg, pcfg, TrainConfig(), device="cpu")
+        assert prog.plan.tp == 1 and prog.mesh is None
+        params, state = prog.init_fn(0)
+        batch = {k: torch.from_numpy(v) for k, v in RD.synthetic_batch(
+            RD.DataSpec(cfg.vocab_size, 8, 2, 1), 0).items()}
+        runs.append(prog.step_fn(params, state, batch))
+    assert torch.equal(runs[0][2]["loss"], runs[1][2]["loss"])
+    for a, b in zip(tree.leaves(runs[0][0]), tree.leaves(runs[1][0])):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

@@ -95,6 +95,7 @@ def dataflow_cases(rank: int, world: int):
         out[f"lse_merge-k{k}"] = (mesh.coords, df.lse_merge_decode_attention(
             q[rows], kc[rows, :, cut], vc[rows, :, cut], valid[rows, cut],
             mesh.model))
+    out["grads"] = dataflow_grad_cases(rank, world)
     return out
 
 
@@ -376,3 +377,350 @@ def cuda_failing_rank(rank: int, world: int):
     if rank == 1:
         raise ValueError("rank 1 fails on the card on purpose")
     return df.psum(x, mesh.model).cpu()
+
+
+# ---------------------------------------------------------------------------
+# Gradients of the collectives and of the dataflow matmuls
+# ---------------------------------------------------------------------------
+
+#: the collectives differentiated, on x (B, S, K) split over the model
+#: axis on its sequence dim: (name, whether the output is whole on every
+#: model rank, the output's split dim or None)
+COLLECTIVES = (("ppermute", False, 1), ("psum", True, None),
+               ("all_gather", True, None), ("all_to_all", False, 2),
+               ("psum_scatter", False, 2))
+
+
+def grad_cotangents(seed: int = 1):
+    """Fixed global cotangents of every case's output, drawn in the
+    output's global shape."""
+    rng = np.random.default_rng(seed)
+    out = {"down": rng.standard_normal((B, S, N)).astype(np.float32),
+           "up": rng.standard_normal((B, S, N)).astype(np.float32)}
+    for k in (2, 4):
+        out[f"ppermute-k{k}"] = rng.standard_normal((B, S, K)).astype(
+            np.float32)
+        out[f"psum-k{k}"] = rng.standard_normal((B, S // k, K)).astype(
+            np.float32)
+        out[f"all_gather-k{k}"] = rng.standard_normal((B, S, K)).astype(
+            np.float32)
+        out[f"all_to_all-k{k}"] = rng.standard_normal((B, S, K)).astype(
+            np.float32)
+        out[f"psum_scatter-k{k}"] = rng.standard_normal(
+            (B, S // k, K)).astype(np.float32)
+    return out
+
+
+def collective_call(name, x, axis):
+    """The port's collective of one case."""
+    from repro_torch.core import dataflow as df
+
+    if name == "ppermute":
+        return df.ppermute(x, axis, 1)
+    if name == "psum":
+        return df.psum(x, axis)
+    if name == "all_gather":
+        return df.all_gather(x, axis, 1)
+    if name == "all_to_all":
+        return df.all_to_all(x, axis, 2, 1)
+    return df.psum_scatter(x, axis, 2)
+
+
+def grad_case_names():
+    names = [f"{fn}-k{k}-{'tanh' if tail else 'none'}"
+             for k in (2, 4) for fn in DATAFLOW_FNS for tail in (False, True)]
+    return names + [f"{c[0]}-k{k}" for k in (2, 4) for c in COLLECTIVES]
+
+
+def dataflow_grad_cases(rank: int, world: int):
+    """The gradients with respect to x and w of each dataflow matmul and
+    of each collective, at k = 2 on a (2, 2) mesh (the data axis splits
+    the batch) and k = 4 on (1, 4): this rank's local objective is its
+    output against its part of the global cotangent, seeded with 1 over
+    the model ranks that hold the same output (the reference's gradient
+    of an output whole on every model rank is that of one copy).  ->
+    {case: (coords, dx, dw)}, dw None for a collective."""
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.set_num_threads(1)
+    xg, wg = (torch.from_numpy(a) for a in dataflow_inputs()[:2])
+    cts = {k: torch.from_numpy(v) for k, v in grad_cotangents().items()}
+    out = {}
+    for k, shape in ((2, (2, 2)), (4, (1, 4))):
+        mesh = make_mesh(*shape, backend="gloo")
+        d, m = mesh.coords
+        rb = B // shape[0]
+        rows = slice(d * rb, (d + 1) * rb)
+        ss, nn, kk = S // k, N // k, K // k
+        for fn_name in DATAFLOW_FNS:
+            for tail in (None, torch.tanh):
+                if fn_name in DOWN:
+                    xl = xg[rows, :, m * kk:(m + 1) * kk]
+                    wl = wg[m * kk:(m + 1) * kk]
+                    ct = cts["down"][rows, m * ss:(m + 1) * ss]
+                else:
+                    xl = xg[rows, m * ss:(m + 1) * ss]
+                    wl = wg[:, m * nn:(m + 1) * nn]
+                    ct = cts["up"][rows, :, m * nn:(m + 1) * nn]
+                xl = xl.contiguous().requires_grad_()
+                wl = wl.contiguous().requires_grad_()
+                y = _dataflow_call(fn_name, xl, wl, mesh.model, tail)
+                dx, dw = torch.autograd.grad(torch.sum(y * ct), (xl, wl))
+                name = (f"{fn_name}-k{k}-"
+                        f"{'tanh' if tail is not None else 'none'}")
+                out[name] = (mesh.coords, dx, dw)
+        x3 = torch.from_numpy(np.random.default_rng(2).standard_normal(
+            (B, S, K)).astype(np.float32))
+        for name, whole, dim in COLLECTIVES:
+            xl = x3[rows, m * ss:(m + 1) * ss].contiguous().requires_grad_()
+            y = collective_call(name, xl, mesh.model)
+            ct = cts[f"{name}-k{k}"][rows]
+            if dim is not None:
+                size = ct.shape[dim] // k
+                ct = ct.narrow(dim, m * size, size)
+            seed = 1.0 / k if whole else 1.0
+            dx, = torch.autograd.grad(torch.sum(y * ct) * seed, (xl,))
+            out[f"{name}-k{k}"] = (mesh.coords, dx, None)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Training at tp > 1
+# ---------------------------------------------------------------------------
+
+#: global batch and sequence of the training cases (the sequence
+#: divides 4); the last TRAIN_MASKED labels of every row are -1, so
+#: every data shard counts the same positions
+TRAIN_B, TRAIN_S, TRAIN_MASKED = 4, 16, 3
+TRAIN_SEED = 3
+#: the one-step optimizer cases on (2, 2): (optimizer, compression,
+#: microbatches); gemma3's reduced config, grad_clip 0.5 (the gradient
+#: norm is about 2.6, so the clip binds)
+STEP_CASES = tuple((o, c, n) for o in ("adamw", "adafactor", "sgd")
+                   for c, n in ((False, 1), (True, 1), (False, 2)))
+STEP_ARCH = "gemma3-1b"
+STEP_TCFG = dict(lr=1e-2, warmup_steps=1, total_steps=5, grad_clip=0.5)
+#: ZeRO-3 on (2, 2): every QUANTIZABLE leaf the data axis divides, on
+#: gemma3 (no stacked leaf) and granite (one segment of count 2: the
+#: gather dim of a stacked leaf counts from its second dim)
+ZERO3_MIN_SIZE = 1
+ZERO3_ARCHS = ("gemma3-1b", "granite-moe-3b-a800m")
+
+
+def train_config(arch: str, var: str = None, aux: bool = False):
+    """A family's reduced float32 config for training; the MoE aux loss
+    off unless ``aux`` (it is per rank over its own tokens, so it
+    differs from tp = 1's), as the reference's own sharded test."""
+    cfg = port_config(arch, var)
+    if cfg.moe is not None and not aux:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, aux_loss_coef=0.0))
+    return cfg
+
+
+def train_batch(cfg):
+    """The global batch (numpy): ``synthetic_batch`` seed 5, step 0, the
+    last TRAIN_MASKED labels of every row -1."""
+    from repro_torch.data.pipeline import DataSpec, synthetic_batch
+
+    fe = cfg.frontend
+    kw = {} if fe is None else dict(frontend_kind=fe.kind,
+                                    frontend_dim=fe.embed_dim,
+                                    frontend_tokens=fe.num_tokens)
+    batch = synthetic_batch(DataSpec(cfg.vocab_size, TRAIN_S, TRAIN_B, 5,
+                                     encdec=cfg.is_encdec, **kw), 0)
+    batch["labels"][:, -TRAIN_MASKED:] = -1
+    return batch
+
+
+def _tensors(batch):
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in batch.items()}
+
+
+def _train_prog(cfg, mesh, reduction="ring", tcfg=None, **pkw):
+    from repro_torch.configs.base import ParallelConfig, TrainConfig
+    from repro_torch.runtime.train_loop import build_train_program
+
+    return build_train_program(
+        cfg, ParallelConfig(reduction=reduction, remat="full", **pkw),
+        tcfg or TrainConfig(), device="cpu", mesh=mesh)
+
+
+def _gathered_grads(prog, grads):
+    from repro_torch.runtime import partition
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda g, lay: partition.gather_leaf(
+        g, lay.zspec, prog.mesh), grads, prog.layouts)
+
+
+def _grads_case(cfg, mesh, reduction="ring", **pkw):
+    """(this rank's loss, the global gradients (None off the mesh's
+    first rank)) of one family's first step."""
+    prog = _train_prog(cfg, mesh, reduction, **pkw)
+    params, _ = prog.init_fn(TRAIN_SEED)
+    loss, grads = prog.grad_fn(params,
+                               prog.shard_batch(_tensors(train_batch(cfg))))
+    full = _gathered_grads(prog, grads)
+    return {"coords": mesh.coords, "loss": loss,
+            "grads": full if mesh.rank_index == 0 else None}
+
+
+def _local_shapes(tree):
+    from repro_torch.tree import leaves_with_paths
+
+    return {p: tuple(t.shape) for p, t in leaves_with_paths(tree)}
+
+
+def _step_case(mesh, optimizer, compression, micro):
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.convert import gather_train_state
+
+    cfg = train_config(STEP_ARCH)
+    prog = _train_prog(cfg, mesh, tcfg=TrainConfig(optimizer=optimizer,
+                                                   **STEP_TCFG),
+                       grad_compression=compression, microbatches=micro)
+    params, state = prog.init_fn(TRAIN_SEED)
+    new_p, new_s, metrics = prog.step_fn(
+        params, state, prog.shard_batch(_tensors(train_batch(cfg))))
+    gp, gs = gather_train_state(prog, new_p, new_s)
+    return {"coords": mesh.coords, "loss": metrics["loss"],
+            "grad_norm": metrics["grad_norm"],
+            "state_shapes": _local_shapes(new_s),
+            "param_shapes": _local_shapes(new_p),
+            "params": gp if mesh.rank_index == 0 else None,
+            "state": gs if mesh.rank_index == 0 else None}
+
+
+def _zero3_case(mesh, arch):
+    """The baseline and ZeRO-3 from one init on (2, 2): each one's loss,
+    global reduced gradients, and params and state after one AdamW
+    step; this rank's params' local shapes."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.convert import gather_train_state
+
+    cfg = train_config(arch)
+    batch = _tensors(train_batch(cfg))
+    out = {"coords": mesh.coords}
+    for name, z3 in (("base", False), ("zero3", True)):
+        prog = _train_prog(cfg, mesh, tcfg=TrainConfig(**STEP_TCFG),
+                           zero3=z3, zero3_min_size=ZERO3_MIN_SIZE)
+        params, state = prog.init_fn(TRAIN_SEED)
+        b = prog.shard_batch(batch)
+        loss, grads = prog.grad_fn(params, b)
+        full = _gathered_grads(prog, grads)
+        new_p, new_s, _ = prog.step_fn(params, state, b)
+        gp, gs = gather_train_state(prog, new_p, new_s)
+        out[name] = {"loss": loss, "grads": full, "params": gp,
+                     "state": gs, "zero3": dict(prog.zero3),
+                     "shapes": _local_shapes(params)}
+    return out
+
+
+def _elastic_case(rank, tmp):
+    """A checkpoint of the (2, 2) mesh's state after one AdamW step,
+    restored onto the mesh ``elastic_remesh`` builds from ranks 0 and 1;
+    the next step there against the uninterrupted (2, 2) run's."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.convert import gather_train_state
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.fault import elastic_remesh
+
+    cfg = train_config(STEP_ARCH)
+    batch = _tensors(train_batch(cfg))
+    tcfg = TrainConfig(**STEP_TCFG)
+    mesh = make_mesh(2, 2, backend="gloo")
+    prog = _train_prog(cfg, mesh, tcfg=tcfg)
+    params, state = prog.init_fn(TRAIN_SEED)
+    b = prog.shard_batch(batch)
+    params, state, _ = prog.step_fn(params, state, b)
+    gp, gs = gather_train_state(prog, params, state)
+    mgr = CheckpointManager(tmp)
+    if rank == 0:
+        mgr.save(1, {"params": gp, "opt_state": gs}, blocking=True)
+    params, state, _ = prog.step_fn(params, state, b)
+    want = gather_train_state(prog, params, state)[0]
+    dist.barrier()
+    small, dropped = elastic_remesh([0, 1], model_parallelism=2)
+    if small is None:
+        return {"dropped": dropped}
+    prog2 = _train_prog(cfg, small, tcfg=tcfg)
+    p2, s2 = prog2.init_fn(TRAIN_SEED + 1)
+    restored, step = mgr.restore(
+        {"params": p2, "opt_state": s2},
+        specs={"opt_state": prog2.opt_specs, "params": prog2.param_specs},
+        coords=small.coords_dict())
+    p2, s2, _ = prog2.step_fn(restored["params"], restored["opt_state"],
+                              prog2.shard_batch(batch))
+    got = gather_train_state(prog2, p2, s2)[0]
+    return {"dropped": dropped, "shape": small.shape, "step": step,
+            "got": got if rank == 0 else None,
+            "want": want if rank == 0 else None}
+
+
+def _serve_dp_only(mesh):
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.convert import shard_lm_params
+    from repro_torch.runtime.serve_loop import build_serve_program
+
+    cfg = port_config(DP_ONLY_SERVE_ARCH)
+    prog = build_serve_program(cfg, SERVE_B, S_MAX, device="cpu", mesh=mesh,
+                               pcfg=ParallelConfig(dp_only=True))
+    params = shard_lm_params(global_params(cfg), prog.param_specs,
+                             mesh.coords_dict())
+    batch, _ = serve_inputs(cfg)
+    with torch.no_grad():
+        logits, _ = prog.prefill_fn(params, prog.shard_batch(batch))
+    return {"coords": mesh.coords, "logits": logits, "tp": prog.plan.tp,
+            "rows": prog.batch_local, "seq_cache": prog.plan.seq_cache}
+
+
+#: the family served with dp_only on (2, 2)
+DP_ONLY_SERVE_ARCH = "qwen2-0.5b"
+
+
+def train_cases(rank: int, world: int, tmp: str):
+    """Every family's first-step loss and gradients on each mesh of
+    ``MESHES``; granite with pairs dropped and its aux loss on (1, 2);
+    then on (2, 2) the optimizer steps, ZeRO-3 against the baseline,
+    dp_only's gradients and serving, the elastic restore; at tp = 4
+    qwen2's H = 6 variant (replicated attention).  -> {case: result}."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.set_num_threads(1)
+    meshes = {name: make_mesh(*shape, backend="gloo", ranks=ranks)
+              for name, (shape, ranks, _) in MESHES.items()}
+    out = {}
+    for name, (_, _, reduction) in MESHES.items():
+        mesh = meshes[name]
+        if mesh is None:
+            continue
+        for arch in FAMILIES:
+            out[(arch, name)] = _grads_case(train_config(arch), mesh,
+                                            reduction)
+        if name == DROP_MESH:
+            out[("moe_drop_aux", name)] = _grads_case(
+                train_config("granite-moe-3b-a800m", "moe_drop", aux=True),
+                mesh, reduction)
+    dist.barrier()
+    mesh = meshes["2x2-ring"]
+    for case in STEP_CASES:
+        out[("step",) + case] = _step_case(mesh, *case)
+    for arch in ZERO3_ARCHS:
+        out[("zero3", arch)] = _zero3_case(mesh, arch)
+    out["dp_only"] = _grads_case(train_config(STEP_ARCH), mesh,
+                                 dp_only=True)
+    out["serve_dp_only"] = _serve_dp_only(mesh)
+    dist.barrier()
+    mesh4 = make_mesh(1, 4, backend="gloo")
+    out["seq_cache"] = _grads_case(train_config("qwen2-0.5b", "seq_cache"),
+                                   mesh4)
+    dist.barrier()
+    out["elastic"] = _elastic_case(rank, tmp)
+    return out
