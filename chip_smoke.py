@@ -357,6 +357,23 @@ F2. After phase H: falcon-mamba's reduced config in float32 for 8 steps
    of phase H's recipe on the card (kernels) and on the CPU (plain
    versions), each step's loss logged against ``TOL_F2`` (ROADMAP's
    fault F2; it gates nothing).
+X. After phase Q: the dry run (``launch/dryrun_lib.py``: one rank's
+   program on fake tensors over a fake process group, counted by
+   ``analysis/op_stats.py::OpStats``) against the card's counts.  Its
+   four dry cells run in one process of their own, started before phase
+   P, after phase G's timed steps (host work; nothing of theirs runs on
+   the card).  (a) phase 5's gemma3-1b bf16 prefill (batch 4, prompt
+   2048, tp = 1) once more, untimed, under ``OpStats`` on the card:
+   flops (all, and by the dtype whose peak they run at), HBM bytes and
+   each kernel's calls equal the dry run's, the calls the ``LAUNCHES``
+   delta, the dry run's memory within ``TOL_X_PREFILL_MEM`` of the
+   card's ``max_memory_allocated`` over the prefill; the roofline's
+   bound (``analysis/roofline.py::H100_SXM``) logged beside phase 5's
+   prefill ms.  (b) phase G's step: the dry run's kernel calls phase G's
+   launches a step, its memory within ``TOL_X_TRAIN_MEM`` of phase G's
+   peak.  (c) phases P's and Q's ring cells on (2, 2) (gemma3's bf16
+   ring prefill, its ring step): the dry run's wire bytes of rank 0
+   equal to the byte to what that rank counted.
 
 The line before the last is the ``kernels`` JSON (a CIM variant's
 ``launches`` summed over the counted runs of phases 2 and M, its
@@ -386,6 +403,18 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+# the port, beside this script: its H100 peaks and the kernels' work
+# formulas, one source with the dry run's counts
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+try:
+    from repro_torch.analysis.roofline import H100_SXM
+    from repro_torch.kernels.cim_matmul import work
+    from repro_torch.kernels.local_attention import (attn_work, bwd_bytes,
+                                                     bwd_work)
+    from repro_torch.kernels.selective_scan import scan_bwd_work, scan_work
+except ImportError as e:
+    sys.exit(f"chip_smoke: the port is not beside this script: {e}")
 
 SEED = 0
 FRAMES = 8
@@ -431,14 +460,13 @@ CIM_MODE_FRAMES = {"vgg11-cifar10": 4, "vgg16-imagenet": 2}
 #: phase 3's precisions below 8 bits, (w_bits, a_bits, adc_bits): the
 #: robust DSE's 6-bit operands with 6- and 4-bit ADCs
 LOW_PRECISION = ((6, 6, 6), (6, 6, 4))
-#: H100 SXM peaks (NVIDIA data sheet, dense): int8 tensor-core rate and
-#: HBM3 bandwidth, at the full 700 W power limit
-PEAK_INT8_OPS = 1979e12
-PEAK_BYTES = 3.35e12
-#: dense bf16 tensor-core rate, and float32 outside the tensor cores
-#: (same source)
-PEAK_BF16_OPS = 989e12
-PEAK_F32_OPS = 67e12
+#: the H100's peaks (int8 and bf16 tensor-core rates, float32 outside
+#: the tensor cores, HBM3 bandwidth): the port's
+#: (``analysis/roofline.py::H100_SXM``)
+PEAK_INT8_OPS = H100_SXM.peak("int8")
+PEAK_BF16_OPS = H100_SXM.peak("bfloat16")
+PEAK_F32_OPS = H100_SXM.peak("float32")
+PEAK_BYTES = H100_SXM.hbm_bw
 KERNEL_SOURCE = "src/repro_torch/csrc/cim_matmul.cu"
 REPLACES = {"cim_codes": "src/repro/kernels/cim_matmul.py:36",
             "cim_codes_var": "src/repro/kernels/cim_matmul.py:65"}
@@ -946,18 +974,6 @@ def geometry(x, w, n_c):
     if x.dim() == 3:
         return tuple(x.shape) + (w.shape[2],)
     return (-(-x.shape[1] // n_c), x.shape[0], n_c, w.shape[1])
-
-
-def work(x, w, adc):
-    """(int8 operations, bytes) the call must do: 2 ops per multiply-add
-    over the given depth; x, w and the ADC table read once, the float32
-    output written once."""
-    ops = 2 * x.shape[-2] * x.shape[-1] * w.shape[-1] * (
-        x.shape[0] if x.dim() == 3 else 1)
-    nbytes = x.numel() + w.numel() + 4 * x.shape[-2] * w.shape[-1]
-    if adc is not None:
-        nbytes += adc.numel() * 4
-    return ops, nbytes
 
 
 def edge_cases(n_c, dev, seed):
@@ -2335,19 +2351,6 @@ def check_attention(la, calls):
     return {name: max(worst_main[name], worst[name]) for name in names}
 
 
-def attn_work(q, k, v, window):
-    """(operations, bytes) one call must do: 2 * (DQK + DV) per unmasked
-    (query, key) pair (Q K^T at q's head dim, P V at v's); q, k, v read
-    once, the (B, S, H, DV) output written once."""
-    b, s, h, d = q.shape
-    dv = v.shape[3]
-    w = min(window, s)
-    pairs = w * (w + 1) // 2 + (s - w) * w
-    nbytes = (q.numel() + k.numel() + v.numel() + b * s * h * dv
-              ) * q.element_size()
-    return 2 * (d + dv) * pairs * b * h, nbytes
-
-
 def device_ms(fn, arglist, n, kernel=None, split=False):
     """Device time (ms) of one pass of ``fn`` over ``arglist``: the sum of
     the device kernels' own times under ``torch.profiler``, so the host's
@@ -2629,21 +2632,6 @@ def moe_drops(prog, params, batch):
             sum(n for _, _, n in pre)), \
         ({c for c, _, _ in seen}, sum(d for _, d, _ in seen),
          sum(n for _, _, n in seen))
-
-
-def scan_work(dt, x, b, c, a, d, h0=None):
-    """(operations, bytes) one scan call must do: 8 per (b, t, c, n)
-    (dt * A, exp, dt * B, * x, decay * h, + drive, h * C, + acc) and 2
-    per (b, t, c) (D * x, +); every operand read once, y and the last
-    state written once."""
-    bsz, s, dl = dt.shape
-    n = a.shape[1]
-    ops = 8 * bsz * s * dl * n + 2 * bsz * s * dl
-    outs = bsz * s * dl + bsz * dl * n
-    nbytes = 4 * (sum(t.numel() for t in (dt, x, b, c, a, d)
-                      if t is not None)
-                  + (h0.numel() if h0 is not None else 0) + outs)
-    return ops, nbytes
 
 
 def family_serving(la, ss, arch: str, card, label: str = "F"):
@@ -3171,26 +3159,6 @@ def bwd_close(got, want, dtype):
     return err <= TOL_BWD[dtype] * scale, err, scale
 
 
-def bwd_work(q, window, dv=None):
-    """Operations of one backward call at q (B, S, H, DQK) and v head dim
-    ``dv`` (DQK when not given): per unmasked pair 2 DQK for each of the
-    statistics' and the gradient's Q K^T, dK and dQ, and 2 DV for dP and
-    dV (12 D at DQK = DV)."""
-    b, s, h, d = q.shape
-    dv = d if dv is None else dv
-    w = min(int(window), s)
-    pairs = w * (w + 1) // 2 + (s - w) * w
-    return (8 * d + 4 * dv) * pairs * b * h
-
-
-def bwd_bytes(q, k, v):
-    """Bytes one backward call must move: q, k, v, o and dO read once, dq,
-    dk and dv written once (o and dO as wide as v)."""
-    o = q.numel() // q.shape[3] * v.shape[3]
-    return q.element_size() * (2 * q.numel() + 2 * k.numel()
-                               + 2 * v.numel() + 2 * o)
-
-
 def bwd_case(la, q, k, v, do, window, cap, what, worst):
     """One backward call against its plain version, on the forward's
     output; one launch, none of the forward kernels."""
@@ -3420,6 +3388,7 @@ def training_phase(la, card):
     kernel's counted launches)."""
     import shutil
 
+    from repro_torch.analysis.op_stats import storage_bytes
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.configs import get_config
     from repro_torch.runtime.fault import StepGuard, StragglerMonitor
@@ -3507,6 +3476,10 @@ def training_phase(la, card):
     for step in range(TRAIN_STEPS):
         if step == 1:  # the first step warms the card and is not timed
             torch.cuda.reset_peak_memory_stats()
+            # phase X: what else the process holds, beside the step's
+            # params, state and batch
+            other = torch.cuda.memory_allocated() - storage_bytes(
+                (params, state, batch))
         for key in la.LAUNCHES:
             la.LAUNCHES[key] = 0
         torch.cuda.synchronize()
@@ -3580,7 +3553,8 @@ def training_phase(la, card):
     train_f32_vs_cpu(la, cfg, card)
     bwd_f32_full_width(la, card)
     log(f"[G] phase G: {time.perf_counter() - t_phase:.1f} s on {card}")
-    g_ref = {"loss": loss_k.item(), "losses": losses}
+    g_ref = {"loss": loss_k.item(), "losses": losses,
+             "peak_program": peak - other, "launches": want}
     # the row's times are phase I's, at deepseek's (192, 128) call
     return {"name": "local_attention_bwd", "route": "cuda",
             "source": BWD_SOURCE, "replaces": BWD_REPLACES,
@@ -3658,22 +3632,6 @@ def scan_bwd_err(got, want):
     return max((g - w).abs().max().item()
                / max(w.abs().max().item(), 1e-30)
                for g, w in zip(got, want))
-
-
-def scan_bwd_work(dt, b, h0=None):
-    """(operations, bytes) one scan-backward call must do: per (b, t, c,
-    n) the states again (6: dt * A, exp, dt * B, * x, decay * h, +) and
-    the adjoint (18: g, its decay, the ddt, dA, dx, dB and dC terms and
-    their sums), per (b, t, c) 4 (D * dy, +, dy * x, +); dt, x, dy, B,
-    C, A, D (and h0, dh_last) read once, ddt, dx, dB, dC, dA, dD, dh0
-    written once."""
-    bsz, s, dl = dt.shape
-    n = b.shape[2]
-    ops = 24 * bsz * s * dl * n + 4 * bsz * s * dl
-    elems = (3 * bsz * s * dl + 2 * bsz * s * n + dl * n + dl) \
-        + (2 * bsz * s * dl + 2 * bsz * s * n + dl * n + dl + bsz * dl * n) \
-        + (bsz * dl * n if h0 is not None else 0)
-    return ops, 4 * elems
 
 
 class Checked:
@@ -4992,7 +4950,10 @@ def tp_phase(la, ss, card):
     log(f"[P] phase P: tp = 1 references {t_ref:.1f} s, ranks "
         f"{t_ranks:.1f} s, total {time.perf_counter() - t_phase:.1f} s "
         f"({P_SHARED}) on {card}")
-    return launches, worst
+    ring_bytes = {r["bf16"][X_P_ARCH]["coords"]: r["bf16"][X_P_ARCH][
+        "flavors"][X_P_FLAVOR]["traffic"]["bytes_sent"]
+        for r in results if X_P_ARCH in r["bf16"]}
+    return launches, worst, ring_bytes
 
 
 def p_check_bf16(results, arch, layers, mesh_shape, flavors, plain,
@@ -5764,7 +5725,9 @@ def train_tp_phase(la, card, g_ref):
         f"{max(r['f32_s'] for r in results):.1f} s")
     log(f"[Q] phase Q: {time.perf_counter() - t_phase:.1f} s on {card}; "
         f"launches {launches}")
-    return launches, worst
+    step_bytes = {r["coords"]: b["steps"][0]["bytes"]
+                  for r, b in zip(results, bf)}
+    return launches, worst, step_bytes
 
 
 def q_f32_config(name):
@@ -5782,20 +5745,220 @@ def q_f32_config(name):
     return get_config(name if name in Q_F32_ARCHS else TRAIN_ARCH).reduced()
 
 
+# ---------------------------------------------------------------------------
+# Phase X: the dry run against the card's own counts
+# ---------------------------------------------------------------------------
+
+#: phase P's job whose per-rank bytes phase X holds its dry run to
+X_P_ARCH, X_P_FLAVOR = "gemma3-1b", "bf16-ring"
+#: phase X's memory gates, stated before its first run: the dry run's
+#: args + temp peak (``OpStats``: the resident trees and the peak of the
+#: storages the program makes) within these shares of the card's
+#: ``max_memory_allocated`` over the same program (the caching
+#: allocator rounds each block up to 512 bytes; phase G's steps also
+#: hold the step's metrics and the checkpoint's host snapshot)
+TOL_X_PREFILL_MEM = 0.05
+TOL_X_TRAIN_MEM = 0.10
+
+
+def x_cells():
+    """Phase X's dry cells, (label, kwargs of ``dry_cell``): phase 5's
+    gemma3-1b bf16 prefill at tp = 1; phase G's step (functional, as
+    phase G steps); phases P and Q's ring cells on (2, 2), rank 0."""
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig, \
+        TrainConfig
+
+    prefill = ShapeConfig("x_prefill", LM_PROMPT, LM_BATCH, "prefill")
+    train = ShapeConfig("x_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tcfg = TrainConfig(**TRAIN_CFG)
+    return (
+        ("a", dict(arch=LM_ARCH, shape=prefill, mesh_shape=(1, 1),
+                   pcfg=ParallelConfig(), s_max=LM_PROMPT + LM_GEN + 1)),
+        ("b", dict(arch=TRAIN_ARCH, shape=train, mesh_shape=(1, 1),
+                   pcfg=ParallelConfig(remat="full"), tcfg=tcfg,
+                   donate=False)),
+        ("c_serve", dict(arch=X_P_ARCH, shape=prefill, mesh_shape=(2, 2),
+                         pcfg=ParallelConfig(reduction="ring"),
+                         s_max=LM_PROMPT + P_GEN + 1)),
+        ("c_train", dict(arch=TRAIN_ARCH, shape=train, mesh_shape=Q_MESH,
+                         pcfg=ParallelConfig(reduction="ring",
+                                             remat="full"),
+                         tcfg=tcfg, donate=False)),
+    )
+
+
+def x_dry_runs():
+    """Phase X's dry runs, in a process of their own (fake tensors on
+    "cuda", a fake process group; nothing runs on the card): label ->
+    (the roofline row, seconds)."""
+    from repro_torch.launch.dryrun_lib import analyze_cell, dry_cell
+
+    torch.set_num_threads(1)
+    out = {}
+    for label, kw in x_cells():
+        run = dry_cell(**kw, device="cuda")
+        out[label] = (analyze_cell(run, kw["arch"], kw["shape"].name,
+                                   str(kw["mesh_shape"])), run.seconds)
+    return out
+
+
+def x_child(conn):
+    """Phase X's dry-run process: its rows, or its traceback, to the
+    parent."""
+    try:
+        conn.send(("ok", x_dry_runs()))
+    except BaseException:
+        import traceback
+
+        conn.send(("error", traceback.format_exc()))
+        raise
+    finally:
+        conn.close()
+
+
+def x_start():
+    """Start phase X's dry runs beside phases P and Q, after phase G's
+    timed steps: they are host work, in one process (a daemon: it ends
+    with this one) that exits when they are done."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    parent, child = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=x_child, args=(child,), daemon=True)
+    proc.start()
+    child.close()
+    return proc, parent, time.perf_counter()
+
+
+def dryrun_phase(la, dry, card, lm, g_ref, p_bytes, q_bytes):
+    """Phase X: the dry runs (``launch/dryrun_lib.py``, started by
+    ``x_start``) held against the card's counts.  (a) phase 5's prefill
+    once more, untimed, under ``OpStats`` on the card: flops (all, and
+    by dtype), HBM bytes and per-kernel calls equal the dry run's, the
+    calls the LAUNCHES
+    delta, the dry run's memory within TOL_X_PREFILL_MEM of the card's
+    peak; the roofline's bound beside phase 5's prefill.  (b) phase G's
+    step: the dry run's kernel calls phase G's launches a step, its
+    memory within TOL_X_TRAIN_MEM of phase G's peak.  (c) the wire bytes
+    of rank 0 of phases P's and Q's ring cells equal to the byte."""
+    import gc
+
+    from repro_torch.analysis.op_stats import OpStats, storage_bytes
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    proc, conn, t_start = dry
+    status, rows = conn.recv()
+    proc.join()
+    if status != "ok":
+        fail(f"[X] the dry runs failed:\n{rows}")
+    log(f"[X] dry runs (one process, fake tensors, a fake process group; "
+        f"started before phase P): "
+        + ", ".join(f"{k} {s:.1f} s" for k, (_, s) in rows.items())
+        + f"; waited {time.perf_counter() - t_phase:.1f} s for them")
+    for label, (row, _) in rows.items():
+        mem = row["memory"]
+        log(f"[X] dry {label}: {row['arch']} {row['shape']} on "
+            f"{row['mesh']}: flops {row['hlo_flops_per_dev']:.6e}, HBM "
+            f"bytes {row['bytes_per_dev']:.6e}, wire bytes "
+            f"{row['wire_bytes_per_dev']:.0f} {row['op_counts']}, flops by "
+            f"dtype {row['flops_by_dtype']}, kernels "
+            f"{row['kernels']}; memory args {mem['args_GB']:.3f} + temp "
+            f"{mem['temp_GB']:.3f} = {mem['total_GB']:.3f} GB; bound "
+            f"{max(row['t_compute_s'], row['t_memory_s'], row['t_collective_s']) * 1e3:.4f}"
+            f" ms ({row['bottleneck']})")
+
+    # (a) phase 5's prefill, counted on the card
+    row = rows["a"][0]
+    cfg = get_config(LM_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    prog, params, batch = lm_program(cfg, LM_BATCH, LM_PROMPT, LM_GEN,
+                                     "bfloat16", False, "cuda",
+                                     torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # what else the process holds, beside the prefill's params and batch
+    base = torch.cuda.memory_allocated() - storage_bytes((params, batch))
+    before = dict(la.LAUNCHES)
+    with OpStats(resident=(params, batch)) as st:
+        prog.prefill_fn(params, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    delta = {k: la.LAUNCHES[k] - before[k] for k in before
+             if la.LAUNCHES[k] != before[k]}
+    dry_calls = {k: v["calls"] for k, v in row["kernels"].items()}
+    card_by_dtype = {k: float(v) for k, v in st.flops_by_dtype.items()}
+    check(float(st.flops) == row["hlo_flops_per_dev"]
+          and card_by_dtype == row["flops_by_dtype"]
+          and float(st.hbm_bytes) == row["bytes_per_dev"],
+          f"[X] (a) flops (by dtype) / HBM bytes: card {st.flops} "
+          f"({card_by_dtype}) / {st.hbm_bytes}, dry run "
+          f"{row['hlo_flops_per_dev']} ({row['flops_by_dtype']}) / "
+          f"{row['bytes_per_dev']}")
+    check(st.calls() == dry_calls == delta and delta,
+          f"[X] (a) kernel calls: card {st.calls()}, dry run {dry_calls}, "
+          f"LAUNCHES delta {delta}")
+    total = row["memory"]["total_GB"] * 1e9
+    check(abs(total - peak) <= TOL_X_PREFILL_MEM * peak,
+          f"[X] (a) memory: dry run {total / 1e9:.3f} GB, card "
+          f"{peak / 1e9:.3f} GB (tolerance {TOL_X_PREFILL_MEM})")
+    del prog, params, batch
+    torch.cuda.empty_cache()
+    bound = max(row["t_compute_s"], row["t_memory_s"],
+                row["t_collective_s"]) * 1e3
+    measured = float(np.median(lm["bf16"]["prefill_ms"]))
+    log(f"[X] (a) {LM_ARCH} bf16 prefill {LM_BATCH} x {LM_PROMPT}: card "
+        f"flops {st.flops} ({card_by_dtype}), HBM bytes {st.hbm_bytes}, "
+        f"kernel calls "
+        f"{st.calls()} = LAUNCHES delta, all equal to the dry run's; peak "
+        f"{peak / 1e9:.3f} GB against the dry run's {total / 1e9:.3f} "
+        f"({(total - peak) / peak:+.2%}); roofline bound {bound:.4f} ms "
+        f"({row['bottleneck']}: compute {row['t_compute_s'] * 1e3:.4f}, "
+        f"memory {row['t_memory_s'] * 1e3:.4f} ms) against phase 5's "
+        f"prefill {measured:.3f} ms: {bound / measured:.2%} of it, on "
+        f"{card}")
+
+    # (b) phase G's step
+    row = rows["b"][0]
+    want = {k: v for k, v in g_ref["launches"].items() if v}
+    dry_calls = {k: v["calls"] for k, v in row["kernels"].items()}
+    check(dry_calls == want, f"[X] (b) dry run's kernel calls {dry_calls}, "
+                             f"phase G's launches a step {want}")
+    total, peak = row["memory"]["total_GB"] * 1e9, g_ref["peak_program"]
+    check(abs(total - peak) <= TOL_X_TRAIN_MEM * peak,
+          f"[X] (b) memory: dry run {total / 1e9:.3f} GB, phase G's peak "
+          f"{peak / 1e9:.3f} GB (tolerance {TOL_X_TRAIN_MEM})")
+    log(f"[X] (b) {TRAIN_ARCH} step {TRAIN_BATCH} x {TRAIN_SEQ}: dry run's "
+        f"kernel calls {dry_calls} = phase G's launches a step; memory "
+        f"{total / 1e9:.3f} GB against phase G's peak {peak / 1e9:.3f} GB "
+        f"({(total - peak) / peak:+.2%}); roofline bound "
+        f"{max(row['t_compute_s'], row['t_memory_s']) * 1e3:.4f} ms "
+        f"({row['bottleneck']})")
+
+    # (c) the ring cells' wire bytes, rank 0
+    for label, counted, what in (("c_serve", p_bytes, "phase P's prefill"),
+                                 ("c_train", q_bytes, "phase Q's step")):
+        wire = rows[label][0]["wire_bytes_per_dev"]
+        check(wire == counted[(0, 0)],
+              f"[X] ({label}) wire bytes: dry run {wire}, {what} "
+              f"{counted[(0, 0)]} at rank (0, 0)")
+        log(f"[X] ({label}) wire bytes of rank (0, 0): dry run {wire:.0f},"
+            f" {what} {counted[(0, 0)]}; every rank's {counted}")
+    log(f"[X] phase X: {time.perf_counter() - t_phase:.1f} s on {card} "
+        f"(the dry runs' process {time.perf_counter() - t_start:.1f} s "
+        "since its start, beside phases P and Q)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    try:
-        import repro_torch.kernels.cim_matmul as km
-        import repro_torch.kernels.local_attention as la
-        import repro_torch.kernels.selective_scan as ss
-        from repro_torch.configs import get_config
-    except ImportError as e:
-        print(f"chip_smoke: the port is not beside this script: {e}",
-              file=sys.stderr)
-        return 1
+    import repro_torch.kernels.cim_matmul as km
+    import repro_torch.kernels.local_attention as la
+    import repro_torch.kernels.selective_scan as ss
+    from repro_torch.configs import get_config
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -5923,8 +6086,10 @@ def main() -> int:
     scan_bwd_row, h_launches = families_training_phase(la, ss, card)
     f2_curve(card)
     mla_row, i_launches, i_worst = mla_encdec_training_phase(la, ss, card)
-    p_launches, p_worst = tp_phase(la, ss, card)
-    q_launches, q_worst = train_tp_phase(la, card, g_ref)
+    dry = x_start()  # phase X's dry runs: host work beside P and Q
+    p_launches, p_worst, p_bytes = tp_phase(la, ss, card)
+    q_launches, q_worst, q_bytes = train_tp_phase(la, card, g_ref)
+    dryrun_phase(la, dry, card, lm, g_ref, p_bytes, q_bytes)
     # phases 5 and 6 (gemma3) and the counted runs of phases F, E, G, H,
     # I and P (P's summed over its ranks)
     launches_attn = {"local_attention": lm["bf16"]["launches"]

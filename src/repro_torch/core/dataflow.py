@@ -44,7 +44,16 @@ a gloo axis without ``host_copies`` raises.  ``TRAFFIC["bytes_sent"]``
 counts what this rank sends by the ring algorithm of each collective:
 a ppermute its operand, an all-gather ``(k - 1)`` local parts, an
 all-reduce ``2 (k - 1) / k`` of its operand, an all-to-all ``(k - 1) /
-k`` of it.
+k`` of it.  These are the reference's ring factors
+(``repro/analysis/roofline.py::_WIRE_FACTOR``).  ``TRAFFIC["collectives"]``
+counts the transfers (a :func:`psum_scatter`'s ``k - 1`` hops each one, as
+the host copies go); ``TRAFFIC["ops"]`` and ``TRAFFIC["op_bytes"]`` count
+the collectives by the reference's HLO name (``all-reduce``,
+``all-gather``, ``reduce-scatter``, ``all-to-all``,
+``collective-permute``) with the bytes each sent, a psum_scatter one
+``reduce-scatter``, and ``TRAFFIC["operand_bytes"]`` their operands'
+bytes.  ``analysis/op_stats.py::OpStats`` reads this record's change
+over the program it counts.
 
 The products keep the reference's float32 output
 (``preferred_element_type``): a bfloat16 partial product reaches the
@@ -59,14 +68,22 @@ import torch
 
 Tail = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
-#: this process's collectives, the bytes it sent by the ring algorithm of
-#: each, and the host round trips of the gloo transport on CUDA tensors
-TRAFFIC = {"collectives": 0, "bytes_sent": 0, "host_copies": 0}
+#: this process's transfers, the bytes it sent by the ring algorithm of
+#: each, the host round trips of the gloo transport on CUDA tensors, and
+#: its collectives by name: their count, bytes sent and operand bytes
+TRAFFIC = {"collectives": 0, "bytes_sent": 0, "host_copies": 0,
+           "ops": {}, "op_bytes": {}, "operand_bytes": 0}
 
 
 def reset_traffic() -> None:
-    for key in TRAFFIC:
-        TRAFFIC[key] = 0
+    for key, value in TRAFFIC.items():
+        TRAFFIC[key] = {} if isinstance(value, dict) else 0
+
+
+def traffic_snapshot() -> dict:
+    """A copy of ``TRAFFIC``, to take a program's change against."""
+    return {k: dict(v) if isinstance(v, dict) else v
+            for k, v in TRAFFIC.items()}
 
 
 def _to_wire(x: torch.Tensor, axis):
@@ -96,13 +113,29 @@ def _host_like(x: torch.Tensor) -> torch.Tensor:
     return torch.empty(x.shape, dtype=x.dtype, pin_memory=pin)
 
 
+def _recv_like(wire: torch.Tensor) -> torch.Tensor:
+    """A receive buffer for ``wire``: on the host (pinned as ``wire``)
+    for a host wire, on ``wire``'s device otherwise (nccl, and the fake
+    backend's CUDA tensors)."""
+    if wire.device.type == "cpu":
+        return _host_like(wire)
+    return torch.empty_like(wire, memory_format=torch.contiguous_format)
+
+
 def _from_wire(t: torch.Tensor, dev) -> torch.Tensor:
     return t if dev is None else t.to(dev, non_blocking=t.is_pinned())
 
 
-def _count(nbytes: float) -> None:
-    TRAFFIC["collectives"] += 1
-    TRAFFIC["bytes_sent"] += int(nbytes)
+def _count(op: str, nbytes: float, operand: int, hops: int = 1) -> None:
+    """One collective ``op`` of this rank (the reference's HLO name) in
+    ``TRAFFIC``: ``hops`` transfers that sent ``nbytes`` in all by its
+    ring algorithm, on an operand of ``operand`` bytes."""
+    sent = int(nbytes)
+    TRAFFIC["collectives"] += hops
+    TRAFFIC["bytes_sent"] += sent
+    TRAFFIC["ops"][op] = TRAFFIC["ops"].get(op, 0) + 1
+    TRAFFIC["op_bytes"][op] = TRAFFIC["op_bytes"].get(op, 0) + sent
+    TRAFFIC["operand_bytes"] += int(operand)
 
 
 def _nbytes(x: torch.Tensor) -> int:
@@ -115,13 +148,20 @@ def _nbytes(x: torch.Tensor) -> int:
 
 
 def _ppermute(x: torch.Tensor, axis, shift: int) -> torch.Tensor:
+    if axis.size == 1:
+        return x
+    out = _hop(x, axis, shift)
+    _count("collective-permute", _nbytes(x), _nbytes(x))
+    return out
+
+
+def _hop(x: torch.Tensor, axis, shift: int) -> torch.Tensor:
+    """``x`` sent ``shift`` ranks along the ring, uncounted."""
     import torch.distributed as dist
 
     k = axis.size
-    if k == 1:
-        return x
     wire, dev = _to_wire(x, axis)
-    out = _host_like(wire)
+    out = _recv_like(wire)
     dst = axis.ranks[(axis.index + shift) % k]
     src = axis.ranks[(axis.index - shift) % k]
     reqs = dist.batch_isend_irecv([
@@ -129,7 +169,6 @@ def _ppermute(x: torch.Tensor, axis, shift: int) -> torch.Tensor:
         dist.P2POp(dist.irecv, out, src, group=axis.group)])
     for req in reqs:
         req.wait()
-    _count(_nbytes(wire))
     return _from_wire(out, dev)
 
 
@@ -141,7 +180,7 @@ def _all_reduce(x: torch.Tensor, axis, op) -> torch.Tensor:
         return x
     wire, dev = _to_wire(x, axis)
     dist.all_reduce(wire, op=op, group=axis.group)
-    _count(2 * (k - 1) / k * _nbytes(wire))
+    _count("all-reduce", 2 * (k - 1) / k * _nbytes(wire), _nbytes(wire))
     return _from_wire(wire, dev)
 
 
@@ -160,7 +199,7 @@ def _all_gather(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
     wire, dev = _to_wire(x, axis)
     parts = [torch.empty_like(wire) for _ in range(k)]
     dist.all_gather(parts, wire, group=axis.group)
-    _count((k - 1) * _nbytes(wire))
+    _count("all-gather", (k - 1) * _nbytes(wire), _nbytes(wire))
     return _from_wire(torch.cat(parts, dim=dim), dev)
 
 
@@ -177,9 +216,9 @@ def _all_to_all(x: torch.Tensor, axis, split_axis: int, concat_axis: int
         raise ValueError(f"all_to_all: dim {split_axis} of {tuple(x.shape)} "
                          f"does not split {k} ways")
     wire, dev = _to_wire(xs.reshape(k, n // k, *xs.shape[1:]), axis)
-    out = _host_like(wire)
+    out = _recv_like(wire)
     dist.all_to_all_single(out, wire, group=axis.group)
-    _count((k - 1) / k * _nbytes(wire))
+    _count("all-to-all", (k - 1) / k * _nbytes(wire), _nbytes(wire))
     out = _from_wire(out, dev)
     return torch.cat([out[j].movedim(0, split_axis) for j in range(k)],
                      dim=concat_axis)
@@ -203,7 +242,8 @@ def _psum_scatter(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
         part = x.narrow(dim, ((i + step + 1) % k) * chunk, chunk)
         acc = part.clone() if acc is None else acc + part
         if step != k - 1:
-            acc = _ppermute(acc, axis, -1)
+            acc = _hop(acc, axis, -1)
+    _count("reduce-scatter", (k - 1) * _nbytes(acc), _nbytes(x), hops=k - 1)
     return acc
 
 

@@ -36,7 +36,11 @@ picks each call's tiles and split (``tests/test_torch_cim_split.py``
 mirrors the blocks the kernel makes of it).
 On a CPU tensor the wrapper computes :func:`cim_codes_plain`, the plain
 PyTorch version of the same arithmetic; on a CUDA tensor it launches
-the kernel or raises.
+the kernel or raises.  Under an active ``analysis/op_stats.py::OpStats``
+each call on a CUDA tensor also reports :func:`work` (the formula
+``chip_smoke.py`` bounds the kernel by); on a fake CUDA tensor (a dry
+run, ``launch/dryrun_lib.py``) it returns the empty output in place of
+the launch, and with no counter active a fake tensor raises.
 """
 from __future__ import annotations
 
@@ -50,6 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.cim import CIMSpec, adc_convert, f32_scalar
+from repro_torch.analysis import op_stats
 from repro_torch.kernels import _build
 
 SOURCE = _build.CSRC / "cim_matmul.cu"
@@ -170,6 +175,21 @@ def _steps(x: torch.Tensor, w: torch.Tensor, n_c: int):
             wp.reshape(t, n_c, w.shape[1]))
 
 
+def work(x: torch.Tensor, w: torch.Tensor,
+         adc: Optional[torch.Tensor] = None) -> Tuple[int, int]:
+    """(int8 operations, bytes) one :func:`cim_codes` call must do: 2 ops
+    per multiply-add over the given depth; x, w and the ADC table read
+    once, the float32 output written once.  The kernel's bound
+    (``chip_smoke.py``) and its report to an active
+    ``analysis/op_stats.py::OpStats`` both use it."""
+    ops = 2 * x.shape[-2] * x.shape[-1] * w.shape[-1] * (
+        x.shape[0] if x.dim() == 3 else 1)
+    nbytes = x.numel() + w.numel() + 4 * x.shape[-2] * w.shape[-1]
+    if adc is not None:
+        nbytes += adc.numel() * 4
+    return ops, nbytes
+
+
 def cim_codes_plain(x: torch.Tensor, w: torch.Tensor, spec: CIMSpec,
                     adc: Optional[torch.Tensor] = None,
                     emit_codes: bool = True) -> torch.Tensor:
@@ -237,6 +257,10 @@ def cim_codes(x: torch.Tensor, w: torch.Tensor, spec: CIMSpec,
     else:  # step t starts n_c columns of x / rows of w further on
         sxt, sxr = kc, x.stride(0)
         swt, swn = kc, w.stride(1)
+    if op_stats.ACTIVE and op_stats.launch(
+            "cim_codes_var" if adc is not None else "cim_codes",
+            work(x, w, adc), x, torch.int8):
+        return out
     launch = _launcher()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

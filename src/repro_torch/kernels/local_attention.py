@@ -38,6 +38,12 @@ the wrappers compute :func:`grouped_local_attention_plain`, a dense
 masked softmax in plain PyTorch that autograd differentiates; on a CUDA
 tensor they launch the kernel or raise; a (DQK, DV) pair the source
 does not instantiate (``HEAD_DIM_PAIRS``) raises before any launch.
+Under an active ``analysis/op_stats.py::OpStats`` each launch on a CUDA
+tensor also reports its work (:func:`attn_work`; the backward's
+:func:`bwd_work` and :func:`bwd_bytes`: the formulas ``chip_smoke.py``
+bounds the kernels by); on fake CUDA tensors (a dry run,
+``launch/dryrun_lib.py``) the wrappers return the empty outputs in place
+of the launch, and with no counter active a fake tensor raises.
 
 The gradient.  When grad is enabled and q, k or v requires it, a CUDA
 call goes through :class:`LocalAttentionFn`: its forward launches the
@@ -71,6 +77,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.analysis import op_stats
 from repro_torch.kernels import _build
 
 SOURCE = _build.CSRC / "local_attention.cu"
@@ -384,6 +391,43 @@ def _bwd_launcher():
     return fn
 
 
+def _pairs(s: int, window: int) -> int:
+    """Unmasked (query, key) pairs of one head at sequence length ``s``."""
+    w = min(int(window), s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def attn_work(q, k, v, window) -> Tuple[int, int]:
+    """(operations, bytes) one forward call must do: 2 * (DQK + DV) per
+    unmasked (query, key) pair (Q K^T at q's head dim, P V at v's); q, k,
+    v read once, the (B, S, H, DV) output written once.  The kernel's
+    bound (``chip_smoke.py``) and its report to an active
+    ``analysis/op_stats.py::OpStats`` both use it."""
+    b, s, h, d = q.shape
+    dv = v.shape[3]
+    nbytes = (q.numel() + k.numel() + v.numel() + b * s * h * dv
+              ) * q.element_size()
+    return 2 * (d + dv) * _pairs(s, window) * b * h, nbytes
+
+
+def bwd_work(q, window, dv=None) -> int:
+    """Operations of one backward call at q (B, S, H, DQK) and v head dim
+    ``dv`` (DQK when not given): per unmasked pair 2 DQK for each of the
+    statistics' and the gradient's Q K^T, dK and dQ, and 2 DV for dP and
+    dV (12 D at DQK = DV)."""
+    b, s, h, d = q.shape
+    dv = d if dv is None else dv
+    return (8 * d + 4 * dv) * _pairs(s, window) * b * h
+
+
+def bwd_bytes(q, k, v) -> int:
+    """Bytes one backward call must move: q, k, v, o and dO read once, dq,
+    dk and dv written once (o and dO as wide as v)."""
+    o = q.numel() // q.shape[3] * v.shape[3]
+    return q.element_size() * (2 * q.numel() + 2 * k.numel()
+                               + 2 * v.numel() + 2 * o)
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
            softcap: Optional[float]) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -478,6 +522,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
     out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    name = "local_attention" if bf16 else "local_attention_f32"
+    if op_stats.ACTIVE and op_stats.launch(name, attn_work(q, k, v, window),
+                                           q, q.dtype):
+        return out
     # both kernels copy rows in 16-byte pieces (TMA, cp.async), so rows
     # must start on 16 bytes: a view whose rows do not is copied once
     per16 = 16 // q.element_size()
@@ -495,7 +543,6 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
                      min(int(window), s), d ** -0.5,
                      0.0 if softcap is None else float(softcap),
                      int(bf16), stream)
-    name = "local_attention" if bf16 else "local_attention_f32"
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
@@ -635,12 +682,18 @@ def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"kernel's grid")
     if o.dtype != q.dtype or do.dtype != q.dtype:
         raise TypeError(f"o and do must be {q.dtype}: {o.dtype}, {do.dtype}")
-    # both routes copy rows in 16-byte pieces (TMA, cp.async), so rows
-    # must start on 16 bytes: a view whose rows do not is copied once
-    q, k, v, o, do = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
-                      else t.clone(memory_format=torch.contiguous_format)
-                      for t in (q, k, v, o, do))
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    fake = bool(q.numel()) and bool(op_stats.ACTIVE) and op_stats.launch(
+        "local_attention_bwd", (bwd_work(q, window, dv_dim),
+                                bwd_bytes(q, k, v)), q, q.dtype)
+    if not fake:
+        # both routes copy rows in 16-byte pieces (TMA, cp.async), so
+        # rows must start on 16 bytes: a view whose rows do not is copied
+        # once
+        q, k, v, o, do = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+                          else t.clone(memory_format=torch.contiguous_format)
+                          for t in (q, k, v, o, do))
+    dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format)
+                  for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk, dv
     # scratch rows padded to 64 (the tensor-core tile; both routes read
@@ -648,6 +701,8 @@ def local_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sp = -(-s // BWD_TC_TILE) * BWD_TC_TILE
     lse = torch.empty((b, h, sp), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
+    if fake:
+        return dq, dk, dv
     launch = _bwd_launcher()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

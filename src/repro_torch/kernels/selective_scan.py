@@ -31,6 +31,12 @@ with ``nvcc`` for ``sm_90a`` and ``-fmad=false`` at first use
 (``kernels/_build.py``) and loaded with ``ctypes``.  On a CPU tensor the
 wrapper computes :func:`selective_scan_plain`, the sequential recurrence
 in float32 PyTorch; on a CUDA tensor it launches the kernel or raises.
+Under an active ``analysis/op_stats.py::OpStats`` each launch on a CUDA
+tensor also reports its work (:func:`scan_work`, the backward's
+:func:`scan_bwd_work`: the formulas ``chip_smoke.py`` bounds the kernels
+by); on fake CUDA tensors (a dry run, ``launch/dryrun_lib.py``) the
+wrappers return the empty outputs in place of the launch, and with no
+counter active a fake tensor raises.
 
 The gradient.  With grad enabled and an operand that requires it, the
 scan goes through :class:`SelectiveScanFn`: its forward is the call
@@ -60,6 +66,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.analysis import op_stats
 from repro_torch.kernels import _build
 
 SOURCE = _build.CSRC / "selective_scan.cu"
@@ -288,10 +295,57 @@ def selective_scan_bwd_plain(dt: torch.Tensor, x: torch.Tensor,
     return ddt, dx, db, dc, da, dd, g
 
 
+def scan_work(dt, x, b, c, a, d, h0=None) -> Tuple[int, int]:
+    """(operations, bytes) one scan call must do: 8 per (b, t, c, n)
+    (dt * A, exp, dt * B, * x, decay * h, + drive, h * C, + acc) and 2
+    per (b, t, c) (D * x, +); every operand read once, y and the last
+    state written once.  The kernel's bound (``chip_smoke.py``) and its
+    report to an active ``analysis/op_stats.py::OpStats`` both use it."""
+    bsz, s, dl = dt.shape
+    n = a.shape[1]
+    ops = 8 * bsz * s * dl * n + 2 * bsz * s * dl
+    outs = bsz * s * dl + bsz * dl * n
+    nbytes = 4 * (sum(t.numel() for t in (dt, x, b, c, a, d)
+                      if t is not None)
+                  + (h0.numel() if h0 is not None else 0) + outs)
+    return ops, nbytes
+
+
+def scan_bwd_work(dt, b, h0=None) -> Tuple[int, int]:
+    """(operations, bytes) one scan-backward call must do: per (b, t, c,
+    n) the states again (6: dt * A, exp, dt * B, * x, decay * h, +) and
+    the adjoint (18: g, its decay, the ddt, dA, dx, dB and dC terms and
+    their sums), per (b, t, c) 4 (D * dy, +, dy * x, +); dt, x, dy, B,
+    C, A, D (and h0, dh_last) read once, ddt, dx, dB, dC, dA, dD, dh0
+    written once."""
+    bsz, s, dl = dt.shape
+    n = b.shape[2]
+    ops = 24 * bsz * s * dl * n + 4 * bsz * s * dl
+    elems = (3 * bsz * s * dl + 2 * bsz * s * n + dl * n + dl) \
+        + (2 * bsz * s * dl + 2 * bsz * s * n + dl * n + dl + bsz * dl * n) \
+        + (bsz * dl * n if h0 is not None else 0)
+    return ops, 4 * elems
+
+
+def _fake_plain(dt) -> bool:
+    """A fake CPU tensor under an active counter (a dry run of the CPU's
+    plain route): the plain versions' walk, a few elementwise ops a time
+    step, computes nothing on it and holds no product to count, so they
+    return empty outputs in its place."""
+    from repro_torch.compat import is_fake
+
+    return bool(op_stats.ACTIVE) and is_fake(dt)
+
+
 def _scan(dt, x, b, c, a, d, h0):
     """The forward on the operands' device: the plain version on the CPU,
     the kernel on the card."""
     if dt.device.type == "cpu":
+        if _fake_plain(dt):
+            bsz, _, dl = dt.shape
+            return torch.empty_like(x), (
+                torch.empty((bsz, dl, a.shape[1]), dtype=torch.float32)
+                if h0 is None else h0.clone())
         return selective_scan_plain(dt, x, b, c, a, d, h0)
     if dt.device.type != "cuda":
         raise ValueError(f"the scan runs on cpu or cuda, not {dt.device}")
@@ -308,6 +362,10 @@ def _scan(dt, x, b, c, a, d, h0):
         return y, h_last
     ops = [t.contiguous() for t in (dt, x, b, c, a, d)]
     h0c = h0.contiguous() if h0 is not None else None
+    if op_stats.ACTIVE and op_stats.launch(
+            "selective_scan", scan_work(dt, x, b, c, a, d, h0), dt,
+            torch.float32):
+        return y, h_last
     launch = _launcher()
     with torch.cuda.device(dt.device):
         stream = torch.cuda.current_stream(dt.device).cuda_stream
@@ -340,6 +398,13 @@ def selective_scan_bwd(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
     _check(dt, x, b, c, a, d, h0)
     _check_bwd(dt, dy, dh_last, a)
     if dt.device.type == "cpu":
+        if _fake_plain(dt):
+            bsz, s, dl = dt.shape
+            n = a.shape[1]
+            return (torch.empty_like(dt), torch.empty_like(x),
+                    torch.empty((bsz, s, n)), torch.empty((bsz, s, n)),
+                    torch.empty((dl, n)), torch.empty((dl,)),
+                    torch.empty((bsz, dl, n)))
         return selective_scan_bwd_plain(dt, x, b, c, a, d, dy, dh_last, h0)
     if dt.device.type != "cuda":
         raise ValueError(f"the scan runs on cpu or cuda, not {dt.device}")
@@ -368,6 +433,10 @@ def selective_scan_bwd(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
     part_a, part_d = empty(bsz, dl, n), empty(bsz, dl)
     ops = [t.contiguous() for t in (dt, x, b, c, a, d)]
     opt = [None if t is None else t.contiguous() for t in (h0, dy, dh_last)]
+    if op_stats.ACTIVE and op_stats.launch(
+            "selective_scan_bwd", scan_bwd_work(dt, b, h0), dt,
+            torch.float32):
+        return ddt, dx, db, dc, da, dd, dh0
     launch = _bwd_lib().selective_scan_bwd_launch
     with torch.cuda.device(dt.device):
         stream = torch.cuda.current_stream(dt.device).cuda_stream

@@ -7,7 +7,7 @@ model as one ``shard_map`` over it.  Here every device is a process (a rank): a
 one process group per axis, over which ``core/dataflow.py`` runs its
 collectives.  Rank ``ranks[d * model + m]`` sits at (d, m).
 
-Two transports:
+Three transports:
 
 * ``backend="nccl"``: one card per rank; CUDA tensors go to NCCL as
   they are.
@@ -18,6 +18,18 @@ Two transports:
   the copies).  This is how several ranks share one card, where NCCL
   refuses two ranks on one device.  Without ``host_copies`` a CUDA
   tensor on a gloo mesh raises.
+* ``backend="fake"``: the dry run's (``launch/dryrun_lib.py``): one
+  process is one rank of a world of any size over torch's fake process
+  group (``compat.init_fake_process_group``), whose collectives move no
+  data.  :func:`make_mesh` takes it; :func:`spawn` does not.
+
+:func:`make_production_mesh` is the reference's production mesh on the
+fake backend.  The reference's multi-pod mesh has three axes, (2, 16,
+16) over ``("pod", "data", "model")``; a :class:`Mesh` here has two, so
+it folds the pod axis into the data axis, (32, 16) over ``("data",
+"model")``: ``ParallelConfig.zero_axes`` = ``("data", "model")`` then
+spans the same 512 ranks as the reference's three axes, and the data
+axis carries what ``("pod", "data")`` carries there.
 
 :func:`spawn` starts ``world`` ranks, joins them through a file in a
 directory the caller names (never a fixed port), and returns what each
@@ -38,7 +50,12 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 AXES = ("data", "model")
+#: the transports ``spawn`` starts ranks on
 BACKENDS = ("nccl", "gloo")
+#: the reference's production meshes (``make_production_mesh``) as
+#: (data, model) sizes, by the dry run's names; the multi-pod mesh's pod
+#: axis folded into the data axis
+PRODUCTION_MESHES = {"pod16x16": (16, 16), "2xpod16x16": (32, 16)}
 
 
 @dataclass(frozen=True)
@@ -108,8 +125,9 @@ def make_mesh(data: int, model: int, *, backend: str,
     world); a rank outside ``ranks`` gets None."""
     import torch.distributed as dist
 
-    if backend not in BACKENDS:
-        raise ValueError(f"backend must be one of {BACKENDS}: {backend!r}")
+    if backend not in BACKENDS + ("fake",):
+        raise ValueError(f"backend must be one of {BACKENDS + ('fake',)}: "
+                         f"{backend!r}")
     if host_copies and backend != "gloo":
         raise ValueError("host copies are the gloo transport's; nccl takes "
                          "CUDA tensors as they are")
@@ -141,6 +159,15 @@ def make_mesh(data: int, model: int, *, backend: str,
                        model_groups[d]),
         both=MeshAxis("data,model", n, pos, ranks, backend, host_copies,
                       both_group))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """This rank's part of the reference's production mesh, (16, 16) or
+    the multi-pod (2, 16, 16) folded into (32, 16) (module docstring), on
+    the fake backend: the world must be a fake one of that size
+    (``compat.init_fake_process_group``)."""
+    name = "2xpod16x16" if multi_pod else "pod16x16"
+    return make_mesh(*PRODUCTION_MESHES[name], backend="fake")
 
 
 def _rank_main(rank: int, fn: Callable, world: int, args: tuple,

@@ -399,6 +399,34 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor,
     return psum_if(emb, plan)
 
 
+class _SumExpAndPick(torch.autograd.Function):
+    """(sum over the vocab of ``exp(x - m)``, ``x`` at ``local`` where
+    ``hit`` and 0 elsewhere) of float32 logits ``x`` (B, S, V).  Its
+    backward forms dx in one buffer: ``exp(x - m) * g_sum``, then the
+    picked positions' gradient added in place.  Autograd's own graph
+    (exp, sum, gather) gives the same values, but its gather backward
+    scatters into a second (B, S, V) buffer and then adds the two: in
+    place where nothing else references them, out of place under a
+    Python dispatch mode (``analysis/op_stats.py``, a dry run), so the
+    step's peak would depend on whether it is being counted."""
+
+    @staticmethod
+    def forward(ctx, x, m, local, hit):
+        e = torch.exp(x - m[..., None])
+        picked = torch.gather(x, -1, local[..., None])[..., 0]
+        ctx.save_for_backward(e, local, hit)
+        return (torch.sum(e, dim=-1),
+                torch.where(hit, picked, torch.zeros_like(picked)))
+
+    @staticmethod
+    def backward(ctx, g_sum, g_pick):
+        e, local, hit = ctx.saved_tensors
+        dx = e * g_sum[..., None]
+        dx.scatter_add_(-1, local[..., None], torch.where(
+            hit, g_pick, torch.zeros_like(g_pick))[..., None])
+        return dx, None, None, None
+
+
 def sharded_softmax_xent(logits_local: torch.Tensor, labels: torch.Tensor,
                          plan: ShardingPlan,
                          valid: Optional[torch.Tensor] = None
@@ -418,13 +446,11 @@ def sharded_softmax_xent(logits_local: torch.Tensor, labels: torch.Tensor,
     m = torch.amax(x, dim=-1).detach()
     if plan.tp > 1:
         m = dataflow.pmax(m, plan.axis)
-    sumexp = psum_if(torch.sum(torch.exp(x - m[..., None]), dim=-1), plan)
-    lse = m + torch.log(sumexp)
     hit = (labels >= lo) & (labels < lo + v_local)
     local = torch.clamp(labels - lo, 0, v_local - 1).long()
-    picked = torch.gather(x, -1, local[..., None])[..., 0]
-    picked = psum_if(torch.where(hit, picked, torch.zeros_like(picked)),
-                     plan)
+    sumexp, picked = _SumExpAndPick.apply(x, m, local, hit)
+    lse = m + torch.log(psum_if(sumexp, plan))
+    picked = psum_if(picked, plan)
     nll = lse - picked
     valid = torch.ones_like(nll) if valid is None else valid.float()
     loss = torch.sum(nll * valid) / torch.clamp_min(torch.sum(valid), 1.0)

@@ -94,7 +94,10 @@ def route(p, xt: torch.Tensor, cfg: ModelConfig, plan: ShardingPlan):
 
     # load-balance aux loss (Switch): E * sum_e f_e * P_e
     me = torch.mean(probs, dim=0)
-    counts = torch.bincount(gate_e.reshape(-1), minlength=e_total)
+    # a fixed-length count (``bincount``'s length depends on the data)
+    flat = gate_e.reshape(-1)
+    counts = torch.zeros(e_total, dtype=torch.int64, device=flat.device
+                         ).scatter_add_(0, flat, torch.ones_like(flat))
     ce_frac = counts.float() / (t * m.top_k)
     aux = m.num_experts * torch.sum(me * ce_frac) * m.aux_loss_coef
 
@@ -151,10 +154,12 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig, plan: ShardingPlan
     # token (t, the zero row, where empty); each pair's slot (n_slots,
     # the zero row, where dropped)
     flat = slot.reshape(-1)
-    kept = flat >= 0
-    slot_pair = torch.full((n_slots,), n_pairs, dtype=torch.long,
-                           device=x.device)
-    slot_pair[flat[kept]] = torch.arange(n_pairs, device=x.device)[kept]
+    # a dropped pair writes to one more slot, cut off after: a shape
+    # that does not depend on the data
+    dest = torch.where(flat >= 0, flat, torch.full_like(flat, n_slots))
+    slot_pair = torch.full((n_slots + 1,), n_pairs, dtype=torch.long,
+                           device=x.device).scatter_(
+        0, dest, torch.arange(n_pairs, device=x.device))[:n_slots]
     slot_tok = torch.where(slot_pair < n_pairs,
                            torch.div(slot_pair, m.top_k,
                                      rounding_mode="floor"),

@@ -316,9 +316,9 @@ def build_serve_program(cfg: ModelConfig, batch: int, s_max: int,
     def prefill_fn(params, batch_in):
         tokens = batch_in["tokens"]
         if tokens.dim() != 2 or tokens.shape[0] != rows \
-                or not 0 < tokens.shape[1] < s_max:
+                or not 0 < tokens.shape[1] <= s_max:
             raise ValueError(f"tokens {tuple(tokens.shape)}: want ({rows}, "
-                             f"S) with 0 < S < s_max={s_max}")
+                             f"S) with 0 < S <= s_max={s_max}")
         if plan.tp > 1 and tokens.shape[1] % plan.tp:
             raise ValueError(f"a prompt of {tokens.shape[1]} tokens does not "
                              f"shard over the model axis ({plan.tp})")

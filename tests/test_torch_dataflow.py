@@ -226,7 +226,8 @@ def test_identity_on_one_rank():
     assert dataflow.all_gather(x, axis, 1) is x
     assert dataflow.all_to_all(x, axis, 0, 1) is x
     assert dataflow.TRAFFIC == {"collectives": 0, "bytes_sent": 0,
-                                "host_copies": 0}
+                                "host_copies": 0, "ops": {}, "op_bytes": {},
+                                "operand_bytes": 0}
 
 
 def test_a_failing_rank_fails_the_spawn(tmp_path):

@@ -33,9 +33,9 @@ def _forbidden(name: str) -> bool:
 
 
 #: modules of the robustness, DSE, telemetry and chiplet slice, of the
-#: CNN simulator's CIM layer wrapper, of the training path and of
-#: serving at tp > 1, that the walk must reach (the CLIs are imported,
-#: not run)
+#: CNN simulator's CIM layer wrapper, of the training path, of serving
+#: at tp > 1 and of the dry run, that the walk must reach (the CLIs are
+#: imported, not run)
 SLICE_MODULES = ("repro_torch.dse", "repro_torch.dse.__main__",
                  "repro_torch.dse.report", "repro_torch.runtime.robustness",
                  "repro_torch.telemetry.heatmap",
@@ -44,7 +44,11 @@ SLICE_MODULES = ("repro_torch.dse", "repro_torch.dse.__main__",
                  "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
                  "repro_torch.runtime.fault", "repro_torch.runtime.train_loop",
                  "repro_torch.launch.train", "repro_torch.launch.mesh",
-                 "repro_torch.core.dataflow", "repro_torch.runtime.partition")
+                 "repro_torch.core.dataflow", "repro_torch.runtime.partition",
+                 "repro_torch.compat", "repro_torch.analysis.op_stats",
+                 "repro_torch.analysis.roofline", "repro_torch.analysis.report",
+                 "repro_torch.launch.inputs", "repro_torch.launch.dryrun_lib",
+                 "repro_torch.launch.dryrun", "repro_torch.launch.hillclimb")
 
 
 def test_every_port_module_imports_without_jax_or_reference():

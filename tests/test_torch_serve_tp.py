@@ -484,3 +484,28 @@ def test_padded_vocabulary_draws_the_weights_of_tp1(arch):
         assert not got.narrow(dim, v, 1).any()
     for r in ranks:
         assert torch.equal(r["frontend_proj"], want["frontend_proj"])
+
+
+def test_dry_run_counts_each_ranks_real_prefill(ranks):
+    """Each rank of the (2, 2) ring mesh counted one real prefill of
+    granite (MoE: the all_to_all, the ring matmuls) under ``OpStats``:
+    its flops (all, and by the dtype of their peak), HBM bytes, wire
+    bytes and collectives equal the dry run's of the same cell and rank,
+    on fake tensors over a fake process group."""
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig
+    from repro_torch.launch.dryrun_lib import dry_cell
+
+    counted = [r[("counted", "2x2-ring")] for r in ranks]
+    assert sorted(c["rank"] for c in counted) == [0, 1, 2, 3]
+    cfg = R.port_config(R.COUNTED_SERVE_ARCH)
+    for real in counted:
+        dry = dry_cell(R.COUNTED_SERVE_ARCH,
+                       ShapeConfig("counted", R.PROMPT, R.SERVE_B, "prefill"),
+                       (2, 2), cfg=cfg, pcfg=ParallelConfig(reduction="ring"),
+                       rank=real["rank"], device="cpu", s_max=R.S_MAX).stats
+        assert real["wire_bytes"] > 0
+        assert (dry.flops, dry.flops_by_dtype, dry.hbm_bytes, dry.wire_bytes,
+                dry.op_counts) == (
+            real["flops"], real["flops_by_dtype"], real["hbm_bytes"],
+            real["wire_bytes"], real["op_counts"]), real["rank"]
+        assert "all-to-all" in dry.op_counts

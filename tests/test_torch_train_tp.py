@@ -562,3 +562,31 @@ def test_train_cli_on_a_mesh_resumes_on_another(tmp_path, capfd):
         tol = TOL_CLI * float(np.max(np.abs(b)))
         np.testing.assert_allclose(a, b, rtol=0, atol=tol, err_msg=path)
         assert float(np.max(np.abs(a - c))) > 100 * tol, path
+
+
+def test_dry_run_counts_each_ranks_real_step(ranks):
+    """Each rank of the (2, 2) ring mesh counted one real AdamW step of
+    gemma3 under ``OpStats``: its flops (all, and by the dtype of their
+    peak: the backward's float32 products), HBM bytes, wire bytes and
+    collectives equal the dry run's of the same cell and rank (a
+    functional step, as the rank ran it)."""
+    from repro_torch.configs.base import ParallelConfig, ShapeConfig, \
+        TrainConfig
+    from repro_torch.launch.dryrun_lib import dry_cell
+
+    counted = [r["counted"] for r in ranks]
+    assert sorted(c["rank"] for c in counted) == [0, 1, 2, 3]
+    for real in counted:
+        dry = dry_cell(R.STEP_ARCH,
+                       ShapeConfig("counted", R.TRAIN_S, R.TRAIN_B, "train"),
+                       (2, 2), cfg=R.train_config(R.STEP_ARCH),
+                       pcfg=ParallelConfig(reduction="ring", remat="full"),
+                       tcfg=TrainConfig(**R.STEP_TCFG), rank=real["rank"],
+                       device="cpu", donate=False).stats
+        assert real["wire_bytes"] > 0
+        assert (dry.flops, dry.flops_by_dtype, dry.hbm_bytes, dry.wire_bytes,
+                dry.op_counts) == (
+            real["flops"], real["flops_by_dtype"], real["hbm_bytes"],
+            real["wire_bytes"], real["op_counts"]), real["rank"]
+        assert dry.op_counts["reduce-scatter"] > 0
+        assert dry.flops_by_dtype["float32"] > 0

@@ -280,6 +280,39 @@ def _moe_pad(mesh):
             "experts_pad": plan.experts_pad}
 
 
+#: the serve cell each rank of the (2, 2) ring mesh also counts under
+#: ``OpStats``: its prefill's flops and wire bytes against the dry run's
+COUNTED_SERVE_ARCH = "granite-moe-3b-a800m"
+
+
+def _counted(run, resident):
+    """``run()`` counted: this rank's flops (all, and by the dtype of
+    their peak), HBM bytes, wire bytes and the ops' counts."""
+    import torch.distributed as dist
+
+    from repro_torch.analysis.op_stats import OpStats
+
+    with OpStats(resident=resident) as st:
+        run()
+    return {"rank": dist.get_rank(), "flops": st.flops,
+            "flops_by_dtype": dict(st.flops_by_dtype),
+            "hbm_bytes": st.hbm_bytes, "wire_bytes": st.wire_bytes,
+            "op_counts": dict(st.op_counts)}
+
+
+def _counted_prefill(cfg, mesh, reduction: str):
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.convert import shard_lm_params
+    from repro_torch.runtime.serve_loop import build_serve_program
+
+    prog = build_serve_program(cfg, SERVE_B, S_MAX, device="cpu", mesh=mesh,
+                               pcfg=ParallelConfig(reduction=reduction))
+    params = shard_lm_params(global_params(cfg), prog.param_specs,
+                             mesh.coords_dict())
+    batch = prog.shard_batch(serve_inputs(cfg)[0])
+    return _counted(lambda: prog.prefill_fn(params, batch), (params, batch))
+
+
 def serve_cases(rank: int, world: int):
     """The families on each mesh of ``MESHES``, then at tp = 4 the
     sequence-sharded cache (bf16 and int8 KV) and the padded MoE block.
@@ -306,6 +339,9 @@ def serve_cases(rank: int, world: int):
                 out[("moe_drop", name)] = _serve(
                     port_config("granite-moe-3b-a800m", "moe_drop"), mesh,
                     reduction)
+            if name == "2x2-ring":
+                out[("counted", name)] = _counted_prefill(
+                    port_config(COUNTED_SERVE_ARCH), mesh, reduction)
         dist.barrier()
         mesh4 = make_mesh(1, 4, backend="gloo")
         for kv in ("bfloat16", "int8"):
@@ -683,6 +719,18 @@ def _serve_dp_only(mesh):
 DP_ONLY_SERVE_ARCH = "qwen2-0.5b"
 
 
+def _counted_step(mesh):
+    """One AdamW step of STEP_ARCH on ``mesh``, counted."""
+    from repro_torch.configs.base import TrainConfig
+
+    cfg = train_config(STEP_ARCH)
+    prog = _train_prog(cfg, mesh, tcfg=TrainConfig(**STEP_TCFG))
+    params, state = prog.init_fn(TRAIN_SEED)
+    b = prog.shard_batch(_tensors(train_batch(cfg)))
+    return _counted(lambda: prog.step_fn(params, state, b),
+                    (params, state, b))
+
+
 def train_cases(rank: int, world: int, tmp: str):
     """Every family's first-step loss and gradients on each mesh of
     ``MESHES``; granite with pairs dropped and its aux loss on (1, 2);
@@ -710,6 +758,7 @@ def train_cases(rank: int, world: int, tmp: str):
                 mesh, reduction)
     dist.barrier()
     mesh = meshes["2x2-ring"]
+    out["counted"] = _counted_step(mesh)
     for case in STEP_CASES:
         out[("step",) + case] = _step_case(mesh, *case)
     for arch in ZERO3_ARCHS:
