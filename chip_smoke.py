@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--plain-curve | --only-tp | --only-train-tp]
+    python3 chip_smoke.py [--plain-curve | --only-tp | --only-train-tp |
+                           --only-interp]
 
 ``--plain-curve`` adds phase H's diagnostics of ROADMAP's fault F2 and
 check C2 (about 100 to 160 s of plain training steps, and the plain
@@ -96,6 +97,25 @@ D. DSE: ``run_dse`` on vgg11 and resnet18-cifar10 (budget 8) validated
    ``run_robust_dse`` on vgg11 (budget 8, 2 trials, batch 4): the
    zero-variation run equal to nominal, a front with a point below 8
    bits.  Wall seconds of each;
+C. the cycle-level interpreter (``backend="interp"``): vgg11 (phase 2's
+   weights and frames, 4 frames) on the CIM engine, nominal and under
+   ``VARIATION_PRESETS["all"]``, and resnet18-cifar10 nominal, each
+   held to the same simulator on ``backend="trace"`` on the card:
+   logits equal by value, counters, traffic and per-link traffic
+   identical; the counted run launches the flavor's variant once per
+   MAC-firing slot of the decoded tables (``mac_slots``) plus once per
+   FC layer, the other variant never, copies no weight, and passes
+   under ``torch.cuda.set_sync_debug_mode("error")``; one recorded call
+   of each distinct per-tile shape, each variant, equal by value to the
+   plain version.  vgg11 on the exact engine with integer weights and
+   frames: interp equals trace bitwise; and on the interpreter under
+   each placement of ``dse/placements.py::strategies``: logits equal to
+   the snake placement's, MACs equal, GROUP hops logged.  Seconds per
+   run, launches per batch, host ms per cycle, and the device's busy
+   share over vgg11's nominal run (device activity only: the host
+   trace of 40,000 launches takes longer to parse than to run).
+   ``--only-interp`` runs the builds and phase C alone (no
+   result line; exit code 2 when every check held);
 T. telemetry and chiplets: vgg11 served over 4 floret chiplets with a
    ``LinkRecorder`` and a ``MetricsRegistry`` attached: the nominal
    variant's launches as in phase 2, logits equal to the 1-chiplet run
@@ -323,8 +343,10 @@ P. Serving at tp > 1 through the port's mesh (``launch/mesh.py``): one
    tp = 1, bytes each rank sends per prefill, the device busy share of
    a rank's prefill.  ``--only-tp`` runs the builds and phase P alone
    (no result line, exit code 2).
-Q. Training at tp > 1: one spawn of ``Q_WORLD`` = 4 ranks on cuda:0 over
-   gloo host copies (a gloo timeout of ``Q_TIMEOUT_S``, so a deadlock
+Q. Training at tp > 1: phase P's 4 ranks on cuda:0 over gloo host copies
+   run phase Q's program after phase P's (one spawn, so each process
+   starts and reaches the card once; spawned alone, as for
+   ``--only-train-tp``, a gloo timeout of ``Q_TIMEOUT_S``, so a deadlock
    fails fast).  gemma3-1b at full width and depth, bf16, on mesh (2, 2)
    with the ring: phase G's recipe (AdamW, lr 3e-3, warmup 2, ``remat=
    "full"``), ZeRO-1 states over both axes, phase G's fixed batch of 4 x
@@ -376,7 +398,7 @@ X. After phase Q: the dry run (``launch/dryrun_lib.py``: one rank's
    equal to the byte to what that rank counted.
 
 The line before the last is the ``kernels`` JSON (a CIM variant's
-``launches`` summed over the counted runs of phases 2 and M, its
+``launches`` summed over the counted runs of phases 2, M and C, its
 times phase 4's, per vgg11 batch; the bfloat16 attention kernel's
 launches those of phases 5, F, E, G, H, I, P and Q (P's counted
 prefills and Q's counted steps summed over their ranks), its times
@@ -444,6 +466,11 @@ ROBUST_CPU_TRIALS = 2
 #: phase D: DSE budget per model, and the robust DSE's trials and batch
 DSE_BUDGET = 8
 DSE_TRIALS, DSE_BATCH = 2, 4
+#: phase C: the interpreter's models, the frames a run moves through the
+#: chain, and the phase's time budget (logged against, not a gate)
+C_MODELS = ("vgg11-cifar10", "resnet18-cifar10")
+C_FRAMES = 4
+C_BUDGET_S = 30.0
 #: phase T: the chiplet fabric
 CHIPLETS, NOI_TOPOLOGY = 4, "floret"
 #: phase J: the exact engine's trace_jit at the reference bench row's
@@ -897,17 +924,19 @@ def main_path(km):
 CIM_KERNEL_NAME = "cim_codes_kernel"
 
 
-def profile_device(run, what: str, keys=(CIM_KERNEL_NAME,)):
+def profile_device(run, what: str, keys=(CIM_KERNEL_NAME,), host=True):
     """Device busy share of ``run()`` and the kernels that take the
     device time (``torch.profiler``).  Returns (the share, {key: (device
     launches, device us) of the kernels whose name holds key}; the CIM
     kernel's by default, graph replays included), or (None, None) when
-    the profiler saw no device time."""
+    the profiler saw no device time.  ``host=False`` records the device
+    activity alone (a run of tens of thousands of host ops otherwise
+    takes longer to parse than to run)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 if host else [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -1858,6 +1887,196 @@ def dse_phase(km, card):
         f"card: {rep.result.evaluations} evaluations, {len(rep.front)} on "
         f"the front ({len(low)} below 8 bits), zero_var_bitwise True, "
         f"launches {dict(km.LAUNCHES)} on {card}")
+
+
+def c_slots(sim) -> int:
+    """Kernel calls one interpreter run of ``sim`` makes on a quantized
+    engine, from the schedules alone: the decoded tables' MAC-firing
+    slots of every conv block and width strip, one per FC layer."""
+    from repro_torch.configs.cnn import FCLayer
+    from repro_torch.core.simulator import mac_slots
+
+    scheds = [s for s in sim.schedules if s is not None]
+    scheds += [st.sched for strips in sim._strips.values() for st in strips]
+    return (sum(mac_slots(s) for s in scheds)
+            + sum(isinstance(l, FCLayer) for l in sim.cnn.layers))
+
+
+def c_same_run(a, b, links_a, links_b) -> bool:
+    """Counters, per-class traffic and per-link traffic identical."""
+    return (dataclasses.asdict(a.counters) == dataclasses.asdict(b.counters)
+            and all(dict(getattr(a.traffic, f)) == dict(getattr(b.traffic, f))
+                    for f in ("byte_hops", "packets", "hops"))
+            and links_a == links_b)
+
+
+def c_counted(km, sim, x, what: str):
+    """One interpreter run of ``x`` on the card, counted: launches and
+    weight copies reset just before and read just after, under
+    ``set_sync_debug_mode("error")`` (a host sync raises), one call of
+    each distinct (geometry, variant) recorded.  Returns (result, link
+    traffic, launches, seconds, recorded calls)."""
+    real = km.cim_codes
+    seen = {}
+
+    def recorder(x, w, spec, adc=None, emit_codes=True):
+        key = (geometry(x, w, spec.n_c), adc is None)
+        if key not in seen:
+            seen[key] = (x, w, spec, adc)
+        return real(x, w, spec, adc=adc, emit_codes=emit_codes)
+
+    reset_counts(km)
+    km.cim_codes = recorder
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        res = sim.run(x)
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    except RuntimeError as e:
+        fail(f"{what}: the interpreter's run failed under "
+             f"set_sync_debug_mode('error'): {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        km.cim_codes = real
+    return (res, dict(sim.placement.noc.link_traffic), dict(km.LAUNCHES),
+            run_s, list(seen.values()))
+
+
+def interp_phase(km, card):
+    """Phase C: the per-cycle interpreter on the card at vgg11's and
+    resnet18's full width, held to the trace backend.  Returns the
+    counted runs' launches and the largest |diff| of the recorded calls
+    against the plain version, by variant."""
+    from repro_torch.configs.cnn import ConvLayer
+    from repro_torch.convert import params_from_reference
+    from repro_torch.core.network import NetworkSimulator
+    from repro_torch.core.variation import VARIATION_PRESETS
+    from repro_torch.dse.placements import strategies
+    from repro_torch.runtime.serve_loop import quantize_cnn_params_for_serving
+
+    t_phase = time.perf_counter()
+    launched = dict.fromkeys(km.LAUNCHES, 0)
+    worst = dict.fromkeys(km.LAUNCHES, 0.0)
+    for name in C_MODELS:
+        cnn, params, frames = cnn_inputs(name)
+        x = torch.from_numpy(frames[:C_FRAMES]).cuda()
+        t0 = time.perf_counter()
+        qp = quantize_cnn_params_for_serving(params_from_reference(params,
+                                                                   "cuda"))
+        trace = NetworkSimulator(cnn, qp, engine="cim", device="cuda")
+        interp = NetworkSimulator(cnn, qp, backend="interp",
+                                  engine=trace.pe_engine, device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        slots = c_slots(interp)
+        flavors = [("nominal", None)]
+        if name == C_MODELS[0]:
+            flavors.append(("variation", VARIATION_PRESETS["all"]))
+        for flavor, var in flavors:
+            what = f"[C] {name} {flavor}"
+            if var is not None:
+                for sim in (trace, interp):
+                    sim.set_variation(var)
+            kname = "cim_codes" if var is None else "cim_codes_var"
+            t0 = time.perf_counter()
+            want = trace.run(x)
+            torch.cuda.synchronize()
+            trace_s = time.perf_counter() - t0
+            want_links = dict(trace.placement.noc.link_traffic)
+            res, links, counts, run_s, calls = c_counted(km, interp, x, what)
+            expect = dict.fromkeys(km.LAUNCHES, 0)
+            expect[kname] = slots
+            if counts != expect or km.WEIGHT_COPIES:
+                fail(f"{what}: launches {counts} with {km.WEIGHT_COPIES} "
+                     f"weight copies, want {expect} (the tables' MAC-firing "
+                     "slots plus one a FC layer) and none")
+            for k, v in counts.items():
+                launched[k] += v
+            lg = res.logits
+            if tuple(lg.shape) != (C_FRAMES, cnn.layers[-1].c_out) or \
+                    not torch.isfinite(lg).all():
+                fail(f"{what}: logits {tuple(lg.shape)} not finite / wrong "
+                     "shape")
+            if not same(lg, want.logits):
+                fail(f"{what}: interp logits differ from trace's by "
+                     f"{(lg - want.logits).abs().max().item()}")
+            if not c_same_run(res, want, links, want_links):
+                fail(f"{what}: counters / traffic / link traffic differ "
+                     "from trace's")
+            worst[kname] = max(worst[kname], hold_calls(km, calls, what))
+            share = None
+            if var is None and name == C_MODELS[0]:
+                t0 = time.perf_counter()
+                share = profile_device(lambda: interp.run(x),
+                                       f"{name} one interpreter run",
+                                       host=False)[0]
+                log(f"{what}: the profiled run took "
+                    f"{time.perf_counter() - t0:.1f} s with the parse")
+            log(f"{what}: {C_FRAMES} frames, logits == trace by value, "
+                f"counters, traffic and link traffic identical, no host "
+                f"sync in run; {counts[kname]} {kname} launches a batch "
+                f"(== {slots} slots), WEIGHT_COPIES 0; {len(calls)} per-tile "
+                f"shapes == plain; interp {run_s:.3f} s a run "
+                f"({res.counters.cycles} cycles, "
+                f"{run_s / res.counters.cycles * 1e3:.4f} host ms a cycle), "
+                f"trace {trace_s:.4f} s; device busy "
+                + ("not measured" if share is None else f"{100 * share:.2f}%")
+                + f"; built in {build_s:.1f} s on {card}")
+        del trace, interp, qp
+    # vgg11 on the exact engine, integer weights and frames: every float64
+    # sum exact, so interp and trace agree bit for bit
+    name = C_MODELS[0]
+    cnn = cnn_inputs(name)[0]
+    rng = np.random.default_rng(SEED)
+    params = {}
+    for layer in cnn.layers:
+        shape = ((layer.k, layer.k, layer.c, layer.m)
+                 if isinstance(layer, ConvLayer) else
+                 (layer.c_in, layer.c_out))
+        params[layer.name] = torch.from_numpy(
+            rng.integers(-1, 2, shape).astype(np.float64)).cuda()
+    x = torch.from_numpy(rng.integers(0, 2, (C_FRAMES, cnn.input_hw,
+                                             cnn.input_hw, 3))
+                         .astype(np.float64)).cuda()
+    trace = NetworkSimulator(cnn, params, device="cuda")
+    interp = NetworkSimulator(cnn, params, backend="interp", device="cuda")
+    want = trace.run(x)
+    t0 = time.perf_counter()
+    base = interp.run(x)
+    torch.cuda.synchronize()
+    exact_s = time.perf_counter() - t0
+    if not torch.equal(base.logits, want.logits):
+        fail(f"[C] {name} exact: interp logits differ from trace's by "
+             f"{(base.logits - want.logits).abs().max().item()}")
+    top = base.logits.abs().max().item()
+    if top >= 2 ** 53:
+        fail(f"[C] {name} exact: |logits| reach {top}, past float64's "
+             "exact integers")
+    log(f"[C] {name} exact engine, integer data: interp == trace bitwise "
+        f"(max |logit| {top:.0f}); interp {exact_s:.3f} s a run on {card}")
+    # the interpreter under every DSE placement: routed packets keep their
+    # rendezvous slots, so logits equal the snake placement's
+    hops = {}
+    for pname, strat in strategies(cnn).items():
+        sim = NetworkSimulator(cnn, params, backend="interp", device="cuda",
+                               placement=strat.place(interp.plan))
+        res = sim.run(x)
+        if not torch.equal(res.logits, base.logits) or \
+                res.counters.macs != base.counters.macs:
+            fail(f"[C] {name} placement {pname}: logits or MACs differ "
+                 "from the snake placement's")
+        hops[pname] = (res.counters.group_hops,
+                       res.traffic.byte_hops["group"])
+    log(f"[C] {name} on the interpreter under {len(hops)} placements: "
+        f"logits bitwise == snake's, MACs equal; GROUP (hops, byte-hops) "
+        f"{hops} on {card}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[C] phase C: {phase_s:.1f} s (budget {C_BUDGET_S:.0f} s"
+        + ("" if phase_s <= C_BUDGET_S else ", over it")
+        + f"); launches {launched}; max |diff| to plain {worst} on {card}")
+    return launched, worst
 
 
 def telemetry_phase(km, calls_per_batch, wall_flat, card):
@@ -4835,6 +5054,42 @@ def p_rank(rank: int, world: int):
     return out
 
 
+def pq_rank(rank: int, world: int, parts, ref):
+    """Phases P and Q's ranks in one spawn, so that each process starts
+    and reaches the card once: phase P's program, then phase Q's (with
+    phase G's reference ``ref``), as ``parts`` names them.  Each part's
+    result carries its own failed checks and its seconds."""
+    import gc
+
+    out = {}
+    for part, fn, args in (("P", p_rank, ()), ("Q", q_rank, (ref,))):
+        if part not in parts:
+            continue
+        FAILURES.clear()
+        t0 = time.perf_counter()
+        out[part] = fn(rank, world, *args)
+        out[part]["part_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()  # phase P's cached blocks, before Q's
+    return out
+
+
+def pq_spawn(parts, ref=None):
+    """One spawn of ``P_WORLD`` ranks on cuda:0 over gloo host copies
+    running ``parts`` of phases P and Q; returns (each rank's result by
+    part, the spawn's seconds).  The gloo timeout is phase P's when it
+    runs (its ranks wait at barriers while others serve), else
+    ``Q_TIMEOUT_S``."""
+    import repro_torch.launch.mesh as mesh_mod
+
+    tmp = Path(__file__).resolve().parent / "build" / "chip_smoke" / "spawn"
+    t0 = time.perf_counter()
+    results = mesh_mod.spawn(pq_rank, P_WORLD, tuple(parts), ref,
+                             tmp_dir=str(tmp), backend="gloo",
+                             timeout_s=900 if "P" in parts else Q_TIMEOUT_S)
+    return results, time.perf_counter() - t0
+
+
 def p_tp1_references(card):
     """The tp = 1 runs on the card phase P holds its tp > 1 runs against,
     from the same seeded draws: the bfloat16 prefill logits of gemma3,
@@ -4910,14 +5165,14 @@ def p_close(a, b, max_tol, mean_tol):
             diff.max().item(), diff.mean().item())
 
 
-def tp_phase(la, ss, card):
+def tp_phase(la, ss, card, q_ref=None):
     """Phase P: every LM family served at tp > 1 on the card through the
     port's mesh, 4 ranks sharing cuda:0 over gloo host copies.  Returns
     the kernels' launches in its counted prefills, summed over ranks,
-    and each kernel's largest |diff| from its plain version in the
-    ranks' checked prefills."""
-    import repro_torch.launch.mesh as mesh_mod
-
+    each kernel's largest |diff| from its plain version in the ranks'
+    checked prefills, rank (0, 0)'s ring bytes, and, given phase G's
+    reference ``q_ref``, phase Q's rank results: the same spawn runs
+    phase Q's ranks after phase P's (else None)."""
     import gc
 
     t_phase = time.perf_counter()
@@ -4927,11 +5182,10 @@ def tp_phase(la, ss, card):
         "GB of device memory as the ranks start")
     ref_bf16, timing, ref_f32 = p_tp1_references(card)
     t_ref = time.perf_counter() - t_phase
-    t0 = time.perf_counter()
-    tmp = Path(__file__).resolve().parent / "build" / "chip_smoke" / "spawn"
-    results = mesh_mod.spawn(p_rank, P_WORLD, tmp_dir=str(tmp),
-                             backend="gloo", timeout_s=900)
-    t_ranks = time.perf_counter() - t0
+    parts = ("P",) if q_ref is None else ("P", "Q")
+    both, t_spawn = pq_spawn(parts, q_ref)
+    results = [r["P"] for r in both]
+    t_ranks = max(r["part_s"] for r in results)
     for rank, res in enumerate(results):
         check(not res["failures"], f"[P] rank {rank}: failed checks "
               f"{res['failures']}")
@@ -4948,12 +5202,14 @@ def tp_phase(la, ss, card):
                   if job[0] == after)
         p_check_f32(results, arch, layers, flavors, tp, ref_f32)
     log(f"[P] phase P: tp = 1 references {t_ref:.1f} s, ranks "
-        f"{t_ranks:.1f} s, total {time.perf_counter() - t_phase:.1f} s "
-        f"({P_SHARED}) on {card}")
+        f"{t_ranks:.1f} s (the spawn of phases {' and '.join(parts)}: "
+        f"{t_spawn:.1f} s), total {t_ref + t_spawn:.1f} s with phase Q's "
+        f"ranks ({P_SHARED}) on {card}")
     ring_bytes = {r["bf16"][X_P_ARCH]["coords"]: r["bf16"][X_P_ARCH][
         "flavors"][X_P_FLAVOR]["traffic"]["bytes_sent"]
         for r in results if X_P_ARCH in r["bf16"]}
-    return launches, worst, ring_bytes
+    return (launches, worst, ring_bytes,
+            None if q_ref is None else [r["Q"] for r in both])
 
 
 def p_check_bf16(results, arch, layers, mesh_shape, flavors, plain,
@@ -5109,16 +5365,14 @@ def p_check_f32(results, arch, layers, flavors, tp, ref_f32):
 # Phase Q: training at tp > 1, the ranks sharing cuda:0
 # ---------------------------------------------------------------------------
 
-#: phase Q's ranks: one spawn on cuda:0 over gloo host copies, as phase P
-Q_WORLD = 4
 #: gemma3-1b's mesh: 2 rows of the batch and 2 of its 4 heads a rank
 Q_MESH = (2, 2)
 #: counted ring steps from a new init (the first repeats the checked one)
 Q_STEPS = 3
 #: the kernels phase Q's profiled step lists, by device time
 Q_TOP = 10
-#: gloo's timeout in phase Q's spawn: a deadlocked collective fails the
-#: phase in 5 minutes, not the spawn's default 10
+#: gloo's timeout in a spawn of phase Q's ranks alone: a deadlocked
+#: collective fails the phase in 5 minutes, not the spawn's default 10
 Q_TIMEOUT_S = 300
 #: where phase G keeps its first step's gradients for phase Q (bf16, the
 #: training layout; each rank reads its slices through a memory map)
@@ -5566,27 +5820,25 @@ def q_rel_l2(results, key):
             for path, (d2, r2, dmax, rmax) in per.items()}
 
 
-def train_tp_phase(la, card, g_ref):
+def train_tp_phase(la, card, g_ref, results=None):
     """Phase Q: gemma3-1b trained at tp 2 on a (2, 2) mesh of 4 ranks
-    sharing cuda:0 over gloo host copies, and the float32 cuts.  Returns
-    the kernels' launches in its counted steps and float32 cuts, summed
-    over ranks, and each kernel's largest |diff| from its plain
-    version."""
+    sharing cuda:0 over gloo host copies, and the float32 cuts.
+    ``results``: the ranks' results from phase P's spawn, else a spawn
+    of phase Q's ranks alone.  Returns the kernels' launches in its
+    counted steps and float32 cuts, summed over ranks, and each
+    kernel's largest |diff| from its plain version."""
     import gc
 
-    import repro_torch.launch.mesh as mesh_mod
-
     t_phase = time.perf_counter()
-    gc.collect()
-    torch.cuda.empty_cache()
     from repro_torch.configs import get_config
 
     fwd_want, bwd_want = step_launches(get_config(TRAIN_ARCH))
     want = {"local_attention": fwd_want, "local_attention_f32": 0,
             "local_attention_bwd": bwd_want}
-    tmp = Path(__file__).resolve().parent / "build" / "chip_smoke" / "spawn"
-    results = mesh_mod.spawn(q_rank, Q_WORLD, g_ref, tmp_dir=str(tmp),
-                             backend="gloo", timeout_s=Q_TIMEOUT_S)
+    if results is None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        results = [r["Q"] for r in pq_spawn(("Q",), g_ref)[0]]
     Q_REF_GRADS.unlink(missing_ok=True)
     for res in results:
         check(not res["failures"], f"[Q] rank {res['coords']}: failed "
@@ -5723,7 +5975,8 @@ def train_tp_phase(la, card, g_ref):
         f"(within 2 lr), {f32_worst[3]:.2e} where the gradient is above "
         f"{Q_HELD} of its leaf's max (within lr / 1000); "
         f"{max(r['f32_s'] for r in results):.1f} s")
-    log(f"[Q] phase Q: {time.perf_counter() - t_phase:.1f} s on {card}; "
+    log(f"[Q] phase Q: ranks {max(r['part_s'] for r in results):.1f} s, "
+        f"{time.perf_counter() - t_phase:.1f} s in this process on {card}; "
         f"launches {launches}")
     step_bytes = {r["coords"]: b["steps"][0]["bytes"]
                   for r, b in zip(results, bf)}
@@ -5997,6 +6250,11 @@ def main() -> int:
         log("[Q] --only-train-tp: phase Q passed; the other phases did not "
             "run")
         return 2
+    if "--only-interp" in sys.argv[1:]:
+        # phase C alone, for work on the interpreter: no result line
+        interp_phase(km, card)
+        log("[C] --only-interp: phase C passed; the other phases did not run")
+        return 2
 
     sim, frames, launches, wall, calls, reps = main_path(km)
     # nominal again, after the variation run: separates the flavor from
@@ -6056,6 +6314,9 @@ def main() -> int:
     rows = time_kernels(km, calls, card)
     robustness_phase(km, len(calls["cim_codes"]), card)
     dse_phase(km, card)
+    c_launches, c_worst = interp_phase(km, card)
+    for k, v in c_launches.items():
+        main_launches[k] += v
     telemetry_phase(km, len(calls["cim_codes"]), wall["nominal"], card)
     kernels = []
     for name, row in rows.items():
@@ -6063,7 +6324,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": REPLACES[name],
             "launches": main_launches[name],
-            "max_abs_err": max(worst[name], worst_models[name]),
+            "max_abs_err": max(worst[name], worst_models[name],
+                               c_worst[name]),
             "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None})
@@ -6087,8 +6349,9 @@ def main() -> int:
     f2_curve(card)
     mla_row, i_launches, i_worst = mla_encdec_training_phase(la, ss, card)
     dry = x_start()  # phase X's dry runs: host work beside P and Q
-    p_launches, p_worst, p_bytes = tp_phase(la, ss, card)
-    q_launches, q_worst, q_bytes = train_tp_phase(la, card, g_ref)
+    # one spawn of ranks for phases P and Q
+    p_launches, p_worst, p_bytes, q_ranks = tp_phase(la, ss, card, g_ref)
+    q_launches, q_worst, q_bytes = train_tp_phase(la, card, g_ref, q_ranks)
     dryrun_phase(la, dry, card, lm, g_ref, p_bytes, q_bytes)
     # phases 5 and 6 (gemma3) and the counted runs of phases F, E, G, H,
     # I and P (P's summed over its ranks)

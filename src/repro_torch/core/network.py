@@ -1,13 +1,28 @@
 """Whole-network Domino simulation on torch tensors — the port of
-``repro/core/network.py`` for ``backend="trace"``.
+``repro/core/network.py``.
 
-Every CONV layer runs its compiled instruction tables through the trace
-executor (``core/trace.py``) on the placed, routed mesh; FC layers run
-the Fig. 4 grid (``core/simulator.py::simulate_fc``); each block's OFM
-streams to the next block's head over its routed NoC link.  Values live
-on the simulator's device; placement, schedules, transport, counters and
-the stream timing pass are host code copied from the reference, so
-counters, traffic and the stage timeline are identical to it.
+Every CONV layer runs its compiled instruction tables on the placed,
+routed mesh through one of two backends that share the placement,
+schedules and transport:
+
+* ``backend="trace"`` (the port's default) — the trace executor
+  (``core/trace.py``): the tables lowered once into gathers and, on a
+  quantized engine, one CIM kernel call per fire chunk;
+* ``backend="interp"`` (the reference's default) — the per-cycle
+  interpreter (``core/simulator.py::BlockSimulator``): every tile's
+  instruction decoded each cycle, every chain psum and group sum a
+  routed packet, one engine MAC (one CIM kernel call on a quantized
+  engine) per firing tile and cycle.  Equal to the trace backend by
+  value on the quantized engines, counters and traffic identical; slow
+  (host work per tile and cycle), so the port keeps ``"trace"`` as its
+  default and callers ask for the interpreter.
+
+FC layers run the Fig. 4 grid (``core/simulator.py::simulate_fc``);
+each block's OFM streams to the next block's head over its routed NoC
+link.  Values live on the simulator's device; placement, schedules,
+transport, counters and the stream timing pass are host code copied
+from the reference, so counters, traffic and the stage timeline are
+identical to it.
 
 ``trace_jit=True`` selects the executors' counterparts of the
 reference's jitted flavors (``core/trace.py``): on a quantized engine
@@ -22,8 +37,7 @@ pass), then replays the per-frame accounting and the max-plus wavefront
 timeline analytically; the measured steady-state initiation interval
 must emerge equal to ``plan_network``'s analytic slowest-stage bound.
 ``batched=False`` runs the per-cell interleaved oracle instead, one
-stage of one frame at a time.  The per-cycle interpreter backend is not
-ported; it stays in the reference as the oracle.
+stage of one frame at a time.
 
 Functional notes (as in the reference): weight-duplicated copies share
 weights, so one copy of each block computes the full OFM; residual
@@ -62,7 +76,11 @@ from repro_torch.core.schedule import (
     compile_conv_block,
     compile_conv_strips,
 )
-from repro_torch.core.simulator import SimCounters, simulate_fc
+from repro_torch.core.simulator import (
+    BlockSimulator,
+    SimCounters,
+    simulate_fc,
+)
 from repro_torch.core.trace import TracePlan, TraceExecutor, compile_trace
 from repro_torch.core.transport import (
     OFM,
@@ -240,7 +258,10 @@ class NetworkSimulator:
         calibrated at build from ``calib_images`` — default: a seeded
         synthetic batch), or a prebuilt ``PEEngine`` on ``device``.
         ``device=None`` means the card; ``"cpu"`` runs the plain kernel
-        versions.  Only ``backend="trace"`` is ported.  ``trace_jit=True``
+        versions.  ``backend``: ``"trace"`` (the default here; the
+        reference defaults to ``"interp"``, and its callers pass
+        ``"trace"``) or ``"interp"``, the per-cycle interpreter (one
+        engine MAC per firing tile and cycle).  ``trace_jit=True``
         runs each conv block as a captured CUDA-graph replay on a
         quantized engine (the eager path on the CPU), and as the float32
         flavor on the exact engine (see ``core/trace.py``).
@@ -255,10 +276,6 @@ class NetworkSimulator:
             raise ValueError(
                 "streaming=True requires backend='trace' (the pipelined "
                 "executor advances compiled per-stage trace plans)")
-        if backend != "trace":
-            raise NotImplementedError(
-                "only backend='trace' is ported; the per-cycle interpreter "
-                "stays in the reference package as the oracle")
         self.device = resolve_device(device)
         self.pe_engine: PEEngine = make_engine(engine, cim_spec, self.device)
         if streaming and trace_jit and self.pe_engine.name == "exact":
@@ -325,6 +342,7 @@ class NetworkSimulator:
                 "dequantize_params)")
         self.params = fparams
         self.n_c, self.n_m = n_c, n_m
+        self.backend = backend
         self.trace_jit = trace_jit
         self.streaming = streaming
         self.plan: NetworkPlan = plan_network(cnn, n_c=n_c, n_m=n_m,
@@ -370,14 +388,16 @@ class NetworkSimulator:
                 self.schedules.append(None)  # FC runs the Fig. 4 grid
         self._trace_plans: Dict[Tuple[int, int], TracePlan] = {}
         self._executors: Dict[Tuple[int, int], TraceExecutor] = {}
-        with span(f"trace_lower:{cnn.name}",
-                  layers=len(self.schedules) + len(self._strips)):
-            for li, sched in enumerate(self.schedules):
-                if sched is not None:
-                    self._trace_plans[li, 0] = compile_trace(sched)
-            for li, strips in self._strips.items():
-                for si, strip in enumerate(strips):
-                    self._trace_plans[li, si] = compile_trace(strip.sched)
+        if backend == "trace":
+            with span(f"trace_lower:{cnn.name}",
+                      layers=len(self.schedules) + len(self._strips)):
+                for li, sched in enumerate(self.schedules):
+                    if sched is not None:
+                        self._trace_plans[li, 0] = compile_trace(sched)
+                for li, strips in self._strips.items():
+                    for si, strip in enumerate(strips):
+                        self._trace_plans[li, si] = compile_trace(
+                            strip.sched)
         self._stages: Tuple[_Stage, ...] = self._build_stages()
         # quantized engines: per-layer calibration (activation scale +
         # ADC integration gain) runs ONCE at network build, then every
@@ -392,7 +412,8 @@ class NetworkSimulator:
                 "calib_images has no effect on the exact engine")
         self._handles: Dict[int, object] = {}
         self._build_handles()
-        self._build_executors()
+        if backend == "trace":
+            self._build_executors()
 
     def _build_executors(self) -> None:
         """Eagerly instantiate the per-(layer, strip) trace executors (and
@@ -436,7 +457,8 @@ class NetworkSimulator:
         (``core/variation.py``) and rebuild only the engine handles;
         cached executors keep their plans and gather indices and drop
         their captured graphs, which read the old handles' tensors (the
-        next call captures again)."""
+        next call captures again).  The interpreter builds its block
+        simulators per run from the current handles."""
         if not hasattr(self.pe_engine, "variation"):
             raise ValueError(
                 "set_variation requires a quantized engine "
@@ -448,12 +470,19 @@ class NetworkSimulator:
 
     def _executor(self, li: int, si: int, sched: BlockSchedule,
                   transport: NoCTransport, counters: SimCounters
-                  ) -> TraceExecutor:
-        """The trace executor for (layer, strip) (all strips of a layer
-        share one engine handle — same tile chain)."""
+                  ) -> "TraceExecutor | BlockSimulator":
+        """A block executor for (layer, strip) on the chosen backend (all
+        strips of a layer share one engine handle — same tile chain).  The
+        interpreter's is built anew per run (its tiles hold per-run FIFO
+        and shift-buffer state); the trace executor is cached."""
+        layer = self.cnn.layers[li]
+        if self.backend == "interp":
+            return BlockSimulator(
+                sched, self.params[layer.name], bias=None,
+                transport=transport, counters=counters,
+                engine=self.pe_engine, handle=self._handles[li])
         ex = self._executors.get((li, si))
         if ex is None:
-            layer = self.cnn.layers[li]
             ex = TraceExecutor(
                 sched, self.params[layer.name], bias=None,
                 transport=transport, counters=counters,
@@ -469,11 +498,15 @@ class NetworkSimulator:
                    account: bool = True) -> torch.Tensor:
         """Run one conv layer's block — whole, or strip by strip when the
         layer is width-tiled (same chain, per-strip tables, halo columns
-        re-streamed; output strips concatenate along the width)."""
+        re-streamed; output strips concatenate along the width).
+
+        ``account=False`` (trace backend only) computes the math without
+        counters/transport side effects — the streaming numerics pass."""
+        kw = {} if account else {"account": False}
         strips = self._strips.get(li)
         if strips is None:
             return self._executor(li, 0, self.schedules[li], transport,
-                                  counters).run(x, account=account)
+                                  counters).run(x, **kw)
         layer = self.cnn.layers[li]
         b, p = x.shape[0], layer.p
         padded = torch.zeros((b, layer.h + 2 * p, layer.w + 2 * p, layer.c),
@@ -481,7 +514,7 @@ class NetworkSimulator:
         padded[:, p:p + layer.h, p:p + layer.w] = x
         outs = [
             self._executor(li, si, strip.sched, transport, counters)
-            .run(padded[:, :, strip.lo:strip.hi], account=account)
+            .run(padded[:, :, strip.lo:strip.hi], **kw)
             for si, strip in enumerate(strips)
         ]
         return torch.cat(outs, dim=2)

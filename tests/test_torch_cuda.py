@@ -429,6 +429,41 @@ def test_cuda_replay_output_is_fresh_per_call():
                for g in ex._graphs.values())
 
 
+@pytest.mark.cuda
+def test_cuda_interp_equals_trace():
+    """The per-cycle interpreter on the card: the toy CNN's logits equal
+    the trace backend's by value, counters and traffic equal; one kernel
+    launch per MAC-firing slot of the decoded tables plus one for the FC
+    layer; no weight copy and no host sync inside ``run``."""
+    _needs_card()
+    import dataclasses
+
+    from repro_torch.core.network import NetworkSimulator
+    from repro_torch.core.simulator import mac_slots
+
+    (trace, _), frames = _toy_sims()
+    interp = NetworkSimulator(trace.cnn, trace.params, backend="interp",
+                              engine=trace.pe_engine, device="cuda")
+    x = torch.from_numpy(frames[:4]).cuda()
+    want = trace.run(x)
+    slots = sum(mac_slots(s) for s in interp.schedules if s is not None)
+    before, copies = dict(LAUNCHES), KM.WEIGHT_COPIES
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = interp.run(x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert LAUNCHES["cim_codes"] - before["cim_codes"] == slots + 1
+    assert LAUNCHES["cim_codes_var"] == before["cim_codes_var"]
+    assert KM.WEIGHT_COPIES == copies
+    assert _same(got.logits, want.logits)
+    assert dataclasses.asdict(got.counters) == dataclasses.asdict(
+        want.counters)
+    assert dict(got.traffic.byte_hops) == dict(want.traffic.byte_hops)
+
+
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 
 

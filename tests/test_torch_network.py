@@ -217,12 +217,3 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError):
         PS.build_stream_sim(pcnn, params_from_reference(params, "cpu"))
 
-
-def test_unported_paths_raise():
-    """The per-cycle interpreter backend stays in the reference.
-    (``trace_jit=True`` and ``run_stream(batched=False)`` run now; their
-    parity tests are in ``tests/test_torch_trace_jit.py``.)"""
-    _, pcnn, params, x = _setup("toy")
-    p = params_from_reference(params, "cpu")
-    with pytest.raises(NotImplementedError):
-        NetworkSimulator(pcnn, p, backend="interp", device="cpu")

@@ -116,12 +116,15 @@ def test_heatmap_conserved_and_equal_to_reference(name, chiplets):
     np.testing.assert_allclose(res.logits.numpy(), rres.logits, rtol=1e-9)
 
 
-def test_telemetry_off_is_bit_identical():
+@pytest.mark.parametrize("backend", ["interp", "trace"])
+def test_telemetry_off_is_bit_identical(backend):
     """A recorder attached or a profiler installed changes nothing the
-    run computes or counts."""
+    run computes or counts, on the per-cycle interpreter and on the
+    trace backend."""
     _, pcnn, params, x = _setup("toy")
     sim = NetworkSimulator(pcnn, params_from_reference(params, "cpu"),
-                           engine="cim", calib_images=x, device="cpu")
+                           backend=backend, engine="cim", calib_images=x,
+                           device="cpu")
     plain = sim.run(x)
     recorded, _ = record_run(sim, x)
     with Profiler():

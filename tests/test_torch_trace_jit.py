@@ -282,12 +282,13 @@ def test_exact_trace_jit_run_allclose(name):
 
 
 def test_network_flag_raises_like_reference():
-    """``trace_jit`` needs the trace backend; the exact engine's float32
-    flavor does not stream; an unknown backend is refused.  Each raise
-    is the reference's."""
+    """``trace_jit`` and ``streaming`` need the trace backend; the exact
+    engine's float32 flavor does not stream; an unknown backend is
+    refused.  Each raise is the reference's."""
     rcnn, pcnn, params, _ = _setup("toy")
     pp = params_from_reference(params, "cpu")
     cases = [dict(backend="interp", trace_jit=True),
+             dict(backend="interp", streaming=True),
              dict(backend="trace", trace_jit=True, streaming=True),
              dict(backend="bogus")]
     for kw in cases:
